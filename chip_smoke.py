@@ -7,26 +7,41 @@ Phases, each fenced with ``torch.cuda.synchronize()``; any failure raises
 and the script exits non-zero without printing its last line:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
-2. the build of the CUDA kernels from ``cpprob_tpu_torch/ops/csrc`` (first use);
-3. kernel vs plain PyTorch version on the card, same Philox seed, at the
-   main path's shapes (2^26 particles, a 16-slot chunk): the init kernel,
-   and the chunk kernel with the flag off and on, n_valid 15 and 8 of 16,
-   and the island check off, forced (thresh 2.0), at the main path's 0.5,
-   never firing (0.0) and at a threshold that splits the islands;
-4. a multi-chunk sweep (chunk 4) whose boundary resamples go through the
-   flag and ticks;
-5. the main path: ``build_smc_run(make_fused_hmm_ssm(island_every=8),
-   2^26, chunk=16)`` on the headline benchmark's observations (T = 16) for
-   16 sweeps, checked against the exact forward-recursion evidence, with
-   the kernels' launch counts and the interior island resamples of those
-   sweeps;
-6. informational timings at 2^26 (kernel vs plain, sweep time,
-   particle-steps/s) and a ``torch.profiler`` trace of 8 back-to-back
-   sweeps, written to ``chiprun_out/sweep_trace.json`` and summarised
-   (device time by kernel, busy share of the span); then one JSON line on
-   the kernels, the card line, and the result line
+2. the build of the CUDA kernels from ``cpprob_tpu_torch/ops/csrc`` (first
+   use; one nvcc per source, all started together), with the ptxas
+   register and spill lines;
+3. the HMM main path (``hmm_phases``): kernel vs plain PyTorch version on
+   the card, same Philox seed, at the main path's shapes (2^26 particles, a
+   16-slot chunk): the init kernel, and the chunk kernel with the flag off
+   and on, n_valid 15 and 8 of 16, and the island check off, forced
+   (thresh 2.0), at the main path's 0.5, never firing (0.0) and at a
+   threshold that splits the islands; a multi-chunk sweep (chunk 4) whose
+   boundary resamples go through the flag and ticks;
+   ``build_smc_run(make_fused_hmm_ssm(island_every=8), 2^26, chunk=16)`` on
+   the headline benchmark's observations (T = 16) for 16 sweeps, checked
+   against the exact forward-recursion evidence, with the kernels' launch
+   counts and the interior island resamples of those sweeps; timings
+   (kernel vs plain, sweep time, particle-steps/s) and a
+   ``torch.profiler`` trace of 8 back-to-back sweeps
+   (``chiprun_out/sweep_trace.json``: device time by kernel, busy share);
+4. the continuous-state path (``lg_phases``): at 2^24 particles, the LG
+   chunk kernel against its plain version (t0 odd, even and 9, n_valid 8
+   and 7), the one-step launch (and eight of them against one eight-step
+   launch, bit for bit), the epoch's stats, pass-1 and pass-2 kernels
+   (pass 2 against the exact expansion of its own start slots, the flag off
+   and one heavy particle); ``build_smc_run(make_fused_lg_ssm(), 2^24,
+   chunk=8)`` on T = 16 observations of the model for 16 sweeps, and the
+   per-step path (chunk = 1) at 2^20 for 8 sweeps, each checked against
+   the Kalman filter's evidence, with a resample epoch in every sweep and
+   the launch counts; timings (kernel vs plain, the epoch flagged and
+   unflagged, sweep time) and a profile of 8 back-to-back LG sweeps
+   (``chiprun_out/lg_sweep_trace.json``);
+5. one JSON line on the seven kernels, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
+Every timed sweep runs under ``torch.cuda.set_sync_debug_mode("error")``:
+a sweep never waits on the host.  Launch counts are set to 0 just before
+each path's sweeps and read just after.
 It needs a CUDA device and never falls back to the CPU.
 """
 
@@ -49,6 +64,14 @@ CHECK_N = 1 << 20         # the multi-chunk sweep
 CHECK_SEED = 20261016
 SWEEPS = 16
 EXACT_LOGZ = -26.44222     # forward recursion on these observations
+# the continuous-state path: build_smc_run(make_fused_lg_ssm(), 2^24,
+# chunk=8) on T = 16 observations of the linear-Gaussian model
+LG_N = 1 << 24
+LG_T = 16
+LG_CHUNK = 8
+LG_STEP_N = 1 << 20        # the per-step path (chunk = 1)
+LG_STEP_SWEEPS = 8
+PASS1_SLACK = 16           # start slots pass 1 may place differently
 
 
 def _sync():
@@ -225,10 +248,188 @@ def check_multichunk(n=CHECK_N, chunk=4, seeds=8):
         raise AssertionError("no chunk-boundary resample in the multi-chunk sweep")
 
 
-def profile_sweeps(run, obs, card, sweeps=8):
+def _lg_obs(device):
+    from cpprob_tpu_torch.models.linear_gaussian import simulate_observations
+
+    return torch.as_tensor(simulate_observations(LG_T, 0), device=device)
+
+
+def _lg_population(n, seed, obs):
+    """The model's own t = 0 population on the card, from a seeded
+    generator: x ~ N(0, 1), log_w = log N(y_0; x, 1)."""
+    from cpprob_tpu_torch.models.linear_gaussian import linear_gaussian_ssm as lg
+
+    gen = torch.Generator(device=obs.device)
+    gen.manual_seed(seed)
+    x = lg.init_sample_batch(gen, n)
+    return x, lg.obs_logpdf_batch(x, obs[0], 0)
+
+
+def _lg_chunks(obs):
+    from cpprob_tpu_torch.inference.smc import _chunk_observations
+
+    ys, valid = _chunk_observations(obs, LG_CHUNK)
+    return [y.contiguous() for y in ys], valid
+
+
+def check_lg_kernels(n=LG_N, seed=CHECK_SEED):
+    """K7, K6 and the epoch (K14, K15, K16) against their plain versions on
+    the card, same seed and inputs, at the LG path's shapes.  States and
+    weights must agree within 1e-5 (relative, and absolute on the unit
+    scale of the states: eps from sincosf and torch's cos differ in the
+    last bits); pass-1 slots may differ in at most ``PASS1_SLACK`` slots
+    (float64 sums taken in another order); pass 2 must equal the exact
+    expansion of its own start slots.  Returns the largest error of each
+    kernel; raises on any disagreement."""
+    from cpprob_tpu_torch.ops import stream_resample as sr
+    from cpprob_tpu_torch.ops.fused_lg import (
+        lg_chunk,
+        lg_chunk_plain,
+        lg_step,
+        lg_step_plain,
+    )
+
+    dev = torch.device("cuda")
+    obs = _lg_obs(dev)
+    x0, w0 = _lg_population(n, seed, obs)
+    ys, valid = _lg_chunks(obs)
+    errs = {"lg_chunk": 0.0}
+    eight = torch.full((), LG_CHUNK, dtype=torch.int32, device=dev)
+    seven = torch.full((), LG_CHUNK - 1, dtype=torch.int32, device=dev)
+    for t0, ys_c in ((1, ys[0]), (2, ys[0]), (9, ys[1])):
+        for n_valid in (eight, seven):
+            xk, wk, rk = lg_chunk(seed, x0, w0, ys_c, n_valid, t0=t0)
+            xp, wp, rp = lg_chunk_plain(seed, x0, w0, ys_c, n_valid, t0=t0)
+            _sync()
+            what = f"lg_chunk n={n} t0={t0} n_valid={int(n_valid)}/{LG_CHUNK}"
+            torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-5, msg=f"{what}: states")
+            torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-5, msg=f"{what}: log_w")
+            _close_stats(rk, rp, n, what)
+            err = float((wk - wp).abs().max())
+            errs["lg_chunk"] = max(errs["lg_chunk"], err)
+            print(f"check {what}: max|dx|={float((xk - xp).abs().max()):.3g} "
+                  f"max|dlog_w|={err:.3g}")
+            del xk, wk, xp, wp
+
+    # K6: the one-step launch, and eight of them against one eight-step launch
+    xk, wk = lg_step(seed, x0, w0, obs[1], 1)
+    xp, wp = lg_step_plain(seed, x0, w0, obs[1], 1)
+    _sync()
+    torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-5, msg="lg_step: states")
+    torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-5, msg="lg_step: log_w")
+    errs["lg_step"] = float((wk - wp).abs().max())
+    for t0 in (1, 2):
+        xs, ws = x0, w0
+        for t in range(LG_CHUNK):
+            xs, ws = lg_step(seed, xs, ws, ys[0][t], t0 + t)
+        x8, w8, _ = lg_chunk(seed, x0, w0, ys[0], eight, t0=t0)
+        _sync()
+        if not (torch.equal(xs, x8) and torch.equal(ws, w8)):
+            raise AssertionError(f"eight one-step launches at t0={t0} differ "
+                                 "from one eight-step launch")
+    print(f"check lg_step n={n}: max|dlog_w|={errs['lg_step']:.3g}; eight "
+          "one-step launches equal one eight-step launch (t0 1 and 2)")
+
+    # the epoch on the weights after the first chunk
+    x1, w1, _ = lg_chunk(seed, x0, w0, ys[0], eight, t0=1)
+    stats_k = sr.logsumexp_stats(w1)
+    stats_p = sr.logsumexp_stats_plain(w1)
+    _sync()
+    if float(stats_k[0]) != float(stats_p[0]):
+        raise AssertionError("lse_stats: max differs")
+    torch.testing.assert_close(stats_k[1], stats_p[1], rtol=1e-12, atol=0,
+                               msg="lse_stats: wtot")
+    errs["lse_stats"] = float((stats_k - stats_p).abs().max())
+    u0 = torch.full((), 0.37, dtype=torch.float64, device=dev)
+    st_k = sr.resample_pass1(u0, w1, stats_k)
+    st_p = sr.resample_pass1_plain(u0, w1, stats_p)
+    _sync()
+    d_st = (st_k.long() - st_p.long()).abs()
+    n_diff = int((d_st > 0).sum())
+    errs["pass1"] = float(d_st.max())
+    print(f"check lse_stats n={n}: max|d|={errs['lse_stats']:.3g}; pass1: "
+          f"{n_diff} start slots differ (at most {PASS1_SLACK} allowed), "
+          f"max {errs['pass1']:.0f}")
+    if n_diff > PASS1_SLACK or not bool((st_k[1:] >= st_k[:-1]).all()) \
+            or int(st_k[0]) != 0:
+        raise AssertionError("pass1: start slots differ or are not monotone")
+    out_k = sr.resample_pass2(st_k, x1)
+    counts = torch.diff(st_k.long(), append=torch.full((1,), n, device=dev))
+    expand = torch.repeat_interleave(x1, counts)
+    _sync()
+    n_bad = int((out_k != expand).sum())
+    print(f"check pass2 n={n}: {n_bad} slots differ from the exact expansion "
+          "of the kernel's own start slots")
+    if n_bad or not torch.equal(out_k, sr.resample_pass2_plain(st_k, x1)):
+        raise AssertionError("pass2: not the exact expansion of its start slots")
+    errs["pass2"] = 0.0
+    # flag off: the epoch hands the population back unchanged
+    off = torch.zeros((), dtype=torch.int32, device=dev)
+    st_off = sr.resample_pass1(u0, w1, sr.logsumexp_stats(w1, off), off)
+    if not torch.equal(sr.resample_pass2(st_off, x1, off), x1):
+        raise AssertionError("pass2 with the flag off is not a copy")
+    # one heavy particle: every slot holds its value
+    lw = torch.full((n,), -100.0, device=dev)
+    lw[12345] = 0.0
+    heavy = sr.resample_pass2(sr.resample_pass1(u0, lw, sr.logsumexp_stats(lw)), x1)
+    _sync()
+    if not bool((heavy == x1[12345]).all()):
+        raise AssertionError("pass2: the degenerate population is not one value")
+    print("check epoch: flag off copies the population; one heavy particle "
+          "fills every slot")
+    return errs
+
+
+def run_lg_path(run, obs, sweeps, counters, what):
+    """``sweeps`` sweeps of ``run`` under sync-debug "error", with the
+    launch counters set to 0 just before and read just after; checks logZ
+    against the Kalman filter and at least one resample epoch in every
+    sweep.  Returns (launches, times)."""
+    import numpy as np
+
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        kalman_filter_1d,
+        simulate_observations,
+    )
+
+    run(40_000, obs)
+    _sync()
+    for c in counters:
+        for name in c:
+            c[name] = 0
+    times, results = [], []
+    for i in range(sweeps):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = run(i, obs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _sync()
+        times.append(time.perf_counter() - t0)
+        results.append(res)
+    launches = {name: v for c in counters for name, v in c.items()}
+    zs = torch.stack([r.log_evidence for r in results]).cpu().numpy()
+    epochs = torch.stack([r.resampled for r in results]).sum(1).cpu().numpy()
+    exact = kalman_filter_1d(simulate_observations(LG_T, 0))[2]
+    if not np.isfinite(zs).all():
+        raise AssertionError(f"{what}: non-finite logZ {zs}")
+    mean, se = float(zs.mean()), float(zs.std(ddof=1) / math.sqrt(sweeps))
+    tol = 4 * se + 0.02
+    print(f"{what}: mean logZ={mean:.6f} SE={se:.3g} kalman={exact:.6f} "
+          f"tol={tol:.4f}; resample epochs per sweep {epochs.tolist()}; "
+          f"launches {launches}")
+    if abs(mean - exact) > tol:
+        raise AssertionError(f"{what}: logZ outside 4 SE + 0.02 of Kalman")
+    if not (epochs >= 1).all():
+        raise AssertionError(f"{what}: a sweep ran no resample epoch")
+    return launches, times
+
+
+def profile_sweeps(run, obs, card, sweeps=8, trace="sweep_trace.json"):
     """torch.profiler over ``sweeps`` back-to-back sweeps of ``run``: the
-    trace goes to chiprun_out/sweep_trace.json; prints the device time by
-    kernel and the device's busy share of the traced span."""
+    trace goes to chiprun_out/``trace``; prints the device time by kernel
+    and the device's busy share of the traced span."""
     from torch.profiler import ProfilerActivity, profile
 
     run(30_000, obs)
@@ -237,7 +438,7 @@ def profile_sweeps(run, obs, card, sweeps=8):
         for i in range(sweeps):
             run(30_001 + i, obs)
         _sync()
-    out = os.path.join(REPO, "chiprun_out", "sweep_trace.json")
+    out = os.path.join(REPO, "chiprun_out", trace)
     os.makedirs(os.path.dirname(out), exist_ok=True)
     prof.export_chrome_trace(out)
     with open(out) as f:
@@ -267,37 +468,35 @@ def profile_sweeps(run, obs, card, sweeps=8):
               f"{n / sweeps:5.1f}/sweep  {name[:90]}")
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs one",
-              file=sys.stderr)
-        sys.exit(1)
-    sys.path.insert(0, REPO)
+def build_kernels(stages):
+    """Builds every kernel library from the sources, one nvcc per source,
+    all started together; prints the ptxas register and spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cpprob_tpu_torch.ops import _build, fused_hmm, fused_lg, stream_resample
+
+    mods = (fused_hmm, fused_lg, stream_resample)
+    with stages.stage("build", sync=True):
+        with ThreadPoolExecutor(len(mods)) as pool:
+            list(pool.map(lambda m: m._lib(), mods))
+    print(f"build: {stages.totals['build']:.2f} s ({len(mods)} sources in parallel)")
+    for name in ("fused_hmm", "fused_lg", "stream_resample"):
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {name}:", line.strip())
+
+
+def hmm_phases(card, stages):
+    """The HMM main path: kernel checks, the multi-chunk sweep, 16 sweeps
+    of the main path, timings and the profile.  Returns the kernel lines."""
     import numpy as np
 
     from cpprob_tpu_torch import build_smc_run
     from cpprob_tpu_torch.models import hmm_log_evidence, simulate_observations
-    from cpprob_tpu_torch.ops import _build, fused_hmm
-    from cpprob_tpu_torch.util.profiling import (
-        StageTimer,
-        env_versions,
-        gpu_name_and_power,
-    )
+    from cpprob_tpu_torch.ops import fused_hmm
 
-    card = gpu_name_and_power()
-    print(card)
-    print("versions:", json.dumps(env_versions()))
     dev = torch.device("cuda")
     spec = _spec()
-    stages = StageTimer()
-
-    with stages.stage("build", sync=True):
-        fused_hmm._lib()
-    print(f"build: {stages.totals['build']:.2f} s")
-    for line in _build.BUILD_LOGS.get("fused_hmm", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
-
     with stages.stage("kernel_vs_plain", sync=True):
         errs = check_kernels()
     with stages.stage("multi_chunk", sync=True):
@@ -389,10 +588,9 @@ def main():
           f"{no_island_ms:.4f} ms")
     with stages.stage("profile", sync=True):
         profile_sweeps(run, obs, card)
-    print(stages.report())
 
     src = "cpprob_tpu_torch/ops/csrc/fused_hmm.cu"
-    kernels = [
+    return [
         {"name": "hmm_init_kernel", "route": "cuda", "source": src,
          "replaces": "cpprob_tpu/ops/pallas_hmm.py:727",
          "launches": launches["init"], "max_abs_err": errs["init"],
@@ -402,6 +600,145 @@ def main():
          "launches": launches["chunk"], "max_abs_err": errs["chunk"],
          "ms": timing["chunk"][0], "plain_ms": timing["chunk"][1]},
     ]
+
+
+def lg_phases(card, stages):
+    """The continuous-state path: kernel checks at 2^24, 16 sweeps of the
+    LG main path (chunk 8), 8 sweeps of the per-step path (2^20), timings
+    and the profile.  Returns the kernel lines."""
+    from cpprob_tpu_torch import build_smc_run
+    from cpprob_tpu_torch.ops import fused_lg
+    from cpprob_tpu_torch.ops import stream_resample as sr
+
+    dev = torch.device("cuda")
+    with stages.stage("lg_kernel_vs_plain", sync=True):
+        errs = check_lg_kernels()
+    obs = _lg_obs(dev)
+    model = fused_lg.make_fused_lg_ssm()
+    counters = (fused_lg.LAUNCHES, sr.LAUNCHES)
+    run = build_smc_run(model, LG_N, ess_threshold=0.5,
+                        resampling="systematic", chunk=LG_CHUNK)
+    with stages.stage("lg_main_path", sync=True):
+        launches, times = run_lg_path(
+            run, obs, SWEEPS, counters,
+            f"LG main path n={LG_N} T={LG_T} chunk={LG_CHUNK}")
+    n_chunks = -(-(LG_T - 1) // LG_CHUNK)
+    want = {"chunk": SWEEPS * n_chunks, "step": 0, "lse_stats": SWEEPS * n_chunks,
+            "pass1": SWEEPS * n_chunks, "pass2": SWEEPS * n_chunks}
+    if launches != want:
+        raise AssertionError(f"LG launch counts {launches}, expected {want}")
+    run1 = build_smc_run(model, LG_STEP_N, ess_threshold=0.5,
+                         resampling="systematic", chunk=1)
+    with stages.stage("lg_step_path", sync=True):
+        step_launches, step_times = run_lg_path(
+            run1, obs, LG_STEP_SWEEPS, counters,
+            f"LG per-step path n={LG_STEP_N} T={LG_T} chunk=1")
+    n_steps = LG_T - 1
+    want = {"chunk": 0, "step": LG_STEP_SWEEPS * n_steps,
+            "lse_stats": LG_STEP_SWEEPS * n_steps,
+            "pass1": LG_STEP_SWEEPS * n_steps, "pass2": LG_STEP_SWEEPS * n_steps}
+    if step_launches != want:
+        raise AssertionError(f"per-step launch counts {step_launches}, expected {want}")
+
+    sweep_s = statistics.median(times)
+    print(f"[{card}] LG median sweep {sweep_s * 1e3:.3f} ms, "
+          f"{LG_N * LG_T / sweep_s:.6g} particle-steps/s (n={LG_N}, T={LG_T}, "
+          f"chunk={LG_CHUNK}, {SWEEPS} sweeps, host clock, synced per sweep)")
+    b2b_ms = _time_ms(lambda: run(20_000, obs), SWEEPS)
+    print(f"[{card}] LG back-to-back sweeps: {b2b_ms:.4f} ms each by CUDA "
+          f"events, {LG_N * LG_T / (b2b_ms * 1e-3):.6g} particle-steps/s")
+    step_s = statistics.median(step_times)
+    step_b2b = _time_ms(lambda: run1(21_000, obs), LG_STEP_SWEEPS)
+    print(f"[{card}] LG per-step median sweep {step_s * 1e3:.3f} ms (host "
+          f"clock), back-to-back {step_b2b:.4f} ms by CUDA events, "
+          f"{LG_STEP_N * LG_T / (step_b2b * 1e-3):.6g} particle-steps/s "
+          f"(n={LG_STEP_N})")
+
+    # -- kernel vs plain time at the path's shapes: the first chunk's inputs,
+    # and the epoch on the weights after it --
+    seed = CHECK_SEED
+    x0, w0 = _lg_population(LG_N, seed, obs)
+    ys, valid = _lg_chunks(obs)
+    x1, w1, _ = fused_lg.lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1)
+    stats = sr.logsumexp_stats(w1)
+    u0 = torch.full((), 0.37, dtype=torch.float64, device=dev)
+    st = sr.resample_pass1(u0, w1, stats)
+    timing = {
+        "lg_chunk": (
+            _time_ms(lambda: fused_lg.lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
+            _time_ms(lambda: fused_lg.lg_chunk_plain(seed, x0, w0, ys[0], valid[0], t0=1), 2)),
+        "lg_step": (
+            _time_ms(lambda: fused_lg.lg_step(seed, x0, w0, obs[1], 1), 10),
+            _time_ms(lambda: fused_lg.lg_step_plain(seed, x0, w0, obs[1], 1), 2)),
+        "lse_stats": (
+            _time_ms(lambda: sr.logsumexp_stats(w1), 10),
+            _time_ms(lambda: sr.logsumexp_stats_plain(w1), 4)),
+        "pass1": (
+            _time_ms(lambda: sr.resample_pass1(u0, w1, stats), 10),
+            _time_ms(lambda: sr.resample_pass1_plain(u0, w1, stats), 4)),
+        "pass2": (
+            _time_ms(lambda: sr.resample_pass2(st, x1), 10),
+            _time_ms(lambda: sr.resample_pass2_plain(st, x1), 4)),
+    }
+    for name, (ms, plain_ms) in timing.items():
+        print(f"[{card}] {name} at n={LG_N}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+
+    def epoch(flag):
+        s = sr.logsumexp_stats(w1, flag)
+        return sr.resample_pass2(sr.resample_pass1(u0, w1, s, flag), x1, flag)
+
+    on = torch.ones((), dtype=torch.int32, device=dev)
+    off = torch.zeros((), dtype=torch.int32, device=dev)
+    print(f"[{card}] epoch at n={LG_N} (K14 + K15 + K16): flagged "
+          f"{_time_ms(lambda: epoch(on), 10):.4f} ms, unflagged "
+          f"{_time_ms(lambda: epoch(off), 10):.4f} ms")
+    with stages.stage("lg_profile", sync=True):
+        profile_sweeps(run, obs, card, trace="lg_sweep_trace.json")
+
+    def line(name, key, replaces, src, n_launch):
+        return {"name": name, "route": "cuda",
+                "source": f"cpprob_tpu_torch/ops/csrc/{src}",
+                "replaces": replaces, "launches": n_launch,
+                "max_abs_err": errs[key], "ms": timing[key][0],
+                "plain_ms": timing[key][1]}
+
+    return [
+        line("lg_chunk_kernel", "lg_chunk", "cpprob_tpu/ops/pallas_hmm.py:808",
+             "fused_lg.cu", launches["chunk"]),
+        line("lg_chunk_kernel (n_steps=1, lg_step)", "lg_step",
+             "cpprob_tpu/ops/pallas_hmm.py:669", "fused_lg.cu",
+             step_launches["step"]),
+        line("lse_stats_kernel + lse_combine_kernel", "lse_stats",
+             "cpprob_tpu/ops/pallas_resample.py:727", "stream_resample.cu",
+             launches["lse_stats"]),
+        line("pass1_tile_sums/scan_tiles/finish_kernel", "pass1",
+             "cpprob_tpu/ops/pallas_resample.py:113", "stream_resample.cu",
+             launches["pass1"]),
+        line("pass2_kernel", "pass2", "cpprob_tpu/ops/pallas_resample.py:645",
+             "stream_resample.cu", launches["pass2"]),
+    ]
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one",
+              file=sys.stderr)
+        sys.exit(1)
+    sys.path.insert(0, REPO)
+    from cpprob_tpu_torch.util.profiling import (
+        StageTimer,
+        env_versions,
+        gpu_name_and_power,
+    )
+
+    card = gpu_name_and_power()
+    print(card)
+    print("versions:", json.dumps(env_versions()))
+    stages = StageTimer()
+    build_kernels(stages)
+    kernels = hmm_phases(card, stages) + lg_phases(card, stages)
+    print(stages.report())
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

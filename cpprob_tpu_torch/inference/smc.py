@@ -9,10 +9,13 @@ tensors.  ``key`` arguments of the model's sampling hooks are
 ``torch.Generator`` objects on the population's device; the fused kernel
 hooks take the sweep's integer seed instead.
 
-This slice runs the HMM main path: the chunked exchange path with fused
-init and chunk kernels, and the unfused path with history that
-:func:`smc` uses.  Other combinations raise ``NotImplementedError``,
-naming the slice that brings them.
+Ported so far: the HMM main path (the chunked exchange path with fused
+init and chunk kernels), the continuous-state path (the chunked path with
+a fused chunk kernel and the streaming resample epoch at chunk
+boundaries, and the per-step path with a fused step kernel), and the
+unfused paths with and without history that :func:`smc` and
+:func:`build_smc_run` take otherwise.  Other combinations raise
+``NotImplementedError``, naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -28,12 +31,14 @@ from .resampling import ess as _ess
 from .resampling import (
     category_counts_systematic,
     category_weights,
+    continuous_resample_values_lme,
     get_resampler,
     states_from_counts,
 )
 
 __all__ = ["StateSpaceModel", "SMCResult", "smc", "make_smc_step",
-           "make_smc_step_exchange_fused_chunked", "build_smc_run"]
+           "make_smc_step_exchange_fused_chunked", "make_smc_step_chunked",
+           "build_smc_run"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +68,10 @@ class StateSpaceModel:
     fused_chunk_exchange_batch: Optional[Callable] = None
     # same plus a trailing t0 (absolute time of the chunk's first update)
     fused_chunk_exchange_t_batch: Optional[Callable] = None
+    # (key, states, log_w, ys, n_valid) -> (s', w', ess'); kept for the
+    # protocol, not driven: the port's chunk kernels take the time-aware hook
     fused_chunk_batch: Optional[Callable] = None
+    # same plus a trailing t0 (absolute time of the chunk's first update)
     fused_chunk_t_batch: Optional[Callable] = None
     # (key, n, y0) -> (states, log_w, ess, cat_w(K,), lme)
     fused_init_batch: Optional[Callable] = None
@@ -111,45 +119,59 @@ def make_smc_step(
     sorted_fill: bool = False,
 ):
     """Build the loop body: (key, states, log_w, log_Z, ess), (y_t, t) ->
-    (carry, ys).  Resampling first, on the carried ESS of the incoming
-    weights, then propagation and reweighting.  Both resample outcomes are
-    computed and one is selected on the device, so the step never waits on
-    the host.  ``exchange=True`` resamples a discrete population by
-    category counts (see :mod:`.resampling`)."""
+    (carry, ys), with ``key = (seed, generator)``.  Resampling first, on
+    the carried ESS of the incoming weights, then propagation and
+    reweighting.  Both resample outcomes are computed and one is selected
+    on the device, so the step never waits on the host.
+    ``exchange=True`` resamples a discrete population by category counts;
+    ``sorted_fill=True`` a scalar continuous one by value
+    (:func:`.resampling.continuous_resample_values_lme`, whose streaming
+    epoch skips its work on the device when the step does not resample).
+    A model's ``fused_step_batch`` kernel hook, which takes the sweep's
+    integer seed and the absolute time, replaces the move and reweight."""
     if model.proposal_sample is not None:
         raise _unported("guided SMC", "slice 3 (guided SMC)")
-    if sorted_fill:
-        raise _unported("sorted-fill continuous resampling",
+    if model.fused_step_ess_batch is not None:
+        raise _unported("the per-step fused kernel with statistics (K5)",
                         "slice 2 (the SMC kernel family)")
-    if model.fused_step_batch is not None or model.fused_step_ess_batch is not None:
-        raise _unported("per-step fused kernels", "slice 2 (the SMC kernel family)")
-    if model.step_sample_batch is None or model.obs_logpdf_batch is None:
+    if model.fused_step_batch is None and (
+            model.step_sample_batch is None or model.obs_logpdf_batch is None):
         raise _unported("per-particle model hooks (vmap)",
                         "slice 4 (trace substrate)")
 
     def step(carry, y_t_and_t):
         y_t, t = y_t_and_t
         key, states, log_w, log_z, ess = carry
+        seed, gen = key
         do_resample = ess < ess_threshold * n_particles
         ident = torch.arange(n_particles, dtype=torch.int32, device=states.device)
 
-        if exchange:
-            u0 = torch.rand((), generator=key, device=states.device,
+        if sorted_fill:
+            res_states, lme = continuous_resample_values_lme(
+                gen, log_w, states, flag=do_resample.to(torch.int32))
+            res_anc = ident
+        elif exchange:
+            u0 = torch.rand((), generator=gen, device=states.device,
                             dtype=torch.float64)
             cat_w = category_weights(log_w, states, model.state_categories)
             counts = category_counts_systematic(u0, cat_w, n_particles)
             res_states = states_from_counts(counts, n_particles, dtype=states.dtype)
-            res_anc = ident
+            res_anc, lme = ident, _log_mean_exp(log_w)
         else:
-            res_anc = resampler(key, log_w)
+            res_anc = resampler(gen, log_w)
             res_states = states[res_anc.long()]
+            lme = _log_mean_exp(log_w)
         states_r = torch.where(do_resample, res_states, states)
         log_w_r = torch.where(do_resample, torch.zeros_like(log_w), log_w)
-        log_z_r = torch.where(do_resample, log_z + _log_mean_exp(log_w), log_z)
+        log_z_r = torch.where(do_resample, log_z + lme, log_z)
         anc = torch.where(do_resample, res_anc, ident)
 
-        new_states = model.step_sample_batch(key, states_r, t)
-        new_log_w = log_w_r + model.obs_logpdf_batch(new_states, y_t, t)
+        if model.fused_step_batch is not None:
+            new_states, new_log_w = model.fused_step_batch(
+                seed, states_r, log_w_r, y_t, t)
+        else:
+            new_states = model.step_sample_batch(gen, states_r, t)
+            new_log_w = log_w_r + model.obs_logpdf_batch(new_states, y_t, t)
         new_ess = _ess(new_log_w)
         if store_history:
             ys = (new_states, new_log_w, anc, do_resample)
@@ -203,6 +225,42 @@ def make_smc_step_exchange_fused_chunked(
     return step
 
 
+def make_smc_step_chunked(
+    model: StateSpaceModel,
+    n_particles: int,
+    ess_threshold: float,
+):
+    """Loop body over observation chunks for scalar continuous states: a
+    systematic resample epoch at the chunk boundary, then one fused kernel
+    launch for the chunk's moves and reweights.
+
+    Carry: ``(key, states, log_w, log_z, ess)`` with ``key = (seed,
+    generator)``; xs: ``(ys (C,), n_valid, t0)``.  The resample decision
+    stays on the device: it reaches the epoch's kernels as an int32 flag
+    (with the flag off they do no work and return the population as it
+    was), and the weights and the evidence are selected with
+    ``torch.where``.  The model's chunk kernel is its time-aware
+    ``fused_chunk_t_batch`` hook."""
+    if model.fused_chunk_t_batch is None:
+        raise _unported("a chunk kernel without absolute time "
+                        "(fused_chunk_batch)", "slice 2 (the SMC kernel family)")
+
+    def step(carry, xs):
+        ys, n_valid, t0 = xs
+        key, states, log_w, log_z, ess = carry
+        seed, gen = key
+        do_resample = ess < ess_threshold * n_particles
+        states_r, lme = continuous_resample_values_lme(
+            gen, log_w, states, flag=do_resample.to(torch.int32))
+        log_w_r = torch.where(do_resample, torch.zeros_like(log_w), log_w)
+        log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
+        new_states, new_log_w, new_ess = model.fused_chunk_t_batch(
+            seed, states_r, log_w_r, ys, n_valid, t0)
+        return (key, new_states, new_log_w, log_z_r, new_ess), (do_resample,)
+
+    return step
+
+
 def _chunk_observations(observations: torch.Tensor, chunk: int):
     """Pad the (T-1,) tail observations into (n_chunks, chunk) + valid
     counts (int32 device tensor), with no host copy."""
@@ -228,31 +286,45 @@ def build_smc_run(
     ``key`` is an integer seed; ``observations`` a (T,) float32 tensor on
     the device the sweep runs on.
 
-    ``chunk`` > 1 (a discrete-state model with a
-    ``fused_chunk_exchange_t_batch`` kernel, no history): that many timesteps per kernel launch, the ESS
-    trigger evaluated at chunk boundaries (blocked adaptive resampling, an
-    unbiased evidence estimator)."""
+    ``chunk`` > 1 (a model with a time-aware fused chunk kernel, no
+    history, systematic resampling): that many timesteps per kernel
+    launch, the ESS trigger evaluated at chunk boundaries (blocked adaptive
+    resampling, an unbiased evidence estimator).  A discrete-state model
+    resamples by exchange (``fused_chunk_exchange_t_batch``), a scalar
+    continuous one by the streaming epoch (``fused_chunk_t_batch``)."""
     resampler = get_resampler(resampling)
     if model.proposal_sample is not None or model.fused_hooks_guided:
         raise _unported("guided SMC", "slice 3 (guided SMC)")
     if model.init_proposal_sample is not None:
         raise _unported("initial proposals", "slice 3 (guided SMC)")
-    exchange_ok = model.state_categories is not None and not store_history
+    # the exchange and value-resampling fast paths are systematic schemes
+    exchange_ok = (model.state_categories is not None and not store_history
+                   and resampling == "systematic")
     sorted_ok = (
         (model.scalar_state or model.vector_state_dim is not None)
         and model.state_categories is None
         and not store_history
+        and resampling == "systematic"
     )
+    if sorted_ok and model.vector_state_dim is not None:
+        raise _unported("vector-state continuous resampling",
+                        "the vector kernel family (K11)")
     chunk_exchange = (
         chunk > 1
         and exchange_ok
-        and model.fused_chunk_exchange_t_batch is not None
+        and (model.fused_chunk_exchange_batch is not None
+             or model.fused_chunk_exchange_t_batch is not None)
     )
-    if chunk > 1 and not chunk_exchange:
-        raise _unported(
-            "chunk > 1 without a fused_chunk_exchange_t_batch kernel on a "
-            "discrete-state model (continuous-state chunk kernels, "
-            "chunk > 1 with history)", "slice 2 (the SMC kernel family)")
+    chunk_sorted = (
+        chunk > 1
+        and sorted_ok
+        and (model.fused_chunk_batch is not None
+             or model.fused_chunk_t_batch is not None)
+    )
+    if chunk > 1 and not (chunk_exchange or chunk_sorted):
+        raise ValueError(
+            "chunk > 1 needs a fused_chunk_* kernel on the model and "
+            "store_history=False with systematic resampling")
     if (not chunk_exchange and exchange_ok
             and model.fused_step_exchange_batch is not None):
         raise _unported("the per-step fused exchange kernel",
@@ -260,6 +332,8 @@ def build_smc_run(
     if chunk_exchange:
         step = make_smc_step_exchange_fused_chunked(
             model, n_particles, ess_threshold)
+    elif chunk_sorted:
+        step = make_smc_step_chunked(model, n_particles, ess_threshold)
     else:
         step = make_smc_step(
             model, n_particles, ess_threshold, resampler, store_history,
@@ -284,23 +358,29 @@ def build_smc_run(
         log_z = torch.zeros((), dtype=torch.float64, device=device)
         no_resample = torch.zeros(1, dtype=torch.bool, device=device)
 
-        if chunk_exchange:
-            if model.fused_init_batch is None:
-                ess0 = _ess(log_w0)
-                cat_w0 = category_weights(log_w0, states0, model.state_categories)
-                lme0 = _log_mean_exp(log_w0)
+        if chunk_exchange or chunk_sorted:
+            if chunk_sorted:
+                carry = ((seed, gen), states0, log_w0, log_z, _ess(log_w0))
+            else:
+                if model.fused_init_batch is None:
+                    ess0 = _ess(log_w0)
+                    cat_w0 = category_weights(log_w0, states0,
+                                              model.state_categories)
+                    lme0 = _log_mean_exp(log_w0)
+                carry = ((seed, gen), states0, log_w0, log_z, ess0, cat_w0, lme0)
             ys_chunks, valid = _chunk_observations(observations, chunk)
-            carry = ((seed, gen), states0, log_w0, log_z, ess0, cat_w0, lme0)
             flags = [no_resample]
             for c in range(ys_chunks.shape[0]):
                 carry, (flag,) = step(
                     carry, (ys_chunks[c], valid[c], 1 + chunk * c))
                 flags.append(flag.reshape(1))
-            _, states_f, log_w_f, log_z, _, _, lme_f = carry
+            states_f, log_w_f, log_z = carry[1:4]
+            # the exchange kernels carry the final log-mean-exp in their stats
+            lme_f = carry[6] if chunk_exchange else _log_mean_exp(log_w_f)
             return SMCResult(None, None, None, torch.cat(flags),
                              log_z + lme_f, states_f, log_w_f)
 
-        carry = (gen, states0, log_w0, log_z, _ess(log_w0))
+        carry = ((seed, gen), states0, log_w0, log_z, _ess(log_w0))
         hist = []
         for t in range(1, observations.shape[0]):
             carry, ys = step(carry, (observations[t], t))

@@ -38,9 +38,12 @@ def spec_from_numpy(trans, means, stds, init_probs) -> HMMSpec:
 
 
 def population_from_numpy(states, log_w, device="cpu"):
-    """(states int32 (N,), log_w float32 (N,)) tensors on ``device``."""
+    """(states (N,), log_w float32 (N,)) tensors on ``device``: integer
+    (discrete) states become int32, floating (continuous) states float32."""
+    states = np.asarray(states)
+    dtype = np.float32 if np.issubdtype(states.dtype, np.floating) else np.int32
     return (
-        torch.as_tensor(np.asarray(states, np.int32), device=device),
+        torch.as_tensor(states.astype(dtype), device=device),
         torch.as_tensor(np.asarray(log_w, np.float32), device=device),
     )
 

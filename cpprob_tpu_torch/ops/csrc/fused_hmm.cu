@@ -34,6 +34,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_reduce.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -42,49 +43,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 16;                     // particles per thread
 constexpr int kIsland = kThreads * kPerThread;     // particles per CTA
-
-template <int NV>
-__device__ __forceinline__ void block_sum(float (&v)[NV], float* red,
-                                          float* bcast) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float x = v[i];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    if (lane == 0) red[warp * NV + i] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < NV) {
-    float x = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) x += red[w * NV + threadIdx.x];
-    bcast[threadIdx.x] = x;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = bcast[i];
-  __syncthreads();
-}
-
-__device__ __forceinline__ float block_max(float x, float* red, float* bcast) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = red[0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
-    bcast[0] = m;
-  }
-  __syncthreads();
-  const float m = bcast[0];
-  __syncthreads();
-  return m;
-}
 
 // -(y - mu_k)^2 * 0.5/sigma_k^2 + log-normaliser_k for every state k.
 template <int K>
@@ -168,14 +126,14 @@ hmm_init_kernel(const float* __restrict__ tab, const float* __restrict__ y0,
     for (int k = 0; k < K; ++k) c[k] += (s == k) ? ew : 0.f;
   }
 
-  const float mb = block_max(m, red, bcast);
+  const float mb = block_max<kThreads>(m, red, bcast);
   const float sc = (m == -INFINITY) ? 0.f : expf(m - mb);
   float v[K + 2];
   v[0] = se * sc;
   v[1] = se2 * sc * sc;
 #pragma unroll
   for (int k = 0; k < K; ++k) v[2 + k] = c[k] * sc;
-  block_sum<K + 2>(v, red, bcast);
+  block_sum<kThreads, K + 2>(v, red, bcast);
   if (threadIdx.x == 0) {
     float* out = rec + (long long)blockIdx.x * (K + 4);
     out[0] = mb;
@@ -259,7 +217,7 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
       float m = -INFINITY;
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) m = fmaxf(m, w[i]);
-      m = block_max(m, red, bcast);
+      m = block_max<kThreads>(m, red, bcast);
       float v[K + 1];
 #pragma unroll
       for (int j = 0; j < K + 1; ++j) v[j] = 0.f;
@@ -271,7 +229,7 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
 #pragma unroll
         for (int k = 0; k < K - 1; ++k) v[2 + k] += (s[i] == k) ? ew : 0.f;
       }
-      block_sum<K + 1>(v, red, bcast);
+      block_sum<kThreads, K + 1>(v, red, bcast);
       // one thread decides, every thread follows
       if (threadIdx.x == 0)
         collapse_s = (v[0] * v[0] < thresh * nb * v[1]) && (t + 1 < n_valid);
@@ -310,7 +268,7 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
     w_out[g] = w[i];
     m = fmaxf(m, w[i]);
   }
-  m = block_max(m, red, bcast);
+  m = block_max<kThreads>(m, red, bcast);
   float v[K + 2];
 #pragma unroll
   for (int j = 0; j < K + 2; ++j) v[j] = 0.f;
@@ -322,7 +280,7 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
 #pragma unroll
     for (int k = 0; k < K; ++k) v[2 + k] += (s[i] == k) ? ew : 0.f;
   }
-  block_sum<K + 2>(v, red, bcast);
+  block_sum<kThreads, K + 2>(v, red, bcast);
   if (threadIdx.x == 0) {
     float* out = rec + (long long)blockIdx.x * (K + 4);
     out[0] = m;

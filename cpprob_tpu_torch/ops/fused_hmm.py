@@ -18,7 +18,8 @@ take pinned draws (``draws=``) for parity tests.
 
 Records are ``(n_records, K + 4)`` float32: (max w, sum e, sum e^2, sum e
 per state, interior resamples), e = exp(w - max w);
-:func:`stats_from_partials` combines them into (ess, cat_w, lme).
+:func:`stats_from_partials` combines them into (ess, cat_w, lme), and
+takes the linear-Gaussian kernel's 3-column records too (one combiner).
 """
 
 from __future__ import annotations
@@ -309,9 +310,12 @@ def hmm_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
 
 def stats_from_partials(records: torch.Tensor, n: int):
     """Combine records into (ess, normalized category weights (K,),
-    log-mean-exp of the weights), in float64."""
+    log-mean-exp of the weights), in float64.  Records of width 3 (max,
+    sum e, sum e^2), as the linear-Gaussian kernel writes, carry no
+    category columns and give an empty ``cat_w``."""
     r = records.double()
-    m_b, s1_b, s2_b, c_bk = r[:, 0], r[:, 1], r[:, 2], r[:, 3:-1]
+    n_cat = max(r.shape[1] - 4, 0)
+    m_b, s1_b, s2_b, c_bk = r[:, 0], r[:, 1], r[:, 2], r[:, 3:3 + n_cat]
     m = m_b.max()
     scale = torch.exp(m_b - m)
     s1 = torch.sum(s1_b * scale)

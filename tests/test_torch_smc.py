@@ -85,7 +85,10 @@ def test_systematic_resample_matches_reference_ancestors():
 
 def test_resampler_names():
     assert rs.get_resampler("systematic") is rs.systematic_resample
-    for name in ("bogus", "stratified"):
+    assert rs.get_resampler("stratified") is rs.stratified_resample
+    assert rs.get_resampler("multinomial") is rs.multinomial_resample
+    assert rs.get_resampler("residual") is rs.residual_resample
+    for name in ("bogus", "Systematic"):
         with pytest.raises(ValueError):
             rs.get_resampler(name)
 
@@ -203,8 +206,12 @@ def test_exact_posterior_and_oracle_match_reference():
 
 
 def test_unported_combinations_raise():
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    # no chunk kernel on the model: an error in the reference too
+    with pytest.raises(ValueError, match="fused_chunk"):
         build_smc_run(port_hmm.hmm_ssm, N, chunk=16)
+    with pytest.raises(NotImplementedError, match="K11"):
+        build_smc_run(dataclasses.replace(port_hmm.hmm_ssm, state_categories=None,
+                                          vector_state_dim=2), N)
     with pytest.raises(NotImplementedError, match="slice 3"):
         build_smc_run(dataclasses.replace(port_hmm.hmm_ssm,
                                           proposal_sample=lambda *a: None), N)
@@ -240,6 +247,8 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import cpprob_tpu_torch, cpprob_tpu_torch.interop\n"
         "import cpprob_tpu_torch.ops.fused_hmm, cpprob_tpu_torch.util.profiling\n"
+        "import cpprob_tpu_torch.ops.fused_lg, cpprob_tpu_torch.ops.stream_resample\n"
+        "import cpprob_tpu_torch.models.linear_gaussian\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or "
         "m.startswith('cpprob_tpu.') for m in sys.modules if sys.modules[m])\n"
     )
