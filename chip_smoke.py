@@ -36,12 +36,35 @@ and the script exits non-zero without printing its last line:
    the launch counts; timings (kernel vs plain, the epoch flagged and
    unflagged, sweep time) and a profile of 8 back-to-back LG sweeps
    (``chiprun_out/lg_sweep_trace.json``);
-5. one JSON line on the seven kernels, the card line, and the result line
-   ``{"ok": true, "device": {...}}``.
+5. the kernel-from-spec family (``spec_phases``): K9 and K8 against their
+   plain versions for K = 5 at 2^24 (8- and 16-slot chunks), K = 12 and 32
+   at 2^20 (4-slot chunks) and K = 1, the flag off and on, n_valid short,
+   the island check forced, at 0.5 and at 0.0; K4 and K5 (one-step
+   launches of the chunk kernel behind the HMM's per-step hooks) against
+   ``hmm_chunk_plain`` at n_steps = 1; path 1,
+   ``build_smc_run(make_fused_discrete_ssm(5-state chain), 2^24,
+   chunk=8)`` on ``examples/kernel_bench.py``'s observations, and path 2,
+   the same with ``island_every=8`` and ``chunk=16``, for 16 sweeps each;
+   path 3, K = 12 and 32 at 2^20 (chunk 4, T = 12), path 4, the HMM per
+   step at 2^20 (``build_smc_run(..., chunk=1)``, K4, and ``smc()``, K5),
+   for 8 sweeps each; each against the exact forward recursion, with
+   launch counts and resamples; timings and a profile of path 1
+   (``chiprun_out/spec_sweep_trace.json``);
+6. the user-physics family (``user_phases``): Triton's Philox words against
+   ``ops/philox.py``; K10 (the LG physics, and a non-linear one) against
+   its plain version and against K7 on the same draws; K11 (the 2-D
+   linear-Gaussian model) against its plain version; path 5,
+   ``build_smc_run(attach_fused_scalar_kernels(linear_gaussian_ssm,
+   lg_step_elem), 2^24, chunk=8)`` for 16 sweeps against Kalman, path 6,
+   ``attach_fused_vector_kernels(2-D model, step, 2)`` at 2^20, chunk 4,
+   for 8 sweeps against the 2-D Kalman filter; timings;
+7. one JSON line on the thirteen kernel entries, the card line, and the
+   result line ``{"ok": true, "device": {...}}``.
 
 Every timed sweep runs under ``torch.cuda.set_sync_debug_mode("error")``:
 a sweep never waits on the host.  Launch counts are set to 0 just before
-each path's sweeps and read just after.
+each path's sweeps and read just after; launches made to compare a kernel
+with its plain version are not counted on the ``kernels`` line.
 It needs a CUDA device and never falls back to the CPU.
 """
 
@@ -150,32 +173,15 @@ def check_kernels(n=MAIN_N, seed=CHECK_SEED):
     main path's shapes (the chunk runs on the init kernel's population).
     Returns the largest |log_w| difference of each kernel (on the particles
     that must agree).  Raises on any disagreement."""
-    from cpprob_tpu_torch.ops.fused_hmm import (
-        ISLAND_SIZE,
-        hmm_chunk,
-        hmm_chunk_plain,
-        hmm_init,
-        hmm_init_plain,
-    )
+    from cpprob_tpu_torch.ops.fused_hmm import hmm_chunk, hmm_chunk_plain
 
     dev = torch.device("cuda")
     spec = _spec()
     K = spec.K
     obs = _observations(dev)
-    s_k, w_k, rec_k = hmm_init(seed, obs[0], n, spec)
-    s_p, w_p, rec_p = hmm_init_plain(seed, obs[0], n, spec)
-    _sync()
-    if not torch.equal(s_k, s_p):
-        raise AssertionError("init: states differ")
-    torch.testing.assert_close(w_k, w_p, rtol=1e-5, atol=0, msg="init: log_w")
-    _close_stats(rec_k, rec_p, n, "init")
-    errs = {"init": float((w_k - w_p).abs().max())}
-    print(f"check init n={n}: states equal, max|dlog_w|={errs['init']:.3g}")
-    del s_p, w_p
-
+    s_k, w_k, err = _check_init(seed, obs[0], n, spec, f"init n={n}")
+    errs = {"init": err, "chunk": 0.0}
     ys, n_valid = _main_chunk(obs)
-    errs["chunk"] = 0.0
-    n_isl = n // ISLAND_SIZE
     cases = []
     for flag in (0, 1):
         ctrl = torch.tensor([flag, n // 3, 2 * n // 3, int(n_valid)],
@@ -185,7 +191,7 @@ def check_kernels(n=MAIN_N, seed=CHECK_SEED):
               f"{margin:.3g} of it")
         cases += [(ctrl, 0, 0.5, None), (ctrl, ISLAND_EVERY, 2.0, 1.0),
                   (ctrl, ISLAND_EVERY, 0.5, None), (ctrl, ISLAND_EVERY, 0.0, 0.0),
-                  (ctrl, ISLAND_EVERY, split, "split")]
+                  (ctrl, ISLAND_EVERY, split, "splits")]
     # n_valid 8: the t = 7 check sees t + 1 = n_valid and must not fire
     ctrl = torch.tensor([0, n // 3, 2 * n // 3, ISLAND_EVERY],
                         dtype=torch.int32, device=dev)
@@ -193,34 +199,14 @@ def check_kernels(n=MAIN_N, seed=CHECK_SEED):
 
     for ctrl, island_every, thresh, want in cases:
         kw = dict(t0=1, island_every=island_every, island_thresh=thresh)
-        ok, ow, orec = hmm_chunk(seed, s_k, w_k, ys, ctrl, spec, **kw)
-        pk, pw, prec = hmm_chunk_plain(seed, s_k, w_k, ys, ctrl, spec, **kw)
+        out_k = hmm_chunk(seed, s_k, w_k, ys, ctrl, spec, **kw)
+        out_p = hmm_chunk_plain(seed, s_k, w_k, ys, ctrl, spec, **kw)
         _sync()
         what = (f"chunk n={n} flag={int(ctrl[0])} n_valid={int(ctrl[-1])}/"
                 f"{ys.shape[0]} island_every={island_every} thresh={thresh:.6g}")
-        counts = orec[:, -1]
-        if not torch.equal(counts, prec[:, -1]):
-            raise AssertionError(f"{what}: interior resample counts differ")
-        fired = float(counts.mean())
-        if want == "split":
-            if not 0.0 < fired < 1.0:
-                raise AssertionError(f"{what}: the islands did not split")
-        elif want is not None and fired != want:
-            raise AssertionError(f"{what}: {fired} resamples per island, "
-                                 f"expected {want}")
-        # a fired check may place up to K-1 slots differently (its ticks
-        # come from sums taken in another order); nothing else may differ
-        close = torch.isclose(ow, pw, rtol=1e-5, atol=0)
-        bad = (ok != pk) | ~close
-        per_isl = bad.view(n_isl, ISLAND_SIZE).sum(1)
-        if bool((per_isl > (K - 1) * counts).any()):
-            raise AssertionError(f"{what}: {int(bad.sum())} particles differ")
-        _close_stats(orec, prec, n, what)
-        err = float((ow - pw).abs()[~bad].max())
-        errs["chunk"] = max(errs["chunk"], err)
-        print(f"check {what}: {int(bad.sum())} slots differ, "
-              f"mean resamples/island={fired:.4f}, max|dlog_w|={err:.3g}")
-        del ok, ow, pk, pw, close, bad
+        errs["chunk"] = max(errs["chunk"], _compare_chunk(out_k, out_p, K, n,
+                                                          what, want))
+        del out_k, out_p
     return errs
 
 
@@ -380,52 +366,6 @@ def check_lg_kernels(n=LG_N, seed=CHECK_SEED):
     return errs
 
 
-def run_lg_path(run, obs, sweeps, counters, what):
-    """``sweeps`` sweeps of ``run`` under sync-debug "error", with the
-    launch counters set to 0 just before and read just after; checks logZ
-    against the Kalman filter and at least one resample epoch in every
-    sweep.  Returns (launches, times)."""
-    import numpy as np
-
-    from cpprob_tpu_torch.models.linear_gaussian import (
-        kalman_filter_1d,
-        simulate_observations,
-    )
-
-    run(40_000, obs)
-    _sync()
-    for c in counters:
-        for name in c:
-            c[name] = 0
-    times, results = [], []
-    for i in range(sweeps):
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            res = run(i, obs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        _sync()
-        times.append(time.perf_counter() - t0)
-        results.append(res)
-    launches = {name: v for c in counters for name, v in c.items()}
-    zs = torch.stack([r.log_evidence for r in results]).cpu().numpy()
-    epochs = torch.stack([r.resampled for r in results]).sum(1).cpu().numpy()
-    exact = kalman_filter_1d(simulate_observations(LG_T, 0))[2]
-    if not np.isfinite(zs).all():
-        raise AssertionError(f"{what}: non-finite logZ {zs}")
-    mean, se = float(zs.mean()), float(zs.std(ddof=1) / math.sqrt(sweeps))
-    tol = 4 * se + 0.02
-    print(f"{what}: mean logZ={mean:.6f} SE={se:.3g} kalman={exact:.6f} "
-          f"tol={tol:.4f}; resample epochs per sweep {epochs.tolist()}; "
-          f"launches {launches}")
-    if abs(mean - exact) > tol:
-        raise AssertionError(f"{what}: logZ outside 4 SE + 0.02 of Kalman")
-    if not (epochs >= 1).all():
-        raise AssertionError(f"{what}: a sweep ran no resample epoch")
-    return launches, times
-
-
 def profile_sweeps(run, obs, card, sweeps=8, trace="sweep_trace.json"):
     """torch.profiler over ``sweeps`` back-to-back sweeps of ``run``: the
     trace goes to chiprun_out/``trace``; prints the device time by kernel
@@ -489,8 +429,6 @@ def build_kernels(stages):
 def hmm_phases(card, stages):
     """The HMM main path: kernel checks, the multi-chunk sweep, 16 sweeps
     of the main path, timings and the profile.  Returns the kernel lines."""
-    import numpy as np
-
     from cpprob_tpu_torch import build_smc_run
     from cpprob_tpu_torch.models import hmm_log_evidence, simulate_observations
     from cpprob_tpu_torch.ops import fused_hmm
@@ -512,41 +450,16 @@ def hmm_phases(card, stages):
     run = build_smc_run(model, MAIN_N, ess_threshold=0.5,
                         resampling="systematic", store_history=False,
                         chunk=CHUNK)
-    run(10_000, obs)
-    _sync()
-    for name in fused_hmm.LAUNCHES:
-        fused_hmm.LAUNCHES[name] = 0
-    island_counts.clear()
-    times, log_zs = [], []
-    for i in range(SWEEPS):
-        t0 = time.perf_counter()
-        # a sweep never waits on the host: any synchronising call raises
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            res = run(i, obs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        _sync()
-        times.append(time.perf_counter() - t0)
-        log_zs.append(res.log_evidence)
-    launches = dict(fused_hmm.LAUNCHES)
-    sweep_counts = torch.stack(island_counts)
-    zs = torch.stack(log_zs).cpu().numpy()
-    if not np.isfinite(zs).all():
-        raise AssertionError(f"non-finite logZ: {zs}")
-    mean, se = float(zs.mean()), float(zs.std(ddof=1) / math.sqrt(SWEEPS))
-    tol = 4 * se + 0.02
-    print(f"main path n={MAIN_N} T={T} chunk={CHUNK} island_every={ISLAND_EVERY} "
-          f"island_size={fused_hmm.ISLAND_SIZE}: mean logZ={mean:.6f} "
-          f"SE={se:.3g} exact={exact:.6f} tol={tol:.4f}")
-    if abs(mean - exact) > tol:
-        raise AssertionError("main path logZ outside 4 SE + 0.02 of exact")
+    with stages.stage("main_path", sync=True):
+        launches, times, _ = run_path(
+            run, obs, SWEEPS, (fused_hmm.LAUNCHES,), exact,
+            f"main path n={MAIN_N} T={T} chunk={CHUNK} island_every="
+            f"{ISLAND_EVERY} island_size={fused_hmm.ISLAND_SIZE}",
+            epochs_each=False)
     n_chunks = -(-(T - 1) // CHUNK)
-    if launches != {"init": SWEEPS, "chunk": SWEEPS * n_chunks}:
-        raise AssertionError(f"launch counts {launches}")
-    print(f"launches over {SWEEPS} sweeps: {launches}")
-    if sweep_counts.shape != (SWEEPS * n_chunks, MAIN_N // fused_hmm.ISLAND_SIZE):
-        raise AssertionError(f"island counts of shape {tuple(sweep_counts.shape)}")
+    _expect(launches, {"init": SWEEPS, "chunk": SWEEPS * n_chunks}, "main path")
+    # the warm-up sweep's launch comes first
+    sweep_counts = torch.stack(island_counts[-SWEEPS * n_chunks:])
     resamples = float(sweep_counts.mean())
     print(f"interior resamples per island per sweep, over the {SWEEPS} "
           f"main-path sweeps (mean): {resamples:.4f}")
@@ -607,6 +520,10 @@ def lg_phases(card, stages):
     LG main path (chunk 8), 8 sweeps of the per-step path (2^20), timings
     and the profile.  Returns the kernel lines."""
     from cpprob_tpu_torch import build_smc_run
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        kalman_filter_1d,
+        simulate_observations,
+    )
     from cpprob_tpu_torch.ops import fused_lg
     from cpprob_tpu_torch.ops import stream_resample as sr
 
@@ -618,27 +535,23 @@ def lg_phases(card, stages):
     counters = (fused_lg.LAUNCHES, sr.LAUNCHES)
     run = build_smc_run(model, LG_N, ess_threshold=0.5,
                         resampling="systematic", chunk=LG_CHUNK)
+    exact = kalman_filter_1d(simulate_observations(LG_T, 0))[2]
     with stages.stage("lg_main_path", sync=True):
-        launches, times = run_lg_path(
-            run, obs, SWEEPS, counters,
+        launches, times, _ = run_path(
+            run, obs, SWEEPS, counters, exact,
             f"LG main path n={LG_N} T={LG_T} chunk={LG_CHUNK}")
-    n_chunks = -(-(LG_T - 1) // LG_CHUNK)
-    want = {"chunk": SWEEPS * n_chunks, "step": 0, "lse_stats": SWEEPS * n_chunks,
-            "pass1": SWEEPS * n_chunks, "pass2": SWEEPS * n_chunks}
-    if launches != want:
-        raise AssertionError(f"LG launch counts {launches}, expected {want}")
+    n = SWEEPS * -(-(LG_T - 1) // LG_CHUNK)
+    _expect(launches, {"chunk": n, "lse_stats": n, "pass1": n, "pass2": n},
+            "LG main path")
     run1 = build_smc_run(model, LG_STEP_N, ess_threshold=0.5,
                          resampling="systematic", chunk=1)
     with stages.stage("lg_step_path", sync=True):
-        step_launches, step_times = run_lg_path(
-            run1, obs, LG_STEP_SWEEPS, counters,
+        step_launches, step_times, _ = run_path(
+            run1, obs, LG_STEP_SWEEPS, counters, exact,
             f"LG per-step path n={LG_STEP_N} T={LG_T} chunk=1")
-    n_steps = LG_T - 1
-    want = {"chunk": 0, "step": LG_STEP_SWEEPS * n_steps,
-            "lse_stats": LG_STEP_SWEEPS * n_steps,
-            "pass1": LG_STEP_SWEEPS * n_steps, "pass2": LG_STEP_SWEEPS * n_steps}
-    if step_launches != want:
-        raise AssertionError(f"per-step launch counts {step_launches}, expected {want}")
+    n = LG_STEP_SWEEPS * (LG_T - 1)
+    _expect(step_launches, {"step": n, "lse_stats": n, "pass1": n, "pass2": n},
+            "LG per-step path")
 
     sweep_s = statistics.median(times)
     print(f"[{card}] LG median sweep {sweep_s * 1e3:.3f} ms, "
@@ -720,6 +633,709 @@ def lg_phases(card, stages):
     ]
 
 
+# ---------------------------------------------------------------------------
+# the kernel-from-spec family: K8/K9 (spec chains), K4/K5 (per-step HMM
+# launches), K10/K11 (user physics, Triton)
+
+TRANS5 = [[0.50, 0.20, 0.10, 0.10, 0.10],
+          [0.05, 0.60, 0.20, 0.10, 0.05],
+          [0.10, 0.10, 0.40, 0.30, 0.10],
+          [0.20, 0.05, 0.05, 0.50, 0.20],
+          [0.10, 0.10, 0.10, 0.10, 0.60]]
+MEANS5 = [-2.0, -1.0, 0.0, 1.0, 2.0]
+STDS5 = [0.5, 1.0, 0.7, 1.2, 0.9]
+INIT5 = [0.3, 0.1, 0.2, 0.2, 0.2]
+SPEC_N = 1 << 24          # paths 1 and 2 (examples/kernel_bench.py --n 24)
+SPEC_CHUNK = 8
+SPEC_ISLAND_CHUNK = 16
+BIGK_N = 1 << 20          # path 3 (tests/test_tpu_hw.py:42-66)
+BIGK_T = 12
+BIGK_CHUNK = 4
+STEP_N = 1 << 20          # path 4
+USER_N = 1 << 24          # path 5
+VEC_N = 1 << 20           # path 6
+VEC_CHUNK = 4
+SHORT_SWEEPS = 8
+HALF_LOG_2PI = 0.9189385332046727
+# the 2-D linear-Gaussian model of tests/test_vector_ssm.py:19-60
+A2 = [[0.9, 0.1], [0.0, 0.8]]
+H2 = [1.0, 1.0]
+
+
+def lg_step_elem(x, y, eps):
+    """The linear-Gaussian physics of examples/kernel_bench.py:150-153."""
+    nx = x + eps
+    d = y - nx
+    return nx, -0.5 * d * d - HALF_LOG_2PI
+
+
+def lg2d_step_elem(x0, x1, y, e0, e1):
+    """The 2-D linear-Gaussian physics of tests/test_tpu_hw.py:176-181."""
+    n0 = 0.9 * x0 + 0.1 * x1 + e0
+    n1 = 0.8 * x1 + e1
+    d = y - (n0 + n1)
+    return n0, n1, -0.5 * d * d - HALF_LOG_2PI
+
+
+def _chain(K):
+    """The 5-state chain of examples/kernel_bench.py:31-42, or the K-state
+    recipe of tests/test_tpu_hw.py:52-59 (Dirichlet rows from
+    default_rng(K), evenly spaced means and stds, uniform start)."""
+    import numpy as np
+
+    if K == 5:
+        return (np.array(TRANS5), np.array(MEANS5), np.array(STDS5),
+                np.array(INIT5))
+    rng = np.random.default_rng(K)
+    return (rng.dirichlet(np.ones(K), size=K), np.linspace(-3.0, 3.0, K),
+            np.linspace(0.5, 1.6, K), np.full(K, 1.0 / K))
+
+
+def _chain_obs(K, T, seed):
+    """Observations simulated from the chain with default_rng(seed), as
+    kernel_bench.py:112-118 and test_tpu_hw.py:31-39 make them."""
+    import numpy as np
+
+    trans, means, stds, init = _chain(K)
+    rng = np.random.default_rng(seed)
+    z = rng.choice(K, p=init)
+    ys = []
+    for _ in range(T):
+        ys.append(means[z] + stds[z] * rng.standard_normal())
+        z = rng.choice(K, p=trans[z])
+    return np.array(ys, np.float32)
+
+
+def _lg2d_obs(T=16, seed=4):
+    import numpy as np
+
+    A, H = np.array(A2), np.array(H2)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(2)
+    ys = []
+    for t in range(T):
+        if t > 0:
+            x = A @ x + rng.standard_normal(2)
+        ys.append(H @ x + rng.standard_normal())
+    return np.array(ys, np.float32)
+
+
+def kalman_2d_loglik(ys):
+    """Exact log p(y_{1:T}) of the 2-D model (float64 numpy; the oracle of
+    tests/test_vector_ssm.py:44-60)."""
+    import numpy as np
+
+    A, H = np.array(A2), np.array(H2)
+    m, P, Q, ll = np.zeros(2), np.eye(2), np.eye(2), 0.0
+    for t, y in enumerate(np.asarray(ys, np.float64)):
+        if t > 0:
+            m = A @ m
+            P = A @ P @ A.T + Q
+        S = H @ P @ H + 1.0
+        r = y - H @ m
+        ll += -0.5 * r * r / S - 0.5 * np.log(2 * np.pi * S)
+        K = P @ H / S
+        m = m + K * r
+        P = P - np.outer(K, H @ P)
+    return float(ll)
+
+
+def lg2d_model(device):
+    """The 2-D linear-Gaussian model with batched hooks, its tables on
+    ``device`` (a hook copies nothing from the host)."""
+    from cpprob_tpu_torch import StateSpaceModel
+
+    a_t = torch.tensor(A2, device=device).T.contiguous()
+    h = torch.tensor(H2, device=device)
+
+    def randn(key, shape):
+        return torch.randn(shape, generator=key, device=key.device)
+
+    def obs_logpdf(s, y, t):
+        d = y - s @ h
+        return -0.5 * d * d - HALF_LOG_2PI
+
+    return StateSpaceModel(
+        init_sample=lambda key: randn(key, (2,)),
+        init_logpdf=lambda s: torch.sum(-0.5 * s * s - HALF_LOG_2PI),
+        step_sample=lambda key, s, t: s @ a_t + randn(key, (2,)),
+        step_logpdf=lambda ns, s, t: torch.sum(-0.5 * (ns - s @ a_t) ** 2
+                                               - HALF_LOG_2PI),
+        obs_logpdf=obs_logpdf,
+        init_sample_batch=lambda key, n: randn(key, (n, 2)),
+        step_sample_batch=lambda key, s, t: s @ a_t + randn(key, s.shape),
+        obs_logpdf_batch=obs_logpdf,
+        vector_state_dim=2,
+    )
+
+
+def _compare_chunk(out_k, out_p, K, n, what, want):
+    """Kernel against plain chunk outputs: interior resample counts equal
+    (and as ``want`` says: None, a count, "fires", or "splits": some islands
+    but not all); a fired check may
+    place up to K-1 slots of its island differently (its ticks come from
+    sums in another order); every other state equal and log_w within 1e-5
+    relative.  Returns the max |dlog_w| elsewhere."""
+    from cpprob_tpu_torch.ops.fused_hmm import ISLAND_SIZE
+
+    ok, ow, orec = out_k
+    pk, pw, prec = out_p
+    counts = orec[:, -1]
+    if not torch.equal(counts, prec[:, -1]):
+        raise AssertionError(f"{what}: interior resample counts differ")
+    fired = float(counts.mean())
+    if want == "fires" and not fired > 0:
+        raise AssertionError(f"{what}: the island check never fired")
+    if want == "splits" and not 0.0 < fired < 1.0:
+        raise AssertionError(f"{what}: the islands did not split")
+    if isinstance(want, float) and fired != want:
+        raise AssertionError(f"{what}: {fired} resamples per island, "
+                             f"expected {want}")
+    bad = (ok != pk) | ~torch.isclose(ow, pw, rtol=1e-5, atol=0)
+    per_isl = bad.view(n // ISLAND_SIZE, ISLAND_SIZE).sum(1)
+    if bool((per_isl > (K - 1) * counts).any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} particles differ")
+    _close_stats(orec, prec, n, what)
+    err = float((ow - pw).abs()[~bad].max())
+    print(f"check {what}: {int(bad.sum())} slots differ, mean resamples/"
+          f"island={fired:.4f}, max|dlog_w|={err:.3g}")
+    return err
+
+
+def _check_init(seed, y0, n, spec, what):
+    """The init kernel against its plain version: states equal, log_w
+    within 1e-5 relative, records close.  Returns (states, log_w, max
+    |dlog_w|) of the kernel."""
+    from cpprob_tpu_torch.ops.fused_hmm import hmm_init, hmm_init_plain
+
+    s_k, w_k, rec_k = hmm_init(seed, y0, n, spec)
+    s_p, w_p, rec_p = hmm_init_plain(seed, y0, n, spec)
+    _sync()
+    if not torch.equal(s_k, s_p):
+        raise AssertionError(f"{what}: states differ")
+    torch.testing.assert_close(w_k, w_p, rtol=1e-5, atol=0, msg=f"{what}: log_w")
+    _close_stats(rec_k, rec_p, n, what)
+    err = float((w_k - w_p).abs().max())
+    print(f"check {what}: states equal, max|dlog_w|={err:.3g}")
+    return s_k, w_k, err
+
+
+def check_spec_kernels(n=SPEC_N, n_big=BIGK_N, seed=CHECK_SEED):
+    """K9 and K8 against their plain versions on the card: K = 5 at path 1
+    and 2's shapes (n, 8- and 16-slot chunks), K = 12 and 32 at path 3's
+    (n_big, 4-slot chunks), K = 1 once; the flag off and on, n_valid short,
+    the island check forced (2.0), at 0.5 and never firing (0.0).  States
+    equal, log_w within 1e-5 relative.  Returns the largest |dlog_w| of
+    each kernel; raises on any disagreement."""
+    from cpprob_tpu_torch.inference.smc import _chunk_observations
+    from cpprob_tpu_torch.interop import spec_from_numpy
+    from cpprob_tpu_torch.ops.fused_hmm import hmm_chunk, hmm_chunk_plain
+
+    dev = torch.device("cuda")
+    errs = {"spec_init": 0.0, "spec_chunk": 0.0}
+    for K, size in ((5, n), (12, n_big), (32, n_big), (1, n_big)):
+        spec = spec_from_numpy(*_chain(K)) if K > 1 else spec_from_numpy(
+            [[1.0]], [0.3], [1.2], [1.0])
+        T = 16 if K == 5 else BIGK_T
+        obs = torch.as_tensor(_chain_obs(max(K, 5), T, K if K > 1 else 0),
+                              device=dev)
+        s_k, w_k, err = _check_init(seed, obs[0], size, spec,
+                                    f"spec init K={K} n={size}")
+        errs["spec_init"] = max(errs["spec_init"], err)
+
+        chunk = SPEC_CHUNK if K == 5 else BIGK_CHUNK
+        ys, valid = _chunk_observations(obs, chunk)
+        ys0 = ys[0].contiguous()
+        ticks = [size * (k + 1) // K for k in range(K - 1)]
+        cases = []
+        for flag in (0, 1):
+            ctrl = torch.tensor([flag, *ticks, chunk], dtype=torch.int32, device=dev)
+            cases.append((ys0, ctrl, 0, 0.5, None))
+        ctrl = torch.tensor([0, *ticks, chunk - 1], dtype=torch.int32, device=dev)
+        cases.append((ys0, ctrl, 0, 0.5, None))
+        if K == 5:      # path 2's launch: 16 slots, 15 valid, island every 8
+            ys16, v16 = _chunk_observations(obs, SPEC_ISLAND_CHUNK)
+            isl_ys, isl_every = ys16[0].contiguous(), ISLAND_EVERY
+            isl_valid = int(v16[0])
+        else:           # a check after every second step of path 3's chunk
+            isl_ys, isl_every, isl_valid = ys0, 2, chunk
+        for flag in (0, 1):
+            ctrl = torch.tensor([flag, *ticks, isl_valid], dtype=torch.int32,
+                                device=dev)
+            cases += [(isl_ys, ctrl, isl_every, 2.0, "fires"),
+                      (isl_ys, ctrl, isl_every, 0.5, None),
+                      (isl_ys, ctrl, isl_every, 0.0, 0.0)]
+        for ys_c, ctrl, every, thresh, want in (cases[:1] if K == 1 else cases):
+            kw = dict(t0=1, island_every=every, island_thresh=thresh)
+            out_k = hmm_chunk(seed, s_k, w_k, ys_c, ctrl, spec, **kw)
+            out_p = hmm_chunk_plain(seed, s_k, w_k, ys_c, ctrl, spec, **kw)
+            _sync()
+            what = (f"spec chunk K={K} n={size} flag={int(ctrl[0])} n_valid="
+                    f"{int(ctrl[-1])}/{ys_c.shape[0]} island_every={every} "
+                    f"thresh={thresh}")
+            errs["spec_chunk"] = max(errs["spec_chunk"], _compare_chunk(
+                out_k, out_p, K, size, what, want))
+            del out_k, out_p
+    return errs
+
+
+def check_step_kernels(n=STEP_N, seed=CHECK_SEED):
+    """K4 and K5, the one-step launches behind the HMM's per-step hooks,
+    against ``hmm_chunk_plain`` at n_steps = 1 on the card (the same
+    absolute step t0 = 5): K4 with the flag off and on, K5 with flag 0.
+    States equal, log_w within 1e-5 relative (the same float32 operations
+    in the same order: equal in practice).  Returns the largest |dlog_w|."""
+    from cpprob_tpu_torch.ops import fused_hmm
+
+    dev = torch.device("cuda")
+    spec = _spec()
+    model = fused_hmm.make_fused_hmm_ssm(spec=spec)
+    obs = _observations(dev)
+    s0, w0, _ = fused_hmm.hmm_init(seed, obs[0], n, spec)
+    ticks = torch.tensor([n // 3, 2 * n // 3], dtype=torch.int32, device=dev)
+    errs = {"step_exchange": 0.0, "step_ess": 0.0}
+    for flag in (0, 1):
+        f = torch.tensor(flag, dtype=torch.int32, device=dev)
+        s_k, w_k, ess_k, cat_k, lme_k = model.fused_step_exchange_batch(
+            seed, s0, w0, obs[5], 5, f, ticks)
+        ctrl = torch.tensor([flag, n // 3, 2 * n // 3, 1], dtype=torch.int32,
+                            device=dev)
+        s_p, w_p, rec_p = fused_hmm.hmm_chunk_plain(
+            seed, s0, w0, obs[5].reshape(1), ctrl, spec, t0=5)
+        _sync()
+        if not torch.equal(s_k, s_p):
+            raise AssertionError(f"K4 flag={flag}: states differ")
+        torch.testing.assert_close(w_k, w_p, rtol=1e-5, atol=0,
+                                   msg=f"K4 flag={flag}: log_w")
+        ess_p, cat_p, lme_p = fused_hmm.stats_from_partials(rec_p, n)
+        torch.testing.assert_close(ess_k, ess_p, rtol=1e-4, atol=0)
+        torch.testing.assert_close(cat_k, cat_p, rtol=0, atol=1e-4)
+        torch.testing.assert_close(lme_k, lme_p, rtol=1e-4, atol=0)
+        err = float((w_k - w_p).abs().max())
+        errs["step_exchange"] = max(errs["step_exchange"], err)
+        print(f"check K4 (one-step exchange launch) n={n} flag={flag}: states "
+              f"equal, max|dlog_w|={err:.3g}, bit-equal={torch.equal(w_k, w_p)}")
+    s_k, w_k, ess_k = model.fused_step_ess_batch(seed, s0, w0, obs[5], 5)
+    ctrl = torch.tensor([0, 0, 0, 1], dtype=torch.int32, device=dev)
+    s_p, w_p, rec_p = fused_hmm.hmm_chunk_plain(
+        seed, s0, w0, obs[5].reshape(1), ctrl, spec, t0=5)
+    _sync()
+    if not torch.equal(s_k, s_p):
+        raise AssertionError("K5: states differ")
+    torch.testing.assert_close(w_k, w_p, rtol=1e-5, atol=0, msg="K5: log_w")
+    torch.testing.assert_close(ess_k, fused_hmm.stats_from_partials(rec_p, n)[0],
+                               rtol=1e-4, atol=0)
+    errs["step_ess"] = float((w_k - w_p).abs().max())
+    print(f"check K5 (one-step launch with ESS) n={n}: states equal, "
+          f"max|dlog_w|={errs['step_ess']:.3g}, bit-equal={torch.equal(w_k, w_p)}")
+    return errs
+
+
+def check_user_kernels(n=USER_N, n_vec=VEC_N, seed=CHECK_SEED):
+    """The Triton kernels against their plain versions on the card: Triton's
+    Philox words against ops/philox.py; K10 with the LG physics (t0 1, 2
+    and 9; n_valid 8 and 7) and its one-step launch, within 1e-5 (relative,
+    and absolute on the unit scale of the states: the precise libdevice
+    functions and torch's may differ in the last bit); K10 with the LG
+    physics against K7 (lg_chunk) on the same draws, within 1e-5; K10 with
+    a non-linear physics (sin, tanh) within 1e-3 (x' = 0.7x + 2 sin x can
+    grow a last-bit difference ~2.7-fold a step over 8 steps); K11 (D = 2,
+    t0 1 and 2) within 1e-5.  Returns the largest |dlog_w| of each."""
+    from cpprob_tpu_torch.ops import elem, fused_lg, triton_ssm
+    from cpprob_tpu_torch.ops.philox import philox4x32, split_seed
+
+    def growth_step_elem(x, y, eps):
+        # a non-linear physics (sin, tanh, minimum)
+        nx = 0.7 * x + 2.0 * elem.sin(x) + 0.5 * eps
+        d = (y - elem.minimum(elem.tanh(nx), 2.0)) / 0.6
+        return nx, -0.5 * d * d - HALF_LOG_2PI
+
+    dev = torch.device("cuda")
+    k0, k1 = split_seed(seed)
+    words = triton_ssm.philox_words(seed, 1 << 16, 7, 3, dev)
+    ref = torch.stack(philox4x32(torch.arange(1 << 16, device=dev), 7, 3, 0,
+                                 k0, k1), 1)
+    _sync()
+    if not torch.equal(words, ref):
+        raise AssertionError("tl.philox differs from ops/philox.py")
+    print("check tl.philox: 2^16 x 4 words equal to ops/philox.py")
+
+    obs = _lg_obs(dev)
+    x0, w0 = _lg_population(n, seed, obs)
+    ys, _ = _lg_chunks(obs)
+    errs = {"scalar": 0.0, "vector": 0.0, "scalar_vs_lg": 0.0}
+    eight = torch.full((), LG_CHUNK, dtype=torch.int32, device=dev)
+    seven = torch.full((), LG_CHUNK - 1, dtype=torch.int32, device=dev)
+    lg_k = triton_ssm.UserKernel(lg_step_elem, 1)
+    growth_k = triton_ssm.UserKernel(growth_step_elem, 1)
+    for t0, ys_c in ((1, ys[0]), (2, ys[0]), (9, ys[1])):
+        for n_valid in (eight, seven):
+            out_k = lg_k.chunk(seed, x0, w0, ys_c, n_valid, t0=t0)
+            out_p = triton_ssm.user_chunk_plain(lg_step_elem, 1, seed, x0, w0,
+                                                ys_c, n_valid, t0=t0)
+            out_7 = fused_lg.lg_chunk(seed, x0, w0, ys_c, n_valid, t0=t0)
+            _sync()
+            what = f"K10 (LG physics) n={n} t0={t0} n_valid={int(n_valid)}/{LG_CHUNK}"
+            for a, b, tag in ((out_k, out_p, "plain"), (out_k, out_7, "K7")):
+                torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-5,
+                                           msg=f"{what} vs {tag}: states")
+                torch.testing.assert_close(a[1], b[1], rtol=1e-5, atol=1e-5,
+                                           msg=f"{what} vs {tag}: log_w")
+                _close_stats(a[2], b[2], n, f"{what} vs {tag}")
+            e_p = float((out_k[1] - out_p[1]).abs().max())
+            e_7 = float((out_k[1] - out_7[1]).abs().max())
+            errs["scalar"] = max(errs["scalar"], e_p)
+            errs["scalar_vs_lg"] = max(errs["scalar_vs_lg"], e_7)
+            print(f"check {what}: max|dlog_w| vs plain {e_p:.3g} (states "
+                  f"{float((out_k[0] - out_p[0]).abs().max()):.3g}), vs K7 "
+                  f"{e_7:.3g}, bit-equal to K7: {torch.equal(out_k[0], out_7[0]) and torch.equal(out_k[1], out_7[1])}")
+            del out_k, out_p, out_7
+    out_k = lg_k.chunk(seed, x0, w0, obs[1].reshape(1), t0=1, step=True)
+    out_p = triton_ssm.user_chunk_plain(lg_step_elem, 1, seed, x0, w0,
+                                        obs[1].reshape(1), t0=1)
+    _sync()
+    torch.testing.assert_close(out_k[1], out_p[1], rtol=1e-5, atol=1e-5,
+                               msg="K10 one-step launch: log_w")
+    out_k = growth_k.chunk(seed, x0, w0, ys[0], eight, t0=1)
+    out_p = triton_ssm.user_chunk_plain(growth_step_elem, 1, seed, x0, w0,
+                                        ys[0], eight, t0=1)
+    _sync()
+    torch.testing.assert_close(out_k[0], out_p[0], rtol=1e-3, atol=1e-3,
+                               msg="K10 (growth physics): states")
+    torch.testing.assert_close(out_k[1], out_p[1], rtol=1e-3, atol=1e-3,
+                               msg="K10 (growth physics): log_w")
+    print(f"check K10 (growth physics) n={n}: max|dx|="
+          f"{float((out_k[0] - out_p[0]).abs().max()):.3g} max|dlog_w|="
+          f"{float((out_k[1] - out_p[1]).abs().max()):.3g}")
+    del out_k, out_p, x0, w0
+
+    vobs = torch.as_tensor(_lg2d_obs(), device=dev)
+    vys, _ = _chunk_obs(vobs, VEC_CHUNK)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = lg2d_model(dev)
+    xv = model.init_sample_batch(gen, n_vec)
+    wv = model.obs_logpdf_batch(xv, vobs[0], 0)
+    vec_k = triton_ssm.UserKernel(lg2d_step_elem, 2)
+    four = torch.full((), VEC_CHUNK, dtype=torch.int32, device=dev)
+    for t0 in (1, 2):
+        out_k = vec_k.chunk(seed, xv, wv, vys[0], four, t0=t0)
+        out_p = triton_ssm.user_chunk_plain(lg2d_step_elem, 2, seed, xv, wv,
+                                            vys[0], four, t0=t0)
+        _sync()
+        what = f"K11 (D=2) n={n_vec} t0={t0}"
+        torch.testing.assert_close(out_k[0], out_p[0], rtol=1e-5, atol=1e-5,
+                                   msg=f"{what}: states")
+        torch.testing.assert_close(out_k[1], out_p[1], rtol=1e-5, atol=1e-5,
+                                   msg=f"{what}: log_w")
+        _close_stats(out_k[2], out_p[2], n_vec, what)
+        err = float((out_k[1] - out_p[1]).abs().max())
+        errs["vector"] = max(errs["vector"], err)
+        print(f"check {what}: max|dx|={float((out_k[0] - out_p[0]).abs().max()):.3g} "
+              f"max|dlog_w|={err:.3g}")
+    return errs
+
+
+def _chunk_obs(obs, chunk):
+    from cpprob_tpu_torch.inference.smc import _chunk_observations
+
+    ys, valid = _chunk_observations(obs, chunk)
+    return [y.contiguous() for y in ys], valid
+
+
+def run_path(run, obs, sweeps, counters, exact, what, *, epochs_each=True):
+    """``sweeps`` sweeps of ``run`` under sync-debug "error", the launch
+    counters set to 0 just before and read just after; logZ against
+    ``exact`` within 4 SE + 0.02 and, with ``epochs_each``, at least one
+    resample in every sweep.  Returns (launches, times, results)."""
+    import numpy as np
+
+    run(40_000, obs)
+    _sync()
+    for c in counters:
+        for name in c:
+            c[name] = 0
+    times, results = [], []
+    for i in range(sweeps):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = run(i, obs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _sync()
+        times.append(time.perf_counter() - t0)
+        results.append(res)
+    launches = {name: v for c in counters for name, v in c.items() if v}
+    zs = torch.stack([r.log_evidence for r in results]).cpu().numpy()
+    epochs = torch.stack([r.resampled for r in results]).sum(1).cpu().numpy()
+    if not np.isfinite(zs).all():
+        raise AssertionError(f"{what}: non-finite logZ {zs}")
+    mean, se = float(zs.mean()), float(zs.std(ddof=1) / math.sqrt(sweeps))
+    tol = 4 * se + 0.02
+    print(f"{what}: mean logZ={mean:.6f} SE={se:.3g} exact={exact:.6f} "
+          f"tol={tol:.4f}; resamples per sweep {epochs.tolist()}; launches "
+          f"{launches}; median sweep {statistics.median(times) * 1e3:.3f} ms "
+          "(host clock, synced)")
+    if abs(mean - exact) > tol:
+        raise AssertionError(f"{what}: logZ outside 4 SE + 0.02 of exact")
+    if epochs_each and not (epochs >= 1).all():
+        raise AssertionError(f"{what}: a sweep never resampled")
+    return launches, times, results
+
+
+def _expect(launches, want, what):
+    if launches != want:
+        raise AssertionError(f"{what}: launch counts {launches}, expected {want}")
+
+
+def spec_phases(card, stages):
+    """The kernel-from-spec family: kernel checks (K9, K8, K4, K5), paths 1
+    to 4, timings and the profile of path 1.  Returns the kernel lines."""
+    from cpprob_tpu_torch import build_smc_run, smc
+    from cpprob_tpu_torch.interop import spec_from_numpy
+    from cpprob_tpu_torch.models import hmm_log_evidence, simulate_observations
+    from cpprob_tpu_torch.ops import fused_hmm
+    from cpprob_tpu_torch.ops.fused_ssm import (
+        discrete_hmm_log_evidence,
+        make_fused_discrete_ssm,
+    )
+
+    dev = torch.device("cuda")
+    with stages.stage("spec_kernel_vs_plain", sync=True):
+        errs = check_spec_kernels()
+        errs.update(check_step_kernels())
+    counters = (fused_hmm.LAUNCHES,)
+    launches = {}
+
+    # paths 1 and 2: kernel_bench's 5-state chain at 2^24
+    ys5 = _chain_obs(5, T, 0)
+    exact5 = discrete_hmm_log_evidence(*_chain(5), ys5)
+    obs5 = torch.as_tensor(ys5, device=dev)
+    m5 = make_fused_discrete_ssm(*_chain(5))
+    run1 = build_smc_run(m5, SPEC_N, chunk=SPEC_CHUNK)
+    with stages.stage("spec_path1", sync=True):
+        got, times1, _ = run_path(run1, obs5, SWEEPS, counters, exact5,
+                                  f"path 1: spec chain K=5 n={SPEC_N} T={T} chunk={SPEC_CHUNK}")
+    n_ch = -(-(T - 1) // SPEC_CHUNK)
+    _expect(got, {"init": SWEEPS, "chunk": SWEEPS * n_ch}, "path 1")
+    launches["init"] = got["init"]
+    launches["chunk"] = got["chunk"]
+    island_counts = []
+    run2 = build_smc_run(make_fused_discrete_ssm(
+        *_chain(5), island_every=ISLAND_EVERY, island_counts=island_counts),
+        SPEC_N, chunk=SPEC_ISLAND_CHUNK)
+    with stages.stage("spec_path2", sync=True):
+        island_counts.clear()
+        got, _, _ = run_path(run2, obs5, SWEEPS, counters, exact5,
+                             f"path 2: spec chain K=5 n={SPEC_N} chunk={SPEC_ISLAND_CHUNK} "
+                             f"island_every={ISLAND_EVERY}", epochs_each=False)
+    _expect(got, {"init": SWEEPS, "chunk": SWEEPS}, "path 2")
+    interior = float(torch.stack(island_counts[-SWEEPS:]).mean())
+    print(f"path 2: interior resamples per island per sweep (mean) {interior:.4f}")
+    if not interior > 0:
+        raise AssertionError("path 2: the interior island check never fired")
+    launches["chunk"] += got["chunk"]
+    launches["init"] += got["init"]
+
+    # path 3: K = 12 and 32 at 2^20
+    for K in (12, 32):
+        ysk = _chain_obs(K, BIGK_T, K)
+        runk = build_smc_run(make_fused_discrete_ssm(*_chain(K)), BIGK_N,
+                             chunk=BIGK_CHUNK)
+        with stages.stage(f"spec_path3_K{K}", sync=True):
+            got, _, _ = run_path(runk, torch.as_tensor(ysk, device=dev),
+                                 SHORT_SWEEPS, counters,
+                                 discrete_hmm_log_evidence(*_chain(K), ysk),
+                                 f"path 3: K={K} n={BIGK_N} T={BIGK_T} chunk={BIGK_CHUNK}")
+        _expect(got, {"init": SHORT_SWEEPS,
+                      "chunk": SHORT_SWEEPS * -(-(BIGK_T - 1) // BIGK_CHUNK)},
+                f"path 3 K={K}")
+        launches["init"] += got["init"]
+        launches["chunk"] += got["chunk"]
+
+    # path 4: the HMM's per-step launches
+    obs = _observations(dev)
+    exact = hmm_log_evidence(simulate_observations(T, 0))
+    hmm = fused_hmm.make_fused_hmm_ssm(spec=_spec())
+    run4 = build_smc_run(hmm, STEP_N)
+    with stages.stage("step_path_exchange", sync=True):
+        got, times4, _ = run_path(run4, obs, SHORT_SWEEPS, counters, exact,
+                                  f"path 4: HMM chunk=1 (K4) n={STEP_N}")
+    _expect(got, {"step_exchange": SHORT_SWEEPS * (T - 1)}, "path 4 (K4)")
+    launches["step_exchange"] = got["step_exchange"]
+    run5 = lambda seed, o: smc(hmm, o, STEP_N, seed)
+    with stages.stage("step_path_smc", sync=True):
+        got, times5, res5 = run_path(run5, obs, SHORT_SWEEPS, counters, exact,
+                                     f"path 4: HMM smc() with history (K5) n={STEP_N}")
+    _expect(got, {"step_ess": SHORT_SWEEPS * (T - 1)}, "path 4 (K5)")
+    if res5[0].states.shape != (T, STEP_N):
+        raise AssertionError("smc() history of the wrong shape")
+    launches["step_ess"] = got["step_ess"]
+
+    # timings at the paths' shapes
+    seed = CHECK_SEED
+    spec5 = spec_from_numpy(*_chain(5))
+    s0, w0, _ = fused_hmm.hmm_init(seed, obs5[0], SPEC_N, spec5)
+    ys, valid = _chunk_obs(obs5, SPEC_CHUNK)
+    ctrl = torch.tensor([0, *[SPEC_N * (k + 1) // 5 for k in range(4)], int(valid[0])],
+                        dtype=torch.int32, device=dev)
+    # the one-step launches as the hooks make them (the hooks' ctrl and
+    # statistics glue are not timed): K4 with the flag and ticks live, K5
+    # with flag 0
+    spec3 = _spec()
+    sh, wh, _ = fused_hmm.hmm_init(seed, obs[0], STEP_N, spec3)
+    y5 = obs[5].reshape(1)
+    c4 = torch.tensor([1, STEP_N // 3, 2 * STEP_N // 3, 1], dtype=torch.int32, device=dev)
+    c1 = torch.tensor([0, 0, 0, 1], dtype=torch.int32, device=dev)
+    timing = {
+        "spec_init": (
+            _time_ms(lambda: fused_hmm.hmm_init(seed, obs5[0], SPEC_N, spec5), 10),
+            _time_ms(lambda: fused_hmm.hmm_init_plain(seed, obs5[0], SPEC_N, spec5), 2)),
+        "spec_chunk": (
+            _time_ms(lambda: fused_hmm.hmm_chunk(seed, s0, w0, ys[0], ctrl, spec5), 10),
+            _time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, s0, w0, ys[0], ctrl, spec5), 2)),
+        "step_exchange": (
+            _time_ms(lambda: fused_hmm.hmm_chunk(seed, sh, wh, y5, c4, spec3, t0=5,
+                                                 count_key="step_exchange"), 20),
+            _time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, sh, wh, y5, c4, spec3, t0=5), 4)),
+        "step_ess": (
+            _time_ms(lambda: fused_hmm.hmm_chunk(seed, sh, wh, y5, c1, spec3, t0=5,
+                                                 count_key="step_ess"), 20),
+            _time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, sh, wh, y5, c1, spec3, t0=5), 4)),
+    }
+    for name, (ms, plain_ms) in timing.items():
+        print(f"[{card}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    for K in (12, 32):
+        spec_k = spec_from_numpy(*_chain(K))
+        obs_k = torch.as_tensor(_chain_obs(K, BIGK_T, K), device=dev)
+        sk, wk, _ = fused_hmm.hmm_init(seed, obs_k[0], BIGK_N, spec_k)
+        ysk, _ = _chunk_obs(obs_k, BIGK_CHUNK)
+        ck = torch.tensor([0, *[BIGK_N * (k + 1) // K for k in range(K - 1)], BIGK_CHUNK],
+                          dtype=torch.int32, device=dev)
+        print(f"[{card}] spec chunk K={K} n={BIGK_N} {BIGK_CHUNK} steps: kernel "
+              f"{_time_ms(lambda: fused_hmm.hmm_chunk(seed, sk, wk, ysk[0], ck, spec_k), 10):.4f} ms, "
+              f"plain {_time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, sk, wk, ysk[0], ck, spec_k), 2):.4f} ms; "
+              f"init kernel {_time_ms(lambda: fused_hmm.hmm_init(seed, obs_k[0], BIGK_N, spec_k), 10):.4f} ms")
+    b2b = _time_ms(lambda: run1(20_000, obs5), SWEEPS)
+    print(f"[{card}] path 1 back-to-back sweeps: {b2b:.4f} ms each by CUDA events, "
+          f"{SPEC_N * T / (b2b * 1e-3):.6g} particle-steps/s; median synced sweep "
+          f"{statistics.median(times1) * 1e3:.3f} ms")
+    print(f"[{card}] path 4 back-to-back sweeps: chunk=1 (K4) "
+          f"{_time_ms(lambda: run4(21_000, obs), SHORT_SWEEPS):.4f} ms, smc() (K5) "
+          f"{_time_ms(lambda: run5(22_000, obs), SHORT_SWEEPS):.4f} ms")
+    with stages.stage("spec_profile", sync=True):
+        profile_sweeps(run1, obs5, card, trace="spec_sweep_trace.json")
+
+    src = "cpprob_tpu_torch/ops/csrc/fused_hmm.cu"
+
+    def line(name, key, replaces, n_launch):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": n_launch,
+                "max_abs_err": errs[key], "ms": timing[key][0],
+                "plain_ms": timing[key][1]}
+
+    return [
+        line("hmm_chunk_kernel (n_steps=1, flag and ticks live)", "step_exchange",
+             "cpprob_tpu/ops/pallas_hmm.py:103", launches["step_exchange"]),
+        line("hmm_chunk_kernel (n_steps=1, flag 0)", "step_ess",
+             "cpprob_tpu/ops/pallas_hmm.py:66", launches["step_ess"]),
+        line("hmm_chunk_kernel<K> / hmm_chunk_kernel_k (K = 5, 12, 32)", "spec_chunk",
+             "cpprob_tpu/ops/pallas_ssm.py:165", launches["chunk"]),
+        line("hmm_init_kernel<K> / hmm_init_kernel_k (K = 5, 12, 32)", "spec_init",
+             "cpprob_tpu/ops/pallas_ssm.py:331", launches["init"]),
+    ]
+
+
+def user_phases(card, stages):
+    """The user-physics family: kernel checks (K10, K11), paths 5 and 6,
+    timings.  Returns the kernel lines."""
+    from cpprob_tpu_torch import build_smc_run
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        kalman_filter_1d,
+        linear_gaussian_ssm,
+        simulate_observations,
+    )
+    from cpprob_tpu_torch.ops import stream_resample as sr
+    from cpprob_tpu_torch.ops import triton_ssm
+    from cpprob_tpu_torch.ops.fused_ssm import (
+        attach_fused_scalar_kernels,
+        attach_fused_vector_kernels,
+    )
+
+    dev = torch.device("cuda")
+    with stages.stage("user_kernel_vs_plain", sync=True):
+        errs = check_user_kernels()
+    obs = _lg_obs(dev)
+    exact = kalman_filter_1d(simulate_observations(LG_T, 0))[2]
+    run5 = build_smc_run(attach_fused_scalar_kernels(linear_gaussian_ssm,
+                                                     lg_step_elem),
+                         USER_N, chunk=LG_CHUNK)
+    with stages.stage("user_path5", sync=True):
+        got5, times5, _ = run_path(run5, obs, SWEEPS, (triton_ssm.LAUNCHES, sr.LAUNCHES),
+                                   exact, f"path 5: K10 (LG physics) n={USER_N} chunk={LG_CHUNK}")
+    n_ch = -(-(LG_T - 1) // LG_CHUNK)
+    _expect(got5, {"scalar": SWEEPS * n_ch, "lse_stats": SWEEPS * n_ch,
+                   "pass1": SWEEPS * n_ch, "pass2": SWEEPS * n_ch}, "path 5")
+    vys = _lg2d_obs()
+    vobs = torch.as_tensor(vys, device=dev)
+    run6 = build_smc_run(attach_fused_vector_kernels(lg2d_model(dev),
+                                                     lg2d_step_elem, 2),
+                         VEC_N, chunk=VEC_CHUNK)
+    with stages.stage("user_path6", sync=True):
+        got6, times6, res6 = run_path(run6, vobs, SHORT_SWEEPS, (triton_ssm.LAUNCHES,),
+                                      kalman_2d_loglik(vys),
+                                      f"path 6: K11 (2-D LG) n={VEC_N} chunk={VEC_CHUNK}")
+    _expect(got6, {"vector": SHORT_SWEEPS * -(-(len(vys) - 1) // VEC_CHUNK)}, "path 6")
+    if res6[0].final_states.shape != (VEC_N, 2):
+        raise AssertionError("path 6: final states of the wrong shape")
+
+    seed = CHECK_SEED
+    x0, w0 = _lg_population(USER_N, seed, obs)
+    ys, valid = _lg_chunks(obs)
+    lg_k = triton_ssm.UserKernel(lg_step_elem, 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = lg2d_model(dev)
+    xv = model.init_sample_batch(gen, VEC_N)
+    wv = model.obs_logpdf_batch(xv, vobs[0], 0)
+    vys_c, vvalid = _chunk_obs(vobs, VEC_CHUNK)
+    vec_k = triton_ssm.UserKernel(lg2d_step_elem, 2)
+    timing = {
+        "scalar": (
+            _time_ms(lambda: lg_k.chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
+            _time_ms(lambda: triton_ssm.user_chunk_plain(
+                lg_step_elem, 1, seed, x0, w0, ys[0], valid[0], t0=1), 2)),
+        "vector": (
+            _time_ms(lambda: vec_k.chunk(seed, xv, wv, vys_c[0], vvalid[0], t0=1), 10),
+            _time_ms(lambda: triton_ssm.user_chunk_plain(
+                lg2d_step_elem, 2, seed, xv, wv, vys_c[0], vvalid[0], t0=1), 2)),
+    }
+    from cpprob_tpu_torch.ops import fused_lg
+
+    k7_ms = _time_ms(lambda: fused_lg.lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10)
+    for name, (ms, plain_ms) in timing.items():
+        print(f"[{card}] {name} user kernel: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"[{card}] K10 (LG physics) {timing['scalar'][0]:.4f} ms against K7 "
+          f"{k7_ms:.4f} ms on the same chunk (n={USER_N}, 8 steps)")
+    b2b = _time_ms(lambda: run5(20_000, obs), SWEEPS)
+    print(f"[{card}] path 5 back-to-back sweeps: {b2b:.4f} ms each by CUDA events, "
+          f"{USER_N * LG_T / (b2b * 1e-3):.6g} particle-steps/s; path 6 "
+          f"{_time_ms(lambda: run6(21_000, vobs), SHORT_SWEEPS):.4f} ms")
+
+    src = "cpprob_tpu_torch/ops/triton_ssm.py"
+    return [
+        {"name": "user_chunk_kernel (D=1, LG physics)", "route": "triton",
+         "source": src, "replaces": "cpprob_tpu/ops/pallas_ssm.py:588",
+         "launches": got5["scalar"], "max_abs_err": errs["scalar"],
+         "ms": timing["scalar"][0], "plain_ms": timing["scalar"][1]},
+        {"name": "user_chunk_kernel (D=2, 2-D LG physics)", "route": "triton",
+         "source": src, "replaces": "cpprob_tpu/ops/pallas_ssm.py:730",
+         "launches": got6["vector"], "max_abs_err": errs["vector"],
+         "ms": timing["vector"][0], "plain_ms": timing["vector"][1]},
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -737,7 +1353,8 @@ def main():
     print("versions:", json.dumps(env_versions()))
     stages = StageTimer()
     build_kernels(stages)
-    kernels = hmm_phases(card, stages) + lg_phases(card, stages)
+    kernels = (hmm_phases(card, stages) + lg_phases(card, stages)
+               + spec_phases(card, stages) + user_phases(card, stages))
     print(stages.report())
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,5 @@
-"""Particle resampling — counterpart of ``cpprob_tpu/inference/resampling.py``
-(all but the vector-state epoch and ``morton_key``).  Every function is
+"""Particle resampling — counterpart of ``cpprob_tpu/inference/resampling.py``.
+Every function is
 tensor code with no host synchronisation; ``key`` arguments are
 ``torch.Generator`` objects on the population's device.
 
@@ -28,6 +28,8 @@ __all__ = [
     "states_from_counts",
     "exchange_resample_discrete",
     "sorted_systematic_resample_values",
+    "sorted_systematic_resample_values_nd",
+    "morton_key",
     "continuous_resample_values",
     "continuous_resample_values_lme",
 ]
@@ -205,14 +207,54 @@ def sorted_systematic_resample_values(key: torch.Generator,
     return torch.cummax(fill[:n_out], 0).values
 
 
+def sorted_systematic_resample_values_nd(key: torch.Generator,
+                                         log_weights: torch.Tensor,
+                                         states: torch.Tensor,
+                                         sort_key=None) -> torch.Tensor:
+    """Systematic resampling of a vector continuous (n, D) population under
+    a sorted-by-key exchangeable ordering; returns the new population, no
+    genealogy.  The key is the first coordinate by default, or
+    ``sort_key(states)`` (e.g. :func:`morton_key`).  Ancestors of the sorted
+    population come from the monotone scatter-max + cummax of
+    :func:`systematic_ancestors_from_cdf` (float64 slot arithmetic) and are
+    applied with one gather."""
+    n = log_weights.shape[0]
+    keys_v = states[:, 0] if sort_key is None else sort_key(states)
+    order = torch.argsort(keys_v, stable=True)
+    cdf = _normalized_cumsum(log_weights[order])
+    anc = systematic_ancestors_from_cdf(cdf, _uniform(key, log_weights.device), n)
+    return states[order[anc.long()]]
+
+
+def morton_key(states: torch.Tensor, bits: int = 10) -> torch.Tensor:
+    """Z-order (Morton) sort key (n,) int64 for (n, D) states, D <= 3: each
+    coordinate rank-normalised to ``bits``-bit integers (stable ranks) and
+    the bits interleaved.  Equal, element for element, to the reference's
+    uint32 key."""
+    n, d = states.shape
+    if d > 3:
+        raise ValueError(f"morton_key supports D <= 3, got {d}")
+    ranks = torch.argsort(torch.argsort(states, dim=0, stable=True), dim=0,
+                          stable=True)
+    q = ranks * ((1 << bits) - 1) // max(n - 1, 1)
+    keyv = torch.zeros(n, dtype=torch.int64, device=states.device)
+    for j in range(d):
+        spread = torch.zeros(n, dtype=torch.int64, device=states.device)
+        for b in range(bits):
+            spread = spread | (((q[:, j] >> b) & 1) << (b * d))
+        keyv = keyv | (spread << j)
+    return keyv & 0xFFFFFFFF
+
+
 def continuous_resample_values(key: torch.Generator, log_weights: torch.Tensor,
                                states: torch.Tensor, *, flag=None):
-    """Systematic resample of a scalar continuous population, returning
-    the new values directly (no genealogy).  float32 (n,) states take the
-    streaming epoch (:mod:`cpprob_tpu_torch.ops.stream_resample`: its
-    kernels on CUDA tensors, their plain versions on CPU tensors); other
-    scalar states the sorted fill.  ``flag``: an int32 device scalar; where
-    it is 0 the streaming epoch returns ``states`` unchanged."""
+    """Systematic resample of a scalar or vector continuous population,
+    returning the new values directly (no genealogy).  (n, D) states take
+    the sorted-key vector epoch; float32 (n,) states the streaming epoch
+    (:mod:`cpprob_tpu_torch.ops.stream_resample`: its kernels on CUDA
+    tensors, their plain versions on CPU tensors); other scalar states the
+    sorted fill.  ``flag``: an int32 device scalar; where it is 0 the
+    population comes back unchanged."""
     return continuous_resample_values_lme(key, log_weights, states,
                                           flag=flag)[0]
 
@@ -224,18 +266,18 @@ def continuous_resample_values_lme(key: torch.Generator,
     of the weights (the evidence increment, float64).  On the streaming
     path one :func:`~cpprob_tpu_torch.ops.stream_resample.logsumexp_stats`
     sweep serves both pass 1 and the increment."""
-    if states.dim() != 1:
-        raise NotImplementedError(
-            "vector-state continuous resampling is not ported yet: it comes "
-            "with the vector kernel family (K11)")
     n = log_weights.shape[0]
-    if states.dtype == torch.float32 and sr.streaming_available(n):
+    if states.dim() == 1 and states.dtype == torch.float32 \
+            and sr.streaming_available(n):
         stats = sr.logsumexp_stats(log_weights, flag)
         new_states = sr.streaming_systematic_resample_values(
             key, log_weights, states, stats=stats, flag=flag)
         return new_states, stats[0] + torch.log(stats[1]) - math.log(n)
     lme = torch.logsumexp(log_weights.double(), 0) - math.log(n)
-    new_states = sorted_systematic_resample_values(key, log_weights, states)
+    if states.dim() == 2:
+        new_states = sorted_systematic_resample_values_nd(key, log_weights, states)
+    else:
+        new_states = sorted_systematic_resample_values(key, log_weights, states)
     if flag is not None:
         new_states = torch.where(flag.reshape(()) != 0, new_states, states)
     return new_states, lme

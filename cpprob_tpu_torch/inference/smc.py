@@ -9,13 +9,15 @@ tensors.  ``key`` arguments of the model's sampling hooks are
 ``torch.Generator`` objects on the population's device; the fused kernel
 hooks take the sweep's integer seed instead.
 
-Ported so far: the HMM main path (the chunked exchange path with fused
-init and chunk kernels), the continuous-state path (the chunked path with
-a fused chunk kernel and the streaming resample epoch at chunk
-boundaries, and the per-step path with a fused step kernel), and the
+Ported: the chunked exchange path (fused init and chunk kernels) and the
+per-step fused exchange path for discrete states; the chunked path (a
+fused chunk kernel, the streaming or the sorted-key vector resample epoch
+at chunk boundaries) and the per-step path for scalar and vector
+continuous states; the fused per-step kernel with statistics; and the
 unfused paths with and without history that :func:`smc` and
-:func:`build_smc_run` take otherwise.  Other combinations raise
-``NotImplementedError``, naming the slice that brings them.
+:func:`build_smc_run` take otherwise.  Guided SMC and models with only
+per-particle hooks raise ``NotImplementedError``, naming the slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from .resampling import (
 )
 
 __all__ = ["StateSpaceModel", "SMCResult", "smc", "make_smc_step",
+           "make_smc_step_exchange_fused",
            "make_smc_step_exchange_fused_chunked", "make_smc_step_chunked",
            "build_smc_run"]
 
@@ -59,8 +62,11 @@ class StateSpaceModel:
     init_sample_batch: Optional[Callable] = None      # (key, n) -> (n, ...)
     step_sample_batch: Optional[Callable] = None      # (key, states, t) -> (n, ...)
     obs_logpdf_batch: Optional[Callable] = None       # (states, y, t) -> (n,)
+    # (key, states, log_w, y, t) -> (s', w'), t the absolute step
     fused_step_batch: Optional[Callable] = None
+    # same -> (s', w', ess')
     fused_step_ess_batch: Optional[Callable] = None
+    # (key, states, log_w, y, t, flag, ticks) -> (s', w', ess', cat_w', lme')
     fused_step_exchange_batch: Optional[Callable] = None
     # (key, states, log_w, ys, n_valid, flag, ticks) ->
     #     (s', w', ess', cat_w'(K,), lme'); kept for the protocol, not
@@ -109,6 +115,13 @@ def _unported(what: str, slice_: str):
     return NotImplementedError(f"{what} is not ported yet: it comes with {slice_}")
 
 
+def _no_time_hook(hook: str, t_hook: str):
+    return NotImplementedError(
+        f"a chunk kernel without absolute time ({hook}) is not driven by the "
+        f"port: its kernels (slice 2, the SMC kernel family) install the "
+        f"time-aware {t_hook}")
+
+
 def make_smc_step(
     model: StateSpaceModel,
     n_particles: int,
@@ -124,17 +137,19 @@ def make_smc_step(
     reweighting.  Both resample outcomes are computed and one is selected
     on the device, so the step never waits on the host.
     ``exchange=True`` resamples a discrete population by category counts;
-    ``sorted_fill=True`` a scalar continuous one by value
-    (:func:`.resampling.continuous_resample_values_lme`, whose streaming
-    epoch skips its work on the device when the step does not resample).
-    A model's ``fused_step_batch`` kernel hook, which takes the sweep's
-    integer seed and the absolute time, replaces the move and reweight."""
+    ``sorted_fill=True`` a continuous one by value
+    (:func:`.resampling.continuous_resample_values_lme`: the streaming
+    epoch for scalar states, which skips its work on the device when the
+    step does not resample; the sorted-key epoch for (n, D) states).
+    A model's ``fused_step_ess_batch`` kernel hook (preferred: it returns
+    the ESS from the kernel's records) or ``fused_step_batch`` hook, which
+    take the sweep's integer seed and the absolute time, replaces the move
+    and reweight."""
     if model.proposal_sample is not None:
         raise _unported("guided SMC", "slice 3 (guided SMC)")
-    if model.fused_step_ess_batch is not None:
-        raise _unported("the per-step fused kernel with statistics (K5)",
-                        "slice 2 (the SMC kernel family)")
-    if model.fused_step_batch is None and (
+    fused = (model.fused_step_ess_batch is not None
+             or model.fused_step_batch is not None)
+    if not fused and (
             model.step_sample_batch is None or model.obs_logpdf_batch is None):
         raise _unported("per-particle model hooks (vmap)",
                         "slice 4 (trace substrate)")
@@ -166,18 +181,58 @@ def make_smc_step(
         log_z_r = torch.where(do_resample, log_z + lme, log_z)
         anc = torch.where(do_resample, res_anc, ident)
 
-        if model.fused_step_batch is not None:
-            new_states, new_log_w = model.fused_step_batch(
+        if model.fused_step_ess_batch is not None:
+            new_states, new_log_w, new_ess = model.fused_step_ess_batch(
                 seed, states_r, log_w_r, y_t, t)
         else:
-            new_states = model.step_sample_batch(gen, states_r, t)
-            new_log_w = log_w_r + model.obs_logpdf_batch(new_states, y_t, t)
-        new_ess = _ess(new_log_w)
+            if model.fused_step_batch is not None:
+                new_states, new_log_w = model.fused_step_batch(
+                    seed, states_r, log_w_r, y_t, t)
+            else:
+                new_states = model.step_sample_batch(gen, states_r, t)
+                new_log_w = log_w_r + model.obs_logpdf_batch(new_states, y_t, t)
+            new_ess = _ess(new_log_w)
         if store_history:
             ys = (new_states, new_log_w, anc, do_resample)
         else:
             ys = (do_resample,)
         return (key, new_states, new_log_w, log_z_r, new_ess), ys
+
+    return step
+
+
+def make_smc_step_exchange_fused(
+    model: StateSpaceModel,
+    n_particles: int,
+    ess_threshold: float,
+):
+    """Loop body of the per-step fused discrete path: one kernel launch per
+    step (the model's ``fused_step_exchange_batch``), resampling folded
+    into the launch as a flag and K-1 category ticks.
+
+    Carry: ``(key, states, log_w, log_z, ess, cat_w, lme)``, the statistics
+    of the current weights from the previous launch's records, with ``key
+    = (seed, generator)``; xs: ``(y_t, t)``.  The flag and the ticks
+    (float64 slot arithmetic) stay on the device.  ``u0`` pins the offset
+    (tests); by default it is drawn from the carry's generator."""
+
+    def step(carry, y_t_and_t, u0=None):
+        y_t, t = y_t_and_t
+        key, states, log_w, log_z, ess, cat_w, lme = carry
+        seed, gen = key
+        do_resample = ess < ess_threshold * n_particles
+        if u0 is None:
+            u0 = torch.rand((), generator=gen, device=states.device,
+                            dtype=torch.float64)
+        ticks = _category_ticks(u0, cat_w, n_particles)[:-1].to(torch.int32)
+        log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
+        out = model.fused_step_exchange_batch(
+            seed, states, log_w, y_t, t, do_resample.to(torch.int32), ticks)
+        new_states, new_log_w, new_ess, new_cat_w, new_lme = out
+        return (
+            (key, new_states, new_log_w, log_z_r, new_ess, new_cat_w, new_lme),
+            (do_resample,),
+        )
 
     return step
 
@@ -199,9 +254,8 @@ def make_smc_step_exchange_fused_chunked(
     the carry's generator.  The model's chunk kernel is its time-aware
     ``fused_chunk_exchange_t_batch`` hook."""
     if model.fused_chunk_exchange_t_batch is None:
-        raise _unported("a chunk kernel without absolute time "
-                        "(fused_chunk_exchange_batch)",
-                        "slice 2 (the SMC kernel family)")
+        raise _no_time_hook("fused_chunk_exchange_batch",
+                            "fused_chunk_exchange_t_batch")
 
     def step(carry, xs, u0=None):
         ys, n_valid, t0 = xs
@@ -230,9 +284,9 @@ def make_smc_step_chunked(
     n_particles: int,
     ess_threshold: float,
 ):
-    """Loop body over observation chunks for scalar continuous states: a
-    systematic resample epoch at the chunk boundary, then one fused kernel
-    launch for the chunk's moves and reweights.
+    """Loop body over observation chunks for continuous states, scalar or
+    (n, D): a systematic resample epoch at the chunk boundary, then one
+    fused kernel launch for the chunk's moves and reweights.
 
     Carry: ``(key, states, log_w, log_z, ess)`` with ``key = (seed,
     generator)``; xs: ``(ys (C,), n_valid, t0)``.  The resample decision
@@ -242,8 +296,7 @@ def make_smc_step_chunked(
     ``torch.where``.  The model's chunk kernel is its time-aware
     ``fused_chunk_t_batch`` hook."""
     if model.fused_chunk_t_batch is None:
-        raise _unported("a chunk kernel without absolute time "
-                        "(fused_chunk_batch)", "slice 2 (the SMC kernel family)")
+        raise _no_time_hook("fused_chunk_batch", "fused_chunk_t_batch")
 
     def step(carry, xs):
         ys, n_valid, t0 = xs
@@ -290,8 +343,12 @@ def build_smc_run(
     history, systematic resampling): that many timesteps per kernel
     launch, the ESS trigger evaluated at chunk boundaries (blocked adaptive
     resampling, an unbiased evidence estimator).  A discrete-state model
-    resamples by exchange (``fused_chunk_exchange_t_batch``), a scalar
-    continuous one by the streaming epoch (``fused_chunk_t_batch``)."""
+    resamples by exchange (``fused_chunk_exchange_t_batch``), a continuous
+    one by value (``fused_chunk_t_batch``; the streaming epoch for scalar
+    states, the sorted-key epoch for vector states).  ``chunk`` = 1 with a
+    discrete model's ``fused_step_exchange_batch`` (no history, systematic
+    resampling) launches it once per step, its population started from
+    ``init_sample_batch`` as the reference does."""
     resampler = get_resampler(resampling)
     if model.proposal_sample is not None or model.fused_hooks_guided:
         raise _unported("guided SMC", "slice 3 (guided SMC)")
@@ -306,9 +363,6 @@ def build_smc_run(
         and not store_history
         and resampling == "systematic"
     )
-    if sorted_ok and model.vector_state_dim is not None:
-        raise _unported("vector-state continuous resampling",
-                        "the vector kernel family (K11)")
     chunk_exchange = (
         chunk > 1
         and exchange_ok
@@ -325,15 +379,14 @@ def build_smc_run(
         raise ValueError(
             "chunk > 1 needs a fused_chunk_* kernel on the model and "
             "store_history=False with systematic resampling")
-    if (not chunk_exchange and exchange_ok
-            and model.fused_step_exchange_batch is not None):
-        raise _unported("the per-step fused exchange kernel",
-                        "slice 2 (the SMC kernel family)")
+    fused_exchange = exchange_ok and model.fused_step_exchange_batch is not None
     if chunk_exchange:
         step = make_smc_step_exchange_fused_chunked(
             model, n_particles, ess_threshold)
     elif chunk_sorted:
         step = make_smc_step_chunked(model, n_particles, ess_threshold)
+    elif fused_exchange:
+        step = make_smc_step_exchange_fused(model, n_particles, ess_threshold)
     else:
         step = make_smc_step(
             model, n_particles, ess_threshold, resampler, store_history,
@@ -381,11 +434,14 @@ def build_smc_run(
                              log_z + lme_f, states_f, log_w_f)
 
         carry = ((seed, gen), states0, log_w0, log_z, _ess(log_w0))
+        if fused_exchange:
+            carry += (category_weights(log_w0, states0, model.state_categories),
+                      _log_mean_exp(log_w0))
         hist = []
         for t in range(1, observations.shape[0]):
             carry, ys = step(carry, (observations[t], t))
             hist.append(ys)
-        _, states_f, log_w_f, log_z, _ = carry
+        states_f, log_w_f, log_z = carry[1:4]
         log_z = log_z + _log_mean_exp(log_w_f)
         resampled = torch.cat(
             [no_resample] + [h[-1].reshape(1) for h in hist])

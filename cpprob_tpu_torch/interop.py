@@ -13,7 +13,7 @@ import math
 import numpy as np
 import torch
 
-from .ops.fused_hmm import HMMSpec
+from .ops.fused_hmm import MAX_K, HMMSpec
 
 __all__ = ["spec_from_numpy", "population_from_numpy", "carry_from_numpy"]
 
@@ -21,25 +21,36 @@ __all__ = ["spec_from_numpy", "population_from_numpy", "carry_from_numpy"]
 def spec_from_numpy(trans, means, stds, init_probs) -> HMMSpec:
     """K-state Gaussian-emission HMM (transition matrix (K, K), emission
     means and stds (K,), initial-state probabilities (K,)) as the kernels'
-    float32 tables; cumulative sums are taken in float64."""
+    float32 tables; cumulative sums are taken in float64.  Raises
+    ``ValueError`` as the reference's builder does
+    (``cpprob_tpu/ops/pallas_ssm.py:493-513``): a matrix that is not square,
+    rows that do not sum to 1, K above :data:`~.ops.fused_hmm.MAX_K`, stds
+    that are not positive."""
     trans = np.asarray(trans, np.float64)
-    stds = np.asarray(stds, np.float64)
     k = trans.shape[0]
-    if trans.shape != (k, k):
-        raise ValueError(f"trans must be square, got {trans.shape}")
+    if trans.ndim != 2 or trans.shape != (k, k):
+        raise ValueError(f"transition matrix must be square, got {trans.shape}")
+    if not np.allclose(trans.sum(axis=1), 1.0, atol=1e-6):
+        raise ValueError("transition rows must sum to 1")
+    if k > MAX_K:
+        raise ValueError(f"K={k}: the fused kernels take K <= {MAX_K} states")
+    stds = np.asarray(stds, np.float64).reshape(k)
+    if np.any(stds <= 0):
+        raise ValueError("emission stds must be positive")
     f32 = lambda a: np.ascontiguousarray(a, np.float32)
     return HMMSpec(
         trans_cdf=f32(np.cumsum(trans, axis=1)[:, :-1]),
         means=f32(np.asarray(means, np.float64).reshape(k)),
         half_inv_var=f32(0.5 / stds ** 2),
         log_norm=f32(-np.log(stds) - 0.5 * math.log(2.0 * math.pi)),
-        init_cdf=f32(np.cumsum(np.asarray(init_probs, np.float64))[:-1]),
+        init_cdf=f32(np.cumsum(np.asarray(init_probs, np.float64).reshape(k))[:-1]),
     )
 
 
 def population_from_numpy(states, log_w, device="cpu"):
-    """(states (N,), log_w float32 (N,)) tensors on ``device``: integer
-    (discrete) states become int32, floating (continuous) states float32."""
+    """(states (N,) or (N, D), log_w float32 (N,)) tensors on ``device``:
+    integer (discrete) states become int32, floating (continuous) states
+    float32, (N, D) vector states stay (N, D), contiguous."""
     states = np.asarray(states)
     dtype = np.float32 if np.issubdtype(states.dtype, np.floating) else np.int32
     return (

@@ -1,4 +1,6 @@
-"""Hand-written CUDA kernels for the SMC hot loops, each beside its plain
-PyTorch version: :mod:`.fused_hmm` (the HMM), :mod:`.fused_lg` (the
-linear-Gaussian model) and :mod:`.stream_resample` (the continuous
-resample epoch)."""
+"""Hand-written kernels for the SMC hot loops, each beside its plain
+PyTorch version: :mod:`.fused_hmm` (K-state HMM chains, CUDA),
+:mod:`.fused_lg` (the linear-Gaussian model, CUDA), :mod:`.stream_resample`
+(the continuous resample epoch, CUDA) and :mod:`.triton_ssm` (user physics,
+Triton); :mod:`.fused_ssm` builds models on them and :mod:`.population`
+launches the population kernels."""

@@ -1,24 +1,45 @@
-// Fused SMC kernels for a K-state HMM with Gaussian emissions (K = 3 is
-// instantiated; the tables take any K <= 8).
+// Fused SMC kernels for a K-state HMM with Gaussian emissions, 1 <= K <= 32.
 //
-// hmm_init_kernel replaces the Pallas kernel _make_init_kernel /
-// pallas_hmm_fused_init (cpprob_tpu/ops/pallas_hmm.py:727-805).
-// hmm_chunk_kernel replaces _make_chunk_kernel_island and _make_chunk_kernel
-// behind pallas_hmm_fused_chunk (pallas_hmm.py:245-591); island_every = 0
-// turns the interior checks off.
+// hmm_init_kernel / hmm_init_kernel_k replace the Pallas kernels
+// _make_init_kernel / pallas_hmm_fused_init (cpprob_tpu/ops/pallas_hmm.py:
+// 727-805) and _make_discrete_init_kernel / _discrete_init
+// (cpprob_tpu/ops/pallas_ssm.py:331-363,433).
+// hmm_chunk_kernel / hmm_chunk_kernel_k replace _make_chunk_kernel_island and
+// _make_chunk_kernel behind pallas_hmm_fused_chunk (pallas_hmm.py:245-591)
+// and _make_discrete_chunk_kernel behind _discrete_chunk (pallas_ssm.py:
+// 165-328,402); island_every = 0 turns the interior checks off.  Launched
+// with n_steps = 1 the chunk kernel is also the one-step kernels
+// _make_step_exchange_kernel (pallas_hmm.py:103-170, flag and ticks live)
+// and _step_kernel (pallas_hmm.py:66-100, flag 0).
+//
+// Two designs, one arithmetic:
+// - K = 2..8 (hmm_*_kernel<K>): the emission tables, the per-step emission
+//   row and the per-category sums are K-sized register arrays, fully
+//   unrolled; K is a template parameter, one instance per K.
+// - K = 1 and 9..32 (hmm_*_kernel_k, K at run time): K-sized arrays in
+//   registers would spill (and need compile-time K), so the transition CDF
+//   (rows at an odd stride), the emission tables and each step's emission
+//   row live in shared memory; a particle's next state is a binary search
+//   of its CDF row (the rows are non-decreasing, so the search gives the
+//   count of entries <= u that the compare-and-add of the small-K design
+//   and the plain version give); the K per-category sums are one warp
+//   reduction per category over the thread's own particles, written to
+//   shared memory and summed across warps; the init kernel counts the
+//   states in a shared-memory histogram (integer atomics: exact and
+//   order-free) and forms its record from the counts, since every particle
+//   in state k carries the same t = 0 weight.
 //
 // What bounds them on an H100: the chunk kernel reads and writes 16 B per
 // particle per chunk (state + weight, in and out) but spends, per
 // particle-step, one Philox4x32-10 call (10 rounds of two 32x32 multiplies
-// plus xors, ~60 integer operations) and ~10 float operations.  At 15 steps
-// per chunk that is ~1000 integer operations per 16 B, far above the card's
-// ratio of compute to HBM bandwidth, so the kernel is bound by integer and
-// ALU issue, not by memory.  The design keeps everything but the compulsory
-// 16 B in registers: each thread holds its P particles across the whole
-// chunk, the emission is computed once per step for the K states and picked
-// by a select, the transition is K-1 compares against a CDF row in shared
-// memory (exact table lookups, no fitted polynomials), and the island check
-// is one max and one sum reduction per CTA every island_every steps.
+// plus xors, ~60 integer operations), a CDF lookup (K-1 compares, or a
+// binary search of at most 5 shared loads) and ~10 float operations.  At 8
+// to 15 steps per chunk that is ~1000 integer operations per 16 B, far above
+// the card's ratio of compute to HBM bandwidth, so the kernel is bound by
+// integer and ALU issue, not by memory.  Each thread holds its P particles
+// in registers across the whole chunk, the emission is computed once per
+// step for the K states, and the island check is one max and one sum
+// reduction per CTA every island_every steps.
 //
 // Numerics: the emission, the weight update and the island ticks use
 // round-to-nearest intrinsics, so the compiler fuses no multiply-add and the
@@ -290,11 +311,268 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K at run time (K = 1 and 9..32): tables in shared memory.
+
+constexpr int kMaxK = 32;
+constexpr int kMaxStride = 31;   // odd row stride of the CDF rows, <= 31
+
+// The number of entries of the non-decreasing row[0..len) that are <= u:
+// what sum_k (u >= row[k]) gives, in at most 5 shared loads.
+__device__ __forceinline__ int count_le(const float* row, int len, float u) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (row[mid] <= u) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Block sums of (sum e, sum e^2, sum e per category k < n_cat) over every
+// thread's kPerThread particles, into out[0 .. n_cat + 2): one warp
+// reduction per value, the warps' partials summed in warp order (the order
+// of block_sum).  red: kWarps * (kMaxK + 2) floats.  Every thread calls it;
+// out is valid for every thread after it returns.
+__device__ __forceinline__ void block_cat_sums(const int (&s)[kPerThread],
+                                               const float (&ew)[kPerThread],
+                                               int n_cat, float* red,
+                                               float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kW = kMaxK + 2;
+  float a = 0.f, b = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    a += ew[i];
+    b += ew[i] * ew[i];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  if (lane == 0) {
+    red[warp * kW] = a;
+    red[warp * kW + 1] = b;
+  }
+  for (int k = 0; k < n_cat; ++k) {
+    float c = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) c += (s[i] == k) ? ew[i] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+    if (lane == 0) red[warp * kW + 2 + k] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x < n_cat + 2) {
+    float x = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) x += red[w * kW + threadIdx.x];
+    out[threadIdx.x] = x;
+  }
+  __syncthreads();
+}
+
+// hmm_init_kernel with K at run time.  Each CTA counts its particles'
+// states in a shared histogram; its record is (max e_k over the states
+// present, sum_k c_k x_k, sum_k c_k x_k^2, c_k x_k, 0) with x_k =
+// exp(e_k - max).
+__global__ void __launch_bounds__(kThreads)
+hmm_init_kernel_k(int K, const float* __restrict__ tab,
+                  const float* __restrict__ y0, uint32_t k0, uint32_t k1,
+                  int* __restrict__ s_out, float* __restrict__ w_out,
+                  float* __restrict__ rec, long long n) {
+  __shared__ float icdf[kMaxK];
+  __shared__ float emis[kMaxK];
+  __shared__ int hist[kMaxK];
+  const int km1 = K - 1;
+  const int tid = threadIdx.x;
+  if (tid < K) {
+    const float* t = tab + K * km1;   // means | 0.5/sigma^2 | log-normaliser
+    const float d = __fsub_rn(__ldg(y0), t[tid]);
+    emis[tid] = __fsub_rn(t[2 * K + tid], __fmul_rn(__fmul_rn(t[K + tid], d), d));
+    hist[tid] = 0;
+    if (tid < km1) icdf[tid] = t[3 * K + tid];
+  }
+  __syncthreads();
+  const uint2 key = make_uint2(k0, k1);
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long g = (long long)blockIdx.x * kThreads + tid; g < n;
+       g += stride) {
+    const float u =
+        philox_u01(philox4x32_10(make_uint4((uint32_t)g, 0u, 0u, 0u), key).x);
+    const int s = count_le(icdf, km1, u);
+    s_out[g] = s;
+    w_out[g] = emis[s];
+    atomicAdd(&hist[s], 1);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float m = -INFINITY;
+    for (int k = 0; k < K; ++k)
+      if (hist[k] > 0) m = fmaxf(m, emis[k]);
+    float* out = rec + (long long)blockIdx.x * (K + 4);
+    float se = 0.f, se2 = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float x = hist[k] > 0 ? expf(emis[k] - m) : 0.f;
+      const float c = (float)hist[k];
+      se += c * x;
+      se2 += c * (x * x);
+      out[3 + k] = c * x;
+    }
+    out[0] = m;
+    out[1] = se;
+    out[2] = se2;
+    out[K + 3] = 0.f;
+  }
+}
+
+// hmm_chunk_kernel with K at run time: the same steps, island checks and
+// records, the tables and each step's emission row in shared memory.
+__global__ void __launch_bounds__(kThreads)
+hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
+                   const float* __restrict__ ys, int n_steps,
+                   const int* __restrict__ ctrl, uint32_t k0, uint32_t k1,
+                   uint32_t t0, int island_every, float thresh,
+                   const int* __restrict__ s_in, const float* __restrict__ w_in,
+                   int* __restrict__ s_out, float* __restrict__ w_out,
+                   float* __restrict__ rec) {
+  __shared__ float cdf[kMaxK * kMaxStride];
+  __shared__ float mu[kMaxK], hiv[kMaxK], lc[kMaxK];
+  __shared__ float emis[2][kMaxK];
+  __shared__ int tick[kMaxK];
+  __shared__ int isl_tick[kMaxK];
+  __shared__ float red[kWarps * (kMaxK + 2)];
+  __shared__ float sums[kMaxK + 2];
+  __shared__ float bcast[1];
+  __shared__ float lme_s;
+  __shared__ int collapse_s;
+  const int km1 = K - 1;
+  const int row_stride = km1 | 1;   // odd: a warp's reads of one column of
+                                    // different rows fall in other banks
+  const int tid = threadIdx.x;
+  for (int j = tid; j < K * km1; j += kThreads)
+    cdf[(j / km1) * row_stride + j % km1] = tab[j];
+  if (tid < K) {
+    mu[tid] = tab[K * km1 + tid];
+    hiv[tid] = tab[K * km1 + K + tid];
+    lc[tid] = tab[K * km1 + 2 * K + tid];
+  }
+  if (tid < km1) tick[tid] = ctrl[1 + tid];
+  const int flag = ctrl[0];
+  const int n_valid = ctrl[K];
+  const uint2 key = make_uint2(k0, k1);
+  const uint32_t base = blockIdx.x * (uint32_t)kIsland;
+  __syncthreads();   // tables, ticks
+
+  int s[kPerThread];
+  float w[kPerThread];
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const uint32_t g = base + i * kThreads + tid;
+    if (flag) {
+      int v = 0;
+      for (int k = 0; k < km1; ++k) v += ((long long)g >= tick[k]);
+      s[i] = v;
+      w[i] = 0.f;
+    } else {
+      s[i] = s_in[g];
+      w[i] = w_in[g];
+    }
+  }
+
+  const float nb = (float)kIsland;
+  float count = 0.f;
+  float ew[kPerThread];
+  for (int t = 0; t < n_steps; ++t) {
+    const uint32_t ta = t0 + (uint32_t)t;
+    if (t < n_valid) {   // uniform across the block
+      float* e = emis[t & 1];   // double-buffered: one barrier per step
+      if (tid < K) {
+        const float d = __fsub_rn(__ldg(ys + t), mu[tid]);
+        e[tid] = __fsub_rn(lc[tid], __fmul_rn(__fmul_rn(hiv[tid], d), d));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        const uint32_t g = base + i * kThreads + tid;
+        const float u =
+            philox_u01(philox4x32_10(make_uint4(g, ta, 0u, 0u), key).x);
+        const int ns = count_le(cdf + s[i] * row_stride, km1, u);
+        s[i] = ns;
+        w[i] = __fadd_rn(w[i], e[ns]);
+      }
+    }
+    if (island_every > 0 && (t + 1) % island_every == 0 && t < n_steps - 1) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) m = fmaxf(m, w[i]);
+      m = block_max<kThreads>(m, red, bcast);
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) ew[i] = expf(w[i] - m);
+      block_cat_sums(s, ew, km1, red, sums);
+      // one thread decides and places the island's ticks; every thread
+      // follows
+      if (tid == 0) {
+        const int c = (sums[0] * sums[0] < thresh * nb * sums[1]) &&
+                      (t + 1 < n_valid);
+        collapse_s = c;
+        if (c) {
+          const float u0 = philox_u01(
+              philox4x32_10(make_uint4(blockIdx.x, ta, 1u, 0u), key).x);
+          float cum = 0.f;
+          for (int k = 0; k < km1; ++k) {
+            cum = __fadd_rn(cum, sums[2 + k]);
+            const float x = __fsub_rn(__fmul_rn(nb, __fdiv_rn(cum, sums[0])), u0);
+            isl_tick[k] = (int)fminf(fmaxf(ceilf(x), 0.f), nb);
+          }
+          lme_s = __fsub_rn(__fadd_rn(m, logf(sums[0])), logf(nb));
+        }
+      }
+      __syncthreads();
+      if (collapse_s) {
+        const float lme_b = lme_s;
+#pragma unroll
+        for (int i = 0; i < kPerThread; ++i) {
+          const int jl = i * kThreads + tid;
+          int ns = 0;
+          for (int k = 0; k < km1; ++k) ns += (jl >= isl_tick[k]);
+          s[i] = ns;
+          w[i] = lme_b;
+        }
+        count += 1.f;
+      }
+      __syncthreads();   // collapse_s, isl_tick and lme_s are read
+    }
+  }
+
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const uint32_t g = base + i * kThreads + tid;
+    s_out[g] = s[i];
+    w_out[g] = w[i];
+    m = fmaxf(m, w[i]);
+  }
+  m = block_max<kThreads>(m, red, bcast);
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) ew[i] = expf(w[i] - m);
+  block_cat_sums(s, ew, K, red, sums);
+  if (tid == 0) {
+    float* out = rec + (long long)blockIdx.x * (K + 4);
+    out[0] = m;
+    for (int j = 0; j < K + 2; ++j) out[1 + j] = sums[j];
+    out[K + 3] = count;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int hmm_island_size() { return kIsland; }
+int hmm_max_k() { return kMaxK; }
+
+#define HMM_SMALL_K(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
 
 // Returns cudaGetLastError() after the launch (0 = launched).
 int hmm_init_launch(int K, const float* tab, const float* y0, uint32_t k0,
@@ -302,12 +580,17 @@ int hmm_init_launch(int K, const float* tab, const float* y0, uint32_t k0,
                     long long n, int grid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (K) {
-    case 3:
-      hmm_init_kernel<3><<<grid, kThreads, 0, st>>>(tab, y0, k0, k1, s_out,
-                                                    w_out, rec, n);
-      break;
+#define HMM_INIT_CASE(KK)                                                  \
+  case KK:                                                                 \
+    hmm_init_kernel<KK><<<grid, kThreads, 0, st>>>(tab, y0, k0, k1, s_out, \
+                                                   w_out, rec, n);         \
+    break;
+    HMM_SMALL_K(HMM_INIT_CASE)
+#undef HMM_INIT_CASE
     default:
-      return (int)cudaErrorInvalidValue;
+      if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+      hmm_init_kernel_k<<<grid, kThreads, 0, st>>>(K, tab, y0, k0, k1, s_out,
+                                                   w_out, rec, n);
   }
   return (int)cudaGetLastError();
 }
@@ -321,13 +604,19 @@ int hmm_chunk_launch(int K, const float* tab, const float* ys, int n_steps,
   if (n % kIsland != 0) return (int)cudaErrorInvalidValue;
   const int grid = (int)(n / kIsland);
   switch (K) {
-    case 3:
-      hmm_chunk_kernel<3><<<grid, kThreads, 0, st>>>(
-          tab, ys, n_steps, ctrl, k0, k1, t0, island_every, thresh, s_in,
-          w_in, s_out, w_out, rec);
-      break;
+#define HMM_CHUNK_CASE(KK)                                                 \
+  case KK:                                                                 \
+    hmm_chunk_kernel<KK><<<grid, kThreads, 0, st>>>(                       \
+        tab, ys, n_steps, ctrl, k0, k1, t0, island_every, thresh, s_in,    \
+        w_in, s_out, w_out, rec);                                          \
+    break;
+    HMM_SMALL_K(HMM_CHUNK_CASE)
+#undef HMM_CHUNK_CASE
     default:
-      return (int)cudaErrorInvalidValue;
+      if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
+      hmm_chunk_kernel_k<<<grid, kThreads, 0, st>>>(
+          K, tab, ys, n_steps, ctrl, k0, k1, t0, island_every, thresh, s_in,
+          w_in, s_out, w_out, rec);
   }
   return (int)cudaGetLastError();
 }

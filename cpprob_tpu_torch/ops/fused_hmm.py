@@ -1,14 +1,22 @@
-"""Fused SMC kernels for the HMM — counterpart of ``cpprob_tpu/ops/pallas_hmm.py``.
+"""Fused SMC kernels for a K-state HMM (1 <= K <= 32) — counterpart of
+``cpprob_tpu/ops/pallas_hmm.py`` and of the discrete part of
+``cpprob_tpu/ops/pallas_ssm.py``.
 
-Two kernels, CUDA C++ in ``csrc/fused_hmm.cu``:
+Two kernels, CUDA C++ in ``csrc/fused_hmm.cu`` (a register design
+instantiated for K = 2..8, a shared-memory design with K at run time for
+K = 1 and 9..32):
 
-- ``hmm_init`` (<- ``pallas_hmm_fused_init``): initial states from the
-  initial-state CDF, the t=0 emission weight, one statistics record per CTA.
-- ``hmm_chunk`` (<- ``pallas_hmm_fused_chunk``): a flagged chunk-start
-  exchange resample, ``n_steps`` transition + reweight updates with the
-  particles held in registers, and, with ``island_every > 0``, an ESS check
-  of every island (one CTA of ``ISLAND_SIZE`` particles) every that many
-  steps, which exchange-resamples a collapsed island in place.
+- ``hmm_init`` (<- ``pallas_hmm_fused_init``, ``_discrete_init``): initial
+  states from the initial-state CDF, the t=0 emission weight, one
+  statistics record per CTA.
+- ``hmm_chunk`` (<- ``pallas_hmm_fused_chunk``, ``_discrete_chunk``): a
+  flagged chunk-start exchange resample, ``n_steps`` transition + reweight
+  updates with the particles held in registers, and, with
+  ``island_every > 0``, an ESS check of every island (one CTA of
+  ``ISLAND_SIZE`` particles) every that many steps, which
+  exchange-resamples a collapsed island in place.  Launched for one step
+  it is also the per-step kernels (<- ``pallas_hmm_fused_step_exchange``,
+  ``pallas_hmm_fused_step(_ess)``): see :func:`fused_hmm_hooks`.
 
 Each has a plain PyTorch version of the same function (``hmm_init_plain``,
 ``hmm_chunk_plain``).  The public wrappers take the plain version for CPU
@@ -32,20 +40,22 @@ import numpy as np
 import torch
 
 from .philox import philox_uniform, split_seed
+from .population import current_stream, launch_population
 
 __all__ = [
     "HMMSpec", "ISLAND_SIZE", "LAUNCHES", "hmm_init", "hmm_init_plain",
     "hmm_chunk", "hmm_chunk_plain", "stats_from_partials",
-    "make_fused_hmm_ssm",
+    "make_fused_hmm_ssm", "fused_hmm_hooks", "MAX_K",
 ]
 
 ISLAND_SIZE = 4096       # 256 threads x 16 particles: one CTA of the chunk kernel
 _THREADS = 256
-_MAX_K = 8
-_KERNEL_K = (3,)         # instantiated in csrc/fused_hmm.cu
+MAX_K = 32               # states the kernels take (csrc/fused_hmm.cu kMaxK)
 
-# kernel launches by wrapper, counted where each kernel is launched
-LAUNCHES = {"init": 0, "chunk": 0}
+# kernel launches by wrapper, counted where each kernel is launched; a
+# one-step launch of the chunk kernel (the per-step hooks) counts under
+# "step_exchange", "step_ess" or "step" instead of "chunk"
+LAUNCHES = {"init": 0, "chunk": 0, "step_exchange": 0, "step_ess": 0, "step": 0}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -105,9 +115,16 @@ def _records(w2: torch.Tensor, s2: torch.Tensor, K: int,
     m = w2.amax(1)
     e = torch.exp(w2 - m[:, None])
     cols = [m, e.sum(1), (e * e).sum(1)]
-    cols += [(e * (s2 == k)).sum(1) for k in range(K)]
+    cols += _category_sums(e, s2, K).unbind(1)
     cols.append(count.to(torch.float32))
     return torch.stack(cols, 1)
+
+
+def _category_sums(e: torch.Tensor, s2: torch.Tensor, n_cat: int) -> torch.Tensor:
+    """(rows, n_cat) sums of the (rows, L) ``e`` per state k < n_cat."""
+    if n_cat == 0:
+        return e.new_zeros((e.shape[0], 0))
+    return torch.stack([(e * (s2 == k)).sum(1) for k in range(n_cat)], 1)
 
 
 def hmm_init_plain(seed: int, y0: torch.Tensor, n: int, spec: HMMSpec, *,
@@ -165,8 +182,7 @@ def hmm_chunk_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
             u0 = draws[1][n_check] if draws is not None else philox_uniform(
                 seed, torch.arange(n_isl, device=dev), t0 + t, 1)
             n_check += 1
-            cum = torch.cumsum(torch.stack(
-                [(e * (s2 == k)).sum(1) for k in range(K - 1)], 1), 1)
+            cum = torch.cumsum(_category_sums(e, s2, K - 1), 1)
             tk = torch.clamp(torch.ceil(n_blk * (cum / se[:, None]) - u0[:, None]),
                              0.0, n_blk)
             rs = (j_local[None, :, None] >= tk[:, None, :]).sum(-1)
@@ -191,6 +207,8 @@ def _lib():
         p, i, u32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
         lib.hmm_island_size.argtypes = []
         lib.hmm_island_size.restype = i
+        lib.hmm_max_k.argtypes = []
+        lib.hmm_max_k.restype = i
         lib.hmm_init_launch.argtypes = [
             i, p, p, u32, u32, p, p, p, ctypes.c_longlong, i, p]
         lib.hmm_init_launch.restype = i
@@ -198,37 +216,16 @@ def _lib():
             i, p, p, i, p, u32, u32, u32, i, f, p, p, p, p, p,
             ctypes.c_longlong, p]
         lib.hmm_chunk_launch.restype = i
-        if lib.hmm_island_size() != ISLAND_SIZE:
-            raise RuntimeError("csrc/fused_hmm.cu island size differs from "
-                               f"ISLAND_SIZE={ISLAND_SIZE}")
+        if lib.hmm_island_size() != ISLAND_SIZE or lib.hmm_max_k() != MAX_K:
+            raise RuntimeError("csrc/fused_hmm.cu island size or K limit differs "
+                               f"from ISLAND_SIZE={ISLAND_SIZE}, MAX_K={MAX_K}")
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_k(spec: HMMSpec):
-    if spec.K > _MAX_K:
-        raise ValueError(f"the fused HMM kernels take K <= {_MAX_K} states, got {spec.K}")
-    if spec.K not in _KERNEL_K:
-        raise NotImplementedError(
-            f"the CUDA kernels are instantiated for K in {_KERNEL_K}; other "
-            "K come with the K-state spec kernels (slice 2)")
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    if not 1 <= spec.K <= MAX_K:
+        raise ValueError(f"the fused HMM kernels take 1 <= K <= {MAX_K} states, "
+                         f"got {spec.K}")
 
 
 def _init_grid(device, n: int) -> int:
@@ -245,31 +242,33 @@ def hmm_init(seed: int, y0: torch.Tensor, n: int, spec: HMMSpec):
         return hmm_init_plain(seed, y0, n, spec)
     if dev.type != "cuda":
         raise ValueError(f"hmm_init runs on cpu or cuda tensors, not {dev}")
-    _check(y0, "y0", torch.float32, dev)
     _check_k(spec)
     if not 0 < n < 2 ** 32:
         raise ValueError(f"n must be in (0, 2^32), got {n}")
-    lib = _lib()
     tab = spec.tables(dev)["packed"]
     grid = _init_grid(dev, n)
-    states = torch.empty(n, dtype=torch.int32, device=dev)
-    log_w = torch.empty(n, dtype=torch.float32, device=dev)
-    rec = torch.empty((grid, spec.K + 4), dtype=torch.float32, device=dev)
     k0, k1 = split_seed(seed)
-    err = lib.hmm_init_launch(
-        spec.K, tab.data_ptr(), y0.data_ptr(), k0, k1, states.data_ptr(),
-        log_w.data_ptr(), rec.data_ptr(), n, grid, _stream(dev))
-    _raise_on(err, "hmm_init_kernel")
-    LAUNCHES["init"] += 1
-    return states, log_w, rec
+
+    def launch(states, log_w, rec):
+        return _lib().hmm_init_launch(
+            spec.K, tab.data_ptr(), y0.data_ptr(), k0, k1, states.data_ptr(),
+            log_w.data_ptr(), rec.data_ptr(), n, grid, current_stream(dev))
+
+    return launch_population(
+        "hmm_init_kernel", launch, device=dev,
+        inputs=[(y0, "y0", torch.float32)],
+        outputs=[(n, torch.int32), (n, torch.float32)],
+        records=(grid, spec.K + 4), counts=LAUNCHES, count_key="init")
 
 
 def hmm_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
               ys: torch.Tensor, ctrl: torch.Tensor, spec: HMMSpec, *,
-              t0: int = 1, island_every: int = 0, island_thresh: float = 0.5):
+              t0: int = 1, island_every: int = 0, island_thresh: float = 0.5,
+              count_key: str = "chunk"):
     """Fused chunk on the device of ``states``, with islands of
     ``ISLAND_SIZE`` particles: the kernel on CUDA tensors, the plain
     version on CPU tensors (arguments as :func:`hmm_chunk_plain`).
+    ``count_key``: the entry of :data:`LAUNCHES` the launch counts under.
     Returns (states, log_w, records)."""
     dev = states.device
     n, K = states.shape[0], spec.K
@@ -284,28 +283,27 @@ def hmm_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
             island_every=island_every, island_thresh=island_thresh)
     if dev.type != "cuda":
         raise ValueError(f"hmm_chunk runs on cpu or cuda tensors, not {dev}")
-    _check(states, "states", torch.int32, dev)
-    _check(log_w, "log_w", torch.float32, dev)
-    _check(ys, "ys", torch.float32, dev)
-    _check(ctrl, "ctrl", torch.int32, dev)
     _check_k(spec)
     if log_w.shape != states.shape:
         raise ValueError("log_w must have the shape of states")
     if n >= 2 ** 31 or t0 < 0 or t0 + ys.shape[0] >= 2 ** 32:
         raise ValueError("n must be < 2^31 and t0 + n_steps < 2^32")
-    lib = _lib()
     tab = spec.tables(dev)["packed"]
-    out_s = torch.empty_like(states)
-    out_w = torch.empty_like(log_w)
-    rec = torch.empty((n // ISLAND_SIZE, K + 4), dtype=torch.float32, device=dev)
     k0, k1 = split_seed(seed)
-    err = lib.hmm_chunk_launch(
-        K, tab.data_ptr(), ys.data_ptr(), ys.shape[0], ctrl.data_ptr(), k0, k1,
-        t0, island_every, island_thresh, states.data_ptr(), log_w.data_ptr(),
-        out_s.data_ptr(), out_w.data_ptr(), rec.data_ptr(), n, _stream(dev))
-    _raise_on(err, "hmm_chunk_kernel")
-    LAUNCHES["chunk"] += 1
-    return out_s, out_w, rec
+
+    def launch(out_s, out_w, rec):
+        return _lib().hmm_chunk_launch(
+            K, tab.data_ptr(), ys.data_ptr(), ys.shape[0], ctrl.data_ptr(),
+            k0, k1, t0, island_every, island_thresh, states.data_ptr(),
+            log_w.data_ptr(), out_s.data_ptr(), out_w.data_ptr(),
+            rec.data_ptr(), n, current_stream(dev))
+
+    return launch_population(
+        "hmm_chunk_kernel", launch, device=dev,
+        inputs=[(states, "states", torch.int32), (log_w, "log_w", torch.float32),
+                (ys, "ys", torch.float32), (ctrl, "ctrl", torch.int32)],
+        outputs=[(n, torch.int32), (n, torch.float32)],
+        records=(n // ISLAND_SIZE, K + 4), counts=LAUNCHES, count_key=count_key)
 
 
 def stats_from_partials(records: torch.Tensor, n: int):
@@ -326,24 +324,39 @@ def stats_from_partials(records: torch.Tensor, n: int):
     return ess, cat_w, lme
 
 
-def make_fused_hmm_ssm(island_every: int = 0, island_thresh: float = 0.5,
-                       spec: HMMSpec | None = None,
-                       island_counts: list | None = None):
-    """``hmm_ssm`` with the fused kernels installed as ``fused_init_batch``
-    and ``fused_chunk_exchange_t_batch`` (the time-aware chunk hook: the
-    kernels' Philox counters run on absolute time, so the sweep's chunks
-    never reuse a draw).  ``key`` in both hooks is the sweep's integer seed.
+def fused_hmm_hooks(spec: HMMSpec, island_every: int = 0,
+                    island_thresh: float = 0.5,
+                    island_counts: list | None = None) -> dict:
+    """The fused hooks of a model whose tables are ``spec``, all launches
+    of :func:`hmm_init` and :func:`hmm_chunk`; ``key`` in each hook is the
+    sweep's integer seed.
 
-    ``island_every`` > 0: every that many interior steps each island of
-    ``ISLAND_SIZE`` particles checks its ESS and exchange-resamples itself
-    on collapse below ``island_thresh``.  ``island_counts``: a list to which
-    each chunk launch appends its interior resamples per island (a float32
-    device tensor; no host sync)."""
-    from ..interop import spec_from_numpy
-    from ..models.hmm import HMM_MEANS, HMM_TRANS, hmm_ssm
+    - ``fused_init_batch`` (K1/K9) and the time-aware chunk hook
+      ``fused_chunk_exchange_t_batch`` (K2/K3/K8): the Philox counters run
+      on absolute time, so the sweep's launches never reuse a draw;
+    - the per-step hooks, one-step launches of the chunk kernel at
+      ``t0 = t``, the absolute step: ``fused_step_exchange_batch`` (K4,
+      ctrl ``[flag, ticks, 1]``, returning ``(s, w, ess, cat_w, lme)``),
+      ``fused_step_ess_batch`` (K5, flag 0, returning ``(s, w, ess)``) and
+      ``fused_step_batch`` (returning ``(s, w)``).
 
-    if spec is None:
-        spec = spec_from_numpy(HMM_TRANS, HMM_MEANS, np.ones(3), np.full(3, 1 / 3))
+    ``island_every`` > 0: every that many interior steps of a chunk each
+    island of ``ISLAND_SIZE`` particles checks its ESS and
+    exchange-resamples itself on collapse below ``island_thresh``.
+    ``island_counts``: a list to which each chunk launch appends its
+    interior resamples per island (a float32 device tensor; no host sync).
+    No step waits on the host: the constant control words are made once per
+    device, by device fills."""
+    K = spec.K
+    consts: dict = {}
+
+    def ctrl_tail(device):
+        # (zero ticks (K-1), n_valid 1) and n_valid 1 alone, int32, on device
+        if device not in consts:
+            one = torch.ones(1, dtype=torch.int32, device=device)
+            consts[device] = (torch.cat([torch.zeros(K, dtype=torch.int32,
+                                                     device=device), one]), one)
+        return consts[device]
 
     def fused_init(key, n, y0):
         s, w, rec = hmm_init(key, y0, n, spec)
@@ -359,8 +372,46 @@ def make_fused_hmm_ssm(island_every: int = 0, island_thresh: float = 0.5,
             island_counts.append(rec[:, -1])
         return (s, w, *stats_from_partials(rec, states.shape[0]))
 
-    return dataclasses.replace(
-        hmm_ssm,
+    def step(key, states, log_w, y, t, ctrl, count_key):
+        return hmm_chunk(key, states, log_w, y.reshape(1).to(torch.float32),
+                         ctrl, spec, t0=int(t), count_key=count_key)
+
+    def fused_step_exchange(key, states, log_w, y, t, flag, ticks):
+        ctrl = torch.cat([flag.reshape(1), ticks.reshape(-1),
+                          ctrl_tail(states.device)[1]]).to(torch.int32)
+        s, w, rec = step(key, states, log_w, y, t, ctrl, "step_exchange")
+        return (s, w, *stats_from_partials(rec, states.shape[0]))
+
+    def fused_step_ess(key, states, log_w, y, t):
+        s, w, rec = step(key, states, log_w, y, t,
+                         ctrl_tail(states.device)[0], "step_ess")
+        return s, w, stats_from_partials(rec, states.shape[0])[0]
+
+    def fused_step(key, states, log_w, y, t):
+        s, w, _ = step(key, states, log_w, y, t,
+                       ctrl_tail(states.device)[0], "step")
+        return s, w
+
+    return dict(
         fused_init_batch=fused_init,
         fused_chunk_exchange_t_batch=fused_chunk,
+        fused_step_exchange_batch=fused_step_exchange,
+        fused_step_ess_batch=fused_step_ess,
+        fused_step_batch=fused_step,
     )
+
+
+def make_fused_hmm_ssm(island_every: int = 0, island_thresh: float = 0.5,
+                       spec: HMMSpec | None = None,
+                       island_counts: list | None = None):
+    """``hmm_ssm`` with the fused kernels installed as its hooks (see
+    :func:`fused_hmm_hooks` for the hooks and the island arguments), the
+    counterpart of ``make_pallas_hmm_ssm``."""
+    from ..interop import spec_from_numpy
+    from ..models.hmm import HMM_MEANS, HMM_TRANS, hmm_ssm
+
+    if spec is None:
+        spec = spec_from_numpy(HMM_TRANS, HMM_MEANS, np.ones(3), np.full(3, 1 / 3))
+    return dataclasses.replace(
+        hmm_ssm, **fused_hmm_hooks(spec, island_every, island_thresh,
+                                   island_counts))

@@ -27,8 +27,9 @@ import math
 
 import torch
 
-from .fused_hmm import _check, _raise_on, _stream, stats_from_partials
+from .fused_hmm import stats_from_partials
 from .philox import philox4x32, split_seed, uniform_from_bits
+from .population import check_tensor, current_stream, launch_population
 
 __all__ = ["LAUNCHES", "LG_BLOCK", "lg_chunk", "lg_chunk_plain", "lg_step",
            "lg_step_plain", "make_fused_lg_ssm"]
@@ -46,10 +47,11 @@ LAUNCHES = {"chunk": 0, "step": 0}
 # plain versions
 
 
-def _normal_pair(seed: int, g: torch.Tensor, pair: int):
-    """(r cos, r sin) of the Box-Muller pair at Philox counter (g, pair, 0)."""
+def _normal_pair(seed: int, g: torch.Tensor, pair: int, plane: int = 0):
+    """(r cos, r sin) of the Box-Muller pair at Philox counter (g, pair,
+    plane)."""
     k0, k1 = split_seed(seed)
-    b0, b1, _, _ = philox4x32(g, pair, 0, 0, k0, k1)
+    b0, b1, _, _ = philox4x32(g, pair, plane, 0, k0, k1)
     u1 = torch.clamp(uniform_from_bits(b0), min=1e-12)
     ang = _TWO_PI * uniform_from_bits(b1)
     r = torch.sqrt(-2.0 * torch.log(u1))
@@ -126,15 +128,11 @@ def _lib():
     return lib
 
 
-def _launch(seed, states, log_w, ys, n_valid, t0, what):
+def _launch(seed, states, log_w, ys, n_valid, t0, what, count_key):
     dev = states.device
-    if dev.type != "cuda":
-        raise ValueError(f"{what} runs on cpu or cuda tensors, not {dev}")
-    _check(states, "states", torch.float32, dev)
-    _check(log_w, "log_w", torch.float32, dev)
-    _check(ys, "ys", torch.float32, dev)
     if n_valid is not None:
-        _check(n_valid, "n_valid", torch.int32, dev)
+        if dev.type == "cuda":
+            check_tensor(n_valid, "n_valid", torch.int32, dev)
         if n_valid.numel() != 1:
             raise ValueError("n_valid must be one int32 element")
     n, n_steps = states.shape[0], ys.shape[0]
@@ -142,17 +140,21 @@ def _launch(seed, states, log_w, ys, n_valid, t0, what):
         raise ValueError("states and log_w must be (n,) alike")
     if not 0 < n < 2 ** 31 or t0 < 0 or t0 + n_steps >= 2 ** 32:
         raise ValueError("need 0 < n < 2^31 and t0 + n_steps < 2^32")
-    lib = _lib()
-    x_out = torch.empty_like(states)
-    w_out = torch.empty_like(log_w)
-    rec = torch.empty((-(-n // LG_BLOCK), 3), dtype=torch.float32, device=dev)
     k0, k1 = split_seed(seed)
-    err = lib.lg_chunk_launch(
-        ys.data_ptr(), n_steps, None if n_valid is None else n_valid.data_ptr(),
-        k0, k1, t0, states.data_ptr(), log_w.data_ptr(), x_out.data_ptr(),
-        w_out.data_ptr(), rec.data_ptr(), n, _stream(dev))
-    _raise_on(err, "lg_chunk_kernel")
-    return x_out, w_out, rec
+
+    def launch(x_out, w_out, rec):
+        return _lib().lg_chunk_launch(
+            ys.data_ptr(), n_steps,
+            None if n_valid is None else n_valid.data_ptr(), k0, k1, t0,
+            states.data_ptr(), log_w.data_ptr(), x_out.data_ptr(),
+            w_out.data_ptr(), rec.data_ptr(), n, current_stream(dev))
+
+    return launch_population(
+        what, launch, device=dev,
+        inputs=[(states, "states", torch.float32), (log_w, "log_w", torch.float32),
+                (ys, "ys", torch.float32)],
+        outputs=[(n, torch.float32), (n, torch.float32)],
+        records=(-(-n // LG_BLOCK), 3), counts=LAUNCHES, count_key=count_key)
 
 
 def lg_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
@@ -162,9 +164,8 @@ def lg_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     Returns (states, log_w, records)."""
     if states.device.type == "cpu":
         return lg_chunk_plain(seed, states, log_w, ys, n_valid, t0=t0)
-    out = _launch(seed, states, log_w, ys, n_valid, t0, "lg_chunk")
-    LAUNCHES["chunk"] += 1
-    return out
+    return _launch(seed, states, log_w, ys, n_valid, t0, "lg_chunk_kernel",
+                   "chunk")
 
 
 def lg_step(seed: int, states: torch.Tensor, log_w: torch.Tensor,
@@ -174,8 +175,8 @@ def lg_step(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     version on CPU tensors.  Returns (states, log_w)."""
     if states.device.type == "cpu":
         return lg_step_plain(seed, states, log_w, y, t)
-    x, w, _ = _launch(seed, states, log_w, y.reshape(1), None, t, "lg_step")
-    LAUNCHES["step"] += 1
+    x, w, _ = _launch(seed, states, log_w, y.reshape(1), None, t,
+                      "lg_chunk_kernel (one step)", "step")
     return x, w
 
 

@@ -1,0 +1,226 @@
+"""Kernel-from-spec fused SMC models — counterpart of
+``cpprob_tpu/ops/pallas_ssm.py`` (its discrete, scalar and vector
+families; the guided ones come with guided SMC).
+
+- :func:`make_fused_discrete_ssm`: any K-state HMM with Gaussian emissions
+  (1 <= K <= 32) as a complete :class:`StateSpaceModel`: batched torch
+  hooks plus the fused kernels of :mod:`.fused_hmm` (K9 init, K8 chunk with
+  exchange resampling and optional island checks, and the per-step hooks
+  as one-step launches of K8).  The reference's polynomial table lookups
+  and 16-bit uniforms are TPU workarounds; the port's kernels read exact
+  tables and draw 24-bit Philox uniforms (``block_r`` and ``interpret``
+  are TPU parameters and are not carried over).
+- :func:`attach_fused_scalar_kernels` / :func:`attach_fused_vector_kernels`:
+  a continuous-state model's physics as an elementwise ``step_elem`` run by
+  the Triton chunk kernel of :mod:`.triton_ssm` (K10, K11); see there for
+  the contract ``step_elem`` keeps.
+- :func:`discrete_hmm_log_evidence`, :func:`discrete_hmm_smoothed_marginals`:
+  the exact numpy oracles (the port never imports JAX).
+
+``key`` arguments of the batched hooks are ``torch.Generator`` objects on
+the population's device; the fused hooks take the sweep's integer seed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..inference.smc import StateSpaceModel
+from .fused_hmm import fused_hmm_hooks, stats_from_partials
+from .triton_ssm import UserKernel
+
+__all__ = [
+    "make_fused_discrete_ssm",
+    "attach_fused_scalar_kernels",
+    "attach_fused_vector_kernels",
+    "discrete_hmm_log_evidence",
+    "discrete_hmm_smoothed_marginals",
+]
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def make_fused_discrete_ssm(trans, means, stds=None, init_probs=None, *,
+                            island_every: int = 0, island_thresh: float = 0.5,
+                            island_counts: list | None = None):
+    """A :class:`StateSpaceModel` for the K-state HMM ``z_t ~ trans[z_{t-1}]``,
+    ``y_t ~ N(means[z_t], stds[z_t])`` (stds default to 1, the initial
+    distribution to uniform), with the fused kernels installed:
+
+    >>> ssm = make_fused_discrete_ssm(trans5, means5, stds5)
+    >>> run = build_smc_run(ssm, 1 << 24, chunk=8)
+
+    Raises ``ValueError`` on a matrix that is not square, rows that do not
+    sum to 1, K > 32 or stds that are not positive.  ``island_every`` > 0
+    adds the interior island checks of the chunk kernel, so whole-sweep
+    fusion (``chunk=T``) keeps the adaptive trigger live;
+    ``island_counts`` collects each chunk launch's interior resamples per
+    island (see :func:`~.fused_hmm.fused_hmm_hooks`)."""
+    from ..interop import spec_from_numpy
+
+    trans = np.asarray(trans, np.float64)
+    K = trans.shape[0]
+    stds = np.ones(K) if stds is None else np.asarray(stds, np.float64)
+    init_probs = (np.full(K, 1.0 / K) if init_probs is None
+                  else np.asarray(init_probs, np.float64))
+    spec = spec_from_numpy(trans, means, stds, init_probs)
+    means = np.asarray(means, np.float64).reshape(K)
+    stds = stds.reshape(K)
+    host = {
+        "means": means.astype(np.float32),
+        "stds": stds.astype(np.float32),
+        "log_init": np.log(np.maximum(init_probs.reshape(K), 1e-38)).astype(np.float32),
+        "log_trans": np.log(np.maximum(trans, 1e-38)).astype(np.float32),
+    }
+    cache: dict = {}
+
+    def tab(device):
+        device = torch.device(device)
+        if device not in cache:
+            t = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+            t.update({k: v for k, v in spec.tables(device).items()
+                      if k in ("trans_cdf", "init_cdf")})
+            cache[device] = t
+        return cache[device]
+
+    def draw(key, cdf, shape):
+        # inverse CDF of each row of ``cdf`` (..., K-1)
+        u = torch.rand(shape, generator=key, device=key.device)
+        return (u[..., None] >= cdf).sum(-1).to(torch.int32)
+
+    def obs_logpdf(s, y, t):
+        tb = tab(s.device)
+        s = s.long()
+        z = (y - tb["means"][s]) / tb["stds"][s]
+        return -0.5 * z * z - torch.log(tb["stds"][s]) - _HALF_LOG_2PI
+
+    def init_sample_batch(key, n):
+        return draw(key, tab(key.device)["init_cdf"], (n,))
+
+    def step_sample_batch(key, states, t):
+        return draw(key, tab(states.device)["trans_cdf"][states.long()],
+                    states.shape).to(states.dtype)
+
+    def obs_sample(key, s, t):
+        tb = tab(s.device)
+        eps = torch.randn(s.shape, generator=key, device=key.device)
+        return tb["means"][s.long()] + tb["stds"][s.long()] * eps
+
+    return StateSpaceModel(
+        init_sample=lambda key: init_sample_batch(key, 1).reshape(()),
+        init_logpdf=lambda s: tab(s.device)["log_init"][s.long()],
+        step_sample=lambda key, s, t: step_sample_batch(key, s.reshape(1), t).reshape(()),
+        # engine convention: step_logpdf(new_state, state, t)
+        step_logpdf=lambda ns, s, t: tab(s.device)["log_trans"][s.long(), ns.long()],
+        obs_logpdf=obs_logpdf,
+        init_sample_batch=init_sample_batch,
+        step_sample_batch=step_sample_batch,
+        obs_logpdf_batch=obs_logpdf,
+        obs_sample=obs_sample,
+        state_categories=K,
+        **fused_hmm_hooks(spec, island_every, island_thresh, island_counts),
+    )
+
+
+def attach_fused_scalar_kernels(base_model, step_elem):
+    """``base_model`` (scalar continuous states) with the user-physics chunk
+    kernel (K10) installed as the time-aware chunk hook
+    ``fused_chunk_t_batch`` and, launched for one step, as
+    ``fused_step_batch``.  ``step_elem(x, y, eps) -> (x', log_emission)``
+    keeps the contract of :mod:`.triton_ssm`; a function outside it raises
+    ``ValueError`` here.  The linear-Gaussian model is the instance
+
+    >>> def lg_step_elem(x, y, eps):
+    ...     nx = x + eps
+    ...     d = y - nx
+    ...     return nx, -0.5 * d * d - half_log_2pi
+    >>> lg = attach_fused_scalar_kernels(linear_gaussian_ssm, lg_step_elem)
+    """
+    kernel = UserKernel(step_elem, 1)
+
+    def fused_chunk(key, states, log_w, ys, n_valid, t0):
+        x, w, rec = kernel.chunk(key, states, log_w, ys,
+                                 n_valid.to(torch.int32), t0=t0)
+        return x, w, stats_from_partials(rec, states.shape[0])[0]
+
+    def fused_step(key, states, log_w, y, t):
+        x, w, _ = kernel.chunk(key, states, log_w, y.reshape(1), t0=int(t),
+                               step=True)
+        return x, w
+
+    return dataclasses.replace(base_model, fused_chunk_t_batch=fused_chunk,
+                               fused_step_batch=fused_step)
+
+
+def attach_fused_vector_kernels(base_model, step_elem, state_dim: int):
+    """``base_model`` with (n, D) states, ``D = state_dim``, with the
+    user-physics chunk kernel over D planes (K11) installed as
+    ``fused_chunk_t_batch`` and ``vector_state_dim`` set.
+    ``step_elem(x_0, .., x_{D-1}, y, eps_0, .., eps_{D-1}) -> (x'_0, ..,
+    x'_{D-1}, log_emission)`` keeps the contract of :mod:`.triton_ssm`.
+    Chunk-boundary resampling takes the sorted-key vector epoch
+    (:func:`~cpprob_tpu_torch.inference.resampling.sorted_systematic_resample_values_nd`)."""
+    D = int(state_dim)
+    kernel = UserKernel(step_elem, D)
+
+    def fused_chunk(key, states, log_w, ys, n_valid, t0):
+        x, w, rec = kernel.chunk(key, states, log_w, ys,
+                                 n_valid.to(torch.int32), t0=t0)
+        return x, w, stats_from_partials(rec, states.shape[0])[0]
+
+    return dataclasses.replace(base_model, fused_chunk_t_batch=fused_chunk,
+                               vector_state_dim=D)
+
+
+# --------------------------------------------------------------------------
+# oracles (copied from cpprob_tpu/ops/pallas_ssm.py:1755-1799)
+
+
+def discrete_hmm_log_evidence(trans, means, stds, init_probs, observations):
+    """Exact log p(y_{1:T}) for a K-state Gaussian-emission HMM via the
+    forward recursion (float64, host numpy)."""
+    trans = np.asarray(trans, np.float64)
+    means = np.asarray(means, np.float64)
+    stds = np.asarray(stds, np.float64)
+    p = np.asarray(init_probs, np.float64)
+    obs = np.asarray(observations, np.float64)
+    log_z = 0.0
+    for t, y in enumerate(obs):
+        emis = np.exp(-0.5 * ((y - means) / stds) ** 2) / (
+            stds * np.sqrt(2 * np.pi)
+        )
+        a = (p if t == 0 else alpha @ trans) * emis
+        log_z += np.log(a.sum())
+        alpha = a / a.sum()
+    return float(log_z)
+
+
+def discrete_hmm_smoothed_marginals(trans, means, stds, init_probs,
+                                    observations):
+    """Exact smoothed marginals p(z_t | y_{1:T}) (T, K) via forward-backward
+    (float64, host numpy)."""
+    trans = np.asarray(trans, np.float64)
+    means = np.asarray(means, np.float64)
+    stds = np.asarray(stds, np.float64)
+    p0 = np.asarray(init_probs, np.float64)
+    obs = np.asarray(observations, np.float64)
+    T, K = obs.shape[0], trans.shape[0]
+    emis = np.exp(-0.5 * ((obs[:, None] - means[None, :]) / stds) ** 2) / (
+        stds * np.sqrt(2 * np.pi)
+    )
+    alphas = np.zeros((T, K))
+    a = p0 * emis[0]
+    alphas[0] = a / a.sum()
+    for t in range(1, T):
+        a = (alphas[t - 1] @ trans) * emis[t]
+        alphas[t] = a / a.sum()
+    betas = np.ones((T, K))
+    for t in range(T - 2, -1, -1):
+        b = trans @ (emis[t + 1] * betas[t + 1])
+        betas[t] = b / b.sum()
+    post = alphas * betas
+    return post / post.sum(axis=1, keepdims=True)

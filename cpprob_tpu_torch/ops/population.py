@@ -1,0 +1,70 @@
+"""The population launcher — counterpart of ``_pallas_population_call``
+(``cpprob_tpu/ops/pallas_ssm.py:366-394``).
+
+Every population kernel of the port (the HMM init and chunk kernels, the
+linear-Gaussian chunk kernel, the user-physics Triton kernels) takes
+(seed, observations, control, states, log_w) and writes (states', log_w',
+one statistics record per CTA).  :func:`launch_population` is the one
+place that checks the inputs, allocates the outputs and the records,
+launches, raises on a refused launch and counts it; the kernels' outputs
+do not depend on it.
+
+The helpers below it (:func:`check_tensor`, :func:`raise_on`,
+:func:`current_stream`) serve the other kernel wrappers too.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Sequence
+
+import torch
+
+__all__ = ["launch_population", "check_tensor", "raise_on", "current_stream"]
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, device):
+    """Raise unless ``t`` lies on ``device``, has ``dtype`` and is
+    contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(err, what: str):
+    """Raise if a launch returned a CUDA error (``None``: the launcher
+    raises by itself, as Triton's does)."""
+    if err:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def current_stream(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, for a ``ctypes`` launch."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch_population(what: str, launch: Callable, *, device,
+                      inputs: Sequence = (), outputs: Sequence = (),
+                      records: tuple, counts: dict, count_key: str):
+    """Launch one population kernel on ``device`` (a CUDA device).
+
+    ``inputs``: (tensor, name, dtype) triples to check.  ``outputs``:
+    (shape, dtype) of each output, allocated with ``torch.empty``.
+    ``records``: the (rows, columns) of the float32 per-CTA records.
+    ``launch(*outputs, records)`` launches the kernel on the current stream
+    and returns its CUDA error (0 or ``None`` when launched).  On success
+    ``counts[count_key]`` goes up by one.  Returns ``(*outputs, records)``.
+    """
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda tensors, not {device}")
+    for t, name, dtype in inputs:
+        check_tensor(t, name, dtype, device)
+    outs = [torch.empty(shape, dtype=dtype, device=device)
+            for shape, dtype in outputs]
+    rec = torch.empty(records, dtype=torch.float32, device=device)
+    raise_on(launch(*outs, rec), what)
+    counts[count_key] += 1
+    return (*outs, rec)

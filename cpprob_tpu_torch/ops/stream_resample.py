@@ -29,7 +29,9 @@ import ctypes
 
 import torch
 
-from .fused_hmm import _check, _raise_on, _stream
+from .population import check_tensor as _check
+from .population import current_stream as _stream
+from .population import raise_on as _raise_on
 
 __all__ = [
     "LAUNCHES", "logsumexp_stats", "logsumexp_stats_plain", "resample_pass1",

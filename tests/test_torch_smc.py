@@ -27,11 +27,17 @@ from cpprob_tpu_torch.inference import resampling as rs
 from cpprob_tpu_torch.inference.smc import make_smc_step_exchange_fused_chunked
 from cpprob_tpu_torch.interop import carry_from_numpy
 from cpprob_tpu_torch.models import hmm as port_hmm
-from cpprob_tpu_torch.ops.fused_hmm import ISLAND_SIZE, make_fused_hmm_ssm
+from cpprob_tpu_torch.ops.fused_hmm import (
+    ISLAND_SIZE,
+    hmm_chunk_plain,
+    make_fused_hmm_ssm,
+    stats_from_partials,
+)
 
 # the packages' ``hmm`` and ``smc`` attributes are functions, not the modules
 ref_hmm = importlib.import_module("cpprob_tpu.models.hmm")
 ref_smc = importlib.import_module("cpprob_tpu.inference.smc")
+port_smc = importlib.import_module("cpprob_tpu_torch.inference.smc")
 
 torch.set_num_threads(2)
 
@@ -205,13 +211,153 @@ def test_exact_posterior_and_oracle_match_reference():
                - discrete_hmm_log_evidence(trans, means, stds, init, ys)) < 1e-10
 
 
+@pytest.mark.parametrize("flag", [0, 1])
+def test_step_exchange_matches_pallas_interpret(flag):
+    """K4: one step with the flagged exchange resample, as a one-step
+    launch of the chunk kernel's plain version, against
+    ``pallas_hmm_fused_step_exchange(interpret=True)`` (u = 0)."""
+    from cpprob_tpu.ops.pallas_hmm import pallas_hmm_fused_step_exchange
+    from cpprob_tpu_torch.interop import population_from_numpy, spec_from_numpy
+
+    n = 2 * ISLAND_SIZE
+    states, log_w = _population(20 + flag, n, 2.0)
+    ticks = np.array([n // 3, 3 * n // 4], np.int32)
+    y = np.float32(0.4)
+    s_j, w_j, ess, cat_w, lme = pallas_hmm_fused_step_exchange(
+        jnp.int32(0), jnp.asarray(states), jnp.asarray(log_w), jnp.float32(y),
+        jnp.int32(flag), jnp.asarray(ticks), block_r=32, interpret=True)
+    spec = spec_from_numpy(ref_hmm.HMM_TRANS, ref_hmm.HMM_MEANS, np.ones(3),
+                           np.full(3, 1 / 3))
+    s_t, w_t = population_from_numpy(states, log_w)
+    ctrl = torch.tensor([flag, *ticks, 1], dtype=torch.int32)
+    s, w, rec = hmm_chunk_plain(0, s_t, w_t, torch.tensor([y]), ctrl, spec,
+                                t0=5, draws=(torch.zeros(1, n), None))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_j))
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_j), atol=1e-5)
+    ess_p, cat_p, lme_p = stats_from_partials(rec, n)
+    np.testing.assert_allclose(float(ess_p), float(ess), rtol=1e-5)
+    np.testing.assert_allclose(cat_p.numpy(), np.asarray(cat_w), atol=1e-6)
+    np.testing.assert_allclose(float(lme_p), float(lme), rtol=1e-5)
+
+
+def test_step_hooks_are_one_step_chunk_launches():
+    """The three per-step hooks of ``make_fused_hmm_ssm`` are the chunk
+    kernel at n_steps = 1 and t0 = t: the same draws as a chunk step at
+    that absolute time."""
+    model = make_fused_hmm_ssm()
+    n = ISLAND_SIZE
+    states, log_w = (torch.as_tensor(a) for a in _population(6, n, 1.0))
+    y = torch.tensor(0.25)
+    ctrl = torch.tensor([0, 0, 0, 3], dtype=torch.int32)
+    ys = torch.tensor([0.25, -1.0, 2.0])
+    spec = port_smc_spec()
+    s3, w3, _ = hmm_chunk_plain(4, states, log_w, ys, ctrl, spec, t0=7)
+    s1, w1 = model.fused_step_batch(4, states, log_w, y, 7)
+    s2, w2, ess = model.fused_step_ess_batch(4, states, log_w, y, 7)
+    ticks = torch.tensor([n // 2, n], dtype=torch.int32)
+    s4, w4, ess4, cat4, lme4 = model.fused_step_exchange_batch(
+        4, states, log_w, y, 7, torch.tensor(0, dtype=torch.int32), ticks)
+    one, _, _ = hmm_chunk_plain(4, states, log_w, ys[:1], torch.tensor(
+        [0, 0, 0, 1], dtype=torch.int32), spec, t0=7)
+    for s_ in (s1, s2, s4):
+        assert torch.equal(s_, one)
+    assert torch.equal(w1, w2) and torch.equal(w2, w4)
+    np.testing.assert_allclose(float(ess), float(rs.ess(w1)), rtol=1e-5)
+    # the next step of the three-step chunk is the hook at t = 8
+    s8, _ = model.fused_step_batch(4, one, w1, ys[1], 8)
+    s3b, _, _ = hmm_chunk_plain(4, states, log_w, ys[:2], torch.tensor(
+        [0, 0, 0, 2], dtype=torch.int32), spec, t0=7)
+    assert torch.equal(s8, s3b)
+    # flag on: the population is rebuilt from the ticks before the step
+    s5, w5, *_ = model.fused_step_exchange_batch(
+        4, states, log_w, y, 7, torch.tensor(1, dtype=torch.int32), ticks)
+    assert float(w5.std()) < float(w1.std())
+
+
+def port_smc_spec():
+    from cpprob_tpu_torch.interop import spec_from_numpy
+
+    return spec_from_numpy(port_hmm.HMM_TRANS, port_hmm.HMM_MEANS, np.ones(3),
+                           np.full(3, 1 / 3))
+
+
+@pytest.mark.parametrize("route", ["exchange_chunk1", "smc_history"])
+def test_per_step_fused_routes_match_exact(route):
+    """chunk = 1 takes the per-step exchange route (K4, started from
+    ``init_sample_batch``); smc() keeps the history and takes
+    ``fused_step_ess_batch`` (K5)."""
+    obs = torch.as_tensor(OBS)
+    model = make_fused_hmm_ssm()
+    if route == "exchange_chunk1":
+        run = build_smc_run(model, N)
+        results = [run(i, obs) for i in range(SEEDS)]
+        assert all(r.resampled.shape == (16,) for r in results)
+    else:
+        results = [smc(model, obs, N, i) for i in range(SEEDS)]
+        r = results[0]
+        assert r.states.shape == (16, N) and r.ancestors.shape == (16, N)
+        assert r.states.dtype == torch.int32
+    assert any(bool(r.resampled.any()) for r in results)
+    mean, se = _mean_se([float(r.log_evidence) for r in results])
+    assert abs(mean - EXACT) < 4 * se + FLOOR, (mean, se)
+
+
+def test_per_step_exchange_glue_matches_reference():
+    """The per-step exchange glue's decision, ticks and evidence increment
+    against the reference's ``make_smc_step_exchange_fused``."""
+    n = 1 << 12
+    states, log_w = _population(8, n, 3.0)
+    ess = float(ref_rs.ess(log_w))
+    cat_w = np.array(ref_rs.category_weights(log_w, states, 3))
+    lme = float(jax.scipy.special.logsumexp(log_w) - np.log(n))
+    seen = {}
+
+    def capture_ref(key, s, w, y, t, flag, ticks):
+        seen["ref"] = (int(flag), np.asarray(ticks), int(t))
+        return s, w, jnp.float32(n), jnp.ones(3) / 3, jnp.float32(0.0)
+
+    def capture_port(key, s, w, y, t, flag, ticks):
+        seen["port"] = (int(flag), ticks.numpy(), int(t))
+        return s, w, torch.tensor(float(n)), torch.ones(3) / 3, torch.tensor(0.0)
+
+    key = jax.random.key(6)
+    ref_model = dataclasses.replace(ref_hmm.hmm_ssm,
+                                    fused_step_exchange_batch=capture_ref)
+    ref_step = ref_smc.make_smc_step_exchange_fused(ref_model, n, 0.5)
+    carry = (key, jnp.asarray(states), jnp.asarray(log_w), jnp.float32(-2.0),
+             jnp.float32(ess), jnp.asarray(cat_w), jnp.float32(lme))
+    (_, _, _, log_z_ref, *_), (do_ref,) = ref_step(carry, (jnp.float32(0.3), 4))
+    u0 = float(jax.random.uniform(jax.random.split(key, 3)[1], ()))
+    port_model = dataclasses.replace(port_hmm.hmm_ssm,
+                                     fused_step_exchange_batch=capture_port)
+    step = port_smc.make_smc_step_exchange_fused(port_model, n, 0.5)
+    carry = carry_from_numpy(6, states, log_w, -2.0, ess, cat_w, lme)
+    (_, _, _, log_z_port, *_), (do_port,) = step(
+        carry, (torch.tensor(0.3), 4), u0=u0)
+    assert bool(do_port) == bool(do_ref) is True
+    assert seen["port"][0] == seen["ref"][0] == 1 and seen["port"][2] == 4
+    assert np.abs(seen["port"][1].astype(np.int64) - seen["ref"][1]).max() <= 1
+    np.testing.assert_allclose(float(log_z_port), float(log_z_ref), atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_step_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    import chip_smoke
+
+    errs = chip_smoke.check_step_kernels(1 << 16)
+    assert errs["step_exchange"] < 1e-4 and errs["step_ess"] < 1e-4
+
+
 def test_unported_combinations_raise():
     # no chunk kernel on the model: an error in the reference too
     with pytest.raises(ValueError, match="fused_chunk"):
         build_smc_run(port_hmm.hmm_ssm, N, chunk=16)
-    with pytest.raises(NotImplementedError, match="K11"):
+    # a model with per-particle hooks only (vmap) comes with slice 4
+    with pytest.raises(NotImplementedError, match="slice 4"):
         build_smc_run(dataclasses.replace(port_hmm.hmm_ssm, state_categories=None,
-                                          vector_state_dim=2), N)
+                                          step_sample_batch=None), N)
     with pytest.raises(NotImplementedError, match="slice 3"):
         build_smc_run(dataclasses.replace(port_hmm.hmm_ssm,
                                           proposal_sample=lambda *a: None), N)
@@ -249,8 +395,11 @@ def test_port_imports_without_jax():
         "import cpprob_tpu_torch.ops.fused_hmm, cpprob_tpu_torch.util.profiling\n"
         "import cpprob_tpu_torch.ops.fused_lg, cpprob_tpu_torch.ops.stream_resample\n"
         "import cpprob_tpu_torch.models.linear_gaussian\n"
+        "import cpprob_tpu_torch.ops.fused_ssm, cpprob_tpu_torch.ops.triton_ssm\n"
+        "import cpprob_tpu_torch.ops.elem, cpprob_tpu_torch.ops.population\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or "
         "m.startswith('cpprob_tpu.') for m in sys.modules if sys.modules[m])\n"
+        "assert 'triton' not in sys.modules\n"
     )
     import os
 
