@@ -58,8 +58,27 @@ and the script exits non-zero without printing its last line:
    lg_step_elem), 2^24, chunk=8)`` for 16 sweeps against Kalman, path 6,
    ``attach_fused_vector_kernels(2-D model, step, 2)`` at 2^20, chunk 4,
    for 8 sweeps against the 2-D Kalman filter; timings;
-7. one JSON line on the thirteen kernel entries, the card line, and the
-   result line ``{"ok": true, "device": {...}}``.
+7. guided SMC (``guided_phases``): the two proposal nets trained on the
+   card by ``train_ssm_proposal`` with ``examples/kernel_bench.py``'s
+   settings (a set-up stage; fails unless the loss fell); K12 (Triton, the
+   guided linear-Gaussian model: t0 1 and 9, n_valid 8 and 7) and K13
+   (CUDA, the guided 5-state chain: flag 0 and 1, n_valid 8 and 7, island
+   off, and a 16-slot chunk whose forced island check fires; its one-step
+   launch at 2^20; its instances for K = 2, 3, 8 at 2^20 with untrained
+   nets) against their plain versions at 2^24; path 7,
+   ``build_smc_run(attach_fused_guided_scalar_kernels(...), 2^24,
+   chunk=8)`` against Kalman; path 8, ``build_smc_run(
+   attach_fused_guided_discrete_kernels(...), 2^24, chunk=8)`` (K9 then
+   K13); path 9a, the same model per step at 2^20 (K13 one-step launches,
+   T = 12); path 9b, ``island_every=8`` at ``chunk=16`` (the interior
+   check must fire in the path's own sweeps); path 9c, ``smc()`` with
+   history (the engine's unfused guided step: no kernel); each against the
+   exact forward recursion or Kalman, with launch counts; timings and
+   profiles of paths 7 and 8 (``chiprun_out/guided_lg_sweep_trace.json``,
+   ``chiprun_out/guided_chain_sweep_trace.json``);
+8. one JSON line on the sixteen kernel entries (each with its bound and,
+   where one PyTorch call computes the same function, that call's time),
+   the card line, and the result line ``{"ok": true, "device": {...}}``.
 
 Every timed sweep runs under ``torch.cuda.set_sync_debug_mode("error")``:
 a sweep never waits on the host.  Launch counts are set to 0 just before
@@ -96,9 +115,74 @@ LG_STEP_N = 1 << 20        # the per-step path (chunk = 1)
 LG_STEP_SWEEPS = 8
 PASS1_SLACK = 16           # start slots pass 1 may place differently
 
+# The least time the card could take for a kernel's work (bound_ms on the
+# kernels line): the larger of the bytes it must move (each input read once,
+# each output written once) over the HBM rate, and its operations over the
+# float32 rate outside the tensor cores, both H100 SXM datasheet peaks.
+# Integer (Philox) and float64 operations are counted at the float32 rate,
+# the only rate taken here for that work; the card's 32-bit integer multiply and float64 rates are lower,
+# so those bounds are floors.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# one Philox4x32-10 call: ten rounds of two 32x32->64 multiplies (4 ops)
+# and four xors, and the uniform's shift, convert and scale
+PHILOX_OPS = 83
+
 
 def _sync():
     torch.cuda.synchronize()
+
+
+def bound(n_bytes, n_ops, library_ms=None):
+    """The kernels line's ``bound_ms``, ``bound_by`` and ``library_ms``."""
+    ms_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    ms_o = n_ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(ms_b, ms_o),
+            "bound_by": "bytes" if ms_b >= ms_o else "operations",
+            "library_ms": library_ms}
+
+
+def chain_chunk_bound(n, K, steps, checks=0):
+    """The K-state chunk kernels (K2, K4, K5, K8): 16 B per particle (state
+    and weight in and out); per particle-step one Philox call, the
+    inverse-CDF walk (2(K-1)) and the weight update (K); per particle and
+    island check an exp and K + 3 sums."""
+    return bound(16 * n + 4 * steps,
+                 n * steps * (PHILOX_OPS + 3 * K - 2) + n * checks * (K + 4))
+
+
+def chain_init_bound(n, K):
+    """The init kernels (K1, K9): 8 B written per particle; one Philox call,
+    the inverse-CDF walk, the emission pick and the record's sums."""
+    return bound(8 * n, n * (PHILOX_OPS + 4 * K + 1))
+
+
+def normal_chunk_bound(n, steps, D=1, physics_ops=6):
+    """The chunk kernels with Box-Muller draws (K6, K7, K10, K11): 8 (D + 1)
+    B per particle; per particle-step and plane half a Philox call and half
+    a Box-Muller pair (log, sqrt, cos or sin, 2 multiplies: ~4), and the
+    physics."""
+    return bound(8 * (D + 1) * n,
+                 n * steps * (D * (PHILOX_OPS / 2 + 4) + physics_ops))
+
+
+def guided_net_ops(sizes):
+    """Float operations of one evaluation of a guided proposal net of
+    ``sizes`` per particle, as the kernels form it: the first layer's
+    per-particle input through a multiply, an add and a max per unit (its
+    step scalars and its one-hot rows are formed once per step), then a
+    multiply and an add per weight of the later layers, a max per later
+    hidden unit."""
+    ops = 3 * sizes[1]
+    ops += sum(2 * a * b for a, b in zip(sizes[1:-1], sizes[2:]))
+    return ops + sum(sizes[2:-1])
+
+
+def guided_table_ops(sizes, K):
+    """Operations of K13's tables per CTA and step: the net for each of
+    the K source states (the one-hot layer an add per unit), and per
+    (a, b) entry the max, the exp-sums and the RN entry (2K + 8)."""
+    return K * guided_net_ops(sizes) + 5 * sizes[1] + K * K * (2 * K + 8)
 
 
 def _time_ms(fn, reps):
@@ -507,11 +591,13 @@ def hmm_phases(card, stages):
         {"name": "hmm_init_kernel", "route": "cuda", "source": src,
          "replaces": "cpprob_tpu/ops/pallas_hmm.py:727",
          "launches": launches["init"], "max_abs_err": errs["init"],
-         "ms": timing["init"][0], "plain_ms": timing["init"][1]},
+         "ms": timing["init"][0], "plain_ms": timing["init"][1],
+         **chain_init_bound(MAIN_N, 3)},
         {"name": "hmm_chunk_kernel", "route": "cuda", "source": src,
          "replaces": "cpprob_tpu/ops/pallas_hmm.py:245",
          "launches": launches["chunk"], "max_abs_err": errs["chunk"],
-         "ms": timing["chunk"][0], "plain_ms": timing["chunk"][1]},
+         "ms": timing["chunk"][0], "plain_ms": timing["chunk"][1],
+         **chain_chunk_bound(MAIN_N, 3, int(n_valid), checks=1)},
     ]
 
 
@@ -609,12 +695,39 @@ def lg_phases(card, stages):
     with stages.stage("lg_profile", sync=True):
         profile_sweeps(run, obs, card, trace="lg_sweep_trace.json")
 
+    # one PyTorch call for the same function, where there is one (timed
+    # here, never called by the port): K14's logsumexp, K15's float64 prefix
+    # of the exponentiated weights, K16's expansion by counts
+    e64 = torch.exp(w1.double() - stats[0])
+    counts = torch.diff(st.long(), append=torch.full((1,), LG_N, device=dev))
+    library = {
+        "lse_stats": _time_ms(lambda: torch.logsumexp(w1, 0), 10),
+        "pass1": _time_ms(lambda: torch.cumsum(e64, 0), 10),
+        "pass2": _time_ms(lambda: torch.repeat_interleave(
+            x1, counts, output_size=LG_N), 10),
+    }
+    for name, ms in library.items():
+        print(f"[{card}] {name} at n={LG_N}: one PyTorch call {ms:.4f} ms")
+    n = LG_N
+    bounds = {
+        "lg_chunk": normal_chunk_bound(n, int(valid[0])),
+        "lg_step": normal_chunk_bound(n, 1),
+        # K14 reads the weights (max, subtract, exp, add); K15 reads them
+        # and writes int32 start slots (exp, prefix add, scale, ceil,
+        # clamp); K16 reads the start slots and the values and writes the
+        # values, a binary search of log2(n) steps per slot
+        "lse_stats": bound(4 * n, 4 * n, library["lse_stats"]),
+        "pass1": bound(8 * n, 6 * n, library["pass1"]),
+        "pass2": bound(12 * n, 2 * n * math.ceil(math.log2(n)),
+                       library["pass2"]),
+    }
+
     def line(name, key, replaces, src, n_launch):
         return {"name": name, "route": "cuda",
                 "source": f"cpprob_tpu_torch/ops/csrc/{src}",
                 "replaces": replaces, "launches": n_launch,
                 "max_abs_err": errs[key], "ms": timing[key][0],
-                "plain_ms": timing[key][1]}
+                "plain_ms": timing[key][1], **bounds[key]}
 
     return [
         line("lg_chunk_kernel", "lg_chunk", "cpprob_tpu/ops/pallas_hmm.py:808",
@@ -1229,11 +1342,18 @@ def spec_phases(card, stages):
 
     src = "cpprob_tpu_torch/ops/csrc/fused_hmm.cu"
 
+    bounds = {
+        "step_exchange": chain_chunk_bound(STEP_N, 3, 1),
+        "step_ess": chain_chunk_bound(STEP_N, 3, 1),
+        "spec_chunk": chain_chunk_bound(SPEC_N, 5, int(valid[0])),
+        "spec_init": chain_init_bound(SPEC_N, 5),
+    }
+
     def line(name, key, replaces, n_launch):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": n_launch,
                 "max_abs_err": errs[key], "ms": timing[key][0],
-                "plain_ms": timing[key][1]}
+                "plain_ms": timing[key][1], **bounds[key]}
 
     return [
         line("hmm_chunk_kernel (n_steps=1, flag and ticks live)", "step_exchange",
@@ -1328,11 +1448,404 @@ def user_phases(card, stages):
         {"name": "user_chunk_kernel (D=1, LG physics)", "route": "triton",
          "source": src, "replaces": "cpprob_tpu/ops/pallas_ssm.py:588",
          "launches": got5["scalar"], "max_abs_err": errs["scalar"],
-         "ms": timing["scalar"][0], "plain_ms": timing["scalar"][1]},
+         "ms": timing["scalar"][0], "plain_ms": timing["scalar"][1],
+         **normal_chunk_bound(USER_N, int(valid[0]))},
         {"name": "user_chunk_kernel (D=2, 2-D LG physics)", "route": "triton",
          "source": src, "replaces": "cpprob_tpu/ops/pallas_ssm.py:730",
          "launches": got6["vector"], "max_abs_err": errs["vector"],
-         "ms": timing["vector"][0], "plain_ms": timing["vector"][1]},
+         "ms": timing["vector"][0], "plain_ms": timing["vector"][1],
+         **normal_chunk_bound(VEC_N, int(vvalid[0]), D=2, physics_ops=10)},
+    ]
+
+
+# ---------------------------------------------------------------------------
+# guided SMC: K12 (Triton, the guided linear-Gaussian model) and K13 (CUDA,
+# the guided 5-state chain)
+
+GUIDED_N = 1 << 24         # paths 7, 8, 9b (examples/kernel_bench.py:192-280)
+GUIDED_CHUNK = 8
+GUIDED_ISLAND_CHUNK = 16   # path 9b: the guided whole sweep with islands
+GUIDED_STEP_N = 1 << 20    # paths 9a, 9c (tests/test_tpu_hw.py:132-159)
+GUIDED_STEP_T = 12
+GUIDED_STEP_SEED = 3       # observations of test_tpu_hw.py:154
+GUIDED_SMC_SWEEPS = 4
+# the nets' seeds: the port's initial net at LG_NET_SEED puts no site's
+# proposal scale at its floor, so 600 Adam steps reach the reference's loss;
+# at some seeds (0, 1, 5) the floor holds some sites and the loss stays
+# orders of magnitude higher (an exact estimator still, with a variance 16
+# sweeps cannot gate)
+LG_NET_SEED = 10
+CHAIN_NET_SEED = 6
+# K12 against its plain version, as K10: libdevice's transcendentals and
+# torch's may differ in the last bit (they agreed bit for bit at 2^24 on an
+# H100 80GB HBM3 at 700.00 W, chip_smoke.py's check_guided_kernels)
+GUIDED_TOL = 1e-5
+
+
+def guided_trans_lp(x, nx, t):
+    """log N(nx; x, 1), the transition of examples/kernel_bench.py:203-205."""
+    d = nx - x
+    return -0.5 * d * d - HALF_LOG_2PI
+
+
+def guided_obs_lp(nx, y, t):
+    """log N(y; nx, 1), the emission of examples/kernel_bench.py:207-209."""
+    d = y - nx
+    return -0.5 * d * d - HALF_LOG_2PI
+
+
+def train_guides(card, stages):
+    """The two proposal nets, trained on the card by the port's trainer with
+    the reference's settings (kernel_bench.py:197-200,256-259).  Fails if a
+    loss did not fall."""
+    from cpprob_tpu_torch.inference.smc_csis import train_ssm_proposal
+    from cpprob_tpu_torch.models.linear_gaussian import linear_gaussian_ssm
+    from cpprob_tpu_torch.ops.fused_ssm import make_fused_discrete_ssm
+
+    nets = {}
+    jobs = (("lg", lambda: train_ssm_proposal(
+                linear_gaussian_ssm, LG_NET_SEED, LG_T, kind="normal",
+                steps=600, batch_size=256, hidden=16, device="cuda")),
+            ("chain", lambda: train_ssm_proposal(
+                make_fused_discrete_ssm(*_chain(5)), CHAIN_NET_SEED, T,
+                kind="discrete", n_states=5, steps=300, batch_size=256,
+                hidden=16, device="cuda")))
+    for name, job in jobs:
+        with stages.stage(f"guided_train_{name}", sync=True):
+            params, losses = job()
+        losses = losses.cpu()
+        first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+        print(f"[{card}] train {name} net {[p['w'].shape[0] for p in params]}"
+              f"+[{params[-1]['w'].shape[1]}]: {losses.shape[0]} steps in "
+              f"{stages.totals[f'guided_train_{name}']:.2f} s, mean loss first 20 "
+              f"{first:.6g}, last 20 {last:.6g}")
+        if not last < first:
+            raise AssertionError(f"the {name} net's loss did not fall")
+        nets[name] = params
+    return nets["lg"], nets["chain"]
+
+
+def _guided_tables(params):
+    import numpy as np
+
+    from cpprob_tpu_torch.ops.fused_hmm import GuidedTables
+
+    return GuidedTables.from_params(np.log(np.maximum(np.array(TRANS5), 1e-38)),
+                                    params, T)
+
+
+def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
+                         n_step=GUIDED_STEP_N, seed=CHECK_SEED):
+    """K12 and K13 against their plain versions on the card at the guided
+    paths' shapes.  K12 (the LG net, t0 1 and 9, n_valid 8 and 7) within
+    ``GUIDED_TOL``; K13 (the chain's net on K9's population: flag 0 and 1,
+    n_valid 8 and 7, island off; the 16-slot chunk with an island check at
+    a threshold that fires) and its one-step launch (K = 5, 2^20, flag 0 and
+    1) by :func:`_compare_chunk`, as K8: the tables take the same operations
+    in the same order on both sides; K13's instances for K = 2, 3, 8 once
+    each at 2^20.  Returns the largest |dlog_w| of each."""
+    import numpy as np
+
+    from cpprob_tpu_torch.interop import spec_from_numpy
+    from cpprob_tpu_torch.ops.fused_hmm import (
+        guided_chunk,
+        guided_chunk_plain,
+        hmm_init,
+    )
+    from cpprob_tpu_torch.ops.triton_ssm import (
+        GuidedScalarKernel,
+        guided_scalar_chunk_plain,
+    )
+
+    dev = torch.device("cuda")
+    errs = {"guided_scalar": 0.0, "guided_chunk": 0.0, "guided_step": 0.0}
+    print(f"K12 against its plain version: states and log_w within "
+          f"{GUIDED_TOL} (libdevice's transcendentals against torch's may "
+          "differ in the last bit)")
+    k12 = GuidedScalarKernel(lg_params, guided_trans_lp, guided_obs_lp, LG_T)
+    obs = _lg_obs(dev)
+    x0, w0 = _lg_population(n, seed, obs)
+    ys, _ = _lg_chunks(obs)
+    for t0, ys_c in ((1, ys[0]), (9, ys[1])):
+        for nv in (LG_CHUNK, LG_CHUNK - 1):
+            n_valid = torch.full((), nv, dtype=torch.int32, device=dev)
+            out_k = k12.chunk(seed, x0, w0, ys_c, n_valid, t0=t0)
+            out_p = guided_scalar_chunk_plain(
+                lg_params, guided_trans_lp, guided_obs_lp, LG_T, seed, x0, w0,
+                ys_c, n_valid, t0=t0)
+            _sync()
+            what = f"K12 n={n} t0={t0} n_valid={nv}/{LG_CHUNK}"
+            n_diff = int(((out_k[0] != out_p[0]) | (out_k[1] != out_p[1])).sum())
+            dx = float((out_k[0] - out_p[0]).abs().max())
+            dw = float((out_k[1] - out_p[1]).abs().max())
+            print(f"check {what}: {n_diff} slots not bit-equal, max|dx|={dx:.3g} "
+                  f"max|dlog_w|={dw:.3g} (tolerance {GUIDED_TOL})")
+            torch.testing.assert_close(out_k[0], out_p[0], rtol=GUIDED_TOL,
+                                       atol=GUIDED_TOL, msg=f"{what}: states")
+            torch.testing.assert_close(out_k[1], out_p[1], rtol=GUIDED_TOL,
+                                       atol=GUIDED_TOL, msg=f"{what}: log_w")
+            _close_stats(out_k[2], out_p[2], n, what)
+            errs["guided_scalar"] = max(errs["guided_scalar"], dw)
+            del out_k, out_p
+    del x0, w0
+
+    print("K13 against its plain version: states equal and log_w within 1e-5 "
+          "relative, but for at most K-1 slots per fired island (its ticks "
+          "come from sums taken in another order)")
+    K = 5
+    spec5 = spec_from_numpy(*_chain(5))
+    gt = _guided_tables(chain_params)
+    obs5 = torch.as_tensor(_chain_obs(5, T, 0), device=dev)
+    s0, w0, _ = hmm_init(seed, obs5[0], n, spec5)
+    ys8, _ = _chunk_obs(obs5, GUIDED_CHUNK)
+    ys16, v16 = _chunk_obs(obs5, GUIDED_ISLAND_CHUNK)
+    ticks = [n * (k + 1) // K for k in range(K - 1)]
+    cases = [(ys8[0], [flag, *ticks, nv], 0, 0.5, None)
+             for flag in (0, 1) for nv in (GUIDED_CHUNK, GUIDED_CHUNK - 1)]
+    cases += [(ys16[0], [flag, *ticks, int(v16[0])], ISLAND_EVERY, 2.0, "fires")
+              for flag in (0, 1)]
+    for ys_c, ctrl, every, thresh, want in cases:
+        ctrl = torch.tensor(ctrl, dtype=torch.int32, device=dev)
+        kw = dict(t0=1, island_every=every, island_thresh=thresh)
+        out_k = guided_chunk(seed, s0, w0, ys_c, ctrl, spec5, gt, **kw)
+        out_p = guided_chunk_plain(seed, s0, w0, ys_c, ctrl, spec5, gt, **kw)
+        _sync()
+        what = (f"K13 n={n} flag={int(ctrl[0])} n_valid={int(ctrl[-1])}/"
+                f"{ys_c.shape[0]} island_every={every} thresh={thresh}")
+        errs["guided_chunk"] = max(errs["guided_chunk"], _compare_chunk(
+            out_k, out_p, K, n, what, want))
+        del out_k, out_p
+    del s0, w0
+
+    s1, w1, _ = hmm_init(seed, obs5[0], n_step, spec5)
+    ticks1 = [n_step * (k + 1) // K for k in range(K - 1)]
+    for flag in (0, 1):
+        ctrl = torch.tensor([flag, *ticks1, 1], dtype=torch.int32, device=dev)
+        y5 = obs5[5].reshape(1)
+        out_k = guided_chunk(seed, s1, w1, y5, ctrl, spec5, gt, t0=5,
+                             count_key="guided_step_exchange")
+        out_p = guided_chunk_plain(seed, s1, w1, y5, ctrl, spec5, gt, t0=5)
+        _sync()
+        errs["guided_step"] = max(errs["guided_step"], _compare_chunk(
+            out_k, out_p, K, n_step, f"K13 one-step n={n_step} flag={flag} t=5",
+            None))
+
+    # the template's other instances (K = 2, 3, 8), at 2^20 with untrained
+    # [K+2, 16, 16, K] nets: flag on, 8 steps, an island check every 4
+    from cpprob_tpu_torch.inference.nn import mlp_init
+    from cpprob_tpu_torch.ops.fused_hmm import GuidedTables
+
+    for K in (2, 3, 8):
+        gen = torch.Generator()
+        gen.manual_seed(K)
+        gt_k = GuidedTables.from_params(np.log(_chain(K)[0]),
+                                        mlp_init([K + 2, 16, 16, K], gen), T)
+        spec_k = spec_from_numpy(*_chain(K))
+        obs_k = torch.as_tensor(_chain_obs(K, T, K), device=dev)
+        sk, wk, _ = hmm_init(seed, obs_k[0], n_step, spec_k)
+        ys_k, _ = _chunk_obs(obs_k, GUIDED_CHUNK)
+        ctrl = torch.tensor([1, *[n_step * (k + 1) // K for k in range(K - 1)],
+                             GUIDED_CHUNK], dtype=torch.int32, device=dev)
+        kw = dict(t0=1, island_every=4, island_thresh=2.0)
+        out_k = guided_chunk(seed, sk, wk, ys_k[0], ctrl, spec_k, gt_k, **kw)
+        out_p = guided_chunk_plain(seed, sk, wk, ys_k[0], ctrl, spec_k, gt_k, **kw)
+        _sync()
+        errs["guided_chunk"] = max(errs["guided_chunk"], _compare_chunk(
+            out_k, out_p, K, n_step, f"K13 K={K} n={n_step} flag=1 n_valid="
+            f"{GUIDED_CHUNK} island_every=4 thresh=2.0", "fires"))
+    return errs
+
+
+def guided_phases(card, stages):
+    """Guided SMC: the two nets trained on the card, K12 and K13 against
+    their plain versions, paths 7, 8, 9a, 9b (16 sweeps each) and 9c
+    (``GUIDED_SMC_SWEEPS``), timings.  Returns the kernel lines."""
+    from cpprob_tpu_torch import build_smc_run, smc
+    from cpprob_tpu_torch.interop import spec_from_numpy
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        kalman_filter_1d,
+        linear_gaussian_ssm,
+        simulate_observations,
+    )
+    from cpprob_tpu_torch.ops import fused_hmm, triton_ssm
+    from cpprob_tpu_torch.ops import stream_resample as sr
+    from cpprob_tpu_torch.ops.fused_ssm import (
+        attach_fused_guided_discrete_kernels,
+        attach_fused_guided_scalar_kernels,
+        discrete_hmm_log_evidence,
+    )
+
+    dev = torch.device("cuda")
+    lg_params, chain_params = train_guides(card, stages)
+    with stages.stage("guided_kernel_vs_plain", sync=True):
+        errs = check_guided_kernels(lg_params, chain_params)
+    counters = (triton_ssm.LAUNCHES, sr.LAUNCHES, fused_hmm.LAUNCHES)
+
+    # path 7: the guided linear-Gaussian model, K12 at 8 and 7 steps
+    obs = _lg_obs(dev)
+    exact_lg = kalman_filter_1d(simulate_observations(LG_T, 0))[2]
+    lg = attach_fused_guided_scalar_kernels(
+        linear_gaussian_ssm, lg_params, LG_T,
+        trans_logpdf_elem=guided_trans_lp, obs_logpdf_elem=guided_obs_lp)
+    run7 = build_smc_run(lg, GUIDED_N, chunk=GUIDED_CHUNK)
+    with stages.stage("guided_path7", sync=True):
+        got7, times7, _ = run_path(
+            run7, obs, SWEEPS, counters, exact_lg,
+            f"path 7: guided LG (K12) n={GUIDED_N} T={LG_T} chunk={GUIDED_CHUNK}",
+            epochs_each=False)
+    n_ch = -(-(LG_T - 1) // GUIDED_CHUNK)
+    _expect(got7, {"guided": SWEEPS * n_ch, "lse_stats": SWEEPS * n_ch,
+                   "pass1": SWEEPS * n_ch, "pass2": SWEEPS * n_ch}, "path 7")
+
+    # path 8: the guided 5-state chain, K9 then K13 at 8 and 7 steps
+    ys5 = _chain_obs(5, T, 0)
+    exact5 = discrete_hmm_log_evidence(*_chain(5), ys5)
+    obs5 = torch.as_tensor(ys5, device=dev)
+    g5 = attach_fused_guided_discrete_kernels(*_chain(5), params=chain_params, T=T)
+    run8 = build_smc_run(g5, GUIDED_N, chunk=GUIDED_CHUNK)
+    with stages.stage("guided_path8", sync=True):
+        got8, times8, _ = run_path(
+            run8, obs5, SWEEPS, counters, exact5,
+            f"path 8: guided chain K=5 (K13) n={GUIDED_N} T={T} chunk={GUIDED_CHUNK}",
+            epochs_each=False)
+    _expect(got8, {"init": SWEEPS, "guided_chunk": SWEEPS * -(-(T - 1) // GUIDED_CHUNK)},
+            "path 8")
+
+    # path 9a: the same model per step (K13 launched for one step)
+    ys12 = _chain_obs(5, GUIDED_STEP_T, GUIDED_STEP_SEED)
+    exact12 = discrete_hmm_log_evidence(*_chain(5), ys12)
+    obs12 = torch.as_tensor(ys12, device=dev)
+    run9a = build_smc_run(g5, GUIDED_STEP_N)
+    with stages.stage("guided_path9a", sync=True):
+        got9a, times9a, _ = run_path(
+            run9a, obs12, SWEEPS, counters, exact12,
+            f"path 9a: guided chain chunk=1 (K13 one-step) n={GUIDED_STEP_N} "
+            f"T={GUIDED_STEP_T}", epochs_each=False)
+    _expect(got9a, {"guided_step_exchange": SWEEPS * (GUIDED_STEP_T - 1)}, "path 9a")
+
+    # path 9b: the guided whole sweep with interior island checks
+    island_counts = []
+    g5i = attach_fused_guided_discrete_kernels(
+        *_chain(5), params=chain_params, T=T, island_every=ISLAND_EVERY,
+        island_counts=island_counts)
+    run9b = build_smc_run(g5i, GUIDED_N, chunk=GUIDED_ISLAND_CHUNK)
+    with stages.stage("guided_path9b", sync=True):
+        island_counts.clear()
+        got9b, times9b, _ = run_path(
+            run9b, obs5, SWEEPS, counters, exact5,
+            f"path 9b: guided chain K=5 n={GUIDED_N} chunk={GUIDED_ISLAND_CHUNK} "
+            f"island_every={ISLAND_EVERY}", epochs_each=False)
+    _expect(got9b, {"init": SWEEPS, "guided_chunk": SWEEPS}, "path 9b")
+    interior = float(torch.stack(island_counts[-SWEEPS:]).mean())
+    print(f"path 9b: interior resamples per island per sweep (mean) {interior:.4f}")
+    if not interior > 0:
+        raise AssertionError("path 9b: the interior island check never fired")
+
+    # path 9c: smc() with history, the engine's unfused guided step (the
+    # same net through proposal_sample / proposal_logpdf): no kernel runs
+    run9c = lambda seed, o: smc(g5, o, GUIDED_STEP_N, seed)
+    with stages.stage("guided_path9c", sync=True):
+        got9c, times9c, res9c = run_path(
+            run9c, obs12, GUIDED_SMC_SWEEPS, counters, exact12,
+            f"path 9c: guided chain smc() with history n={GUIDED_STEP_N} "
+            f"T={GUIDED_STEP_T}", epochs_each=False)
+    _expect(got9c, {}, "path 9c")
+    if res9c[0].states.shape != (GUIDED_STEP_T, GUIDED_STEP_N):
+        raise AssertionError("path 9c: smc() history of the wrong shape")
+
+    # timings at the paths' shapes: K12 on path 7's first chunk, K13 on path
+    # 8's (flag 0, 8 steps) and its one-step launch on path 9a's population
+    seed = CHECK_SEED
+    k12 = triton_ssm.GuidedScalarKernel(lg_params, guided_trans_lp,
+                                        guided_obs_lp, LG_T)
+    x0, w0 = _lg_population(GUIDED_N, seed, obs)
+    ys, valid = _lg_chunks(obs)
+    spec5 = spec_from_numpy(*_chain(5))
+    gt = _guided_tables(chain_params)
+    s0, wc0, _ = fused_hmm.hmm_init(seed, obs5[0], GUIDED_N, spec5)
+    ys8, v8 = _chunk_obs(obs5, GUIDED_CHUNK)
+    ticks = [GUIDED_N * (k + 1) // 5 for k in range(4)]
+    c8 = torch.tensor([0, *ticks, int(v8[0])], dtype=torch.int32, device=dev)
+    s1, w1, _ = fused_hmm.hmm_init(seed, obs12[0], GUIDED_STEP_N, spec5)
+    c1 = torch.tensor([1, *[GUIDED_STEP_N * (k + 1) // 5 for k in range(4)], 1],
+                      dtype=torch.int32, device=dev)
+    y5 = obs12[5].reshape(1)
+    timing = {
+        "guided_scalar": (
+            _time_ms(lambda: k12.chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
+            _time_ms(lambda: triton_ssm.guided_scalar_chunk_plain(
+                lg_params, guided_trans_lp, guided_obs_lp, LG_T, seed, x0, w0,
+                ys[0], valid[0], t0=1), 2)),
+        "guided_chunk": (
+            _time_ms(lambda: fused_hmm.guided_chunk(seed, s0, wc0, ys8[0], c8,
+                                                    spec5, gt), 10),
+            _time_ms(lambda: fused_hmm.guided_chunk_plain(seed, s0, wc0, ys8[0],
+                                                          c8, spec5, gt), 2)),
+        "guided_step": (
+            _time_ms(lambda: fused_hmm.guided_chunk(
+                seed, s1, w1, y5, c1, spec5, gt, t0=5,
+                count_key="guided_step_exchange"), 20),
+            _time_ms(lambda: fused_hmm.guided_chunk_plain(
+                seed, s1, w1, y5, c1, spec5, gt, t0=5), 4)),
+    }
+    for name, (ms, plain_ms) in timing.items():
+        print(f"[{card}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"K12 compiled: (registers, spills) per thread {k12.registers}")
+    for name, run, o, times in (("7", run7, obs, times7), ("8", run8, obs5, times8),
+                                ("9a", run9a, obs12, times9a),
+                                ("9b", run9b, obs5, times9b)):
+        n_path = GUIDED_STEP_N if name == "9a" else GUIDED_N
+        b2b = _time_ms(lambda: run(20_000, o), SWEEPS)
+        print(f"[{card}] path {name} back-to-back sweeps: {b2b:.4f} ms each by CUDA "
+              f"events, {n_path * o.shape[0] / (b2b * 1e-3):.6g} particle-steps/s; "
+              f"median synced sweep {statistics.median(times) * 1e3:.3f} ms")
+    print(f"[{card}] path 9c: median synced sweep "
+          f"{statistics.median(times9c) * 1e3:.3f} ms (smc() with history)")
+    with stages.stage("guided_profile", sync=True):
+        profile_sweeps(run7, obs, card, trace="guided_lg_sweep_trace.json")
+        profile_sweeps(run8, obs5, card, trace="guided_chain_sweep_trace.json")
+
+    # the bounds: K12 per particle-step half a Philox call and half a pair,
+    # the net, softplus (4), the move (2), log q (4), the two densities (4
+    # each) and the weight (2); K13 per particle-step one Philox call, the
+    # target (1), the walk (2(K-1)) and the weight (1), and per CTA of
+    # ISLAND_SIZE particles and step the tables
+    sizes12 = k12.layer_sizes()
+    k12_ops = PHILOX_OPS / 2 + 4 + guided_net_ops(sizes12) + 18
+    table_ops = guided_table_ops(gt.dims, 5)
+    k13_ops = PHILOX_OPS + 2 * 5
+
+    def k13_bound(n, steps):
+        return bound(16 * n, n * steps * k13_ops
+                     + n // fused_hmm.ISLAND_SIZE * steps * table_ops)
+
+    bounds = {
+        "guided_scalar": bound(16 * GUIDED_N, GUIDED_N * int(valid[0]) * k12_ops),
+        "guided_chunk": k13_bound(GUIDED_N, int(v8[0])),
+        "guided_step": k13_bound(GUIDED_STEP_N, 1),
+    }
+    print(f"bounds: K12 {k12_ops:.1f} operations per particle-step for the "
+          f"{sizes12} net; K13 tables {table_ops} operations per CTA-step; "
+          + ", ".join(f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
+                      for k, v in bounds.items()))
+
+    def line(name, key, route, src, replaces, n_launch):
+        return {"name": name, "route": route, "source": src,
+                "replaces": replaces, "launches": n_launch,
+                "max_abs_err": errs[key], "ms": timing[key][0],
+                "plain_ms": timing[key][1], **bounds[key]}
+
+    cu = "cpprob_tpu_torch/ops/csrc/fused_hmm.cu"
+    return [
+        line("guided_chunk_kernel (K12, [3,16,16,2] net)", "guided_scalar",
+             "triton", "cpprob_tpu_torch/ops/triton_ssm.py",
+             "cpprob_tpu/ops/pallas_ssm.py:948", got7["guided"]),
+        line("guided_chunk_kernel<K> (K13, K = 5, [7,16,16,5] net)",
+             "guided_chunk", "cuda", cu, "cpprob_tpu/ops/pallas_ssm.py:1351",
+             got8["guided_chunk"] + got9b["guided_chunk"]),
+        line("guided_chunk_kernel<K> (K13, n_steps=1, flag and ticks live)",
+             "guided_step", "cuda", cu, "cpprob_tpu/ops/pallas_ssm.py:1351",
+             got9a["guided_step_exchange"]),
     ]
 
 
@@ -1354,7 +1867,8 @@ def main():
     stages = StageTimer()
     build_kernels(stages)
     kernels = (hmm_phases(card, stages) + lg_phases(card, stages)
-               + spec_phases(card, stages) + user_phases(card, stages))
+               + spec_phases(card, stages) + user_phases(card, stages)
+               + guided_phases(card, stages))
     print(stages.report())
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,11 +13,16 @@ Ported: the chunked exchange path (fused init and chunk kernels) and the
 per-step fused exchange path for discrete states; the chunked path (a
 fused chunk kernel, the streaming or the sorted-key vector resample epoch
 at chunk boundaries) and the per-step path for scalar and vector
-continuous states; the fused per-step kernel with statistics; and the
-unfused paths with and without history that :func:`smc` and
-:func:`build_smc_run` take otherwise.  Guided SMC and models with only
-per-particle hooks raise ``NotImplementedError``, naming the slice that
-brings them.
+continuous states; the fused per-step kernel with statistics; the unfused
+paths with and without history that :func:`smc` and :func:`build_smc_run`
+take otherwise; and guided SMC, both through a model's fused guided
+kernels (``fused_hooks_guided``: the chunked and per-step paths above) and
+through its proposal hooks (the guided step of :func:`make_smc_step`, and
+an initial proposal).  The port's proposal hooks are population-batched:
+``proposal_sample(key, states, t, y)``, ``proposal_logpdf(new, states, t,
+y)``, ``init_proposal_sample(key, y0, n)``, ``init_proposal_logpdf(states,
+y0)``.  Models with only per-particle hooks raise ``NotImplementedError``,
+naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -55,8 +60,11 @@ class StateSpaceModel:
     step_sample: Callable
     step_logpdf: Callable
     obs_logpdf: Callable
+    # population-batched: (key, states, t, y) -> (n, ...) and
+    # (new_states, states, t, y) -> (n,)
     proposal_sample: Optional[Callable] = None
     proposal_logpdf: Optional[Callable] = None
+    # (key, y0, n) -> (n, ...) and (states, y0) -> (n,)
     init_proposal_sample: Optional[Callable] = None
     init_proposal_logpdf: Optional[Callable] = None
     init_sample_batch: Optional[Callable] = None      # (key, n) -> (n, ...)
@@ -144,13 +152,14 @@ def make_smc_step(
     A model's ``fused_step_ess_batch`` kernel hook (preferred: it returns
     the ESS from the kernel's records) or ``fused_step_batch`` hook, which
     take the sweep's integer seed and the absolute time, replaces the move
-    and reweight."""
-    if model.proposal_sample is not None:
-        raise _unported("guided SMC", "slice 3 (guided SMC)")
-    fused = (model.fused_step_ess_batch is not None
-             or model.fused_step_batch is not None)
-    if not fused and (
-            model.step_sample_batch is None or model.obs_logpdf_batch is None):
+    and reweight.  A guided model (``proposal_sample`` set) always moves
+    by its proposal and weights by ``step_logpdf - proposal_logpdf +
+    obs_logpdf_batch`` (the exact RN correction), fused hooks or not."""
+    guided = model.proposal_sample is not None
+    fused = not guided and (model.fused_step_ess_batch is not None
+                            or model.fused_step_batch is not None)
+    if not fused and (model.obs_logpdf_batch is None or (
+            not guided and model.step_sample_batch is None)):
         raise _unported("per-particle model hooks (vmap)",
                         "slice 4 (trace substrate)")
 
@@ -181,13 +190,19 @@ def make_smc_step(
         log_z_r = torch.where(do_resample, log_z + lme, log_z)
         anc = torch.where(do_resample, res_anc, ident)
 
-        if model.fused_step_ess_batch is not None:
+        if fused and model.fused_step_ess_batch is not None:
             new_states, new_log_w, new_ess = model.fused_step_ess_batch(
                 seed, states_r, log_w_r, y_t, t)
         else:
-            if model.fused_step_batch is not None:
+            if fused:
                 new_states, new_log_w = model.fused_step_batch(
                     seed, states_r, log_w_r, y_t, t)
+            elif guided:
+                new_states = model.proposal_sample(gen, states_r, t, y_t)
+                rn = (model.step_logpdf(new_states, states_r, t)
+                      - model.proposal_logpdf(new_states, states_r, t, y_t))
+                new_log_w = (log_w_r + rn
+                             + model.obs_logpdf_batch(new_states, y_t, t))
             else:
                 new_states = model.step_sample_batch(gen, states_r, t)
                 new_log_w = log_w_r + model.obs_logpdf_batch(new_states, y_t, t)
@@ -350,15 +365,15 @@ def build_smc_run(
     resampling) launches it once per step, its population started from
     ``init_sample_batch`` as the reference does."""
     resampler = get_resampler(resampling)
-    if model.proposal_sample is not None or model.fused_hooks_guided:
-        raise _unported("guided SMC", "slice 3 (guided SMC)")
-    if model.init_proposal_sample is not None:
-        raise _unported("initial proposals", "slice 3 (guided SMC)")
+    # a guided model takes the fused paths only through its guided kernels
+    guided = model.proposal_sample is not None
+    fused_ok = not guided or model.fused_hooks_guided
     # the exchange and value-resampling fast paths are systematic schemes
-    exchange_ok = (model.state_categories is not None and not store_history
-                   and resampling == "systematic")
+    exchange_ok = (fused_ok and model.state_categories is not None
+                   and not store_history and resampling == "systematic")
     sorted_ok = (
-        (model.scalar_state or model.vector_state_dim is not None)
+        fused_ok
+        and (model.scalar_state or model.vector_state_dim is not None)
         and model.state_categories is None
         and not store_history
         and resampling == "systematic"
@@ -402,6 +417,11 @@ def build_smc_run(
         if chunk_exchange and model.fused_init_batch is not None:
             states0, log_w0, ess0, cat_w0, lme0 = model.fused_init_batch(
                 seed, n, observations[0])
+        elif model.init_proposal_sample is not None:
+            states0 = model.init_proposal_sample(gen, observations[0], n)
+            log_w0 = (model.init_logpdf(states0)
+                      - model.init_proposal_logpdf(states0, observations[0])
+                      + model.obs_logpdf_batch(states0, observations[0], 0))
         else:
             if model.init_sample_batch is None:
                 raise _unported("per-particle model hooks (vmap)",

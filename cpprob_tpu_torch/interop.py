@@ -2,8 +2,9 @@
 
 Tests hand both packages the same inputs through these functions: HMM
 tables become the fused kernels' :class:`~cpprob_tpu_torch.ops.fused_hmm.HMMSpec`,
-and a population or a chunk-glue carry taken from ``cpprob_tpu`` (converted
-with ``np.asarray``) becomes the port's tensors.
+a population or a chunk-glue carry taken from ``cpprob_tpu`` (converted
+with ``np.asarray``) becomes the port's tensors, and a proposal net of
+``cpprob_tpu.inference.nn`` becomes the port's (same layer layout).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 
 from .ops.fused_hmm import MAX_K, HMMSpec
 
-__all__ = ["spec_from_numpy", "population_from_numpy", "carry_from_numpy"]
+__all__ = ["spec_from_numpy", "population_from_numpy", "carry_from_numpy",
+           "mlp_params_from_numpy"]
 
 
 def spec_from_numpy(trans, means, stds, init_probs) -> HMMSpec:
@@ -70,3 +72,12 @@ def carry_from_numpy(seed: int, states, log_w, log_z, ess, cat_w, lme,
     gen.manual_seed(int(seed))
     return ((int(seed), gen), states, log_w, f64(log_z), f64(ess), f64(cat_w),
             f64(lme))
+
+
+def mlp_params_from_numpy(params, device="cpu"):
+    """An MLP's layers ``[{"w": (in, out), "b": (out,)}, ...]`` (each leaf
+    anything ``np.asarray`` takes, e.g. a JAX array) as the port's float32
+    tensors on ``device``, in the layout of
+    :func:`cpprob_tpu_torch.inference.nn.mlp_init`."""
+    return [{k: torch.as_tensor(np.array(layer[k], np.float32), device=device)
+             for k in ("w", "b")} for layer in params]

@@ -565,12 +565,310 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The guided chunk kernel (K13): replaces _make_guided_discrete_chunk_kernel
+// (cpprob_tpu/ops/pallas_ssm.py:1225-1348) and its MXU twin
+// _make_guided_discrete_chunk_kernel_mxu (:1351-1532) behind
+// _guided_discrete_mxu_call / attach_fused_guided_discrete_kernels
+// (:1535,1588).  Launched with n_steps = 1 it is also the guided model's
+// per-step hooks.
+//
+// The proposal q(z' | z, y, t) = softmax(MLP([onehot(z), y, t/T])) depends
+// on a particle only through z in {0..K-1}: y and t/T are per-step scalars.
+// So the CTA evaluates the net K times per step (the reference evaluates it
+// once per particle) and keeps three tables in shared memory:
+//   cum[a][k]  running sums of exp(l_ak - m_a) over k (l the logits of
+//              source state a, m_a their max); ssum[a] = cum[a][K-1];
+//   rn[a][b]   log_trans[a][b] + (log g(y | b) - (l_ab - m_a - log ssum[a])),
+//              the RN weight of the move a -> b.
+// Each particle then does K8's work: one uniform u on K8's Philox counter
+// (particle, t, 0), the next state b = #{k < K-1 : cum[a][k] <= u ssum[a]}
+// (the reference's target >= cum walk, pallas_ssm.py:1313-1319,1442-1448),
+// and w += rn[a][b].  The exchange synthesis at chunk start, n_valid
+// masking, the island checks and the records are K8's code.
+//
+// Table build, per step: layer 0 (pre[a][j] = W0[a][j] + (W0[K][j] y +
+// W0[K+1][j] t/T + b0[j]), one thread per (state, unit)), then each layer
+// one thread per (state, unit) summing in input order, then one thread per
+// (a, b) for the softmax sums and the RN entry: one barrier per layer and
+// one after the tables.  Every CTA runs the same arithmetic in the same
+// order (round-to-nearest intrinsics), so all CTAs hold the same tables, and
+// the plain version (ops/fused_hmm.py guided_chunk_plain) repeats it.
+//
+// What bounds it on an H100: the particle work is K8's (one Philox4x32-10
+// call and K-1 compares per particle-step, 16 B per particle per chunk
+// through HBM): integer issue.  The table build is ~K (K+2) H + K H^2 + K^2 H
+// multiply-adds per CTA-step (~2.1k at K = 5, H = 16), under 1 % of the
+// 4,096 particle updates a CTA makes per step, spread over the CTA's
+// threads so that its latency is a few dependent adds per layer.
+
+constexpr int kGuidedMaxLayers = 8;
+constexpr int kGuidedMaxWidth = 64;   // widest layer of the proposal net
+
+struct NetDims {
+  int n_layers;
+  int dims[kGuidedMaxLayers + 1];     // [K + 2, H1, ..., K]
+};
+
+// The step's tables from the net at (y, tf).  Every thread calls it; it
+// ends with a barrier, after which cum, ssum and rn are valid.
+template <int K>
+__device__ __forceinline__ void guided_tables(
+    const float* __restrict__ net, const NetDims& nd,
+    const float* __restrict__ tab, const float* __restrict__ ltab, float y,
+    float tf, float (*act)[K * kGuidedMaxWidth], float* cum, float* ssum,
+    float* rn) {
+  const int tid = threadIdx.x;
+  const int h1 = nd.dims[1];
+  // layer 0: the one-hot input selects row a of W0
+  for (int idx = tid; idx < K * h1; idx += kThreads) {
+    const int a = idx / h1, j = idx - a * h1;
+    const float c = __fadd_rn(
+        __fadd_rn(__fmul_rn(__ldg(net + K * h1 + j), y),
+                  __fmul_rn(__ldg(net + (K + 1) * h1 + j), tf)),
+        __ldg(net + (K + 2) * h1 + j));
+    const float pre = __fadd_rn(__ldg(net + a * h1 + j), c);
+    act[0][a * kGuidedMaxWidth + j] =
+        nd.n_layers > 1 ? fmaxf(pre, 0.f) : pre;
+  }
+  __syncthreads();
+  int off = (K + 3) * h1;
+  for (int l = 1; l < nd.n_layers; ++l) {
+    const int n_in = nd.dims[l], n_out = nd.dims[l + 1];
+    const float* W = net + off;
+    const float* b = W + n_in * n_out;
+    const float* prev = act[(l - 1) & 1];
+    float* cur = act[l & 1];
+    for (int idx = tid; idx < K * n_out; idx += kThreads) {
+      const int a = idx / n_out, j = idx - a * n_out;
+      float acc = __ldg(b + j);
+      for (int i = 0; i < n_in; ++i)
+        acc = __fadd_rn(acc, __fmul_rn(prev[a * kGuidedMaxWidth + i],
+                                       __ldg(W + i * n_out + j)));
+      cur[a * kGuidedMaxWidth + j] =
+          l < nd.n_layers - 1 ? fmaxf(acc, 0.f) : acc;
+    }
+    off += n_in * n_out + n_out;
+    __syncthreads();
+  }
+  const float* logits = act[(nd.n_layers - 1) & 1];
+  if (tid < K * K) {
+    const int a = tid / K, b = tid - a * K;
+    const float* l = logits + a * kGuidedMaxWidth;
+    float m = l[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) m = fmaxf(m, l[k]);
+    float s = 0.f, cb = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float e = expf(__fsub_rn(l[k], m));
+      s = k == 0 ? e : __fadd_rn(s, e);
+      if (k == b) cb = s;
+    }
+    cum[tid] = cb;
+    if (b == 0) ssum[a] = s;
+    const float lq = __fsub_rn(__fsub_rn(l[b], m), logf(s));
+    constexpr int kMu = K * (K - 1);
+    const float d = __fsub_rn(y, __ldg(tab + kMu + b));
+    const float g = __fsub_rn(__ldg(tab + kMu + 2 * K + b),
+                              __fmul_rn(__fmul_rn(__ldg(tab + kMu + K + b), d), d));
+    rn[tid] = __fadd_rn(__ldg(ltab + tid), __fsub_rn(g, lq));
+  }
+  __syncthreads();
+}
+
+// One CTA = one island of kIsland particles in registers, as in
+// hmm_chunk_kernel<K>.  ctrl = [flag, ticks (K-1), n_valid].
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+guided_chunk_kernel(const float* __restrict__ tab,
+                    const float* __restrict__ ltab,
+                    const float* __restrict__ net, NetDims nd, float T,
+                    const float* __restrict__ ys, int n_steps,
+                    const int* __restrict__ ctrl, uint32_t k0, uint32_t k1,
+                    uint32_t t0, int island_every, float thresh,
+                    const int* __restrict__ s_in,
+                    const float* __restrict__ w_in, int* __restrict__ s_out,
+                    float* __restrict__ w_out, float* __restrict__ rec) {
+  static_assert(K >= 2 && K <= 8, "2 <= K <= 8");
+  __shared__ float act[2][K * kGuidedMaxWidth];
+  __shared__ float cum[K * K];
+  __shared__ float ssum[K];
+  __shared__ float rn[K * K];
+  __shared__ float red[kWarps * (K + 2)];
+  __shared__ float bcast[K + 2];
+  __shared__ int collapse_s;
+
+  const int flag = ctrl[0];
+  int tick[K - 1];
+#pragma unroll
+  for (int k = 0; k < K - 1; ++k) tick[k] = ctrl[1 + k];
+  const int n_valid = ctrl[K];
+  const uint2 key = make_uint2(k0, k1);
+  const uint32_t base = blockIdx.x * (uint32_t)kIsland;
+
+  int s[kPerThread];
+  float w[kPerThread];
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const uint32_t g = base + i * kThreads + threadIdx.x;
+    if (flag) {
+      int v = 0;
+#pragma unroll
+      for (int k = 0; k < K - 1; ++k) v += ((long long)g >= tick[k]);
+      s[i] = v;
+      w[i] = 0.f;
+    } else {
+      s[i] = s_in[g];
+      w[i] = w_in[g];
+    }
+  }
+
+  const float nb = (float)kIsland;
+  float count = 0.f;
+  for (int t = 0; t < n_steps; ++t) {
+    const uint32_t ta = t0 + (uint32_t)t;
+    if (t < n_valid) {   // uniform across the block
+      const float tf = __fdiv_rn((float)ta, T);
+      guided_tables<K>(net, nd, tab, ltab, __ldg(ys + t), tf, act, cum,
+                       ssum, rn);
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        const uint32_t g = base + i * kThreads + threadIdx.x;
+        const float u =
+            philox_u01(philox4x32_10(make_uint4(g, ta, 0u, 0u), key).x);
+        const int a = s[i];
+        const float target = __fmul_rn(u, ssum[a]);
+        int ns = 0;
+#pragma unroll
+        for (int k = 0; k < K - 1; ++k) ns += (cum[a * K + k] <= target);
+        s[i] = ns;
+        w[i] = __fadd_rn(w[i], rn[a * K + ns]);
+      }
+    }
+    if (island_every > 0 && (t + 1) % island_every == 0 && t < n_steps - 1) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) m = fmaxf(m, w[i]);
+      m = block_max<kThreads>(m, red, bcast);
+      float v[K + 1];
+#pragma unroll
+      for (int j = 0; j < K + 1; ++j) v[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        const float ew = expf(w[i] - m);
+        v[0] += ew;
+        v[1] += ew * ew;
+#pragma unroll
+        for (int k = 0; k < K - 1; ++k) v[2 + k] += (s[i] == k) ? ew : 0.f;
+      }
+      block_sum<kThreads, K + 1>(v, red, bcast);
+      if (threadIdx.x == 0)
+        collapse_s = (v[0] * v[0] < thresh * nb * v[1]) && (t + 1 < n_valid);
+      __syncthreads();
+      if (collapse_s) {
+        const float u0 = philox_u01(
+            philox4x32_10(make_uint4(blockIdx.x, ta, 1u, 0u), key).x);
+        int tk[K - 1];
+        float cw = 0.f;
+#pragma unroll
+        for (int k = 0; k < K - 1; ++k) {
+          cw = __fadd_rn(cw, v[2 + k]);
+          const float x = __fsub_rn(__fmul_rn(nb, __fdiv_rn(cw, v[0])), u0);
+          tk[k] = (int)fminf(fmaxf(ceilf(x), 0.f), nb);
+        }
+        const float lme_b = __fsub_rn(__fadd_rn(m, logf(v[0])), logf(nb));
+#pragma unroll
+        for (int i = 0; i < kPerThread; ++i) {
+          const int jl = i * kThreads + threadIdx.x;
+          int ns = 0;
+#pragma unroll
+          for (int k = 0; k < K - 1; ++k) ns += (jl >= tk[k]);
+          s[i] = ns;
+          w[i] = lme_b;
+        }
+        count += 1.f;
+      }
+    }
+  }
+
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const uint32_t g = base + i * kThreads + threadIdx.x;
+    s_out[g] = s[i];
+    w_out[g] = w[i];
+    m = fmaxf(m, w[i]);
+  }
+  m = block_max<kThreads>(m, red, bcast);
+  float v[K + 2];
+#pragma unroll
+  for (int j = 0; j < K + 2; ++j) v[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const float ew = expf(w[i] - m);
+    v[0] += ew;
+    v[1] += ew * ew;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[2 + k] += (s[i] == k) ? ew : 0.f;
+  }
+  block_sum<kThreads, K + 2>(v, red, bcast);
+  if (threadIdx.x == 0) {
+    float* out = rec + (long long)blockIdx.x * (K + 4);
+    out[0] = m;
+#pragma unroll
+    for (int i = 0; i < K + 2; ++i) out[1 + i] = v[i];
+    out[K + 3] = count;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int hmm_island_size() { return kIsland; }
 int hmm_max_k() { return kMaxK; }
+int guided_max_layers() { return kGuidedMaxLayers; }
+int guided_max_width() { return kGuidedMaxWidth; }
+
+// Returns cudaGetLastError() after the launch (0 = launched).  dims: host
+// array of n_layers + 1 layer sizes [K + 2, H1, ..., K]; net: the layers
+// packed as W (in x out, row-major) then b (out), layer after layer.
+int guided_chunk_launch(int K, const float* tab, const float* ltab,
+                        const float* net, int n_layers, const int* dims,
+                        float T, const float* ys, int n_steps, const int* ctrl,
+                        uint32_t k0, uint32_t k1, uint32_t t0,
+                        int island_every, float thresh, const int* s_in,
+                        const float* w_in, int* s_out, float* w_out,
+                        float* rec, long long n, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n % kIsland != 0 || n_layers < 1 || n_layers > kGuidedMaxLayers ||
+      dims[0] != K + 2 || dims[n_layers] != K)
+    return (int)cudaErrorInvalidValue;
+  NetDims nd;
+  nd.n_layers = n_layers;
+  for (int l = 0; l <= kGuidedMaxLayers; ++l) {
+    nd.dims[l] = l <= n_layers ? dims[l] : 0;
+    if (l <= n_layers && (dims[l] < 1 || dims[l] > kGuidedMaxWidth))
+      return (int)cudaErrorInvalidValue;
+  }
+  const int grid = (int)(n / kIsland);
+  switch (K) {
+#define GUIDED_CHUNK_CASE(KK)                                                \
+  case KK:                                                                   \
+    guided_chunk_kernel<KK><<<grid, kThreads, 0, st>>>(                      \
+        tab, ltab, net, nd, T, ys, n_steps, ctrl, k0, k1, t0, island_every,  \
+        thresh, s_in, w_in, s_out, w_out, rec);                              \
+    break;
+    GUIDED_CHUNK_CASE(2) GUIDED_CHUNK_CASE(3) GUIDED_CHUNK_CASE(4)
+    GUIDED_CHUNK_CASE(5) GUIDED_CHUNK_CASE(6) GUIDED_CHUNK_CASE(7)
+    GUIDED_CHUNK_CASE(8)
+#undef GUIDED_CHUNK_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
 
 #define HMM_SMALL_K(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
 

@@ -18,9 +18,16 @@ K = 1 and 9..32):
   it is also the per-step kernels (<- ``pallas_hmm_fused_step_exchange``,
   ``pallas_hmm_fused_step(_ess)``): see :func:`fused_hmm_hooks`.
 
+- ``guided_chunk`` (K13, <- ``_make_guided_discrete_chunk_kernel(_mxu)``
+  behind ``attach_fused_guided_discrete_kernels``): the chunk kernel of a
+  guided K-state HMM (2 <= K <= 8), whose categorical proposal net runs in
+  the kernel as K x K tables built once per step (see the note in
+  ``csrc/fused_hmm.cu``); the same frame as ``hmm_chunk`` (exchange
+  synthesis, n_valid, islands, records).  Its hooks: :func:`guided_hooks`.
+
 Each has a plain PyTorch version of the same function (``hmm_init_plain``,
-``hmm_chunk_plain``).  The public wrappers take the plain version for CPU
-tensors only; on CUDA tensors they launch the kernel or raise.  The plain
+``hmm_chunk_plain``, ``guided_chunk_plain``).  The public wrappers take the
+plain version for CPU tensors only; on CUDA tensors they launch the kernel or raise.  The plain
 versions draw from the same Philox stream as the kernels (``seed``), or
 take pinned draws (``draws=``) for parity tests.
 
@@ -40,22 +47,29 @@ import numpy as np
 import torch
 
 from .philox import philox_uniform, split_seed
-from .population import current_stream, launch_population
+from .population import current_stream, launch_population, mlp_layers
 
 __all__ = [
     "HMMSpec", "ISLAND_SIZE", "LAUNCHES", "hmm_init", "hmm_init_plain",
     "hmm_chunk", "hmm_chunk_plain", "stats_from_partials",
-    "make_fused_hmm_ssm", "fused_hmm_hooks", "MAX_K",
+    "make_fused_hmm_ssm", "fused_hmm_hooks", "MAX_K", "GUIDED_MAX_K",
+    "GuidedTables", "guided_tables_plain", "guided_chunk_plain",
+    "guided_chunk", "guided_hooks",
 ]
 
 ISLAND_SIZE = 4096       # 256 threads x 16 particles: one CTA of the chunk kernel
 _THREADS = 256
 MAX_K = 32               # states the kernels take (csrc/fused_hmm.cu kMaxK)
+GUIDED_MAX_K = 8         # states the guided kernel takes
+_GUIDED_MAX_LAYERS = 8   # csrc/fused_hmm.cu kGuidedMaxLayers
+_GUIDED_MAX_WIDTH = 64   # csrc/fused_hmm.cu kGuidedMaxWidth
 
 # kernel launches by wrapper, counted where each kernel is launched; a
 # one-step launch of the chunk kernel (the per-step hooks) counts under
-# "step_exchange", "step_ess" or "step" instead of "chunk"
-LAUNCHES = {"init": 0, "chunk": 0, "step_exchange": 0, "step_ess": 0, "step": 0}
+# "step_exchange", "step_ess" or "step" instead of "chunk", and those of
+# the guided kernel under "guided_step_exchange" or "guided_step_ess"
+LAUNCHES = {"init": 0, "chunk": 0, "step_exchange": 0, "step_ess": 0, "step": 0,
+            "guided_chunk": 0, "guided_step_exchange": 0, "guided_step_ess": 0}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -95,6 +109,60 @@ class HMMSpec:
                 "half_inv_var": t(self.half_inv_var),
                 "log_norm": t(self.log_norm),
                 "init_cdf": t(self.init_cdf),
+            }
+        return self._device_tables[device]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GuidedTables:
+    """What the guided kernel reads besides the model's :class:`HMMSpec`:
+    the transition log-probabilities and a ``kind="discrete"`` proposal
+    net (layers ``[K + 2, H.., K]``, float32 numpy) with its horizon ``T``
+    (the feature t/T).  Build one with :meth:`from_params`."""
+
+    log_trans: np.ndarray      # (K, K)
+    Ws: tuple                  # (in, out) per layer
+    bs: tuple                  # (out,) per layer
+    T: int
+    _device_tables: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @classmethod
+    def from_params(cls, log_trans, params, T: int) -> "GuidedTables":
+        """Check the net (``ValueError``: inputs other than ``[onehot(K),
+        y, t/T]``, outputs other than K logits, layers that do not chain or
+        exceed the kernel's limits) and take float32 copies."""
+        log_trans = np.ascontiguousarray(log_trans, np.float32)
+        K = log_trans.shape[0]
+        Ws, bs = mlp_layers(params)
+        if Ws[0].shape[0] != K + 2 or Ws[-1].shape[1] != K:
+            raise ValueError(
+                f"expected an smc_csis 'discrete' proposal net: inputs "
+                f"[onehot({K}), y, t/T], outputs {K} logits")
+        if len(Ws) > _GUIDED_MAX_LAYERS:
+            raise ValueError(f"the guided kernel takes at most "
+                             f"{_GUIDED_MAX_LAYERS} layers, got {len(Ws)}")
+        widest = max(W.shape[1] for W in Ws)
+        if widest > _GUIDED_MAX_WIDTH:
+            raise ValueError(f"the guided kernel takes layers of at most "
+                             f"{_GUIDED_MAX_WIDTH} units, got {widest}")
+        return cls(log_trans, tuple(Ws), tuple(bs), int(T))
+
+    @property
+    def dims(self) -> list:
+        return [self.Ws[0].shape[0]] + [W.shape[1] for W in self.Ws]
+
+    def tables(self, device) -> dict:
+        """Torch copies on ``device``, made once per device: ``net`` (the
+        kernel's packed layers: W row-major then b, layer after layer),
+        ``log_trans``, and the layers as lists ``Ws``, ``bs``."""
+        device = torch.device(device)
+        if device not in self._device_tables:
+            t = lambda a: torch.as_tensor(a, device=device)
+            packed = np.concatenate([a.ravel() for W, b in zip(self.Ws, self.bs)
+                                     for a in (W, b)])
+            self._device_tables[device] = {
+                "net": t(packed), "log_trans": t(self.log_trans),
+                "Ws": [t(W) for W in self.Ws], "bs": [t(b) for b in self.bs],
             }
         return self._device_tables[device]
 
@@ -153,10 +221,28 @@ def hmm_chunk_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     transition uniforms and ``u0`` (n_checks, n_islands) the island offsets,
     in place of Philox.  Returns (states int32, log_w float32, records
     (n / island_size, K+4))."""
-    n, K, n_steps = states.shape[0], spec.K, ys.shape[0]
+    tab = spec.tables(states.device)
+
+    def move(t, s, u):
+        ns = (u[:, None] >= tab["trans_cdf"][s]).sum(1)
+        return ns, _emission(tab, ys[t])[ns]
+
+    return _chunk_plain(seed, states, log_w, ys.shape[0], ctrl, spec.K, move,
+                        t0=t0, island_every=island_every,
+                        island_thresh=island_thresh, island_size=island_size,
+                        draws=draws)
+
+
+def _chunk_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
+                 n_steps: int, ctrl: torch.Tensor, K: int, move, *, t0: int,
+                 island_every: int, island_thresh: float, island_size: int,
+                 draws):
+    """The chunk kernels' frame (exchange synthesis, n_valid masking,
+    island checks, records) around ``move(t, states, u) -> (next states,
+    weight increment)``, the step of the chain."""
+    n = states.shape[0]
     n_isl = n // island_size
     dev = states.device
-    tab = spec.tables(dev)
     flag, ticks, n_valid = ctrl[0] > 0, ctrl[1:K].long(), ctrl[K]
     g = torch.arange(n, device=dev)
     s = torch.where(flag, (g[:, None] >= ticks[None, :]).sum(1), states.long())
@@ -169,8 +255,8 @@ def hmm_chunk_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
         valid = t < n_valid
         u = draws[0][t] if draws is not None else philox_uniform(
             seed, g, t0 + t, 0)
-        ns = (u[:, None] >= tab["trans_cdf"][s]).sum(1)
-        nw = w + _emission(tab, ys[t])[ns]
+        ns, dw = move(t, s, u)
+        nw = w + dw
         s = torch.where(valid, ns, s)
         w = torch.where(valid, nw, w)
         if island_every > 0 and (t + 1) % island_every == 0 and t < n_steps - 1:
@@ -195,6 +281,68 @@ def hmm_chunk_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     return s.to(torch.int32), w, rec
 
 
+def guided_tables_plain(tab: dict, gtab: dict, y: torch.Tensor,
+                        tf: torch.Tensor):
+    """The guided kernel's tables at one step, in its order of operations:
+    ``(cum (K, K), ssum (K,), rn (K, K))`` with ``cum[a, k]`` the running
+    sums of exp(l_ak - m_a) over k, ``ssum = cum[:, K-1]`` and ``rn[a, b] =
+    log_trans[a, b] + (log g(y | b) - (l_ab - m_a - log ssum_a))``.
+    ``tab``/``gtab``: the device tables of the spec and of the
+    :class:`GuidedTables`; ``y``, ``tf``: float32 scalars."""
+    Ws, bs = gtab["Ws"], gtab["bs"]
+    K = gtab["log_trans"].shape[0]
+    W0 = Ws[0]
+    # layer 0: the one-hot input selects row a of W0
+    act = W0[:K] + (W0[K] * y + W0[K + 1] * tf + bs[0])[None, :]
+    for W, b in zip(Ws[1:], bs[1:]):
+        act = torch.relu(act)
+        acc = b[None, :] + act[:, 0, None] * W[0][None, :]
+        for i in range(1, W.shape[0]):
+            acc = acc + act[:, i, None] * W[i][None, :]
+        act = acc
+    m = act.amax(1, keepdim=True)
+    e = torch.exp(act - m)
+    sums = [e[:, 0]]
+    for k in range(1, K):
+        sums.append(sums[-1] + e[:, k])
+    cum = torch.stack(sums, 1)
+    ssum = cum[:, K - 1]
+    lq = (act - m) - torch.log(ssum)[:, None]
+    rn = gtab["log_trans"] + (_emission(tab, y)[None, :] - lq)
+    return cum, ssum, rn
+
+
+def guided_chunk_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
+                       ys: torch.Tensor, ctrl: torch.Tensor, spec: HMMSpec,
+                       gt: GuidedTables, *, t0: int = 1, island_every: int = 0,
+                       island_thresh: float = 0.5,
+                       island_size: int = ISLAND_SIZE, draws=None):
+    """Plain version of the guided chunk kernel (K13): arguments and
+    results as :func:`hmm_chunk_plain`, with the proposal net and the
+    transition log-probabilities in ``gt``.  Per step the tables of
+    :func:`guided_tables_plain`; a particle in state a with uniform u moves
+    to b = #{k < K-1 : cum[a, k] <= u ssum[a]} and adds rn[a, b]."""
+    dev = states.device
+    tab, gtab = spec.tables(dev), gt.tables(dev)
+    K = spec.K
+    steps = {}
+
+    def move(t, s, u):
+        if t not in steps:
+            tf = torch.tensor(float(t0 + t), dtype=torch.float32,
+                              device=dev) / float(gt.T)
+            steps[t] = guided_tables_plain(tab, gtab, ys[t], tf)
+        cum, ssum, rn = steps[t]
+        target = u * ssum[s]
+        ns = (cum[s, :K - 1] <= target[:, None]).sum(1)
+        return ns, rn[s, ns]
+
+    return _chunk_plain(seed, states, log_w, ys.shape[0], ctrl, K, move,
+                        t0=t0, island_every=island_every,
+                        island_thresh=island_thresh, island_size=island_size,
+                        draws=draws)
+
+
 # --------------------------------------------------------------------------
 # kernels
 
@@ -216,9 +364,21 @@ def _lib():
             i, p, p, i, p, u32, u32, u32, i, f, p, p, p, p, p,
             ctypes.c_longlong, p]
         lib.hmm_chunk_launch.restype = i
-        if lib.hmm_island_size() != ISLAND_SIZE or lib.hmm_max_k() != MAX_K:
-            raise RuntimeError("csrc/fused_hmm.cu island size or K limit differs "
-                               f"from ISLAND_SIZE={ISLAND_SIZE}, MAX_K={MAX_K}")
+        lib.guided_max_layers.argtypes = []
+        lib.guided_max_layers.restype = i
+        lib.guided_max_width.argtypes = []
+        lib.guided_max_width.restype = i
+        lib.guided_chunk_launch.argtypes = [
+            i, p, p, p, i, ctypes.POINTER(ctypes.c_int), f, p, i, p, u32, u32,
+            u32, i, f, p, p, p, p, p, ctypes.c_longlong, p]
+        lib.guided_chunk_launch.restype = i
+        if (lib.hmm_island_size() != ISLAND_SIZE or lib.hmm_max_k() != MAX_K
+                or lib.guided_max_layers() != _GUIDED_MAX_LAYERS
+                or lib.guided_max_width() != _GUIDED_MAX_WIDTH):
+            raise RuntimeError("csrc/fused_hmm.cu island size or limits differ "
+                               f"from ISLAND_SIZE={ISLAND_SIZE}, MAX_K={MAX_K}, "
+                               f"guided {_GUIDED_MAX_LAYERS} layers of "
+                               f"{_GUIDED_MAX_WIDTH}")
     return lib
 
 
@@ -306,6 +466,60 @@ def hmm_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
         records=(n // ISLAND_SIZE, K + 4), counts=LAUNCHES, count_key=count_key)
 
 
+def guided_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
+                 ys: torch.Tensor, ctrl: torch.Tensor, spec: HMMSpec,
+                 gt: GuidedTables, *, t0: int = 1, island_every: int = 0,
+                 island_thresh: float = 0.5, count_key: str = "guided_chunk"):
+    """Guided chunk (K13) on the device of ``states``: the kernel on CUDA
+    tensors, :func:`guided_chunk_plain` on CPU tensors (arguments as there;
+    islands of ``ISLAND_SIZE``).  ``count_key``: the entry of
+    :data:`LAUNCHES` the launch counts under.  Returns (states, log_w,
+    records)."""
+    dev = states.device
+    n, K = states.shape[0], spec.K
+    if states.dim() != 1 or n % ISLAND_SIZE != 0:
+        raise ValueError(f"states must be (n,) with n a multiple of "
+                         f"ISLAND_SIZE={ISLAND_SIZE}, got {tuple(states.shape)}")
+    if ctrl.shape != (K + 1,):
+        raise ValueError(f"ctrl must be [flag, {K - 1} ticks, n_valid]")
+    if gt.log_trans.shape != (K, K):
+        raise ValueError("the guided tables are for another number of states")
+    if dev.type == "cpu":
+        return guided_chunk_plain(
+            seed, states, log_w, ys, ctrl, spec, gt, t0=t0,
+            island_every=island_every, island_thresh=island_thresh)
+    if dev.type != "cuda":
+        raise ValueError(f"guided_chunk runs on cpu or cuda tensors, not {dev}")
+    if not 2 <= K <= GUIDED_MAX_K:
+        raise ValueError(f"the guided kernel takes 2 <= K <= {GUIDED_MAX_K}")
+    if log_w.shape != states.shape:
+        raise ValueError("log_w must have the shape of states")
+    if n >= 2 ** 31 or t0 < 0 or t0 + ys.shape[0] >= 2 ** 24:
+        raise ValueError("n must be < 2^31 and t0 + n_steps < 2^24 (t/T is "
+                         "formed in float32)")
+    tab = spec.tables(dev)["packed"]
+    gtab = gt.tables(dev)
+    dims = gt.dims
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    k0, k1 = split_seed(seed)
+
+    def launch(out_s, out_w, rec):
+        return _lib().guided_chunk_launch(
+            K, tab.data_ptr(), gtab["log_trans"].data_ptr(),
+            gtab["net"].data_ptr(), len(dims) - 1, c_dims, float(gt.T),
+            ys.data_ptr(), ys.shape[0], ctrl.data_ptr(), k0, k1, t0,
+            island_every, island_thresh, states.data_ptr(), log_w.data_ptr(),
+            out_s.data_ptr(), out_w.data_ptr(), rec.data_ptr(), n,
+            current_stream(dev))
+
+    return launch_population(
+        "guided_chunk_kernel", launch, device=dev,
+        inputs=[(states, "states", torch.int32), (log_w, "log_w", torch.float32),
+                (ys, "ys", torch.float32), (ctrl, "ctrl", torch.int32)],
+        outputs=[(n, torch.int32), (n, torch.float32)],
+        records=(n // ISLAND_SIZE, K + 4), counts=LAUNCHES, count_key=count_key)
+
+
 def stats_from_partials(records: torch.Tensor, n: int):
     """Combine records into (ess, normalized category weights (K,),
     log-mean-exp of the weights), in float64.  Records of width 3 (max,
@@ -347,7 +561,54 @@ def fused_hmm_hooks(spec: HMMSpec, island_every: int = 0,
     interior resamples per island (a float32 device tensor; no host sync).
     No step waits on the host: the constant control words are made once per
     device, by device fills."""
-    K = spec.K
+    def fused_init(key, n, y0):
+        s, w, rec = hmm_init(key, y0, n, spec)
+        return (s, w, *stats_from_partials(rec, n))
+
+    def chunk(key, states, log_w, ys, ctrl, **kw):
+        return hmm_chunk(key, states, log_w, ys, ctrl, spec, **kw)
+
+    hooks, ctrl_tail = _exchange_hooks(
+        spec.K, chunk, ("chunk", "step_exchange", "step_ess"), island_every,
+        island_thresh, island_counts)
+
+    def fused_step(key, states, log_w, y, t):
+        s, w, _ = chunk(key, states, log_w, y.reshape(1).to(torch.float32),
+                        ctrl_tail(states.device)[0], t0=int(t), count_key="step")
+        return s, w
+
+    return dict(fused_init_batch=fused_init, fused_step_batch=fused_step,
+                **hooks)
+
+
+def guided_hooks(spec: HMMSpec, log_trans, params, T: int,
+                 island_every: int = 0, island_thresh: float = 0.5,
+                 island_counts: list | None = None) -> dict:
+    """The fused hooks of a guided K-state HMM, all launches of
+    :func:`guided_chunk` (the net ``params`` with horizon ``T`` and the
+    transition log-probabilities ``log_trans`` checked by
+    :meth:`GuidedTables.from_params`): the time-aware chunk hook
+    ``fused_chunk_exchange_t_batch`` and the one-step launches
+    ``fused_step_exchange_batch`` and ``fused_step_ess_batch``, with the
+    signatures and island arguments of :func:`fused_hmm_hooks`."""
+    gt = GuidedTables.from_params(log_trans, params, T)
+
+    def chunk(key, states, log_w, ys, ctrl, **kw):
+        return guided_chunk(key, states, log_w, ys, ctrl, spec, gt, **kw)
+
+    return _exchange_hooks(
+        spec.K, chunk, ("guided_chunk", "guided_step_exchange", "guided_step_ess"),
+        island_every, island_thresh, island_counts)[0]
+
+
+def _exchange_hooks(K: int, chunk, keys, island_every: int,
+                    island_thresh: float, island_counts) -> tuple:
+    """``(hooks, ctrl_tail)``: the chunk hook (with the island checks) and
+    the two one-step exchange hooks (without) around ``chunk(key, states,
+    log_w, ys, ctrl, t0=, count_key=, island_every=, island_thresh=)``,
+    counted under ``keys`` (chunk, step with exchange, step with ESS), and
+    ``ctrl_tail(device)``, the constant control words (made once per device,
+    by device fills, so no step waits on the host)."""
     consts: dict = {}
 
     def ctrl_tail(device):
@@ -358,47 +619,35 @@ def fused_hmm_hooks(spec: HMMSpec, island_every: int = 0,
                                                      device=device), one]), one)
         return consts[device]
 
-    def fused_init(key, n, y0):
-        s, w, rec = hmm_init(key, y0, n, spec)
-        return (s, w, *stats_from_partials(rec, n))
-
     def fused_chunk(key, states, log_w, ys, n_valid, flag, ticks, t0):
         ctrl = torch.cat([flag.reshape(1), ticks.reshape(-1),
                           n_valid.reshape(1)]).to(torch.int32)
-        s, w, rec = hmm_chunk(
-            key, states, log_w, ys, ctrl, spec, t0=t0,
-            island_every=island_every, island_thresh=island_thresh)
+        s, w, rec = chunk(key, states, log_w, ys, ctrl, t0=t0, count_key=keys[0],
+                          island_every=island_every, island_thresh=island_thresh)
         if island_counts is not None:
             island_counts.append(rec[:, -1])
         return (s, w, *stats_from_partials(rec, states.shape[0]))
 
     def step(key, states, log_w, y, t, ctrl, count_key):
-        return hmm_chunk(key, states, log_w, y.reshape(1).to(torch.float32),
-                         ctrl, spec, t0=int(t), count_key=count_key)
+        return chunk(key, states, log_w, y.reshape(1).to(torch.float32), ctrl,
+                     t0=int(t), count_key=count_key)
 
     def fused_step_exchange(key, states, log_w, y, t, flag, ticks):
         ctrl = torch.cat([flag.reshape(1), ticks.reshape(-1),
                           ctrl_tail(states.device)[1]]).to(torch.int32)
-        s, w, rec = step(key, states, log_w, y, t, ctrl, "step_exchange")
+        s, w, rec = step(key, states, log_w, y, t, ctrl, keys[1])
         return (s, w, *stats_from_partials(rec, states.shape[0]))
 
     def fused_step_ess(key, states, log_w, y, t):
-        s, w, rec = step(key, states, log_w, y, t,
-                         ctrl_tail(states.device)[0], "step_ess")
+        s, w, rec = step(key, states, log_w, y, t, ctrl_tail(states.device)[0],
+                         keys[2])
         return s, w, stats_from_partials(rec, states.shape[0])[0]
 
-    def fused_step(key, states, log_w, y, t):
-        s, w, _ = step(key, states, log_w, y, t,
-                       ctrl_tail(states.device)[0], "step")
-        return s, w
-
     return dict(
-        fused_init_batch=fused_init,
         fused_chunk_exchange_t_batch=fused_chunk,
         fused_step_exchange_batch=fused_step_exchange,
         fused_step_ess_batch=fused_step_ess,
-        fused_step_batch=fused_step,
-    )
+    ), ctrl_tail
 
 
 def make_fused_hmm_ssm(island_every: int = 0, island_thresh: float = 0.5,

@@ -32,7 +32,7 @@ from .philox import philox4x32, split_seed, uniform_from_bits
 from .population import check_tensor, current_stream, launch_population
 
 __all__ = ["LAUNCHES", "LG_BLOCK", "lg_chunk", "lg_chunk_plain", "lg_step",
-           "lg_step_plain", "make_fused_lg_ssm"]
+           "lg_step_plain", "make_fused_lg_ssm", "normal_steps"]
 
 LG_BLOCK = 4096          # 256 threads x 16 particles: one CTA, one record
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -58,6 +58,25 @@ def _normal_pair(seed: int, g: torch.Tensor, pair: int, plane: int = 0):
     return r * torch.cos(ang), r * torch.sin(ang)
 
 
+def normal_steps(seed: int, g: torch.Tensor, t0: int, n_steps: int,
+                 planes: int = 1):
+    """The eps planes of each step of a launch whose first step is absolute
+    step ``t0``, as the kernels draw them: the pair of step t on counter
+    (g, t // 2, plane), its cos half at even t, its sin half at odd t (a
+    launch starting at odd t computes the pair).  Yields a list of
+    ``planes`` tensors per step."""
+    sin_half = [None] * planes
+    for ta in range(t0, t0 + n_steps):
+        eps = []
+        for d in range(planes):
+            if ta % 2 == 0 or sin_half[d] is None:
+                cos_half, sin_half[d] = _normal_pair(seed, g, ta // 2, d)
+                eps.append(cos_half if ta % 2 == 0 else sin_half[d])
+            else:
+                eps.append(sin_half[d])
+        yield eps
+
+
 def _n_valid(n_valid, n_steps: int):
     """The valid-step count as a 0-d tensor (``None``: all steps)."""
     if n_valid is None:
@@ -74,18 +93,12 @@ def lg_chunk_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     (states, log_w, records (ceil(n / LG_BLOCK), 3))."""
     n, n_steps = states.shape[0], ys.shape[0]
     nv = _n_valid(n_valid, n_steps).to(states.device)
-    g = torch.arange(n, device=states.device)
     x, w = states, log_w
-    sin_half = None
+    philox = normal_steps(seed, torch.arange(n, device=states.device), t0,
+                          n_steps) if draws is None else None
     for t in range(n_steps):
-        ta = t0 + t
-        if draws is not None:
-            eps = torch.broadcast_to(draws[t], (n,))
-        elif ta % 2 == 0 or sin_half is None:
-            cos_half, sin_half = _normal_pair(seed, g, ta // 2)
-            eps = cos_half if ta % 2 == 0 else sin_half
-        else:
-            eps = sin_half
+        eps = (next(philox)[0] if draws is None
+               else torch.broadcast_to(draws[t], (n,)))
         nx = x + eps
         d = ys[t] - nx
         nw = w + (-0.5 * d * d - _HALF_LOG_2PI)

@@ -1,6 +1,6 @@
 """Kernel-from-spec fused SMC models — counterpart of
-``cpprob_tpu/ops/pallas_ssm.py`` (its discrete, scalar and vector
-families; the guided ones come with guided SMC).
+``cpprob_tpu/ops/pallas_ssm.py`` (its discrete, scalar, vector and guided
+families).
 
 - :func:`make_fused_discrete_ssm`: any K-state HMM with Gaussian emissions
   (1 <= K <= 32) as a complete :class:`StateSpaceModel`: batched torch
@@ -14,6 +14,19 @@ families; the guided ones come with guided SMC).
   a continuous-state model's physics as an elementwise ``step_elem`` run by
   the Triton chunk kernel of :mod:`.triton_ssm` (K10, K11); see there for
   the contract ``step_elem`` keeps.
+- :func:`attach_fused_guided_scalar_kernels`: a scalar model with a
+  ``kind="normal"`` proposal net (trained by
+  :func:`~cpprob_tpu_torch.inference.smc_csis.train_ssm_proposal`) fused
+  into the Triton chunk kernel K12 (:class:`.triton_ssm.GuidedScalarKernel`).
+- :func:`attach_fused_guided_discrete_kernels`: a K-state HMM (2 <= K <= 8)
+  with a ``kind="discrete"`` proposal net fused into the CUDA chunk kernel
+  K13 (:func:`.fused_hmm.guided_chunk`), which builds the proposal's K x K
+  tables once per step and moves the particles as K8 does.
+- Both guided builders also serve the same net through the engine's
+  unfused guided step (``proposal_sample`` / ``proposal_logpdf``, with the
+  one q of the port: ``softplus(raw) + 1e-6``) and set
+  ``fused_hooks_guided``, so the fused paths stay open to the guided
+  kernels and to them only.
 - :func:`discrete_hmm_log_evidence`, :func:`discrete_hmm_smoothed_marginals`:
   the exact numpy oracles (the port never imports JAX).
 
@@ -30,13 +43,16 @@ import numpy as np
 import torch
 
 from ..inference.smc import StateSpaceModel
-from .fused_hmm import fused_hmm_hooks, stats_from_partials
-from .triton_ssm import UserKernel
+from ..inference.smc_csis import proposal_hooks
+from .fused_hmm import GUIDED_MAX_K, fused_hmm_hooks, guided_hooks, stats_from_partials
+from .triton_ssm import GuidedScalarKernel, UserKernel
 
 __all__ = [
     "make_fused_discrete_ssm",
     "attach_fused_scalar_kernels",
     "attach_fused_vector_kernels",
+    "attach_fused_guided_scalar_kernels",
+    "attach_fused_guided_discrete_kernels",
     "discrete_hmm_log_evidence",
     "discrete_hmm_smoothed_marginals",
 ]
@@ -174,6 +190,93 @@ def attach_fused_vector_kernels(base_model, step_elem, state_dim: int):
 
     return dataclasses.replace(base_model, fused_chunk_t_batch=fused_chunk,
                                vector_state_dim=D)
+
+
+def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
+                                       trans_logpdf_elem, obs_logpdf_elem):
+    """``base_model`` (scalar continuous states) guided by ``params``, a
+    ``kind="normal"`` proposal net (features ``[z_prev, y, t/T]``, outputs
+    ``(mean, raw)``), with the guided chunk kernel K12 installed as the
+    time-aware chunk hook ``fused_chunk_t_batch``:
+
+    >>> lg = attach_fused_guided_scalar_kernels(
+    ...     linear_gaussian_ssm, params, 16,
+    ...     trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp)
+    >>> run = build_smc_run(lg, 1 << 24, chunk=8)
+
+    ``trans_logpdf_elem(x, nx, t)`` and ``obs_logpdf_elem(nx, y, t)`` are the
+    model's densities as elementwise functions under the contract of
+    :mod:`.triton_ssm`.  A net of another shape or a density outside the
+    contract raises ``ValueError`` here.  The same net serves the engine's
+    unfused guided step (``proposal_sample`` / ``proposal_logpdf``: chunk 1
+    and runs with history), so the guide is never dropped; the in-kernel
+    weights carry the exact RN correction, so the evidence estimator is
+    that of the unguided kernel."""
+    kernel = GuidedScalarKernel(params, trans_logpdf_elem, obs_logpdf_elem, T)
+
+    def fused_chunk(key, states, log_w, ys, n_valid, t0):
+        x, w, rec = kernel.chunk(key, states, log_w, ys,
+                                 n_valid.to(torch.int32), t0=t0)
+        return x, w, stats_from_partials(rec, states.shape[0])[0]
+
+    sample, logpdf = proposal_hooks(params, T, kind="normal")
+    return dataclasses.replace(
+        base_model,
+        proposal_sample=sample,
+        proposal_logpdf=logpdf,
+        fused_chunk_t_batch=fused_chunk,
+        fused_chunk_batch=None,
+        fused_step_batch=None,
+        fused_hooks_guided=True,
+    )
+
+
+def attach_fused_guided_discrete_kernels(trans, means, stds=None,
+                                         init_probs=None, *, params, T: int,
+                                         island_every: int = 0,
+                                         island_thresh: float = 0.5,
+                                         island_counts: list | None = None):
+    """A guided K-state HMM (``z_t ~ trans[z_{t-1}]``, ``y_t ~
+    N(means[z_t], stds[z_t])``, 2 <= K <= 8) whose categorical proposal, a
+    net trained with ``kind="discrete"`` (features ``[onehot(z_prev), y,
+    t/T]``, K logits), runs inside the fused chunk kernel K13:
+
+    >>> g5 = attach_fused_guided_discrete_kernels(
+    ...     trans5, means5, stds5, init5, params=params, T=16)
+    >>> run = build_smc_run(g5, 1 << 24, chunk=8)
+
+    Hooks: the time-aware chunk hook ``fused_chunk_exchange_t_batch`` and
+    the per-step hooks ``fused_step_exchange_batch`` /
+    ``fused_step_ess_batch``, one-step launches of K13 (exchange
+    resampling stays in the kernel as in K8); the unguided fused init (K9)
+    draws the prior population, as in the reference; ``proposal_sample`` /
+    ``proposal_logpdf`` serve the same net through the engine's unfused
+    guided step.  ``island_every`` / ``island_thresh`` / ``island_counts``:
+    the interior island checks, as in :func:`make_fused_discrete_ssm`.
+    Raises ``ValueError`` for K outside 2..8 or a net of another shape."""
+    trans = np.asarray(trans, np.float64)
+    K = trans.shape[0]
+    if not 2 <= K <= GUIDED_MAX_K:
+        raise ValueError(f"guided discrete kernels support 2 <= K <= "
+                         f"{GUIDED_MAX_K}, got {K}")
+    from ..interop import spec_from_numpy
+
+    stds = np.ones(K) if stds is None else np.asarray(stds, np.float64)
+    init_probs = (np.full(K, 1.0 / K) if init_probs is None
+                  else np.asarray(init_probs, np.float64))
+    base = make_fused_discrete_ssm(trans, means, stds, init_probs)
+    hooks = guided_hooks(spec_from_numpy(trans, means, stds, init_probs),
+                         np.log(np.maximum(trans, 1e-38)), params, T,
+                         island_every, island_thresh, island_counts)
+    sample, logpdf = proposal_hooks(params, T, kind="discrete", n_states=K)
+    return dataclasses.replace(
+        base,
+        proposal_sample=sample,
+        proposal_logpdf=logpdf,
+        fused_step_batch=None,
+        fused_hooks_guided=True,
+        **hooks,
+    )
 
 
 # --------------------------------------------------------------------------

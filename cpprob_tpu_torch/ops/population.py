@@ -10,7 +10,8 @@ launches, raises on a refused launch and counts it; the kernels' outputs
 do not depend on it.
 
 The helpers below it (:func:`check_tensor`, :func:`raise_on`,
-:func:`current_stream`) serve the other kernel wrappers too.
+:func:`current_stream`, :func:`mlp_layers`) serve the other kernel
+wrappers too.
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ from __future__ import annotations
 import ctypes
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
-__all__ = ["launch_population", "check_tensor", "raise_on", "current_stream"]
+__all__ = ["launch_population", "check_tensor", "raise_on", "current_stream",
+           "mlp_layers"]
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, device):
@@ -44,6 +47,30 @@ def raise_on(err, what: str):
 def current_stream(device) -> ctypes.c_void_p:
     """PyTorch's current stream on ``device``, for a ``ctypes`` launch."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _host_f32(a) -> np.ndarray:
+    """A kernel's table (a tensor on any device, or anything ``np.asarray``
+    takes) as a contiguous float32 numpy array."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+    return np.ascontiguousarray(a, np.float32)
+
+
+def mlp_layers(params):
+    """An MLP's layers ``[{"w": (in, out), "b": (out,)}, ...]`` as float32
+    numpy ``(Ws, bs)`` for a kernel's tables.  Raises ``ValueError`` unless
+    there is a layer and each chains to the next."""
+    Ws = [_host_f32(layer["w"]) for layer in params]
+    bs = [_host_f32(layer["b"]) for layer in params]
+    if not Ws:
+        raise ValueError("the proposal net has no layers")
+    for i, (W, b) in enumerate(zip(Ws, bs)):
+        if W.ndim != 2 or b.shape != (W.shape[1],) or (
+                i and W.shape[0] != Ws[i - 1].shape[1]):
+            raise ValueError(f"layer {i} of the proposal net does not chain: "
+                             f"w {W.shape}, b {b.shape}")
+    return Ws, bs
 
 
 def launch_population(what: str, launch: Callable, *, device,

@@ -1,0 +1,483 @@
+"""The port's guided kernels against the JAX package: K12, the guided
+scalar chunk kernel (``cpprob_tpu_torch.ops.triton_ssm``), and K13, the
+guided discrete chunk kernel (``cpprob_tpu_torch.ops.fused_hmm``), with
+the MLP of ``cpprob_tpu_torch.inference.nn`` they evaluate.
+
+On the CPU the kernel wrappers run their plain PyTorch versions.  The
+Pallas kernels run in interpret mode, which pins the draws: eps = 0 for
+K12, u = 0 and the island offset u0 = 0.5 for K13; the plain versions get
+the same draws through ``draws=``.  Both packages get the same nets (numpy
+arrays, converted by ``interop.mlp_params_from_numpy``).
+
+The one q (F1): the port's proposal scale is ``softplus(raw) + 1e-6``
+everywhere, the reference's fused kernels use a plain softplus, so log q
+differs by about 1e-6/std per step; the nets here keep std near 1, and
+the log-weight tolerances below allow that gap.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cpprob_tpu.inference import nn as ref_nn
+from cpprob_tpu.models.linear_gaussian import linear_gaussian_ssm as ref_lg
+from cpprob_tpu.ops.pallas_ssm import (
+    attach_fused_guided_discrete_kernels as ref_attach_discrete,
+)
+from cpprob_tpu.ops.pallas_ssm import (
+    attach_fused_guided_scalar_kernels as ref_attach_scalar,
+)
+from cpprob_tpu_torch.inference import nn
+from cpprob_tpu_torch.interop import mlp_params_from_numpy, spec_from_numpy
+from cpprob_tpu_torch.models.linear_gaussian import linear_gaussian_ssm
+from cpprob_tpu_torch.ops import elem, fused_hmm
+from cpprob_tpu_torch.ops.fused_hmm import (
+    GuidedTables,
+    guided_chunk,
+    guided_chunk_plain,
+    guided_tables_plain,
+    stats_from_partials,
+)
+from cpprob_tpu_torch.ops.fused_ssm import (
+    attach_fused_guided_discrete_kernels,
+    attach_fused_guided_scalar_kernels,
+)
+from cpprob_tpu_torch.ops.triton_ssm import (
+    GUIDED_BLOCK,
+    GuidedScalarKernel,
+    guided_scalar_chunk_plain,
+)
+
+torch.set_num_threads(2)
+
+half_log_2pi = 0.9189385332046727
+TRANS5 = np.array([[0.50, 0.20, 0.10, 0.10, 0.10],
+                   [0.05, 0.60, 0.20, 0.10, 0.05],
+                   [0.10, 0.10, 0.40, 0.30, 0.10],
+                   [0.20, 0.05, 0.05, 0.50, 0.20],
+                   [0.10, 0.10, 0.10, 0.10, 0.60]])
+MEANS5 = np.array([-2.0, -1.0, 0.0, 1.0, 2.0])
+STDS5 = np.array([0.5, 1.0, 0.7, 1.2, 0.9])
+INIT5 = np.array([0.3, 0.1, 0.2, 0.2, 0.2])
+N = 8 * 128          # one (8, 128) tile of the Pallas kernels
+T = 8
+
+
+def trans_lp(x, nx, t):
+    d = nx - x
+    return -0.5 * d * d - half_log_2pi
+
+
+def obs_lp(nx, y, t):
+    d = y - nx
+    return -0.5 * d * d - half_log_2pi
+
+
+def _net(sizes, seed, raw_bias=0.5, scale=0.4):
+    """A numpy net with non-zero biases; the last bias of a 'normal' head
+    keeps softplus(raw) near 1."""
+    rng = np.random.default_rng(seed)
+    layers = []
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        layers.append({"w": (scale * rng.standard_normal((a, b))).astype(np.float32),
+                       "b": (0.1 * rng.standard_normal(b)).astype(np.float32)})
+    if sizes[-1] == 2:
+        layers[-1]["b"][1] += raw_bias
+    return layers
+
+
+# --------------------------------------------------------------------------
+# the MLP
+
+
+def test_mlp_apply_matches_reference():
+    params = _net([7, 8, 8, 5], 0)
+    x = np.random.default_rng(1).standard_normal((64, 7)).astype(np.float32)
+    want = np.asarray(ref_nn.mlp_apply(params, jnp.asarray(x)))
+    got = nn.mlp_apply(mlp_params_from_numpy(params), torch.as_tensor(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_softplus_matches_reference():
+    x = np.linspace(-120.0, 120.0, 4001, dtype=np.float32)
+    want = np.asarray(ref_nn.softplus(jnp.asarray(x)))
+    got = nn.softplus(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert got.min() >= 1e-6
+
+
+def test_mlp_init_layout_and_scale():
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = nn.mlp_init([3, 64, 64, 2], gen)
+    assert [tuple(p["w"].shape) for p in params] == [(3, 64), (64, 64), (64, 2)]
+    assert all(float(p["b"].abs().max()) == 0.0 for p in params)
+    # Kaiming normal: std sqrt(2 / fan_in)
+    assert abs(float(params[1]["w"].std()) - math.sqrt(2 / 64)) < 0.02
+    params[0]["w"].requires_grad_()
+    nn.mlp_apply(params, torch.ones(4, 3)).sum().backward()
+    assert params[0]["w"].grad is not None
+
+
+# --------------------------------------------------------------------------
+# K12
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("t0,n_valid", [(3, 2), (1, 3), (6, 1)])
+def test_guided_scalar_matches_pallas_interpret(mxu, t0, n_valid):
+    params = _net([3, 8, 8, 2], 2)
+    rng = np.random.default_rng(3)
+    x0 = rng.standard_normal(N).astype(np.float32)
+    w0 = (0.3 * rng.standard_normal(N)).astype(np.float32)
+    ys = np.array([0.5, -0.25, 1.1], np.float32)
+    ref = ref_attach_scalar(ref_lg, params, T, trans_logpdf_elem=trans_lp,
+                            obs_logpdf_elem=obs_lp, block_r=8,
+                            interpret=True, mxu=mxu)
+    s_r, w_r, ess_r = ref.fused_chunk_t_batch(
+        jax.random.key(0), jnp.asarray(x0), jnp.asarray(w0), jnp.asarray(ys),
+        jnp.int32(n_valid), jnp.int32(t0))
+    s, w, rec = guided_scalar_chunk_plain(
+        mlp_params_from_numpy(params), trans_lp, obs_lp, T, 0,
+        torch.as_tensor(x0), torch.as_tensor(w0), torch.as_tensor(ys),
+        torch.tensor(n_valid, dtype=torch.int32), t0=t0,
+        draws=torch.zeros(len(ys), 1))
+    # states: float32 rounding of the net (the MXU twin sums its dots in
+    # another order)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_r), rtol=1e-5, atol=1e-5)
+    # log_w: that, and the F1 gap of ~1e-6/std per step (std ~ 1 here)
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_r), rtol=1e-5, atol=3e-5)
+    ess = float(stats_from_partials(rec, N)[0])
+    assert abs(ess - float(ess_r)) < 1e-3 * N
+
+
+def test_guided_scalar_serves_the_fallbacks_q():
+    """F1: the kernel's plain version scores its move with the q that the
+    fallback ``proposal_logpdf`` serves (scale softplus(raw) + 1e-6); the
+    net's scale is ~3e-4 here, where dropping the 1e-6 would move log q by
+    ~3e-3."""
+    params = _net([3, 8, 8, 2], 12, raw_bias=-8.0, scale=0.05)
+    model = attach_fused_guided_scalar_kernels(
+        linear_gaussian_ssm, mlp_params_from_numpy(params), T,
+        trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp)
+    x0 = torch.linspace(-1.5, 1.5, 512)
+    y = torch.tensor([0.4])
+    nx, w, _ = guided_scalar_chunk_plain(
+        mlp_params_from_numpy(params), trans_lp, obs_lp, T, 0, x0,
+        torch.zeros(512), y, t0=3, draws=torch.full((1, 1), 0.5))
+    want = (trans_lp(x0, nx, 3) + obs_lp(nx, y[0], 3)
+            - model.proposal_logpdf(nx, x0, 3, y[0]))
+    np.testing.assert_allclose(w.numpy(), want.numpy(), rtol=0, atol=2e-4)
+
+
+def test_guided_scalar_draws_and_kernel_wrapper():
+    """The wrapper takes the plain version on CPU tensors; with eps from
+    Philox it moves the particles, and n_valid masks the tail."""
+    params = mlp_params_from_numpy(_net([3, 8, 8, 2], 4))
+    k = GuidedScalarKernel(params, trans_lp, obs_lp, T)
+    assert k.layer_sizes() == [3, 8, 8, 2]
+    x0 = torch.linspace(-2, 2, 4096)
+    w0 = torch.zeros(4096)
+    ys = torch.tensor([0.3, -0.2, 0.9])
+    s2, w2, rec = k.chunk(7, x0, w0, ys, torch.tensor(2, dtype=torch.int32), t0=4)
+    s3, w3, _ = k.chunk(7, x0, w0, ys[:2], t0=4)
+    assert torch.equal(s2, s3) and torch.equal(w2, w3)
+    assert rec.shape == (4096 // GUIDED_BLOCK, 3)
+    zero = guided_scalar_chunk_plain(params, trans_lp, obs_lp, T, 7, x0, w0,
+                                     ys, t0=4, draws=torch.zeros(3, 1))
+    assert not torch.equal(zero[0], k.chunk(7, x0, w0, ys, t0=4)[0])
+
+
+def test_guided_scalar_source_renders_the_net():
+    """The generated kernel bakes the weights as float32 constants that
+    convert back exactly, and carries each density under its own name."""
+    params = _net([3, 4, 4, 2], 5)
+    src = GuidedScalarKernel(params, trans_lp, obs_lp, 16).source()
+    w = float(np.float32(params[1]["w"][2, 3]))
+    assert f"({w!r})" in src
+    assert "def trans_logpdf_elem(x, nx, t):" in src
+    assert "def obs_logpdf_elem(nx, y, t):" in src
+    assert "_kt_half_log_2pi" in src and "_ko_half_log_2pi" in src
+    assert "tl.div_rn(tt, 16.0)" in src
+    compile(src, "<guided>", "exec")
+
+
+# --------------------------------------------------------------------------
+# K13
+
+
+def _discrete_ref(params, mxu, **kw):
+    return ref_attach_discrete(TRANS5, MEANS5, STDS5, INIT5, params=params,
+                               T=T, block_r=8, interpret=True, mxu=mxu, **kw)
+
+
+def _discrete_port(params, K=5, trans=TRANS5, means=MEANS5, stds=STDS5,
+                   init=INIT5):
+    spec = spec_from_numpy(trans, means, stds, init)
+    gt = GuidedTables.from_params(np.log(np.maximum(trans, 1e-38)),
+                                  mlp_params_from_numpy(params), T)
+    return spec, gt
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("flag,n_valid,t0", [(0, 3, 1), (1, 2, 5), (1, 0, 2)])
+def test_guided_discrete_matches_pallas_interpret(mxu, flag, n_valid, t0):
+    K = 5
+    params = _net([K + 2, 8, 8, K], 6, scale=0.6)
+    rng = np.random.default_rng(7)
+    states = rng.integers(0, K, N).astype(np.int32)
+    w0 = (0.3 * rng.standard_normal(N)).astype(np.float32)
+    ys = np.array([0.5, -1.5, 2.2], np.float32)
+    ticks = np.array([100, 300, 600, 900], np.int32)
+    s_r, w_r, ess_r, cat_r, lme_r = _discrete_ref(params, mxu).fused_chunk_exchange_t_batch(
+        jax.random.key(0), jnp.asarray(states), jnp.asarray(w0), jnp.asarray(ys),
+        jnp.int32(n_valid), jnp.int32(flag), jnp.asarray(ticks), jnp.int32(t0))
+    spec, gt = _discrete_port(params)
+    ctrl = torch.tensor([flag, *ticks, n_valid], dtype=torch.int32)
+    s, w, rec = guided_chunk_plain(
+        0, torch.as_tensor(states), torch.as_tensor(w0), torch.as_tensor(ys),
+        ctrl, spec, gt, t0=t0, island_size=N,
+        draws=(torch.zeros(len(ys), N), torch.zeros(0, 1)))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
+    # log_w: the RN sum is grouped as log p + (log g - log q) against the
+    # reference's per-twin order, the emission from float32 tables: float32
+    # rounding of terms of magnitude ~10
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_r), rtol=1e-5, atol=2e-5)
+    ess, cat_w, lme = (x.numpy() for x in stats_from_partials(rec, N))
+    np.testing.assert_allclose(cat_w, np.asarray(cat_r), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ess, float(ess_r), rtol=1e-4)
+    np.testing.assert_allclose(lme, float(lme_r), rtol=0, atol=1e-4)
+
+
+def test_guided_discrete_one_step_matches_reference_math():
+    """The per-step hook (K13 launched for one step) at u = 0 against the
+    smc_csis arithmetic, as tests/test_pallas_ssm.py:418-446 checks the
+    reference kernel."""
+    K = 5
+    params = _net([K + 2, 8, 8, K], 8)
+    spec, gt = _discrete_port(params)
+    y, t = 0.5, 2
+    ctrl = torch.tensor([0, 0, 0, 0, 0, 1], dtype=torch.int32)
+    s, w, rec = guided_chunk_plain(
+        0, torch.full((N,), 3, dtype=torch.int32), torch.zeros(N),
+        torch.tensor([y]), ctrl, spec, gt, t0=t, island_size=N,
+        draws=(torch.zeros(1, N), None))
+    feats = jnp.concatenate([jax.nn.one_hot(3, K), jnp.array([y]),
+                             jnp.array([t / T])])
+    log_q0 = float(jax.nn.log_softmax(ref_nn.mlp_apply(params, feats))[0])
+    log_g = (-0.5 * ((y - MEANS5[0]) / STDS5[0]) ** 2 - np.log(STDS5[0])
+             - half_log_2pi)
+    expected = np.log(TRANS5[3, 0]) + log_g - log_q0
+    assert bool((s == 0).all())
+    np.testing.assert_allclose(w.numpy(), expected, rtol=3e-6, atol=3e-6)
+    np.testing.assert_allclose(stats_from_partials(rec, N)[1].numpy(),
+                               [1, 0, 0, 0, 0], atol=1e-6)
+
+
+def test_guided_tables_follow_their_definition():
+    """cum's last column is ssum, and rn is log p + log g - log q of the net
+    (float64 numpy replay)."""
+    K = 5
+    params = _net([K + 2, 8, 8, K], 9)
+    spec, gt = _discrete_port(params)
+    y, tf = torch.tensor(0.7), torch.tensor(3 / T)
+    cum, ssum, rn = guided_tables_plain(spec.tables("cpu"), gt.tables("cpu"), y, tf)
+    assert torch.equal(cum[:, -1], ssum)
+    feats = np.concatenate([np.eye(K), np.full((K, 1), 0.7), np.full((K, 1), 3 / T)], 1)
+    h = feats
+    for i, layer in enumerate(params):
+        h = h @ layer["w"].astype(np.float64) + layer["b"]
+        if i < len(params) - 1:
+            h = np.maximum(h, 0)
+    log_q = h - np.log(np.exp(h).sum(1, keepdims=True))
+    log_g = -0.5 * ((0.7 - MEANS5) / STDS5) ** 2 - np.log(STDS5) - half_log_2pi
+    want = np.log(TRANS5) + log_g[None, :] - log_q
+    np.testing.assert_allclose(rn.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(cum.numpy() / ssum.numpy()[:, None],
+                               np.cumsum(np.exp(log_q), 1), atol=1e-6)
+
+
+def _island_args():
+    trans = np.array([[0.8, 0.2], [0.3, 0.7]])
+    params = _net([4, 8, 8, 2], 10, scale=0.5)
+    ys = np.linspace(-1, 1, 8).astype(np.float32)
+    return trans, params, ys
+
+
+def test_guided_island_threshold_zero_is_no_island():
+    """tests/test_pallas_ssm.py:593-611: threshold 0 equals no island, bit
+    for bit; and the port's frame equals the JAX island kernel's."""
+    trans, params, ys = _island_args()
+    spec, gt = _discrete_port(params, 2, trans, [-1.0, 1.0], [1.0, 1.0], [0.5, 0.5])
+    states, w0 = torch.zeros(N, dtype=torch.int32), torch.zeros(N)
+    ctrl = torch.tensor([0, 0, 8], dtype=torch.int32)
+    draws = (torch.zeros(8, N), torch.full((1, 1), 0.5))
+    base = guided_chunk_plain(0, states, w0, torch.as_tensor(ys), ctrl, spec, gt,
+                              t0=0, island_size=N, draws=draws)
+    isl = guided_chunk_plain(0, states, w0, torch.as_tensor(ys), ctrl, spec, gt,
+                             t0=0, island_every=4, island_thresh=0.0,
+                             island_size=N, draws=draws)
+    assert torch.equal(base[0], isl[0]) and torch.equal(base[1], isl[1])
+    assert float(isl[2][:, -1].sum()) == 0.0
+    ref = ref_attach_discrete(trans, [-1.0, 1.0], [1.0, 1.0], [0.5, 0.5],
+                              params=params, T=T, block_r=8, interpret=True,
+                              island_every=4, island_thresh=0.0)
+    s_r, w_r, *_ = ref.fused_chunk_exchange_t_batch(
+        jax.random.key(0), jnp.zeros(N, jnp.int32), jnp.zeros(N), jnp.asarray(ys),
+        jnp.int32(8), jnp.int32(0), jnp.zeros((1,), jnp.int32), jnp.int32(0))
+    np.testing.assert_array_equal(isl[0].numpy(), np.asarray(s_r))
+    np.testing.assert_allclose(isl[1].numpy(), np.asarray(w_r), rtol=1e-5, atol=2e-5)
+
+
+def test_guided_island_forced_trigger_resets_block():
+    """tests/test_pallas_ssm.py:613-630: a forced check resamples the
+    island to equal weights (the island's log-mean weight), as the JAX
+    island kernel does."""
+    trans, params, ys = _island_args()
+    spec, gt = _discrete_port(params, 2, trans, [-1.0, 1.0], [1.0, 1.0], [0.5, 0.5])
+    ctrl = torch.tensor([0, 0, 8], dtype=torch.int32)
+    s, w, rec = guided_chunk_plain(
+        0, torch.zeros(N, dtype=torch.int32), torch.zeros(N), torch.as_tensor(ys),
+        ctrl, spec, gt, t0=0, island_every=4, island_thresh=2.0, island_size=N,
+        draws=(torch.zeros(8, N), torch.full((1, 1), 0.5)))
+    ess = float(stats_from_partials(rec, N)[0])
+    assert torch.isfinite(w).all()
+    assert ess == pytest.approx(N, rel=1e-6)
+    assert float(w.max() - w.min()) < 1e-5
+    assert float(rec[0, -1]) == 1.0
+    ref = ref_attach_discrete(trans, [-1.0, 1.0], [1.0, 1.0], [0.5, 0.5],
+                              params=params, T=T, block_r=8, interpret=True,
+                              island_every=4, island_thresh=2.0)
+    s_r, w_r, ess_r, *_ = ref.fused_chunk_exchange_t_batch(
+        jax.random.key(0), jnp.zeros(N, jnp.int32), jnp.zeros(N), jnp.asarray(ys),
+        jnp.int32(8), jnp.int32(0), jnp.zeros((1,), jnp.int32), jnp.int32(0))
+    assert float(ess_r) == N
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_r), rtol=1e-5, atol=2e-5)
+
+
+def test_guided_discrete_hooks_launch_the_guided_kernel_on_cpu_plain():
+    """The chunk and per-step hooks go through ``guided_chunk`` (on the
+    CPU: its plain version) and never through the unguided chunk."""
+    K = 5
+    params = mlp_params_from_numpy(_net([K + 2, 8, 8, K], 11))
+    g = attach_fused_guided_discrete_kernels(TRANS5, MEANS5, STDS5, INIT5,
+                                             params=params, T=T)
+    assert g.fused_hooks_guided and g.fused_step_batch is None
+    assert g.fused_chunk_exchange_batch is None
+    n = fused_hmm.ISLAND_SIZE
+    s0 = torch.zeros(n, dtype=torch.int32)
+    w0 = torch.zeros(n)
+    flag = torch.tensor(0, dtype=torch.int32)
+    ticks = torch.zeros(K - 1, dtype=torch.int32)
+    out = g.fused_step_exchange_batch(3, s0, w0, torch.tensor(0.4), 2, flag, ticks)
+    spec, gt = _discrete_port(params)
+    want = guided_chunk(3, s0, w0, torch.tensor([0.4]),
+                        torch.tensor([0, 0, 0, 0, 0, 1], dtype=torch.int32),
+                        spec, gt, t0=2)
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    s, w, ess = g.fused_step_ess_batch(3, s0, w0, torch.tensor(0.4), 2)
+    assert torch.equal(s, want[0]) and torch.equal(w, want[1])
+
+
+# --------------------------------------------------------------------------
+# validation
+
+
+def test_guided_builders_reject_what_the_kernels_cannot_take():
+    with pytest.raises(ValueError, match="normal"):
+        attach_fused_guided_scalar_kernels(
+            linear_gaussian_ssm, _net([4, 8, 2], 0), T,
+            trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp)
+    with pytest.raises(ValueError, match="normal"):
+        GuidedScalarKernel(_net([3, 8, 3], 0), trans_lp, obs_lp, T)
+    with pytest.raises(ValueError, match="chain"):
+        GuidedScalarKernel([{"w": np.zeros((3, 4)), "b": np.zeros(4)},
+                            {"w": np.zeros((5, 2)), "b": np.zeros(2)}],
+                           trans_lp, obs_lp, T)
+    with pytest.raises(ValueError, match="K <= 8"):
+        attach_fused_guided_discrete_kernels(np.full((9, 9), 1 / 9), np.arange(9.0),
+                                             params=_net([11, 8, 9], 0), T=T)
+    with pytest.raises(ValueError, match="2 <= K"):
+        attach_fused_guided_discrete_kernels([[1.0]], [0.0], params=_net([3, 4, 1], 0),
+                                             T=T)
+    with pytest.raises(ValueError, match="discrete"):
+        attach_fused_guided_discrete_kernels(TRANS5, MEANS5, STDS5, INIT5,
+                                             params=_net([8, 8, 5], 0), T=T)
+    with pytest.raises(ValueError, match="at most 64 units"):
+        attach_fused_guided_discrete_kernels(TRANS5, MEANS5, STDS5, INIT5,
+                                             params=_net([7, 65, 5], 0), T=T)
+
+
+def _captures_tensor(x, nx, t):
+    return x * _TENSOR
+
+
+_TENSOR = torch.ones(1)
+
+
+def _two_args(x, nx):
+    return x - nx
+
+
+def _imports(nx, y, t):
+    import math as m  # noqa: F401
+    return nx - y
+
+
+def _outside(nx, y, t):
+    return elem.erf(nx - y)
+
+
+@pytest.mark.parametrize("bad,which", [
+    (lambda x, nx, t: x - nx, "trans"), (_captures_tensor, "trans"),
+    (_two_args, "trans"), (_imports, "obs"), (_outside, "obs")])
+def test_density_hooks_outside_the_contract_raise(bad, which):
+    kw = dict(trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp)
+    kw[f"{which}_logpdf_elem"] = bad
+    with pytest.raises(ValueError):
+        attach_fused_guided_scalar_kernels(linear_gaussian_ssm,
+                                           _net([3, 8, 8, 2], 0), T, **kw)
+
+
+def test_density_hooks_take_the_absolute_step():
+    """``t`` reaches the densities as the absolute step (float32)."""
+    seen = []
+
+    def obs_t(nx, y, t):
+        seen.append(float(t))
+        d = y - nx
+        return -0.5 * d * d - half_log_2pi
+
+    params = mlp_params_from_numpy(_net([3, 4, 2], 1))
+    guided_scalar_chunk_plain(params, trans_lp, obs_t, T, 0, torch.zeros(8),
+                              torch.zeros(8), torch.zeros(3), t0=5)
+    assert seen == [5.0, 6.0, 7.0]
+
+
+@pytest.mark.cuda
+def test_guided_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K12 and K13 run only on the card")
+    dev = torch.device("cuda")
+    params = mlp_params_from_numpy(_net([3, 8, 8, 2], 2), dev)
+    k = GuidedScalarKernel(params, trans_lp, obs_lp, T)
+    x0 = torch.randn(1 << 16, device=dev)
+    w0 = torch.zeros(1 << 16, device=dev)
+    ys = torch.tensor([0.5, -0.25, 1.1], device=dev)
+    got = k.chunk(1, x0, w0, ys, t0=1)
+    want = guided_scalar_chunk_plain(params, trans_lp, obs_lp, T, 1, x0, w0, ys, t0=1)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+    spec, gt = _discrete_port(_net([7, 8, 8, 5], 6))
+    n = 4 * fused_hmm.ISLAND_SIZE
+    s0 = torch.randint(0, 5, (n,), dtype=torch.int32, device=dev)
+    ctrl = torch.tensor([0, 0, 0, 0, 0, 3], dtype=torch.int32, device=dev)
+    got = guided_chunk(1, s0, torch.zeros(n, device=dev), ys, ctrl, spec, gt)
+    want = guided_chunk_plain(1, s0, torch.zeros(n, device=dev), ys, ctrl, spec, gt)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
