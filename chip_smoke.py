@@ -34,8 +34,8 @@ and the script exits non-zero without printing its last line:
    per-step path (chunk = 1) at 2^20 for 8 sweeps, each checked against
    the Kalman filter's evidence, with a resample epoch in every sweep and
    the launch counts; timings (kernel vs plain, the epoch flagged and
-   unflagged, sweep time) and a profile of 8 back-to-back LG sweeps
-   (``chiprun_out/lg_sweep_trace.json``);
+   unflagged, sweep time) and two profiles of 8 back-to-back LG sweeps
+   (``chiprun_out/lg_sweep_trace.json``, the second);
 5. the kernel-from-spec family (``spec_phases``): K9 and K8 against their
    plain versions for K = 5 at 2^24 (8- and 16-slot chunks), K = 12 and 32
    at 2^20 (4-slot chunks) and K = 1, the flag off and on, n_valid short,
@@ -76,9 +76,28 @@ and the script exits non-zero without printing its last line:
    exact forward recursion or Kalman, with launch counts; timings and
    profiles of paths 7 and 8 (``chiprun_out/guided_lg_sweep_trace.json``,
    ``chiprun_out/guided_chain_sweep_trace.json``);
-8. one JSON line on the sixteen kernel entries (each with its bound and,
-   where one PyTorch call computes the same function, that call's time),
-   the card line, and the result line ``{"ok": true, "device": {...}}``.
+8. the pass-2 variants (``r1_phases``, R1): ``pass2_tile_kernel`` (K16's
+   kernel) with ``impl="fast"`` and ``impl="merge"`` (its per-tile
+   column-major layout) against their plain versions at 2^24 on the LG
+   path's weights (flag on, off and absent, one heavy particle, the first
+   start slot past 0; 0 slots may differ);
+   ``streaming_systematic_resample_values(impl=...)`` for 8 epochs of each
+   variant, counted; timings of the three layouts beside
+   ``torch.repeat_interleave``;
+9. the card's calibration (``roofline_phases``, K17-K21): each
+   calibration kernel against its plain version at a reduced size (K17,
+   K19, K20b exactly; K18, K20a, K21 within the tolerances stated at
+   ``CAL_*``), then ``util/roofline.py``'s ``calibrate_peaks`` at the
+   reference's sizes, counted; the peaks must be positive and below the
+   datasheet's where it has one;
+10. the ``roofline`` JSON line: the peaks, the card, and for every kernel
+   entry its bound against the published peaks and its calibrated bound
+   (``analyze_kernels``: the binding resource and the fraction, at most 1);
+   the whole analysis in ``chiprun_out/roofline.json``;
+11. one JSON line on the 24 kernel entries (each with ``bound_ms``,
+   ``bound_by``, ``library_ms`` where one PyTorch call computes the same
+   function, ``calibrated_bound_ms`` and ``calibrated_by``), the card line,
+   and the result line ``{"ok": true, "device": {...}}``.
 
 Every timed sweep runs under ``torch.cuda.set_sync_debug_mode("error")``:
 a sweep never waits on the host.  Launch counts are set to 0 just before
@@ -95,6 +114,8 @@ import sys
 import time
 
 import torch
+
+from cpprob_tpu_torch.util.roofline import time_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -115,89 +136,13 @@ LG_STEP_N = 1 << 20        # the per-step path (chunk = 1)
 LG_STEP_SWEEPS = 8
 PASS1_SLACK = 16           # start slots pass 1 may place differently
 
-# The least time the card could take for a kernel's work (bound_ms on the
-# kernels line): the larger of the bytes it must move (each input read once,
-# each output written once) over the HBM rate, and its operations over the
-# float32 rate outside the tensor cores, both H100 SXM datasheet peaks.
-# Integer (Philox) and float64 operations are counted at the float32 rate,
-# the only rate taken here for that work; the card's 32-bit integer multiply and float64 rates are lower,
-# so those bounds are floors.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# one Philox4x32-10 call: ten rounds of two 32x32->64 multiplies (4 ops)
-# and four xors, and the uniform's shift, convert and scale
-PHILOX_OPS = 83
+# The kernels' work by resource and their bounds (bound_ms against the
+# published peaks, calibrated_bound_ms against the card's own calibration)
+# live in cpprob_tpu_torch/util/roofline.py; each phase imports them there.
 
 
 def _sync():
     torch.cuda.synchronize()
-
-
-def bound(n_bytes, n_ops, library_ms=None):
-    """The kernels line's ``bound_ms``, ``bound_by`` and ``library_ms``."""
-    ms_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    ms_o = n_ops / F32_OPS_PER_S * 1e3
-    return {"bound_ms": max(ms_b, ms_o),
-            "bound_by": "bytes" if ms_b >= ms_o else "operations",
-            "library_ms": library_ms}
-
-
-def chain_chunk_bound(n, K, steps, checks=0):
-    """The K-state chunk kernels (K2, K4, K5, K8): 16 B per particle (state
-    and weight in and out); per particle-step one Philox call, the
-    inverse-CDF walk (2(K-1)) and the weight update (K); per particle and
-    island check an exp and K + 3 sums."""
-    return bound(16 * n + 4 * steps,
-                 n * steps * (PHILOX_OPS + 3 * K - 2) + n * checks * (K + 4))
-
-
-def chain_init_bound(n, K):
-    """The init kernels (K1, K9): 8 B written per particle; one Philox call,
-    the inverse-CDF walk, the emission pick and the record's sums."""
-    return bound(8 * n, n * (PHILOX_OPS + 4 * K + 1))
-
-
-def normal_chunk_bound(n, steps, D=1, physics_ops=6):
-    """The chunk kernels with Box-Muller draws (K6, K7, K10, K11): 8 (D + 1)
-    B per particle; per particle-step and plane half a Philox call and half
-    a Box-Muller pair (log, sqrt, cos or sin, 2 multiplies: ~4), and the
-    physics."""
-    return bound(8 * (D + 1) * n,
-                 n * steps * (D * (PHILOX_OPS / 2 + 4) + physics_ops))
-
-
-def guided_net_ops(sizes):
-    """Float operations of one evaluation of a guided proposal net of
-    ``sizes`` per particle, as the kernels form it: the first layer's
-    per-particle input through a multiply, an add and a max per unit (its
-    step scalars and its one-hot rows are formed once per step), then a
-    multiply and an add per weight of the later layers, a max per later
-    hidden unit."""
-    ops = 3 * sizes[1]
-    ops += sum(2 * a * b for a, b in zip(sizes[1:-1], sizes[2:]))
-    return ops + sum(sizes[2:-1])
-
-
-def guided_table_ops(sizes, K):
-    """Operations of K13's tables per CTA and step: the net for each of
-    the K source states (the one-hot layer an add per unit), and per
-    (a, b) entry the max, the exp-sums and the RN entry (2K + 8)."""
-    return K * guided_net_ops(sizes) + 5 * sizes[1] + K * K * (2 * K + 8)
-
-
-def _time_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` calls after one warm-up,
-    by CUDA events."""
-    fn()
-    _sync()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    _sync()
-    return start.elapsed_time(end) / reps
 
 
 def _spec():
@@ -497,14 +442,20 @@ def build_kernels(stages):
     all started together; prints the ptxas register and spill lines."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from cpprob_tpu_torch.ops import _build, fused_hmm, fused_lg, stream_resample
+    from cpprob_tpu_torch.ops import (
+        _build,
+        calibrate,
+        fused_hmm,
+        fused_lg,
+        stream_resample,
+    )
 
-    mods = (fused_hmm, fused_lg, stream_resample)
+    mods = (fused_hmm, fused_lg, stream_resample, calibrate)
     with stages.stage("build", sync=True):
         with ThreadPoolExecutor(len(mods)) as pool:
             list(pool.map(lambda m: m._lib(), mods))
     print(f"build: {stages.totals['build']:.2f} s ({len(mods)} sources in parallel)")
-    for name in ("fused_hmm", "fused_lg", "stream_resample"):
+    for name in ("fused_hmm", "fused_lg", "stream_resample", "calibrate"):
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {name}:", line.strip())
@@ -516,6 +467,7 @@ def hmm_phases(card, stages):
     from cpprob_tpu_torch import build_smc_run
     from cpprob_tpu_torch.models import hmm_log_evidence, simulate_observations
     from cpprob_tpu_torch.ops import fused_hmm
+    from cpprob_tpu_torch.util.roofline import chain_chunk_bound, chain_init_bound
 
     dev = torch.device("cuda")
     spec = _spec()
@@ -554,7 +506,7 @@ def hmm_phases(card, stages):
     print(f"[{card}] median sweep {sweep_s * 1e3:.3f} ms, "
           f"{MAIN_N * T / sweep_s:.6g} particle-steps/s "
           f"(n={MAIN_N}, T={T}, {SWEEPS} sweeps, host clock, synced per sweep)")
-    b2b_ms = _time_ms(lambda: run(20_000, obs), SWEEPS)
+    b2b_ms = time_ms(lambda: run(20_000, obs), SWEEPS)
     print(f"[{card}] back-to-back sweeps: {b2b_ms:.4f} ms each by CUDA events, "
           f"{MAIN_N * T / (b2b_ms * 1e-3):.6g} particle-steps/s")
 
@@ -568,18 +520,18 @@ def hmm_phases(card, stages):
     kw = dict(t0=1, island_every=ISLAND_EVERY, island_thresh=0.5)
     timing = {
         "init": (
-            _time_ms(lambda: fused_hmm.hmm_init(seed, obs[0], MAIN_N, spec), 10),
-            _time_ms(lambda: fused_hmm.hmm_init_plain(seed, obs[0], MAIN_N, spec), 2),
+            time_ms(lambda: fused_hmm.hmm_init(seed, obs[0], MAIN_N, spec), 10),
+            time_ms(lambda: fused_hmm.hmm_init_plain(seed, obs[0], MAIN_N, spec), 2),
         ),
         "chunk": (
-            _time_ms(lambda: fused_hmm.hmm_chunk(seed, s0, w0, ys, ctrl, spec, **kw), 10),
-            _time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, s0, w0, ys, ctrl, spec, **kw), 2),
+            time_ms(lambda: fused_hmm.hmm_chunk(seed, s0, w0, ys, ctrl, spec, **kw), 10),
+            time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, s0, w0, ys, ctrl, spec, **kw), 2),
         ),
     }
     for name, (ms, plain_ms) in timing.items():
         print(f"[{card}] {name} at n={MAIN_N}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
-    no_island_ms = _time_ms(lambda: fused_hmm.hmm_chunk(
+    no_island_ms = time_ms(lambda: fused_hmm.hmm_chunk(
         seed, s0, w0, ys, ctrl, spec, t0=1, island_every=0), 10)
     print(f"[{card}] chunk at n={MAIN_N}, island_every=0: kernel "
           f"{no_island_ms:.4f} ms")
@@ -612,6 +564,7 @@ def lg_phases(card, stages):
     )
     from cpprob_tpu_torch.ops import fused_lg
     from cpprob_tpu_torch.ops import stream_resample as sr
+    from cpprob_tpu_torch.util.roofline import bound, normal_chunk_bound
 
     dev = torch.device("cuda")
     with stages.stage("lg_kernel_vs_plain", sync=True):
@@ -643,11 +596,11 @@ def lg_phases(card, stages):
     print(f"[{card}] LG median sweep {sweep_s * 1e3:.3f} ms, "
           f"{LG_N * LG_T / sweep_s:.6g} particle-steps/s (n={LG_N}, T={LG_T}, "
           f"chunk={LG_CHUNK}, {SWEEPS} sweeps, host clock, synced per sweep)")
-    b2b_ms = _time_ms(lambda: run(20_000, obs), SWEEPS)
+    b2b_ms = time_ms(lambda: run(20_000, obs), SWEEPS)
     print(f"[{card}] LG back-to-back sweeps: {b2b_ms:.4f} ms each by CUDA "
           f"events, {LG_N * LG_T / (b2b_ms * 1e-3):.6g} particle-steps/s")
     step_s = statistics.median(step_times)
-    step_b2b = _time_ms(lambda: run1(21_000, obs), LG_STEP_SWEEPS)
+    step_b2b = time_ms(lambda: run1(21_000, obs), LG_STEP_SWEEPS)
     print(f"[{card}] LG per-step median sweep {step_s * 1e3:.3f} ms (host "
           f"clock), back-to-back {step_b2b:.4f} ms by CUDA events, "
           f"{LG_STEP_N * LG_T / (step_b2b * 1e-3):.6g} particle-steps/s "
@@ -664,20 +617,20 @@ def lg_phases(card, stages):
     st = sr.resample_pass1(u0, w1, stats)
     timing = {
         "lg_chunk": (
-            _time_ms(lambda: fused_lg.lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
-            _time_ms(lambda: fused_lg.lg_chunk_plain(seed, x0, w0, ys[0], valid[0], t0=1), 2)),
+            time_ms(lambda: fused_lg.lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
+            time_ms(lambda: fused_lg.lg_chunk_plain(seed, x0, w0, ys[0], valid[0], t0=1), 2)),
         "lg_step": (
-            _time_ms(lambda: fused_lg.lg_step(seed, x0, w0, obs[1], 1), 10),
-            _time_ms(lambda: fused_lg.lg_step_plain(seed, x0, w0, obs[1], 1), 2)),
+            time_ms(lambda: fused_lg.lg_step(seed, x0, w0, obs[1], 1), 10),
+            time_ms(lambda: fused_lg.lg_step_plain(seed, x0, w0, obs[1], 1), 2)),
         "lse_stats": (
-            _time_ms(lambda: sr.logsumexp_stats(w1), 10),
-            _time_ms(lambda: sr.logsumexp_stats_plain(w1), 4)),
+            time_ms(lambda: sr.logsumexp_stats(w1), 10),
+            time_ms(lambda: sr.logsumexp_stats_plain(w1), 4)),
         "pass1": (
-            _time_ms(lambda: sr.resample_pass1(u0, w1, stats), 10),
-            _time_ms(lambda: sr.resample_pass1_plain(u0, w1, stats), 4)),
+            time_ms(lambda: sr.resample_pass1(u0, w1, stats), 10),
+            time_ms(lambda: sr.resample_pass1_plain(u0, w1, stats), 4)),
         "pass2": (
-            _time_ms(lambda: sr.resample_pass2(st, x1), 10),
-            _time_ms(lambda: sr.resample_pass2_plain(st, x1), 4)),
+            time_ms(lambda: sr.resample_pass2(st, x1), 10),
+            time_ms(lambda: sr.resample_pass2_plain(st, x1), 4)),
     }
     for name, (ms, plain_ms) in timing.items():
         print(f"[{card}] {name} at n={LG_N}: kernel {ms:.4f} ms, "
@@ -690,10 +643,13 @@ def lg_phases(card, stages):
     on = torch.ones((), dtype=torch.int32, device=dev)
     off = torch.zeros((), dtype=torch.int32, device=dev)
     print(f"[{card}] epoch at n={LG_N} (K14 + K15 + K16): flagged "
-          f"{_time_ms(lambda: epoch(on), 10):.4f} ms, unflagged "
-          f"{_time_ms(lambda: epoch(off), 10):.4f} ms")
+          f"{time_ms(lambda: epoch(on), 10):.4f} ms, unflagged "
+          f"{time_ms(lambda: epoch(off), 10):.4f} ms")
+    # profiled twice, so the spread of the span and the busy share between
+    # two profiles of the same sweeps shows beside them
     with stages.stage("lg_profile", sync=True):
-        profile_sweeps(run, obs, card, trace="lg_sweep_trace.json")
+        for _ in range(2):
+            profile_sweeps(run, obs, card, trace="lg_sweep_trace.json")
 
     # one PyTorch call for the same function, where there is one (timed
     # here, never called by the port): K14's logsumexp, K15's float64 prefix
@@ -701,9 +657,9 @@ def lg_phases(card, stages):
     e64 = torch.exp(w1.double() - stats[0])
     counts = torch.diff(st.long(), append=torch.full((1,), LG_N, device=dev))
     library = {
-        "lse_stats": _time_ms(lambda: torch.logsumexp(w1, 0), 10),
-        "pass1": _time_ms(lambda: torch.cumsum(e64, 0), 10),
-        "pass2": _time_ms(lambda: torch.repeat_interleave(
+        "lse_stats": time_ms(lambda: torch.logsumexp(w1, 0), 10),
+        "pass1": time_ms(lambda: torch.cumsum(e64, 0), 10),
+        "pass2": time_ms(lambda: torch.repeat_interleave(
             x1, counts, output_size=LG_N), 10),
     }
     for name, ms in library.items():
@@ -712,14 +668,14 @@ def lg_phases(card, stages):
     bounds = {
         "lg_chunk": normal_chunk_bound(n, int(valid[0])),
         "lg_step": normal_chunk_bound(n, 1),
-        # K14 reads the weights (max, subtract, exp, add); K15 reads them
-        # and writes int32 start slots (exp, prefix add, scale, ceil,
-        # clamp); K16 reads the start slots and the values and writes the
-        # values, a binary search of log2(n) steps per slot
-        "lse_stats": bound(4 * n, 4 * n, library["lse_stats"]),
-        "pass1": bound(8 * n, 6 * n, library["pass1"]),
-        "pass2": bound(12 * n, 2 * n * math.ceil(math.log2(n)),
-                       library["pass2"]),
+        # K14 reads the weights (max, subtract, exp, add: float64); K15
+        # reads them and writes int32 start slots (exp, prefix add, scale,
+        # ceil, clamp: float64); K16 reads the start slots and the values
+        # and writes the values, with the owner scatter, the max-scan and
+        # the gather per slot (~3 ops)
+        "lse_stats": bound(4 * n, f64_ops=4 * n, library_ms=library["lse_stats"]),
+        "pass1": bound(8 * n, f64_ops=6 * n, library_ms=library["pass1"]),
+        "pass2": bound(12 * n, 3 * n, library_ms=library["pass2"]),
     }
 
     def line(name, key, replaces, src, n_launch):
@@ -741,7 +697,8 @@ def lg_phases(card, stages):
         line("pass1_tile_sums/scan_tiles/finish_kernel", "pass1",
              "cpprob_tpu/ops/pallas_resample.py:113", "stream_resample.cu",
              launches["pass1"]),
-        line("pass2_kernel", "pass2", "cpprob_tpu/ops/pallas_resample.py:645",
+        line("pass2_tile_kernel (scatter)", "pass2",
+             "cpprob_tpu/ops/pallas_resample.py:645",
              "stream_resample.cu", launches["pass2"]),
     ]
 
@@ -1213,6 +1170,7 @@ def spec_phases(card, stages):
         discrete_hmm_log_evidence,
         make_fused_discrete_ssm,
     )
+    from cpprob_tpu_torch.util.roofline import chain_chunk_bound, chain_init_bound
 
     dev = torch.device("cuda")
     with stages.stage("spec_kernel_vs_plain", sync=True):
@@ -1303,19 +1261,19 @@ def spec_phases(card, stages):
     c1 = torch.tensor([0, 0, 0, 1], dtype=torch.int32, device=dev)
     timing = {
         "spec_init": (
-            _time_ms(lambda: fused_hmm.hmm_init(seed, obs5[0], SPEC_N, spec5), 10),
-            _time_ms(lambda: fused_hmm.hmm_init_plain(seed, obs5[0], SPEC_N, spec5), 2)),
+            time_ms(lambda: fused_hmm.hmm_init(seed, obs5[0], SPEC_N, spec5), 10),
+            time_ms(lambda: fused_hmm.hmm_init_plain(seed, obs5[0], SPEC_N, spec5), 2)),
         "spec_chunk": (
-            _time_ms(lambda: fused_hmm.hmm_chunk(seed, s0, w0, ys[0], ctrl, spec5), 10),
-            _time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, s0, w0, ys[0], ctrl, spec5), 2)),
+            time_ms(lambda: fused_hmm.hmm_chunk(seed, s0, w0, ys[0], ctrl, spec5), 10),
+            time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, s0, w0, ys[0], ctrl, spec5), 2)),
         "step_exchange": (
-            _time_ms(lambda: fused_hmm.hmm_chunk(seed, sh, wh, y5, c4, spec3, t0=5,
+            time_ms(lambda: fused_hmm.hmm_chunk(seed, sh, wh, y5, c4, spec3, t0=5,
                                                  count_key="step_exchange"), 20),
-            _time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, sh, wh, y5, c4, spec3, t0=5), 4)),
+            time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, sh, wh, y5, c4, spec3, t0=5), 4)),
         "step_ess": (
-            _time_ms(lambda: fused_hmm.hmm_chunk(seed, sh, wh, y5, c1, spec3, t0=5,
+            time_ms(lambda: fused_hmm.hmm_chunk(seed, sh, wh, y5, c1, spec3, t0=5,
                                                  count_key="step_ess"), 20),
-            _time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, sh, wh, y5, c1, spec3, t0=5), 4)),
+            time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, sh, wh, y5, c1, spec3, t0=5), 4)),
     }
     for name, (ms, plain_ms) in timing.items():
         print(f"[{card}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -1327,16 +1285,16 @@ def spec_phases(card, stages):
         ck = torch.tensor([0, *[BIGK_N * (k + 1) // K for k in range(K - 1)], BIGK_CHUNK],
                           dtype=torch.int32, device=dev)
         print(f"[{card}] spec chunk K={K} n={BIGK_N} {BIGK_CHUNK} steps: kernel "
-              f"{_time_ms(lambda: fused_hmm.hmm_chunk(seed, sk, wk, ysk[0], ck, spec_k), 10):.4f} ms, "
-              f"plain {_time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, sk, wk, ysk[0], ck, spec_k), 2):.4f} ms; "
-              f"init kernel {_time_ms(lambda: fused_hmm.hmm_init(seed, obs_k[0], BIGK_N, spec_k), 10):.4f} ms")
-    b2b = _time_ms(lambda: run1(20_000, obs5), SWEEPS)
+              f"{time_ms(lambda: fused_hmm.hmm_chunk(seed, sk, wk, ysk[0], ck, spec_k), 10):.4f} ms, "
+              f"plain {time_ms(lambda: fused_hmm.hmm_chunk_plain(seed, sk, wk, ysk[0], ck, spec_k), 2):.4f} ms; "
+              f"init kernel {time_ms(lambda: fused_hmm.hmm_init(seed, obs_k[0], BIGK_N, spec_k), 10):.4f} ms")
+    b2b = time_ms(lambda: run1(20_000, obs5), SWEEPS)
     print(f"[{card}] path 1 back-to-back sweeps: {b2b:.4f} ms each by CUDA events, "
           f"{SPEC_N * T / (b2b * 1e-3):.6g} particle-steps/s; median synced sweep "
           f"{statistics.median(times1) * 1e3:.3f} ms")
     print(f"[{card}] path 4 back-to-back sweeps: chunk=1 (K4) "
-          f"{_time_ms(lambda: run4(21_000, obs), SHORT_SWEEPS):.4f} ms, smc() (K5) "
-          f"{_time_ms(lambda: run5(22_000, obs), SHORT_SWEEPS):.4f} ms")
+          f"{time_ms(lambda: run4(21_000, obs), SHORT_SWEEPS):.4f} ms, smc() (K5) "
+          f"{time_ms(lambda: run5(22_000, obs), SHORT_SWEEPS):.4f} ms")
     with stages.stage("spec_profile", sync=True):
         profile_sweeps(run1, obs5, card, trace="spec_sweep_trace.json")
 
@@ -1382,6 +1340,7 @@ def user_phases(card, stages):
         attach_fused_scalar_kernels,
         attach_fused_vector_kernels,
     )
+    from cpprob_tpu_torch.util.roofline import normal_chunk_bound
 
     dev = torch.device("cuda")
     with stages.stage("user_kernel_vs_plain", sync=True):
@@ -1423,25 +1382,25 @@ def user_phases(card, stages):
     vec_k = triton_ssm.UserKernel(lg2d_step_elem, 2)
     timing = {
         "scalar": (
-            _time_ms(lambda: lg_k.chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
-            _time_ms(lambda: triton_ssm.user_chunk_plain(
+            time_ms(lambda: lg_k.chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
+            time_ms(lambda: triton_ssm.user_chunk_plain(
                 lg_step_elem, 1, seed, x0, w0, ys[0], valid[0], t0=1), 2)),
         "vector": (
-            _time_ms(lambda: vec_k.chunk(seed, xv, wv, vys_c[0], vvalid[0], t0=1), 10),
-            _time_ms(lambda: triton_ssm.user_chunk_plain(
+            time_ms(lambda: vec_k.chunk(seed, xv, wv, vys_c[0], vvalid[0], t0=1), 10),
+            time_ms(lambda: triton_ssm.user_chunk_plain(
                 lg2d_step_elem, 2, seed, xv, wv, vys_c[0], vvalid[0], t0=1), 2)),
     }
     from cpprob_tpu_torch.ops import fused_lg
 
-    k7_ms = _time_ms(lambda: fused_lg.lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10)
+    k7_ms = time_ms(lambda: fused_lg.lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10)
     for name, (ms, plain_ms) in timing.items():
         print(f"[{card}] {name} user kernel: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     print(f"[{card}] K10 (LG physics) {timing['scalar'][0]:.4f} ms against K7 "
           f"{k7_ms:.4f} ms on the same chunk (n={USER_N}, 8 steps)")
-    b2b = _time_ms(lambda: run5(20_000, obs), SWEEPS)
+    b2b = time_ms(lambda: run5(20_000, obs), SWEEPS)
     print(f"[{card}] path 5 back-to-back sweeps: {b2b:.4f} ms each by CUDA events, "
           f"{USER_N * LG_T / (b2b * 1e-3):.6g} particle-steps/s; path 6 "
-          f"{_time_ms(lambda: run6(21_000, vobs), SHORT_SWEEPS):.4f} ms")
+          f"{time_ms(lambda: run6(21_000, vobs), SHORT_SWEEPS):.4f} ms")
 
     src = "cpprob_tpu_torch/ops/triton_ssm.py"
     return [
@@ -1674,6 +1633,11 @@ def guided_phases(card, stages):
         attach_fused_guided_scalar_kernels,
         discrete_hmm_log_evidence,
     )
+    from cpprob_tpu_torch.util.roofline import (
+        bound,
+        guided_net_ops,
+        guided_table_ops,
+    )
 
     dev = torch.device("cuda")
     lg_params, chain_params = train_guides(card, stages)
@@ -1772,20 +1736,20 @@ def guided_phases(card, stages):
     y5 = obs12[5].reshape(1)
     timing = {
         "guided_scalar": (
-            _time_ms(lambda: k12.chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
-            _time_ms(lambda: triton_ssm.guided_scalar_chunk_plain(
+            time_ms(lambda: k12.chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
+            time_ms(lambda: triton_ssm.guided_scalar_chunk_plain(
                 lg_params, guided_trans_lp, guided_obs_lp, LG_T, seed, x0, w0,
                 ys[0], valid[0], t0=1), 2)),
         "guided_chunk": (
-            _time_ms(lambda: fused_hmm.guided_chunk(seed, s0, wc0, ys8[0], c8,
+            time_ms(lambda: fused_hmm.guided_chunk(seed, s0, wc0, ys8[0], c8,
                                                     spec5, gt), 10),
-            _time_ms(lambda: fused_hmm.guided_chunk_plain(seed, s0, wc0, ys8[0],
+            time_ms(lambda: fused_hmm.guided_chunk_plain(seed, s0, wc0, ys8[0],
                                                           c8, spec5, gt), 2)),
         "guided_step": (
-            _time_ms(lambda: fused_hmm.guided_chunk(
+            time_ms(lambda: fused_hmm.guided_chunk(
                 seed, s1, w1, y5, c1, spec5, gt, t0=5,
                 count_key="guided_step_exchange"), 20),
-            _time_ms(lambda: fused_hmm.guided_chunk_plain(
+            time_ms(lambda: fused_hmm.guided_chunk_plain(
                 seed, s1, w1, y5, c1, spec5, gt, t0=5), 4)),
     }
     for name, (ms, plain_ms) in timing.items():
@@ -1795,7 +1759,7 @@ def guided_phases(card, stages):
                                 ("9a", run9a, obs12, times9a),
                                 ("9b", run9b, obs5, times9b)):
         n_path = GUIDED_STEP_N if name == "9a" else GUIDED_N
-        b2b = _time_ms(lambda: run(20_000, o), SWEEPS)
+        b2b = time_ms(lambda: run(20_000, o), SWEEPS)
         print(f"[{card}] path {name} back-to-back sweeps: {b2b:.4f} ms each by CUDA "
               f"events, {n_path * o.shape[0] / (b2b * 1e-3):.6g} particle-steps/s; "
               f"median synced sweep {statistics.median(times) * 1e3:.3f} ms")
@@ -1806,25 +1770,28 @@ def guided_phases(card, stages):
         profile_sweeps(run8, obs5, card, trace="guided_chain_sweep_trace.json")
 
     # the bounds: K12 per particle-step half a Philox call and half a pair,
-    # the net, softplus (4), the move (2), log q (4), the two densities (4
-    # each) and the weight (2); K13 per particle-step one Philox call, the
-    # target (1), the walk (2(K-1)) and the weight (1), and per CTA of
-    # ISLAND_SIZE particles and step the tables
+    # the net, softplus (an exp + log1p pair), the move (2), log q (4), the
+    # two densities (4 each) and the weight (2); K13 per particle-step one
+    # Philox call, the target (1), the walk (2(K-1)) and the weight (1), and
+    # per CTA of ISLAND_SIZE particles and step the tables
     sizes12 = k12.layer_sizes()
-    k12_ops = PHILOX_OPS / 2 + 4 + guided_net_ops(sizes12) + 18
+    k12_f32 = guided_net_ops(sizes12) + 14
     table_ops = guided_table_ops(gt.dims, 5)
-    k13_ops = PHILOX_OPS + 2 * 5
 
     def k13_bound(n, steps):
-        return bound(16 * n, n * steps * k13_ops
-                     + n // fused_hmm.ISLAND_SIZE * steps * table_ops)
+        return bound(16 * n, n * steps * 2 * 5
+                     + n // fused_hmm.ISLAND_SIZE * steps * table_ops,
+                     philox_calls=n * steps)
 
+    ps12 = GUIDED_N * int(valid[0])
     bounds = {
-        "guided_scalar": bound(16 * GUIDED_N, GUIDED_N * int(valid[0]) * k12_ops),
+        "guided_scalar": bound(16 * GUIDED_N, ps12 * k12_f32, philox_calls=ps12 / 2,
+                               normal_pairs=ps12 / 2, exp_log_pairs=ps12),
         "guided_chunk": k13_bound(GUIDED_N, int(v8[0])),
         "guided_step": k13_bound(GUIDED_STEP_N, 1),
     }
-    print(f"bounds: K12 {k12_ops:.1f} operations per particle-step for the "
+    print(f"bounds: K12 {k12_f32} float operations, half a Philox call and "
+          f"Box-Muller pair and one exp + log1p pair per particle-step for the "
           f"{sizes12} net; K13 tables {table_ops} operations per CTA-step; "
           + ", ".join(f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
                       for k, v in bounds.items()))
@@ -1849,12 +1816,300 @@ def guided_phases(card, stages):
     ]
 
 
+# ---------------------------------------------------------------------------
+# R1: the pass-2 variants fast and merge (pass2_tile_kernel)
+
+R1_N = 1 << 24             # the LG path's epoch
+R1_EPOCHS = 8              # epochs of each variant through the entry point
+
+
+def _tile_t(x):
+    """The merge layout of a row-major expansion: slot og*128 + s of tile t
+    at t*16384 + s*128 + og."""
+    return x.view(-1, 128, 128).transpose(1, 2).reshape(-1)
+
+
+def r1_phases(card, stages):
+    """The pass-2 variants ``fast`` and ``merge`` (the kernel of K16, in
+    the row-major and the per-tile column-major layout) against their plain
+    versions at 2^24 (0 slots may differ), with the flag on, off and
+    absent, one heavy particle and the first start slot past 0; the epoch
+    through ``streaming_systematic_resample_values(impl=...)`` with the
+    launch counts set to 0 just before and read just after; timings of the
+    three layouts beside ``torch.repeat_interleave``.  Returns the kernel
+    lines."""
+    from cpprob_tpu_torch.ops import fused_lg
+    from cpprob_tpu_torch.ops import stream_resample as sr
+    from cpprob_tpu_torch.util.roofline import bound
+
+    dev = torch.device("cuda")
+    n = R1_N
+    obs = _lg_obs(dev)
+    x0, w0 = _lg_population(n, CHECK_SEED, obs)
+    ys, valid = _lg_chunks(obs)
+    x1, w1, _ = fused_lg.lg_chunk(CHECK_SEED, x0, w0, ys[0], valid[0], t0=1)
+    del x0, w0
+    u0 = torch.full((), 0.37, dtype=torch.float64, device=dev)
+    st = sr.resample_pass1(u0, w1, sr.logsumexp_stats(w1))
+    on = torch.ones((), dtype=torch.int32, device=dev)
+    off = torch.zeros((), dtype=torch.int32, device=dev)
+    heavy_w = torch.full((n,), -100.0, device=dev)
+    heavy_w[12345] = 0.0
+    st_h = sr.resample_pass1(u0, heavy_w, sr.logsumexp_stats(heavy_w))
+    st_5 = torch.clamp(st + 5, max=n)       # the first start slot past 0
+    errs = {}
+    with stages.stage("r1_kernel_vs_plain", sync=True):
+        for impl in ("fast", "merge"):
+            bad = 0
+            for what, s_, flag in (("flag on", st, on), ("no flag", st, None),
+                                   ("flag off", st, off),
+                                   ("one heavy particle", st_h, None),
+                                   ("first start slot 5", st_5, None)):
+                got = sr.resample_pass2(s_, x1, flag, impl=impl)
+                want = sr.resample_pass2_plain(s_, x1, flag, impl=impl)
+                _sync()
+                n_bad = int((got != want).sum())
+                print(f"check pass2 {impl} n={n} {what}: {n_bad} slots differ from "
+                      "the plain version")
+                if what == "one heavy particle" and not bool((got == x1[12345]).all()):
+                    raise AssertionError(f"pass2 {impl}: the heavy particle does not fill every slot")
+                bad += n_bad
+            if bad:
+                raise AssertionError(f"pass2 {impl}: {bad} slots differ from the plain version")
+            errs[impl] = 0.0
+
+    # the path: the epoch a user calls, R1_EPOCHS times per variant, counted
+    counters = sr.LAUNCHES
+    for k in counters:
+        counters[k] = 0
+    outs = {}
+    with stages.stage("r1_epochs", sync=True):
+        for impl in ("fast", "merge"):
+            for i in range(R1_EPOCHS):
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(50_000 + i)
+                outs[impl, i] = sr.streaming_systematic_resample_values(
+                    gen, w1, x1, impl=impl)
+        _sync()
+    launches = {k: v for k, v in counters.items() if v}
+    _expect(launches, {"lse_stats": 2 * R1_EPOCHS, "pass1": 2 * R1_EPOCHS,
+                       "pass2_fast": R1_EPOCHS, "pass2_merge": R1_EPOCHS},
+            "R1 epochs")
+    for i in range(R1_EPOCHS):
+        if not torch.equal(_tile_t(outs["fast", i]), outs["merge", i]):
+            raise AssertionError("R1 epochs: merge is not fast's per-tile transpose")
+    means = [float(outs["fast", i].double().mean()) for i in range(R1_EPOCHS)]
+    wn = torch.softmax(w1.double(), 0)
+    wmean = float((wn * x1.double()).sum())
+    se = math.sqrt(float((wn * (x1.double() - wmean) ** 2).sum()) / n)
+    print(f"R1 epochs: launches {launches}; resampled means "
+          f"{[round(m, 6) for m in means]} against the weighted mean {wmean:.6f} "
+          f"(SE {se:.3g})")
+    if max(abs(m - wmean) for m in means) > 6 * se + 1e-6:
+        raise AssertionError("R1 epochs: a resampled mean is off the weighted mean")
+    del outs
+
+    counts = torch.diff(st.long(), append=torch.full((1,), n, device=dev))
+    timing = {impl: (time_ms(lambda: sr.resample_pass2(st, x1, impl=impl), 20),
+                     time_ms(lambda: sr.resample_pass2_plain(st, x1, impl=impl), 4))
+              for impl in sr.IMPLS}
+    lib_ms = time_ms(lambda: torch.repeat_interleave(x1, counts, output_size=n), 20)
+    flag_off_ms = time_ms(lambda: sr.resample_pass2(st, x1, off, impl="fast"), 20)
+    for impl, (ms, plain_ms) in timing.items():
+        print(f"[{card}] pass2 {impl} at n={n}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+    print(f"[{card}] pass2 at n={n} in the same run: torch.repeat_interleave "
+          f"{lib_ms:.4f} ms; fast with the flag off {flag_off_ms:.4f} ms")
+    # per slot: the owner scatter, the max-scan and the gather (~3 ops);
+    # bytes: the start slots and values read once, the values written
+    line = lambda impl, replaces: {
+        "name": f"pass2_tile_kernel ({impl})", "route": "cuda",
+        "source": "cpprob_tpu_torch/ops/csrc/stream_resample.cu",
+        "replaces": replaces, "launches": launches.get(f"pass2_{impl}", 0),
+        "max_abs_err": errs[impl], "ms": timing[impl][0],
+        "plain_ms": timing[impl][1], **bound(12 * n, 3 * n, library_ms=lib_ms)}
+    return [line("fast", "cpprob_tpu/ops/pallas_resample.py:326"),
+            line("merge", "cpprob_tpu/ops/pallas_resample.py:164")]
+
+
+# ---------------------------------------------------------------------------
+# the roofline: K17-K21, the card's calibration
+
+CAL_CHECK_N = 1 << 20      # the calibrations' checks against the plain versions
+CAL_PRNG_CHECK_N = 1 << 16
+CAL_PRNG_CHECK_DRAWS = 64
+CAL_TC_CHECK_ROWS = 4096
+CAL_TC_CHECK_REPS = 8
+# K20a against its plain version: within 1e-4 on the sum before its 1e-9
+# scale (the precise logf / sincosf against torch's may differ in the last
+# bit; the pairs are summed in the same order); K21 within 1e-6 (a
+# contracting map); K18 relative to the norm within 2^-8 per product (bf16
+# operands rounded alike, float32 sums in another order); K17, K19 and
+# K20b exactly
+NORMALS_TOL = 1e-4 * 1e-9
+TRANS_TOL = 1e-6
+
+
+def check_calibrations():
+    """K17-K21 against their plain versions on the card at reduced sizes
+    (the plain Philox is slow).  Returns the largest error of each."""
+    import numpy as np
+
+    from cpprob_tpu_torch.ops import calibrate as cal
+
+    dev = torch.device("cuda")
+    x = torch.as_tensor(np.random.default_rng(0).uniform(0.5, 2.0, CAL_CHECK_N)
+                        .astype(np.float32), device=dev)
+    errs = {}
+    for key, k, p in (("fp32", cal.calibrate_fp32(x), cal.calibrate_fp32_plain(x)),
+                      ("hbm", cal.calibrate_hbm(x), cal.calibrate_hbm_plain(x))):
+        _sync()
+        n_bad = int((k != p).sum())
+        print(f"check {key} n={CAL_CHECK_N}: {n_bad} elements differ from the plain version")
+        if n_bad:
+            raise AssertionError(f"calibration {key}: kernel and plain version differ")
+        errs[key] = 0.0
+    k, p = cal.calibrate_transcendental(x), cal.calibrate_transcendental_plain(x)
+    _sync()
+    errs["transcendental"] = float((k - p).abs().max())
+    print(f"check transcendental n={CAL_CHECK_N} chain={cal.TRANS_CHAIN}: max|d|="
+          f"{errs['transcendental']:.3g} (tolerance {TRANS_TOL}), bit-equal "
+          f"{torch.equal(k, p)}")
+    if errs["transcendental"] > TRANS_TOL:
+        raise AssertionError("calibration transcendental: outside its tolerance")
+    xp = x[:CAL_PRNG_CHECK_N].contiguous()
+    pairs = CAL_PRNG_CHECK_DRAWS // 2
+    k, p = cal.calibrate_normals(3, xp, pairs), cal.calibrate_normals_plain(3, xp, pairs)
+    _sync()
+    errs["normals"] = float((k - p).abs().max())
+    print(f"check normals n={CAL_PRNG_CHECK_N} pairs={pairs}: max|d|="
+          f"{errs['normals']:.3g} (tolerance {NORMALS_TOL:.0e}), bit-equal {torch.equal(k, p)}")
+    if errs["normals"] > NORMALS_TOL:
+        raise AssertionError("calibration normals: outside its tolerance")
+    k = cal.calibrate_philox(3, xp, CAL_PRNG_CHECK_DRAWS)
+    p = cal.calibrate_philox_plain(3, xp, CAL_PRNG_CHECK_DRAWS)
+    _sync()
+    if not torch.equal(k, p):
+        raise AssertionError("calibration philox: kernel and plain version differ")
+    errs["philox"] = 0.0
+    print(f"check philox n={CAL_PRNG_CHECK_N} calls={CAL_PRNG_CHECK_DRAWS}: equal")
+    a, b = (torch.as_tensor(t, device=dev)
+            for t in cal.tensor_core_operands(CAL_TC_CHECK_ROWS, seed=1))
+    k = cal.calibrate_tensor_cores(a, b, CAL_TC_CHECK_REPS)
+    p = cal.calibrate_tensor_cores_plain(a, b, CAL_TC_CHECK_REPS)
+    _sync()
+    rel = float((k - p).norm() / p.norm())
+    errs["tensor_cores"] = float((k - p).abs().max())
+    print(f"check tensor_cores rows={CAL_TC_CHECK_ROWS} reps={CAL_TC_CHECK_REPS}: "
+          f"relative norm error {rel:.3g} (tolerance {CAL_TC_CHECK_REPS * 2.0 ** -8:.3g}), "
+          f"max|d|={errs['tensor_cores']:.3g} of max|p|={float(p.abs().max()):.3g}, "
+          f"{int((k != p).sum())} of {p.numel()} elements not bit-equal")
+    if not rel < CAL_TC_CHECK_REPS * 2.0 ** -8:
+        raise AssertionError("calibration tensor_cores: outside its tolerance")
+    return errs
+
+
+def roofline_phases(card, stages):
+    """The card's calibration: K17-K21 against their plain versions, then
+    ``util/roofline.py``'s ``calibrate_peaks`` at the reference's sizes with
+    the launch counts set to 0 just before and read just after; the plain
+    versions' times.  Returns (kernel lines, peaks)."""
+    from cpprob_tpu_torch.ops import calibrate as cal
+    from cpprob_tpu_torch.util import roofline as rl
+
+    with stages.stage("calibration_vs_plain", sync=True):
+        errs = check_calibrations()
+    for k in cal.LAUNCHES:
+        cal.LAUNCHES[k] = 0
+    with stages.stage("calibration", sync=True):
+        peaks, runs = rl.calibrate_peaks()
+    launches = dict(cal.LAUNCHES)
+    if not all(launches.values()):
+        raise AssertionError(f"calibration: a kernel never launched: {launches}")
+    datasheet = {"fp32_flops_per_s": rl.F32_OPS_PER_S,
+                 "tensor_core_bf16_macs_per_s": rl.TC_BF16_MACS_PER_S,
+                 "hbm_marginal_bytes_per_s": rl.HBM_BYTES_PER_S}
+    for key, v in peaks.items():
+        if isinstance(v, float):
+            print(f"[{card}] {key:30s} {v:.6g}"
+                  + (f"  ({v / datasheet[key]:.4f} of the datasheet's)"
+                     if key in datasheet else ""))
+    for key in ("fp32_flops_per_s", "tensor_core_bf16_macs_per_s",
+                "hbm_marginal_bytes_per_s", "philox_calls_per_s",
+                "normal_variates_per_s", "exp_log1p_pairs_per_s"):
+        if not 0 < peaks[key] < datasheet.get(key, math.inf):
+            raise AssertionError(f"calibration: {key} = {peaks[key]} is not a "
+                                 "positive rate below the datasheet's")
+    if not peaks["launch_fixed_s"] >= 0:
+        raise AssertionError("calibration: negative fixed cost of a launch")
+    print(f"[{card}] K19 at the two sizes: {runs['hbm']['ms_small']:.4f} ms "
+          f"(128 MB moved), {runs['hbm']['ms']:.4f} ms (512 MB); torch.add "
+          f"{runs['hbm']['library_ms']:.4f} ms; K18 against torch.matmul bf16 "
+          f"(4096x8192 @ 8192x4096, the same multiply-adds) "
+          f"{runs['tensor_cores']['library_ms']:.4f} ms")
+
+    # the plain versions on the same inputs, timed once each
+    seed = 0
+    xf, = runs["fp32"]["inputs"]
+    a, b = runs["tensor_cores"]["inputs"]
+    xh, = runs["hbm"]["inputs"]
+    xp, = runs["normals"]["inputs"]
+    xt, = runs["transcendental"]["inputs"]
+    plain = {
+        "fp32": lambda: cal.calibrate_fp32_plain(xf),
+        "tensor_cores": lambda: cal.calibrate_tensor_cores_plain(a, b),
+        "hbm": lambda: cal.calibrate_hbm_plain(xh),
+        "normals": lambda: cal.calibrate_normals_plain(seed, xp, cal.PRNG_DRAWS // 2),
+        "philox": lambda: cal.calibrate_philox_plain(seed, xp, cal.PRNG_DRAWS),
+        "transcendental": lambda: cal.calibrate_transcendental_plain(xt),
+    }
+    with stages.stage("calibration_plain", sync=True):
+        plain_ms = {key: time_ms(fn, 1) for key, fn in plain.items()}
+    entries = rl.calibration_entries(runs, launches)
+    for e, key in zip(entries, rl.CALIBRATIONS):
+        e["max_abs_err"] = errs[key]
+        e["plain_ms"] = plain_ms[key]
+        print(f"[{card}] {e['name']}: kernel {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.4f} ms, launches {e['launches']}")
+    return entries, peaks
+
+
+def roofline_line(card, peaks, kernels):
+    """The calibrated bounds of every kernel line (``analyze_kernels``);
+    prints the ``roofline`` JSON line and writes the whole analysis to
+    chiprun_out/roofline.json.  Fails on a fraction above 1."""
+    from cpprob_tpu_torch.util import roofline as rl
+
+    rates = rl.analyze_kernels(peaks, kernels)
+    outran = rl.uncalibrated_setters(rates)
+    if outran:
+        raise AssertionError(f"kernels faster than a calibrated rate at their "
+                             f"counts (a wrong count?), by resource: {outran}")
+    for k in kernels:
+        if not 0 < k["calibrated_fraction"] <= 1.0 + 1e-9:
+            raise AssertionError(f"{k['name']}: calibrated fraction "
+                                 f"{k['calibrated_fraction']}")
+        print(f"  roofline {k['name'][:58]:58s} {k['ms']:9.4f} ms  bound "
+              f"{k['bound_ms']:8.4f} ({k['bound_by'][:5]})  calibrated "
+              f"{k['calibrated_bound_ms']:8.4f} ({k['calibrated_by']}) "
+              f"fraction {k['calibrated_fraction']:.4f}")
+    summary = {"card": card, "peaks": peaks, "rates": rates, "kernels": [
+        {key: k[key] for key in ("name", "ms", "launches", "bound_ms", "bound_by",
+                                 "calibrated_bound_ms", "calibrated_by",
+                                 "calibrated_fraction")} for k in kernels]}
+    out = os.path.join(REPO, "chiprun_out", "roofline.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({**summary, "kernels": kernels}, f, indent=1)
+        f.write("\n")
+    print(json.dumps({"roofline": summary}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         sys.exit(1)
-    sys.path.insert(0, REPO)
     from cpprob_tpu_torch.util.profiling import (
         StageTimer,
         env_versions,
@@ -1868,8 +2123,17 @@ def main():
     build_kernels(stages)
     kernels = (hmm_phases(card, stages) + lg_phases(card, stages)
                + spec_phases(card, stages) + user_phases(card, stages)
-               + guided_phases(card, stages))
+               + guided_phases(card, stages) + r1_phases(card, stages))
+    calibrations, peaks = roofline_phases(card, stages)
+    kernels += calibrations
     print(stages.report())
+    roofline_line(card, peaks, kernels)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "calibrated_bound_ms", "calibrated_by")
+    missing = [(k["name"], key) for k in kernels for key in keys if key not in k]
+    if missing or len(kernels) != 24:
+        raise AssertionError(f"kernels line: {len(kernels)} entries, missing {missing}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

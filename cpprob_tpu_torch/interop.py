@@ -5,6 +5,7 @@ tables become the fused kernels' :class:`~cpprob_tpu_torch.ops.fused_hmm.HMMSpec
 a population or a chunk-glue carry taken from ``cpprob_tpu`` (converted
 with ``np.asarray``) becomes the port's tensors, and a proposal net of
 ``cpprob_tpu.inference.nn`` becomes the port's (same layer layout).
+Tensors go to the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def spec_from_numpy(trans, means, stds, init_probs) -> HMMSpec:
     )
 
 
-def population_from_numpy(states, log_w, device="cpu"):
+def population_from_numpy(states, log_w, device="cuda"):
     """(states (N,) or (N, D), log_w float32 (N,)) tensors on ``device``:
     integer (discrete) states become int32, floating (continuous) states
     float32, (N, D) vector states stay (N, D), contiguous."""
@@ -62,7 +63,7 @@ def population_from_numpy(states, log_w, device="cpu"):
 
 
 def carry_from_numpy(seed: int, states, log_w, log_z, ess, cat_w, lme,
-                     device="cpu"):
+                     device="cuda"):
     """The chunked exchange glue's carry ``(key, states, log_w, log_z, ess,
     cat_w, lme)``; the key is ``(seed, generator)``, the generator on
     ``device`` seeded with ``seed`` (it draws the boundary offsets u0)."""
@@ -74,7 +75,7 @@ def carry_from_numpy(seed: int, states, log_w, log_z, ess, cat_w, lme,
             f64(lme))
 
 
-def mlp_params_from_numpy(params, device="cpu"):
+def mlp_params_from_numpy(params, device="cuda"):
     """An MLP's layers ``[{"w": (in, out), "b": (out,)}, ...]`` (each leaf
     anything ``np.asarray`` takes, e.g. a JAX array) as the port's float32
     tensors on ``device``, in the layout of

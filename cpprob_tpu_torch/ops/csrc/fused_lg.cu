@@ -39,19 +39,6 @@ constexpr int kThreads = 256;
 constexpr int kPerThread = 16;
 constexpr int kBlock = kThreads * kPerThread;  // particles per CTA
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
-constexpr float kTwoPi = 6.28318530717958648f;
-
-// One Box-Muller pair (r cos, r sin) from Philox counter (g, pair, 0, 0).
-__device__ __forceinline__ float2 normal_pair(uint32_t g, uint32_t pair,
-                                              uint2 key) {
-  const uint4 b = philox4x32_10(make_uint4(g, pair, 0u, 0u), key);
-  const float u1 = fmaxf(philox_u01(b.x), 1e-12f);
-  const float u2 = philox_u01(b.y);
-  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-  float sn, cs;
-  sincosf(__fmul_rn(kTwoPi, u2), &sn, &cs);
-  return make_float2(__fmul_rn(r, cs), __fmul_rn(r, sn));
-}
 
 // ctrl: int32 [n_valid], or null for all n_steps valid.  Steps at and after
 // n_valid leave the particle unchanged.
@@ -85,7 +72,7 @@ lg_chunk_kernel(const float* __restrict__ ys, int n_steps,
       float eps;
       if (even || t == 0) {
         const uint32_t g = (uint32_t)(base + i * kThreads + threadIdx.x);
-        const float2 pr = normal_pair(g, ta >> 1, key);
+        const float2 pr = philox_normal_pair(g, ta >> 1, 0u, key);
         sn[i] = pr.y;
         eps = even ? pr.x : pr.y;
       } else {

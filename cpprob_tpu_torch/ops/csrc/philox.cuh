@@ -4,6 +4,7 @@
 // (key, counter).
 #pragma once
 
+#include <math.h>
 #include <stdint.h>
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -23,4 +24,20 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 // Top 24 bits of a word -> float in [0, 1), exactly.
 __device__ __forceinline__ float philox_u01(uint32_t x) {
   return (float)(x >> 8) * (1.0f / 16777216.0f);
+}
+
+// One Box-Muller pair (r cos, r sin) from Philox counter (g, pair, plane, 0):
+// u1 from word 0 (clamped to >= 1e-12), u2 from word 1; precise logf, sqrtf
+// and sincosf, products rounded to nearest, so the plain PyTorch version
+// (ops/fused_lg.py _normal_pair) rounds the same way.
+__device__ __forceinline__ float2 philox_normal_pair(uint32_t g, uint32_t pair,
+                                                     uint32_t plane,
+                                                     uint2 key) {
+  const uint4 b = philox4x32_10(make_uint4(g, pair, plane, 0u), key);
+  const float u1 = fmaxf(philox_u01(b.x), 1e-12f);
+  const float u2 = philox_u01(b.y);
+  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
+  float sn, cs;
+  sincosf(__fmul_rn(6.28318530717958648f, u2), &sn, &cs);
+  return make_float2(__fmul_rn(r, cs), __fmul_rn(r, sn));
 }

@@ -7,10 +7,20 @@
 // replace _pass1_kernel / _pass1 (pallas_resample.py:113,771): the start
 // slot of every particle, st_j = ceil(n * cdf_{j-1} - u0) clipped to [0, n],
 // from the exclusive prefix of the normalised weights.
-// pass2_kernel replaces the pass-2 kernels behind _streaming_resample
-// (scatter, pallas_resample.py:645,706,809): out[i] = vals[j] for the last
-// j with st_j <= i, slot i at position i (the scatter kernel's row-major
-// enumeration).
+// pass2_tile_kernel replaces the three pass-2 variants behind
+// _streaming_resample: scatter (_pass2_scatter_body,
+// pallas_resample.py:516,645,706), fast (_pass2_fast_body, :326,469,499)
+// and merge (_pass2_body, :164,273,304).  out holds vals[j] for the last j
+// with st_j <= i at slot i.  One CTA per tile of 16,384 slots finds the
+// owner of the tile's first slot by binary search, scatters the index j of
+// every input whose first slot st_j lies in the tile (and that owns a slot:
+// st_j < st_{j+1}) into shared memory at st_j - tile base (no two inputs
+// write one position), takes a block max-scan, so every slot holds its
+// owner, and writes vals[owner] row-major (scatter and fast: slot i at
+// position i) or column-major within the tile (merge: slot og*128 + s of
+// tile t at t*16384 + s*128 + og, the reference's layout).  It reads the
+// start slots of its tile's inputs once, with no per-slot search, and is
+// exact.
 //
 // What bounds them on an H100: memory.  The epoch reads the weights twice
 // (stats, tile sums) and a third time with the values' pass, writes the
@@ -18,9 +28,9 @@
 // 2^24, about 0.12 ms at the card's 3.35 TB/s.  The design is the simple
 // right one: the TPU's sequential grid with a Kahan carry becomes
 // per-tile sums, a one-CTA scan of the tile totals and a finishing pass;
-// the MXU scatter and telescoping value differences become a binary
-// search of the monotone start slots per output slot, so the output is
-// the exact expansion of the start slots, with no float error.
+// the MXU scatter and telescoping value differences become a scatter of
+// owner indices per tile, so the output is the exact expansion of the start
+// slots, with no float error.
 //
 // Numerics: exp, the weight prefix and the slot arithmetic are float64
 // (the reference's float32 prefix with a Kahan carry is exact only to
@@ -250,26 +260,92 @@ pass1_finish_kernel(const float* __restrict__ lw, long long n,
   }
 }
 
-// K16: out[i] = vals[j] for the last j with st[j] <= i (st is monotone and
-// st[0] = 0), by binary search; a copy of vals when the flag is off.
-__global__ void __launch_bounds__(kThreads)
-pass2_kernel(const int* __restrict__ st, const float* __restrict__ vals,
-             long long n, const int* __restrict__ flag,
-             float* __restrict__ out) {
-  const bool off = flag_off(flag);
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    if (off) {
-      out[i] = vals[i];
-      continue;
+constexpr int kOutTile = 16384;            // slots per pass-2 tile
+constexpr int kTileThreads = 1024;
+constexpr int kTilePer = kOutTile / kTileThreads;
+constexpr int kTileSmem = (kOutTile + kOutTile / 32) * (int)sizeof(int);
+
+// The first j in [0, n) with st[j] > v (before: >= v), or n.
+__device__ long long upper_bound(const int* st, long long n, long long v,
+                                 bool strict) {
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = lo + (hi - lo) / 2;
+    const long long s = __ldg(st + mid);
+    if (strict ? s <= v : s < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Pass 2, row-major (col_major 0) or column-major per tile (col_major 1);
+// one CTA per tile, the last tile masked (merge takes whole tiles only).
+__global__ void __launch_bounds__(kTileThreads)
+pass2_tile_kernel(const int* __restrict__ st, const float* __restrict__ vals,
+                  long long n, const int* __restrict__ flag, int col_major,
+                  float* __restrict__ out) {
+  extern __shared__ int own[];  // kOutTile owners, padded
+  __shared__ long long range[3];
+  __shared__ int warp_max[kTileThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long base = (long long)blockIdx.x * kOutTile;
+  const int len = (int)min((long long)kOutTile, n - base);
+  if (flag_off(flag)) {
+    for (int l = tid; l < len; l += kTileThreads) out[base + l] = vals[base + l];
+    return;
+  }
+  // owner of the first slot (input 0 where st_0 > base); the inputs whose
+  // st_j is in the tile
+  if (tid < 3)
+    range[tid] = tid == 0 ? max(upper_bound(st, n, base, true) - 1, 0LL)
+                          : upper_bound(st, n, base + (tid == 2 ? len : 0), false);
+  for (int l = tid; l < kOutTile; l += kTileThreads) own[pad(l)] = -1;
+  __syncthreads();
+  if (tid == 0) own[0] = (int)range[0];
+  for (long long j = range[1] + tid; j < range[2]; j += kTileThreads) {
+    const int s = __ldg(st + j);
+    const long long next = j + 1 < n ? (long long)__ldg(st + j + 1) : n;
+    if (s < next) own[pad((int)(s - base))] = (int)j;
+  }
+  __syncthreads();
+  // block max-scan: thread t takes slots t*kTilePer .. +kTilePer-1
+  int loc[kTilePer];
+  int m = -1;
+#pragma unroll
+  for (int k = 0; k < kTilePer; ++k) {
+    m = max(m, own[pad(tid * kTilePer + k)]);
+    loc[k] = m;
+  }
+  int inc = m;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc = max(inc, y);
+  }
+  if (lane == 31) warp_max[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_max[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w = max(w, y);
     }
-    long long lo = 0, hi = n - 1;  // st[lo] <= i holds throughout
-    while (lo < hi) {
-      const long long mid = lo + (hi - lo + 1) / 2;
-      if (__ldg(st + mid) <= i) lo = mid; else hi = mid - 1;
-    }
-    out[i] = __ldg(vals + lo);
+    warp_max[lane] = w;  // inclusive over warps
+  }
+  __syncthreads();
+  int before = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) before = -1;
+  if (warp > 0) before = max(before, warp_max[warp - 1]);
+#pragma unroll
+  for (int k = 0; k < kTilePer; ++k)
+    own[pad(tid * kTilePer + k)] = max(before, loc[k]);
+  __syncthreads();
+  if (col_major) {
+    for (int p = tid; p < len; p += kTileThreads)
+      out[base + p] = __ldg(vals + own[pad((p & 127) * 128 + (p >> 7))]);
+  } else {
+    for (int l = tid; l < len; l += kTileThreads)
+      out[base + l] = __ldg(vals + own[pad(l)]);
   }
 }
 
@@ -278,6 +354,7 @@ pass2_kernel(const int* __restrict__ st, const float* __restrict__ vals,
 extern "C" {
 
 int stream_tile() { return kTile; }
+int pass2_out_tile() { return kOutTile; }
 
 // Each returns cudaGetLastError() after its launches (0 = launched).
 int lse_stats_launch(const float* lw, long long n, const int* flag,
@@ -309,10 +386,16 @@ int pass1_launch(const float* lw, long long n, const double* stats,
   return (int)cudaGetLastError();
 }
 
-int pass2_launch(const int* st, const float* vals, long long n,
-                 const int* flag, float* out, int grid, void* stream) {
-  pass2_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(st, vals, n, flag,
-                                                           out);
+int pass2_tile_launch(const int* st, const float* vals, long long n,
+                      const int* flag, int col_major, float* out,
+                      void* stream) {
+  static const int attr = cudaFuncSetAttribute(
+      pass2_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTileSmem);
+  if (attr) return attr;
+  const int grid = (int)((n + kOutTile - 1) / kOutTile);
+  pass2_tile_kernel<<<grid, kTileThreads, kTileSmem, (cudaStream_t)stream>>>(
+      st, vals, n, flag, col_major, out);
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,14 @@ kernel or raises):
 - :func:`resample_pass1` (K15, <- ``_pass1``): the start slots
   ``st_j = ceil(n * cdf_{j-1} - u0)`` clipped to [0, n], int32, from the
   exclusive prefix of the normalised weights.
-- :func:`resample_pass2` (K16, <- ``_streaming_resample(impl="scatter")``):
+- :func:`resample_pass2` (K16, <- ``_streaming_resample(impl=...)``):
   slot ``i`` takes the value of the last particle ``j`` with ``st_j <= i``;
-  the exact expansion of the start slots, slot ``i`` at position ``i``.
+  the exact expansion of the start slots, by one kernel
+  (``pass2_tile_kernel``).  ``impl`` names the reference's variant and
+  sets only the layout: ``"scatter"`` (the default) and ``"fast"`` put slot
+  ``i`` at position ``i``; ``"merge"`` puts slot ``og * 128 + s`` of tile
+  ``t`` (16,384 slots) at ``t * 16384 + s * 128 + og`` and takes whole
+  tiles only.
 
 Exp, the prefix and the slot arithmetic are float64 (the reference's
 float32 prefix is exact only to about 2^24 particles).  Inputs keep their
@@ -34,16 +39,20 @@ from .population import current_stream as _stream
 from .population import raise_on as _raise_on
 
 __all__ = [
-    "LAUNCHES", "logsumexp_stats", "logsumexp_stats_plain", "resample_pass1",
+    "IMPLS", "LAUNCHES", "OUT_TILE", "logsumexp_stats", "logsumexp_stats_plain", "resample_pass1",
     "resample_pass1_plain", "resample_pass2", "resample_pass2_plain",
     "streaming_available", "streaming_systematic_resample_values",
 ]
 
 _THREADS = 256
 _TILE = 4096            # particles per pass-1 tile (csrc/stream_resample.cu)
+OUT_TILE = 128 * 128    # slots per pass-2 tile
+IMPLS = ("scatter", "fast", "merge")
 
-# kernel launches by wrapper, counted where each wrapper launches its kernels
-LAUNCHES = {"lse_stats": 0, "pass1": 0, "pass2": 0}
+# kernel launches by wrapper, counted where each wrapper launches its
+# kernels; pass 2 by variant
+LAUNCHES = {"lse_stats": 0, "pass1": 0, "pass2": 0, "pass2_fast": 0,
+            "pass2_merge": 0}
 
 
 # --------------------------------------------------------------------------
@@ -66,13 +75,24 @@ def resample_pass1_plain(u0, log_w: torch.Tensor,
     return torch.clamp(torch.ceil(x), 0, n).to(torch.int32)
 
 
+def _check_impl(impl: str, n: int):
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "merge" and n % OUT_TILE:
+        raise ValueError(f"impl='merge' takes n a multiple of {OUT_TILE}, got {n}")
+
+
 def resample_pass2_plain(st: torch.Tensor, states: torch.Tensor,
-                         flag=None) -> torch.Tensor:
-    """The values of the expansion of the start slots ``st``; ``states``
-    themselves where ``flag`` is 0."""
-    slots = torch.arange(states.shape[0], dtype=st.dtype, device=st.device)
+                         flag=None, impl: str = "scatter") -> torch.Tensor:
+    """The values of the expansion of the start slots ``st``, in the layout
+    of ``impl``; ``states`` themselves where ``flag`` is 0."""
+    n = states.shape[0]
+    _check_impl(impl, n)
+    slots = torch.arange(n, dtype=st.dtype, device=st.device)
     owner = torch.searchsorted(st, slots, right=True) - 1
     out = states[torch.clamp(owner, min=0)]
+    if impl == "merge":
+        out = out.view(-1, 128, 128).transpose(1, 2).reshape(n)
     return out if flag is None else torch.where(flag.reshape(()) != 0, out, states)
 
 
@@ -92,11 +112,13 @@ def _lib():
         lib.lse_stats_launch.restype = i
         lib.pass1_launch.argtypes = [p, ll, p, p, p, p, p, p, p]
         lib.pass1_launch.restype = i
-        lib.pass2_launch.argtypes = [p, p, ll, p, p, i, p]
-        lib.pass2_launch.restype = i
-        if lib.stream_tile() != _TILE:
-            raise RuntimeError("csrc/stream_resample.cu tile differs from "
-                               f"_TILE={_TILE}")
+        lib.pass2_tile_launch.argtypes = [p, p, ll, p, i, p, p]
+        lib.pass2_tile_launch.restype = i
+        lib.pass2_out_tile.argtypes = []
+        lib.pass2_out_tile.restype = i
+        if (lib.stream_tile(), lib.pass2_out_tile()) != (_TILE, OUT_TILE):
+            raise RuntimeError("csrc/stream_resample.cu tiles differ from "
+                               f"_TILE={_TILE}, OUT_TILE={OUT_TILE}")
     return lib
 
 
@@ -182,13 +204,14 @@ def resample_pass1(u0, log_w: torch.Tensor, stats: torch.Tensor,
 
 
 def resample_pass2(st: torch.Tensor, states: torch.Tensor,
-                   flag=None) -> torch.Tensor:
-    """The resampled values (n,) float32: the kernel on CUDA tensors, the
-    plain version on CPU tensors.  Where ``flag`` is 0, a copy of
-    ``states``."""
+                   flag=None, impl: str = "scatter") -> torch.Tensor:
+    """The resampled values (n,) float32 in the layout of ``impl`` (module
+    docstring): the kernel on CUDA tensors, the plain version on CPU
+    tensors.  Where ``flag`` is 0, a copy of ``states``."""
     dev = states.device
+    _check_impl(impl, states.shape[0])
     if dev.type == "cpu":
-        return resample_pass2_plain(st, states, flag)
+        return resample_pass2_plain(st, states, flag, impl)
     _cuda_inputs("resample_pass2", (states, "states", torch.float32),
                  (st, "st", torch.int32))
     n = states.shape[0]
@@ -197,11 +220,11 @@ def resample_pass2(st: torch.Tensor, states: torch.Tensor,
         raise ValueError("st must have the shape of states")
     lib = _lib()
     out = torch.empty_like(states)
-    err = lib.pass2_launch(st.data_ptr(), states.data_ptr(), n,
-                           _flag_ptr(flag, dev), out.data_ptr(),
-                           _grid(dev, n), _stream(dev))
-    _raise_on(err, "pass2_kernel")
-    LAUNCHES["pass2"] += 1
+    err = lib.pass2_tile_launch(st.data_ptr(), states.data_ptr(), n,
+                                _flag_ptr(flag, dev), int(impl == "merge"),
+                                out.data_ptr(), _stream(dev))
+    _raise_on(err, "pass2_tile_kernel")
+    LAUNCHES["pass2" if impl == "scatter" else f"pass2_{impl}"] += 1
     return out
 
 
@@ -214,13 +237,15 @@ def streaming_available(n: int) -> bool:
 def streaming_systematic_resample_values(key: torch.Generator,
                                          log_weights: torch.Tensor,
                                          states: torch.Tensor, *,
-                                         stats=None, flag=None):
+                                         stats=None, flag=None,
+                                         impl: str = "scatter"):
     """Systematic resampling of a scalar float32 population; returns the
-    new values, slot ``i`` at position ``i``.  ``key`` draws the comb offset
-    (float64, on the device); ``stats``: precomputed
+    new values in the layout of ``impl`` (:func:`resample_pass2`).  ``key``
+    draws the comb offset (float64, on the device); ``stats``: precomputed
     :func:`logsumexp_stats`; ``flag``: see the module docstring."""
+    _check_impl(impl, states.shape[0])
     u0 = torch.rand((), generator=key, device=states.device, dtype=torch.float64)
     if stats is None:
         stats = logsumexp_stats(log_weights, flag)
     st = resample_pass1(u0, log_weights, stats, flag)
-    return resample_pass2(st, states, flag)
+    return resample_pass2(st, states, flag, impl)

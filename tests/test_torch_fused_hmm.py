@@ -73,7 +73,7 @@ def test_chunk_matches_pallas_interpret(flag, n_valid, island_every,
         island_every=island_every, island_thresh=island_thresh,
         return_partials=True)
 
-    s_t, w_t = population_from_numpy(states, log_w)
+    s_t, w_t = population_from_numpy(states, log_w, device="cpu")
     ctrl = torch.tensor([flag, *ticks, n_valid], dtype=torch.int32)
     n_checks = 1 if island_every else 0      # t = 7 only
     draws = (torch.zeros(N_STEPS, N), torch.full((n_checks, N // ISLAND), 0.5))
@@ -102,7 +102,7 @@ def test_transition_and_emission_with_random_draws():
     log_w = rng.normal(size=n).astype(np.float32)
     ys = rng.normal(size=steps).astype(np.float32)
     u = rng.randint(0, 1 << 24, size=(steps, n)).astype(np.float32) / (1 << 24)
-    s_t, w_t = population_from_numpy(states, log_w)
+    s_t, w_t = population_from_numpy(states, log_w, device="cpu")
     ctrl = torch.tensor([0, 0, 0, steps], dtype=torch.int32)
     s, w, _ = hmm_chunk_plain(0, s_t, w_t, torch.as_tensor(ys), ctrl, SPEC,
                               island_size=n, draws=(torch.as_tensor(u), None))
@@ -136,7 +136,7 @@ def test_tables_of_another_hmm():
     states = rng.randint(0, K, n).astype(np.int32)
     ys = rng.normal(size=steps).astype(np.float32)
     u = rng.randint(0, 1 << 24, size=(steps, n)).astype(np.float32) / (1 << 24)
-    s_t, w_t = population_from_numpy(states, np.zeros(n))
+    s_t, w_t = population_from_numpy(states, np.zeros(n), device="cpu")
     ctrl = torch.tensor([0, 0, 0, 0, steps], dtype=torch.int32)
     s, w, rec = hmm_chunk_plain(0, s_t, w_t, torch.as_tensor(ys), ctrl, spec,
                                 island_size=n, draws=(torch.as_tensor(u), None))

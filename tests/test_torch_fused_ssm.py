@@ -157,7 +157,7 @@ def test_chunk_matches_pallas_interpret(K, case):
         n_steps=8, block_r=BLOCK_R, interpret=True, island_every=island_every,
         island_thresh=island_thresh)
 
-    s_t, w_t = population_from_numpy(states, log_w)
+    s_t, w_t = population_from_numpy(states, log_w, device="cpu")
     ctrl = torch.tensor([flag, *ticks, n_valid], dtype=torch.int32)
     n_checks = 1 if island_every else 0        # t = 3 only (t = 7 is the last)
     draws = (torch.zeros(8, N), torch.full((n_checks, N // ISLAND_SIZE), 0.5))
@@ -197,7 +197,7 @@ def test_k32_plain_matches_numpy_replay():
     states = rng.randint(0, K, n).astype(np.int32)
     ys = rng.normal(size=steps).astype(np.float32)
     u = rng.randint(0, 1 << 24, size=(steps, n)).astype(np.float32) / (1 << 24)
-    s_t, w_t = population_from_numpy(states, np.zeros(n))
+    s_t, w_t = population_from_numpy(states, np.zeros(n), device="cpu")
     ctrl = torch.tensor([0] * K + [steps], dtype=torch.int32)
     s, w, rec = hmm_chunk_plain(
         0, s_t, w_t, torch.as_tensor(ys), ctrl, spec, island_every=3,

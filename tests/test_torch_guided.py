@@ -150,7 +150,7 @@ def test_site_nll_matches_reference(kind):
     want = jax.vmap(jax.vmap(lambda a, b, c, d: _ref_site_nll(
         params, kind, a, b, c, d)))(zp, zn, y, ts)
     dt = torch.int64 if kind == "discrete" else torch.float32
-    got = proposal_site_nll(mlp_params_from_numpy(params),
+    got = proposal_site_nll(mlp_params_from_numpy(params, device="cpu"),
                             torch.as_tensor(zp, dtype=dt),
                             torch.as_tensor(zn, dtype=dt), torch.as_tensor(y),
                             torch.as_tensor(ts), T, kind=kind, n_states=K)

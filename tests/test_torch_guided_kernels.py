@@ -98,7 +98,7 @@ def test_mlp_apply_matches_reference():
     params = _net([7, 8, 8, 5], 0)
     x = np.random.default_rng(1).standard_normal((64, 7)).astype(np.float32)
     want = np.asarray(ref_nn.mlp_apply(params, jnp.asarray(x)))
-    got = nn.mlp_apply(mlp_params_from_numpy(params), torch.as_tensor(x))
+    got = nn.mlp_apply(mlp_params_from_numpy(params, device="cpu"), torch.as_tensor(x))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
@@ -142,7 +142,7 @@ def test_guided_scalar_matches_pallas_interpret(mxu, t0, n_valid):
         jax.random.key(0), jnp.asarray(x0), jnp.asarray(w0), jnp.asarray(ys),
         jnp.int32(n_valid), jnp.int32(t0))
     s, w, rec = guided_scalar_chunk_plain(
-        mlp_params_from_numpy(params), trans_lp, obs_lp, T, 0,
+        mlp_params_from_numpy(params, device="cpu"), trans_lp, obs_lp, T, 0,
         torch.as_tensor(x0), torch.as_tensor(w0), torch.as_tensor(ys),
         torch.tensor(n_valid, dtype=torch.int32), t0=t0,
         draws=torch.zeros(len(ys), 1))
@@ -162,12 +162,12 @@ def test_guided_scalar_serves_the_fallbacks_q():
     ~3e-3."""
     params = _net([3, 8, 8, 2], 12, raw_bias=-8.0, scale=0.05)
     model = attach_fused_guided_scalar_kernels(
-        linear_gaussian_ssm, mlp_params_from_numpy(params), T,
+        linear_gaussian_ssm, mlp_params_from_numpy(params, device="cpu"), T,
         trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp)
     x0 = torch.linspace(-1.5, 1.5, 512)
     y = torch.tensor([0.4])
     nx, w, _ = guided_scalar_chunk_plain(
-        mlp_params_from_numpy(params), trans_lp, obs_lp, T, 0, x0,
+        mlp_params_from_numpy(params, device="cpu"), trans_lp, obs_lp, T, 0, x0,
         torch.zeros(512), y, t0=3, draws=torch.full((1, 1), 0.5))
     want = (trans_lp(x0, nx, 3) + obs_lp(nx, y[0], 3)
             - model.proposal_logpdf(nx, x0, 3, y[0]))
@@ -177,7 +177,7 @@ def test_guided_scalar_serves_the_fallbacks_q():
 def test_guided_scalar_draws_and_kernel_wrapper():
     """The wrapper takes the plain version on CPU tensors; with eps from
     Philox it moves the particles, and n_valid masks the tail."""
-    params = mlp_params_from_numpy(_net([3, 8, 8, 2], 4))
+    params = mlp_params_from_numpy(_net([3, 8, 8, 2], 4), device="cpu")
     k = GuidedScalarKernel(params, trans_lp, obs_lp, T)
     assert k.layer_sizes() == [3, 8, 8, 2]
     x0 = torch.linspace(-2, 2, 4096)
@@ -219,7 +219,7 @@ def _discrete_port(params, K=5, trans=TRANS5, means=MEANS5, stds=STDS5,
                    init=INIT5):
     spec = spec_from_numpy(trans, means, stds, init)
     gt = GuidedTables.from_params(np.log(np.maximum(trans, 1e-38)),
-                                  mlp_params_from_numpy(params), T)
+                                  mlp_params_from_numpy(params, device="cpu"), T)
     return spec, gt
 
 
@@ -364,7 +364,7 @@ def test_guided_discrete_hooks_launch_the_guided_kernel_on_cpu_plain():
     """The chunk and per-step hooks go through ``guided_chunk`` (on the
     CPU: its plain version) and never through the unguided chunk."""
     K = 5
-    params = mlp_params_from_numpy(_net([K + 2, 8, 8, K], 11))
+    params = mlp_params_from_numpy(_net([K + 2, 8, 8, K], 11), device="cpu")
     g = attach_fused_guided_discrete_kernels(TRANS5, MEANS5, STDS5, INIT5,
                                              params=params, T=T)
     assert g.fused_hooks_guided and g.fused_step_batch is None
@@ -453,7 +453,7 @@ def test_density_hooks_take_the_absolute_step():
         d = y - nx
         return -0.5 * d * d - half_log_2pi
 
-    params = mlp_params_from_numpy(_net([3, 4, 2], 1))
+    params = mlp_params_from_numpy(_net([3, 4, 2], 1), device="cpu")
     guided_scalar_chunk_plain(params, trans_lp, obs_t, T, 0, torch.zeros(8),
                               torch.zeros(8), torch.zeros(3), t0=5)
     assert seen == [5.0, 6.0, 7.0]

@@ -78,7 +78,7 @@ def test_chunk_matches_pallas_interpret(k, n_steps, n_valid):
     r = np.sqrt(np.float32(-2.0) * np.log(np.float32(0.5)))
     eps = torch.tensor([r if t % 2 == 0 else 0.0 for t in range(n_steps)],
                        dtype=torch.float32)[:, None]
-    x_t, w_t = population_from_numpy(x, w)
+    x_t, w_t = population_from_numpy(x, w, device="cpu")
     assert x_t.dtype == torch.float32
     s, lw, rec = lg_chunk_plain(0, x_t, w_t, torch.as_tensor(ys),
                                 torch.tensor(n_valid, dtype=torch.int32),
@@ -246,7 +246,7 @@ def test_chunk_glue_resamples_on_the_flag_only():
         seen.clear()
         lw = (spread * np.random.RandomState(5).normal(size=n)).astype(np.float32)
         gen = torch.Generator().manual_seed(1)
-        xs, lws = population_from_numpy(x, lw)
+        xs, lws = population_from_numpy(x, lw, device="cpu")
         carry = ((1, gen), xs, lws, torch.tensor(-1.0, dtype=torch.float64),
                  rs.ess(lws))
         (_, _, _, log_z, _), (flag,) = step(

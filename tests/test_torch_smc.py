@@ -131,7 +131,7 @@ def test_chunk_glue_step_matches_reference(spread, hook):
 
     port_model = dataclasses.replace(port_hmm.hmm_ssm, **{hook: capture_port})
     step = make_smc_step_exchange_fused_chunked(port_model, n, 0.5)
-    carry = carry_from_numpy(4, states, log_w, log_z, ess, cat_w, lme)
+    carry = carry_from_numpy(4, states, log_w, log_z, ess, cat_w, lme, device="cpu")
     (_, _, _, log_z_port, *_), (do_port,) = step(
         carry, (torch.as_tensor(ys), torch.tensor(15, dtype=torch.int32), 1), u0=u0)
 
@@ -228,7 +228,7 @@ def test_step_exchange_matches_pallas_interpret(flag):
         jnp.int32(flag), jnp.asarray(ticks), block_r=32, interpret=True)
     spec = spec_from_numpy(ref_hmm.HMM_TRANS, ref_hmm.HMM_MEANS, np.ones(3),
                            np.full(3, 1 / 3))
-    s_t, w_t = population_from_numpy(states, log_w)
+    s_t, w_t = population_from_numpy(states, log_w, device="cpu")
     ctrl = torch.tensor([flag, *ticks, 1], dtype=torch.int32)
     s, w, rec = hmm_chunk_plain(0, s_t, w_t, torch.tensor([y]), ctrl, spec,
                                 t0=5, draws=(torch.zeros(1, n), None))
@@ -331,7 +331,7 @@ def test_per_step_exchange_glue_matches_reference():
     port_model = dataclasses.replace(port_hmm.hmm_ssm,
                                      fused_step_exchange_batch=capture_port)
     step = port_smc.make_smc_step_exchange_fused(port_model, n, 0.5)
-    carry = carry_from_numpy(6, states, log_w, -2.0, ess, cat_w, lme)
+    carry = carry_from_numpy(6, states, log_w, -2.0, ess, cat_w, lme, device="cpu")
     (_, _, _, log_z_port, *_), (do_port,) = step(
         carry, (torch.tensor(0.3), 4), u0=u0)
     assert bool(do_port) == bool(do_ref) is True
@@ -391,17 +391,24 @@ def test_stage_timer_and_env_versions():
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, and ``chip_smoke``, imports with JAX made
+    unimportable, and loads no ``jax*`` module, no ``cpprob_tpu`` module
+    and no ``triton``."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
-        "import cpprob_tpu_torch, cpprob_tpu_torch.interop\n"
-        "import cpprob_tpu_torch.ops.fused_hmm, cpprob_tpu_torch.util.profiling\n"
-        "import cpprob_tpu_torch.ops.fused_lg, cpprob_tpu_torch.ops.stream_resample\n"
-        "import cpprob_tpu_torch.models.linear_gaussian\n"
-        "import cpprob_tpu_torch.ops.fused_ssm, cpprob_tpu_torch.ops.triton_ssm\n"
-        "import cpprob_tpu_torch.ops.elem, cpprob_tpu_torch.ops.population\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') or "
-        "m.startswith('cpprob_tpu.') for m in sys.modules if sys.modules[m])\n"
-        "assert 'triton' not in sys.modules\n"
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "import cpprob_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    cpprob_tpu_torch.__path__, 'cpprob_tpu_torch.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'cpprob_tpu_torch.util.roofline' in names, names\n"
+        "assert 'cpprob_tpu_torch.ops.calibrate' in names, names\n"
+        "bad = [m for m in sys.modules if sys.modules[m] is not None and (\n"
+        "    m.startswith('jax') or m == 'cpprob_tpu'\n"
+        "    or m.startswith('cpprob_tpu.') or m.split('.')[0] == 'triton')]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
     )
     import os
 

@@ -216,3 +216,135 @@ def test_residual_floor_count():
     w = np.arange(1, n + 1) / (n * (n + 1) / 2)
     assert counts[-1] >= np.floor(n * w[-1]) == 1
     assert np.all(counts >= np.floor(n * w))
+
+
+# ---------------------------------------------------------------------------
+# the pass-2 variants fast and merge (pass2_tile_kernel)
+
+
+def _tile_transpose(x):
+    """The merge layout of a row-major expansion: slot og*128 + s of tile t
+    at t*16384 + s*128 + og."""
+    return x.reshape(-1, 128, 128).transpose(0, 2, 1).reshape(-1)
+
+
+@pytest.mark.parametrize("impl", ["fast", "merge"])
+@pytest.mark.parametrize("n_tiles", [1, 3])
+def test_pass2_variants_match_pallas(n_tiles, impl):
+    """The port's pass 2 on the reference's own start slots against the
+    reference's variant, within its telescoping error (1e-4,
+    tests/test_pallas_resample.py:59); the layout exactly."""
+    n = TILE * n_tiles
+    lw, vals = _weights_values(60 + n_tiles, n)
+    u0 = 0.61
+    st_j, _ = _pass1(jnp.float32(u0), jnp.asarray(lw), jnp.asarray(vals),
+                     interpret=True)
+    st = torch.as_tensor(np.array(st_j).ravel())
+    out = sr.resample_pass2(st, torch.as_tensor(vals), impl=impl).numpy()
+    want = _expand(st.numpy(), vals)
+    if impl == "merge":
+        want = _tile_transpose(want)
+    np.testing.assert_array_equal(out, want)
+    out_j = np.asarray(_streaming_resample(
+        jnp.float32(u0), jnp.asarray(lw), jnp.asarray(vals), interpret=True,
+        impl=impl))
+    np.testing.assert_allclose(out, out_j, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["fast", "merge"])
+def test_pass2_variants_flag_and_heavy_particle(impl):
+    n = 2 * TILE
+    lw, vals = _weights_values(70, n)
+    lw_t, v_t = torch.as_tensor(lw), torch.as_tensor(vals)
+    st = sr.resample_pass1(0.3, lw_t, sr.logsumexp_stats(lw_t))
+    scatter = sr.resample_pass2(st, v_t).numpy()
+    for flag, want in ((0, vals), (1, scatter if impl == "fast"
+                                    else _tile_transpose(scatter))):
+        got = sr.resample_pass2(st, v_t, torch.tensor(flag, dtype=torch.int32),
+                                impl=impl).numpy()
+        np.testing.assert_array_equal(got, want)
+    heavy = np.full(n, -100.0, np.float32)
+    heavy[12345] = 0.0
+    out = sr.streaming_systematic_resample_values(
+        torch.Generator().manual_seed(0), torch.as_tensor(heavy),
+        torch.arange(n, dtype=torch.float32), impl=impl).numpy()
+    assert (out == 12345.0).all()
+    out_j = np.asarray(_streaming_resample(
+        jnp.float32(0.5), jnp.asarray(heavy), jnp.arange(n, dtype=jnp.float32),
+        interpret=True, impl=impl))
+    assert (out_j == 12345.0).mean() > 0.999
+
+
+@pytest.mark.parametrize("impl", ["scatter", "fast", "merge"])
+def test_streaming_epoch_by_variant_matches_pallas(impl):
+    """The slice as a whole: the port's epoch (its own comb offset, float64
+    slots) against the reference's epoch at the same offset, on the slots
+    whose owners agree."""
+    n = 2 * TILE
+    lw, vals = _weights_values(80, n)
+    gen = torch.Generator().manual_seed(5)
+    u0 = float(torch.rand((), generator=torch.Generator().manual_seed(5),
+                          dtype=torch.float64))
+    out = sr.streaming_systematic_resample_values(
+        gen, torch.as_tensor(lw), torch.as_tensor(vals), impl=impl).numpy()
+    out_j = np.asarray(_streaming_resample(
+        jnp.float32(u0), jnp.asarray(lw), jnp.asarray(vals), interpret=True,
+        impl=impl))
+    lw_t = torch.as_tensor(lw)
+    st = sr.resample_pass1(u0, lw_t, sr.logsumexp_stats(lw_t)).numpy()
+    st_j, _ = _pass1(jnp.float32(u0), jnp.asarray(lw), jnp.asarray(vals),
+                     interpret=True)
+    same = _owners(st, n) == _owners(np.asarray(st_j).ravel(), n)
+    if impl == "merge":
+        same = _tile_transpose(same)
+    assert same.mean() > 0.98
+    np.testing.assert_allclose(out[same], out_j[same], rtol=0, atol=1e-4)
+
+
+def test_pass2_variants_validate():
+    st = torch.zeros(TILE + 128, dtype=torch.int32)
+    v = torch.zeros(TILE + 128)
+    with pytest.raises(ValueError, match="multiple of 16384"):
+        sr.resample_pass2(st, v, impl="merge")
+    with pytest.raises(ValueError, match="multiple of 16384"):
+        sr.streaming_systematic_resample_values(
+            torch.Generator().manual_seed(0), v, v, impl="merge")
+    with pytest.raises(ValueError, match="impl must be one of"):
+        sr.resample_pass2(st, v, impl="sorted")
+    # fast takes a ragged last tile
+    out = sr.resample_pass2(torch.arange(TILE + 128, dtype=torch.int32), v + 2,
+                            impl="fast")
+    assert torch.equal(out, v + 2)
+
+
+@pytest.mark.parametrize("impl", ["scatter", "fast", "merge"])
+def test_pass2_first_start_slot_past_zero(impl):
+    """Start slots whose first is past slot 0 (``resample_pass2`` takes any
+    monotone int32 slots): the slots before it take input 0's value in every
+    variant."""
+    n = 2 * TILE
+    lw, vals = _weights_values(75, n)
+    lw_t, v_t = torch.as_tensor(lw), torch.as_tensor(vals)
+    st = torch.clamp(sr.resample_pass1(0.3, lw_t, sr.logsumexp_stats(lw_t)) + 5,
+                     max=n)
+    assert int(st[0]) == 5
+    want = _expand(st.numpy(), vals)
+    want[:5] = vals[0]
+    if impl == "merge":
+        want = _tile_transpose(want)
+    np.testing.assert_array_equal(sr.resample_pass2(st, v_t, impl=impl).numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3 * TILE, 3 * TILE + 77])
+def test_pass2_tile_kernel_on_the_card(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    lw, vals = (torch.as_tensor(a, device=dev) for a in _weights_values(90, n))
+    st = sr.resample_pass1(0.4, lw, sr.logsumexp_stats(lw))
+    # the start slots as pass 1 gives them, and shifted past slot 0
+    for s in (st, torch.clamp(st + 5, max=n)):
+        for impl in sr.IMPLS if n % TILE == 0 else ("scatter", "fast"):
+            assert torch.equal(sr.resample_pass2(s, vals, impl=impl),
+                               sr.resample_pass2_plain(s, vals, impl=impl))
