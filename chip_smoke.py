@@ -24,12 +24,18 @@ and the script exits non-zero without printing its last line:
    (kernel vs plain, sweep time, particle-steps/s) and a
    ``torch.profiler`` trace of 8 back-to-back sweeps
    (``chiprun_out/sweep_trace.json``: device time by kernel, busy share);
+   before them, the SASS of the two kernels redesigned last
+   (``check_sass``): ``tensor_core_kernel`` is wgmma alone (``HGMMA``, no
+   ``HMMA``), and ``pass1_scan_kernel``'s double-precision instructions a
+   particle match its bound's count;
 4. the continuous-state path (``lg_phases``): at 2^24 particles, the LG
    chunk kernel against its plain version (t0 odd, even and 9, n_valid 8
    and 7), the one-step launch (and eight of them against one eight-step
    launch, bit for bit), the epoch's stats, pass-1 and pass-2 kernels
    (pass 2 against the exact expansion of its own start slots, the flag off
-   and one heavy particle); ``build_smc_run(make_fused_lg_ssm(), 2^24,
+   and one heavy particle; pass 1, the single-pass scan, 64 times back to
+   back, at the ragged sizes 1, 4,097 and 2^20 + 3, with one heavy
+   particle, with all weights but one at -inf, and flag off then on); ``build_smc_run(make_fused_lg_ssm(), 2^24,
    chunk=8)`` on T = 16 observations of the model for 16 sweeps, and the
    per-step path (chunk = 1) at 2^20 for 8 sweeps, each checked against
    the Kalman filter's evidence, with a resample epoch in every sweep and
@@ -65,7 +71,8 @@ and the script exits non-zero without printing its last line:
    (CUDA, the guided 5-state chain: flag 0 and 1, n_valid 8 and 7, island
    off, and a 16-slot chunk whose forced island check fires; its one-step
    launch at 2^20; its instances for K = 2, 3, 8 at 2^20 with untrained
-   nets) against their plain versions at 2^24; path 7,
+   nets, and K = 1, a [7, 128, 128, 128, 5] net and a [7, 2048, 5] one)
+   against their plain versions at 2^24; path 7,
    ``build_smc_run(attach_fused_guided_scalar_kernels(...), 2^24,
    chunk=8)`` against Kalman; path 8, ``build_smc_run(
    attach_fused_guided_discrete_kernels(...), 2^24, chunk=8)`` (K9 then
@@ -135,6 +142,14 @@ LG_CHUNK = 8
 LG_STEP_N = 1 << 20        # the per-step path (chunk = 1)
 LG_STEP_SWEEPS = 8
 PASS1_SLACK = 16           # start slots pass 1 may place differently
+# double-precision instructions a particle in pass1_scan_kernel's SASS:
+# DFMA 242, DADD 162, DSETP 54, DMUL 53 over the 16 particles a thread takes
+# (the float64 exp is ~15 DFMA of range reduction and polynomial, its scale
+# and special-case tests; then the prefix adds, the slot arithmetic, and
+# the thread's share of the scans and the look-back; a static count, so the
+# exp's rarely taken branches are in it), read on an H100 80GB HBM3 at
+# 700.00 W; check_sass reads it again from the build
+PASS1_F64_OPS = 511 / 16
 
 # The kernels' work by resource and their bounds (bound_ms against the
 # published peaks, calibrated_bound_ms against the card's own calibration)
@@ -355,19 +370,10 @@ def check_lg_kernels(n=LG_N, seed=CHECK_SEED):
     torch.testing.assert_close(stats_k[1], stats_p[1], rtol=1e-12, atol=0,
                                msg="lse_stats: wtot")
     errs["lse_stats"] = float((stats_k - stats_p).abs().max())
+    print(f"check lse_stats n={n}: max|d|={errs['lse_stats']:.3g}")
     u0 = torch.full((), 0.37, dtype=torch.float64, device=dev)
+    errs["pass1"] = check_pass1(w1, n)
     st_k = sr.resample_pass1(u0, w1, stats_k)
-    st_p = sr.resample_pass1_plain(u0, w1, stats_p)
-    _sync()
-    d_st = (st_k.long() - st_p.long()).abs()
-    n_diff = int((d_st > 0).sum())
-    errs["pass1"] = float(d_st.max())
-    print(f"check lse_stats n={n}: max|d|={errs['lse_stats']:.3g}; pass1: "
-          f"{n_diff} start slots differ (at most {PASS1_SLACK} allowed), "
-          f"max {errs['pass1']:.0f}")
-    if n_diff > PASS1_SLACK or not bool((st_k[1:] >= st_k[:-1]).all()) \
-            or int(st_k[0]) != 0:
-        raise AssertionError("pass1: start slots differ or are not monotone")
     out_k = sr.resample_pass2(st_k, x1)
     counts = torch.diff(st_k.long(), append=torch.full((1,), n, device=dev))
     expand = torch.repeat_interleave(x1, counts)
@@ -393,6 +399,98 @@ def check_lg_kernels(n=LG_N, seed=CHECK_SEED):
     print("check epoch: flag off copies the population; one heavy particle "
           "fills every slot")
     return errs
+
+
+def _check_slots(st_k, st_p, what):
+    """Pass 1's start slots against the plain version's: at most
+    ``PASS1_SLACK`` differ, monotone, the first 0.  Returns the largest
+    difference."""
+    d_st = (st_k.long() - st_p.long()).abs()
+    n_diff = int((d_st > 0).sum())
+    if n_diff > PASS1_SLACK or not bool((st_k[1:] >= st_k[:-1]).all()) \
+            or int(st_k[0]) != 0:
+        raise AssertionError(f"pass1 {what}: {n_diff} start slots differ, or "
+                             "they are not monotone from 0")
+    return float(d_st.max())
+
+
+def check_pass1(w1, n, repeats=64):
+    """K15 (the single-pass scan) against ``resample_pass1_plain``: 64
+    back-to-back calls on the path's weights, each equal to the first (a
+    race in the look-back shows as an intermittent mismatch); the ragged
+    sizes 1, 4,097 and 2^20 + 3; one heavy particle; all weights but one at
+    -inf; the flag off and then on, on the same scratch.  Returns the
+    largest slot difference."""
+    from cpprob_tpu_torch.ops import stream_resample as sr
+
+    dev = w1.device
+    u0 = torch.full((), 0.37, dtype=torch.float64, device=dev)
+    stats = sr.logsumexp_stats(w1)
+    first = sr.resample_pass1(u0, w1, stats)
+    err = _check_slots(first, sr.resample_pass1_plain(u0, w1, stats), f"n={n}")
+    unequal = 0
+    for _ in range(repeats):
+        unequal += not torch.equal(sr.resample_pass1(u0, w1, stats), first)
+    _sync()
+    if unequal:
+        raise AssertionError(f"pass1: {unequal} of {repeats} back-to-back calls "
+                             "differ from the first")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(CHECK_SEED)
+    heavy = torch.full((n,), -100.0, device=dev)
+    heavy[12345] = 0.0
+    lone = torch.full((n,), -math.inf, device=dev)
+    lone[777] = 0.0
+    cases = [(f"n={m}", 2 * torch.randn(m, generator=gen, device=dev))
+             for m in (1, 4097, (1 << 20) + 3)]
+    cases += [("one heavy particle", heavy), ("all but one at -inf", lone)]
+    for what, lw in cases:
+        lw_stats = sr.logsumexp_stats(lw)
+        st = sr.resample_pass1(u0, lw, lw_stats)
+        err = max(err, _check_slots(st, sr.resample_pass1_plain(u0, lw, lw_stats), what))
+    off, on = (torch.full((), f, dtype=torch.int32, device=dev) for f in (0, 1))
+    sr.resample_pass1(u0, w1, stats, off)
+    err = max(err, _check_slots(sr.resample_pass1(u0, w1, stats, on),
+                                sr.resample_pass1_plain(u0, w1, stats), "flag 0 then 1"))
+    _sync()
+    print(f"check pass1 n={n}: {repeats} back-to-back calls equal the first; the "
+          f"ragged sizes, one heavy particle, all but one at -inf and the flag "
+          f"off then on within {PASS1_SLACK} slots of the plain version, monotone "
+          f"from 0 (max difference {err:.0f})")
+    return err
+
+
+def check_sass():
+    """The machine code of the two kernels this round redesigned, from the
+    built libraries: ``tensor_core_kernel`` has ``HGMMA`` (wgmma) and no
+    ``HMMA`` (mma.sync); ``pass1_scan_kernel``'s double-precision
+    instructions a particle, held to ``PASS1_F64_OPS`` (its bound's count)
+    within 20 %.  Prints each one's registers and spills."""
+    from cpprob_tpu_torch.ops import stream_resample as sr
+    from cpprob_tpu_torch.util.sass import kernel_report
+
+    tc = kernel_report("calibrate", "tensor_core_kernel")
+    for f, r in tc.items():
+        ops = r["opcodes"]
+        print(f"SASS {f}: {r['registers']} registers, spills {r['spills']}, "
+              f"HGMMA {ops.get('HGMMA', 0)}, HMMA {ops.get('HMMA', 0)}")
+        if ops.get("HMMA", 0) or not ops.get("HGMMA", 0):
+            raise AssertionError("tensor_core_kernel: not wgmma alone")
+    if not tc:
+        raise AssertionError("tensor_core_kernel: not in the library")
+    per = sr.PASS1_PER_THREAD
+    p1 = kernel_report("stream_resample", "pass1_scan_kernel")
+    if len(p1) != 1:
+        raise AssertionError(f"pass1_scan_kernel: {len(p1)} functions")
+    (f, r), = p1.items()
+    dp = {o: c for o, c in r["opcodes"].items()
+          if o in ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")}
+    f64 = sum(dp.values()) / per
+    print(f"SASS {f}: {r['registers']} registers, spills {r['spills']}, "
+          f"double-precision instructions {dp}, {f64:.2f} a particle (the "
+          f"bound counts {PASS1_F64_OPS})")
+    if abs(f64 - PASS1_F64_OPS) > 0.2 * PASS1_F64_OPS:
+        raise AssertionError("pass1_scan_kernel: PASS1_F64_OPS is stale")
 
 
 def profile_sweeps(run, obs, card, sweeps=8, trace="sweep_trace.json"):
@@ -457,7 +555,8 @@ def build_kernels(stages):
     print(f"build: {stages.totals['build']:.2f} s ({len(mods)} sources in parallel)")
     for name in ("fused_hmm", "fused_lg", "stream_resample", "calibrate"):
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "Performance Loss")):
                 print(f"  ptxas {name}:", line.strip())
 
 
@@ -669,12 +768,14 @@ def lg_phases(card, stages):
         "lg_chunk": normal_chunk_bound(n, int(valid[0])),
         "lg_step": normal_chunk_bound(n, 1),
         # K14 reads the weights (max, subtract, exp, add: float64); K15
-        # reads them and writes int32 start slots (exp, prefix add, scale,
-        # ceil, clamp: float64); K16 reads the start slots and the values
-        # and writes the values, with the owner scatter, the max-scan and
-        # the gather per slot (~3 ops)
+        # reads them and writes int32 start slots, with PASS1_F64_OPS
+        # double-precision instructions a particle (the float64 exp, the
+        # prefix adds and the slot arithmetic, counted from its SASS by
+        # check_sass); K16 reads the start slots and the values and writes
+        # the values, with the owner scatter, the max-scan and the gather
+        # per slot (~3 ops)
         "lse_stats": bound(4 * n, f64_ops=4 * n, library_ms=library["lse_stats"]),
-        "pass1": bound(8 * n, f64_ops=6 * n, library_ms=library["pass1"]),
+        "pass1": bound(8 * n, f64_ops=PASS1_F64_OPS * n, library_ms=library["pass1"]),
         "pass2": bound(12 * n, 3 * n, library_ms=library["pass2"]),
     }
 
@@ -694,7 +795,7 @@ def lg_phases(card, stages):
         line("lse_stats_kernel + lse_combine_kernel", "lse_stats",
              "cpprob_tpu/ops/pallas_resample.py:727", "stream_resample.cu",
              launches["lse_stats"]),
-        line("pass1_tile_sums/scan_tiles/finish_kernel", "pass1",
+        line("pass1_scan_kernel", "pass1",
              "cpprob_tpu/ops/pallas_resample.py:113", "stream_resample.cu",
              launches["pass1"]),
         line("pass2_tile_kernel (scatter)", "pass2",
@@ -1502,7 +1603,9 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
     a threshold that fires) and its one-step launch (K = 5, 2^20, flag 0 and
     1) by :func:`_compare_chunk`, as K8: the tables take the same operations
     in the same order on both sides; K13's instances for K = 2, 3, 8 once
-    each at 2^20.  Returns the largest |dlog_w| of each."""
+    each at 2^20, and at 2^20 K = 1 and two nets past 64 units ([7, 128,
+    128, 128, 5] and [7, 2048, 5]).  Returns the largest |dlog_w| of
+    each."""
     import numpy as np
 
     from cpprob_tpu_torch.interop import spec_from_numpy
@@ -1612,6 +1715,28 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
         errs["guided_chunk"] = max(errs["guided_chunk"], _compare_chunk(
             out_k, out_p, K, n_step, f"K13 K={K} n={n_step} flag=1 n_valid="
             f"{GUIDED_CHUNK} island_every=4 thresh=2.0", "fires"))
+
+    # the surface past PR 4's: K = 1 (q = 1: the unguided chunk kernel's
+    # run-time-K instance), a wide and deep net, and a net whose activations
+    # (2 x 5 x 2048 floats, 80 KB) need the shared-memory opt-in above 48 KB
+    for K, sizes in ((1, [3, 16, 16, 1]), (5, [7, 128, 128, 128, 5]),
+                     (5, [7, 2048, 5])):
+        gen = torch.Generator()
+        gen.manual_seed(K)
+        gt_k = GuidedTables.from_params(np.log(_chain(K)[0]), mlp_init(sizes, gen), T)
+        spec_k = spec_from_numpy(*_chain(K))
+        obs_k = torch.as_tensor(_chain_obs(K, T, K), device=dev)
+        sk, wk, _ = hmm_init(seed, obs_k[0], n_step, spec_k)
+        ys_k, _ = _chunk_obs(obs_k, GUIDED_CHUNK)
+        ctrl = torch.tensor([1, *[n_step * (k + 1) // K for k in range(K - 1)],
+                             GUIDED_CHUNK], dtype=torch.int32, device=dev)
+        kw = dict(t0=1, island_every=4, island_thresh=2.0)
+        out_k = guided_chunk(seed, sk, wk, ys_k[0], ctrl, spec_k, gt_k, **kw)
+        out_p = guided_chunk_plain(seed, sk, wk, ys_k[0], ctrl, spec_k, gt_k, **kw)
+        _sync()
+        errs["guided_chunk"] = max(errs["guided_chunk"], _compare_chunk(
+            out_k, out_p, K, n_step, f"K13 K={K} net {sizes} n={n_step} flag=1 "
+            f"n_valid={GUIDED_CHUNK} island_every=4 thresh=2.0", "fires"))
     return errs
 
 
@@ -2121,6 +2246,7 @@ def main():
     print("versions:", json.dumps(env_versions()))
     stages = StageTimer()
     build_kernels(stages)
+    check_sass()
     kernels = (hmm_phases(card, stages) + lg_phases(card, stages)
                + spec_phases(card, stages) + user_phases(card, stages)
                + guided_phases(card, stages) + r1_phases(card, stages))

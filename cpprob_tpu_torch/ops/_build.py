@@ -17,7 +17,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "BUILD_LOGS"]
+__all__ = ["load_library", "library_path", "BUILD_LOGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -74,3 +74,8 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     _LIBS[name] = lib
     return lib
+
+
+def library_path(name: str) -> Path:
+    """The file of the loaded library built from ``csrc/<name>.cu``."""
+    return Path(load_library(name)._name)

@@ -11,8 +11,9 @@ launches the kernel or raises):
 - :func:`calibrate_tensor_cores` (K18, <- ``calibrate_mxu``): chains ``c <-
   (bf16(c) @ bf16(b)) * 1e-3``, ``reps`` products each, float32 sums; out =
   the chains' sum.  The reference keeps 8 chains of (512, 512) in VMEM; here
-  each warp runs ``TC_CHAINS`` chains on 16 rows of ``a`` (rows, 64) with
-  ``b`` (64, 64) in registers (``mma.sync`` m16n8k16).
+  each warpgroup runs ``TC_CHAINS`` chains on 64 rows of ``a`` (rows, 64),
+  each product four ``wgmma`` m64n64k16 with the chain in registers and
+  ``b`` (64, 64) in shared memory.
 - :func:`calibrate_hbm` (K19, <- ``calibrate_hbm``): ``x + 1``.
 - :func:`calibrate_normals` (K20a, <- ``calibrate_prng``): ``acc = x``, then
   ``pairs`` Box-Muller pairs (the construction of ``fused_lg``'s kernels:
@@ -54,10 +55,10 @@ _THREADS = 256
 FP32_N = (1 << 15) * 128          # calibrate_vpu: rows 2^15 x 128 lanes
 FP32_STEPS = 2048 // 8            # chain 2048 over eight chains
 TC_DIM = 64                       # csrc/calibrate.cu kTcDim
-TC_CHAINS = 2                     # chains per warp (kTcChains)
-TC_ROWS_PER_CTA = 64              # 4 warps x 16 rows
-TC_ROWS = 1 << 14                 # 256 CTAs: about two per SM
-TC_REPS = 1024
+TC_CHAINS = 2                     # chains per warpgroup (kTcChains)
+TC_ROWS_PER_CTA = 64              # one warpgroup, wgmma's 64 rows
+TC_ROWS = 1 << 15                 # 512 CTAs: about four per SM
+TC_REPS = 512                     # 2^37 multiply-adds in all
 HBM_SIZES = ((1 << 17) * 128, (1 << 19) * 128)   # 128 MB and 512 MB moved
 PRNG_N = (1 << 14) * 128          # calibrate_prng: rows 2^14 x 128
 PRNG_DRAWS = 512                  # normals per element: 256 pairs

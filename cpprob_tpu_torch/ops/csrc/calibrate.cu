@@ -11,7 +11,8 @@
 //
 // Each computes what its TPU kernel computes, with the port's own
 // constructions where the TPU's differ (Philox in place of the TPU's
-// hardware generator; mma.sync tiles in place of (512, 512) VMEM chains).
+// hardware generator; 64-row wgmma chains in registers in place of
+// (512, 512) VMEM chains).
 // What bounds each is the resource it calibrates: the float32 FMA pipe
 // (K17), the tensor cores (K18), HBM (K19), Philox's integer multiplies
 // and the Box-Muller transcendentals (K20), expf + log1pf (K21).  Every
@@ -33,12 +34,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChains = 8;        // K17: independent FMA chains per element
-constexpr int kTcWarps = 4;       // K18: warps per CTA
-constexpr int kTcRows = 16;       // K18: rows of the chain per warp
+constexpr int kTcThreads = 128;   // K18: one warpgroup per CTA
+constexpr int kTcRows = 64;       // K18: rows of the chain per warpgroup
 constexpr int kTcDim = 64;        // K18: the chain's width, b is kTcDim^2
-constexpr int kTcChains = 2;      // K18: chains per warp
 constexpr int kTcK = kTcDim / 16; // K18: k-steps of one product
-constexpr int kTcN = kTcDim / 8;  // K18: n-tiles of one product
+constexpr int kTcAcc = kTcDim / 2; // K18: float32 accumulators per thread
+constexpr int kTcChains = 2;      // K18: chains per warpgroup
 
 // (float)(1 + 1e-6 i): the chain scales of K17 and K18, as the reference's
 // weakly typed `x * (1.0 + 1e-6 * i)` rounds them.
@@ -74,45 +75,105 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// --- K18 on wgmma -----------------------------------------------------------
+// b^T in shared memory in wgmma's K-major layout with the 128-byte swizzle:
+// row n (column n of b) holds b[0..63][n], 64 bf16 = 128 B, and its 16-byte
+// chunk c (k = 8c .. 8c+7) sits at chunk c ^ (n % 8).  Index in bf16 units.
+__device__ __forceinline__ int swizzled(int n, int k) {
+  return n * kTcDim + ((((k >> 3) ^ (n & 7))) << 3) + (k & 7);
 }
 
-// K18: per warp, kTcChains chains c <- (bf16(c) @ bf16(b)) * 1e-3 over its
-// 16 rows of a (rows, 64), started at a (1 + 1e-6 i); `reps` products each;
-// out = the chains' final values summed in chain order.  Row r of a product
-// depends only on row r of c, so each warp runs its chains alone, in
-// registers: b's fragments are loaded once, and the float32 accumulators of
-// two neighbouring n-tiles are, element for element, the A fragment of the
-// next product's k-step (m16n8k16 layouts), rounded to bf16 on the way.
-__global__ void __launch_bounds__(kTcWarps * 32)
+// The matrix descriptor of that layout: start address, leading byte offset
+// (unused by a swizzled K-major operand), 1024 B between groups of 8 rows,
+// 128-byte swizzle.  A k-step of 16 bf16 (32 B) adds 2 to the address field.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of d across a fence or a wait.
+__device__ __forceinline__ void fence_acc(float (&d)[kTcAcc]) {
+#pragma unroll
+  for (int i = 0; i < kTcAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a (64x16 bf16, registers) @ b (16x64 bf16, shared memory, desc);
+// scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[kTcAcc],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// One product of a chain: four k-steps, committed as one group.
+__device__ __forceinline__ void chain_product(float (&d)[kTcAcc],
+                                              const uint32_t (&af)[kTcK][4],
+                                              uint64_t desc) {
+  wgmma_fence();
+  fence_acc(d);
+#pragma unroll
+  for (int j = 0; j < kTcK; ++j) wgmma_64x64x16(d, af[j], desc + 2 * j, j > 0);
+  wgmma_commit();
+}
+
+// K18: per warpgroup (one CTA), kTcChains chains c <- (bf16(c) @ bf16(b))
+// * 1e-3 over its 64 rows of a (rows, 64), started at a (1 + 1e-6 i); `reps`
+// products each; out = the chains' final values summed in chain order.
+// Row r of a product depends only on row r of c, so each warpgroup runs its
+// chains alone: b, rounded to bf16, is staged once into shared memory
+// (8 KB, swizzled, read by descriptor), and a chain's A operand stays in
+// registers: the float32 accumulators of two neighbouring n8 columns are,
+// element for element, the A fragment of the next product's k-step, rounded
+// to bf16 on the way.  Each product is four wgmma m64n64k16 in one commit
+// group; the chains' groups are issued one after another, then one
+// wait_group 0 and the chains' scale-and-repack.  The epilogue of one CTA
+// overlaps the products of the others on its SM (four CTAs of 122
+// registers): waiting for chain c's group alone (wait_group 1) so that
+// its epilogue overlaps the other chains' products made ptxas serialize
+// every wgmma (C7514, reads of accumulators between a wgmma and its wait)
+// and ran slower on an H100 80GB HBM3 at 700 W.
+__global__ void __launch_bounds__(kTcThreads, 1)
 tensor_core_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    int reps, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
+  __shared__ __align__(1024) __nv_bfloat16 sb[kTcDim * kTcDim];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const long long row0 =
-      ((long long)blockIdx.x * kTcWarps + (threadIdx.x >> 5)) * kTcRows;
+  for (int i = tid; i < kTcDim * kTcDim; i += kTcThreads)
+    sb[swizzled(i % kTcDim, i / kTcDim)] = __float2bfloat16_rn(b[i]);
+  // the generic-proxy stores above, before wgmma reads them (async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint64_t desc = smem_desc(sb);
 
-  uint32_t bf[kTcK][kTcN][2];
-#pragma unroll
-  for (int j = 0; j < kTcK; ++j)
-#pragma unroll
-    for (int t = 0; t < kTcN; ++t)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = 16 * j + 2 * tig + 8 * h, col = 8 * t + gid;
-        bf[j][t][h] = pack_bf16(b[k * kTcDim + col], b[(k + 1) * kTcDim + col]);
-      }
-
-  uint32_t af[kTcChains][kTcK][4];
+  // warp w of the warpgroup holds rows 16 w .. 16 w + 15 of the fragments
+  const long long row0 = (long long)blockIdx.x * kTcRows + 16 * warp;
   const float* r_lo = a + (row0 + gid) * kTcDim;
   const float* r_hi = a + (row0 + gid + 8) * kTcDim;
+  uint32_t af[kTcChains][kTcK][4];
 #pragma unroll
   for (int c = 0; c < kTcChains; ++c) {
     const float s = chain_scale(c);
@@ -126,52 +187,41 @@ tensor_core_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
   }
 
-  // reps >= 1 (the wrapper checks); the last product's d leaves the loop
-  float d[kTcChains][kTcN][4];
-  for (int rep = 0;; ++rep) {
+  // d[c][4t + e]: rows gid (e < 2) and gid + 8, columns 8t + 2 tig + e % 2
+  float d[kTcChains][kTcAcc];
 #pragma unroll
-    for (int c = 0; c < kTcChains; ++c)
+  for (int c = 0; c < kTcChains; ++c) chain_product(d[c], af[c], desc);
+  for (int rep = 1; rep < reps; ++rep) {  // reps >= 1 (the wrapper checks)
+    wgmma_wait<0>();
 #pragma unroll
-      for (int t = 0; t < kTcN; ++t)
+    for (int c = 0; c < kTcChains; ++c) {
+      fence_acc(d[c]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) d[c][t][e] = 0.f;
+      for (int j = 0; j < kTcK; ++j)
 #pragma unroll
-    for (int j = 0; j < kTcK; ++j)
+        for (int h = 0; h < 4; ++h)
+          af[c][j][h] = pack_bf16(__fmul_rn(d[c][8 * j + 2 * h], 1e-3f),
+                                  __fmul_rn(d[c][8 * j + 2 * h + 1], 1e-3f));
+    }
 #pragma unroll
-      for (int t = 0; t < kTcN; ++t)
-#pragma unroll
-        for (int c = 0; c < kTcChains; ++c) mma_bf16(d[c][t], af[c][j], bf[j][t]);
-#pragma unroll
-    for (int c = 0; c < kTcChains; ++c)
-#pragma unroll
-      for (int t = 0; t < kTcN; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) d[c][t][e] = __fmul_rn(d[c][t][e], 1e-3f);
-    if (rep + 1 >= reps) break;
-#pragma unroll
-    for (int c = 0; c < kTcChains; ++c)
-#pragma unroll
-      for (int j = 0; j < kTcK; ++j) {
-        af[c][j][0] = pack_bf16(d[c][2 * j][0], d[c][2 * j][1]);
-        af[c][j][1] = pack_bf16(d[c][2 * j][2], d[c][2 * j][3]);
-        af[c][j][2] = pack_bf16(d[c][2 * j + 1][0], d[c][2 * j + 1][1]);
-        af[c][j][3] = pack_bf16(d[c][2 * j + 1][2], d[c][2 * j + 1][3]);
-      }
+    for (int c = 0; c < kTcChains; ++c) chain_product(d[c], af[c], desc);
   }
+  wgmma_wait<0>();
 #pragma unroll
-  for (int t = 0; t < kTcN; ++t) {
+  for (int c = 0; c < kTcChains; ++c) fence_acc(d[c]);
+#pragma unroll
+  for (int t = 0; t < kTcDim / 8; ++t) {
     float s[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      s[e] = d[0][t][e];
+      s[e] = __fmul_rn(d[0][4 * t + e], 1e-3f);
 #pragma unroll
-      for (int c = 1; c < kTcChains; ++c) s[e] = __fadd_rn(s[e], d[c][t][e]);
+      for (int c = 1; c < kTcChains; ++c)
+        s[e] = __fadd_rn(s[e], __fmul_rn(d[c][4 * t + e], 1e-3f));
     }
     const int col = 8 * t + 2 * tig;
-    out[(row0 + gid) * kTcDim + col] = s[0];
-    out[(row0 + gid) * kTcDim + col + 1] = s[1];
-    out[(row0 + gid + 8) * kTcDim + col] = s[2];
-    out[(row0 + gid + 8) * kTcDim + col + 1] = s[3];
+    *reinterpret_cast<float2*>(out + (row0 + gid) * kTcDim + col) = make_float2(s[0], s[1]);
+    *reinterpret_cast<float2*>(out + (row0 + gid + 8) * kTcDim + col) = make_float2(s[2], s[3]);
   }
 }
 
@@ -243,8 +293,8 @@ int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
 extern "C" {
 
-// The K18 tile: rows per CTA, the chain's width, chains per warp.
-int tc_rows_per_cta() { return kTcWarps * kTcRows; }
+// The K18 tile: rows per CTA (one warpgroup), the chain's width.
+int tc_rows_per_cta() { return kTcRows; }
 int tc_dim() { return kTcDim; }
 int tc_chains() { return kTcChains; }
 
@@ -258,9 +308,8 @@ int fp32_chain_launch(const float* x, long long n, int steps, float* out,
 
 int tensor_core_launch(const float* a, const float* b, long long rows,
                        int reps, float* out, void* stream) {
-  const int grid = (int)(rows / (kTcWarps * kTcRows));
-  tensor_core_kernel<<<grid, kTcWarps * 32, 0, (cudaStream_t)stream>>>(
-      a, b, reps, out);
+  tensor_core_kernel<<<(int)(rows / kTcRows), kTcThreads, 0,
+                       (cudaStream_t)stream>>>(a, b, reps, out);
   return (int)cudaGetLastError();
 }
 

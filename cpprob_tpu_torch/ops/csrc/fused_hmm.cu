@@ -571,7 +571,8 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
 // _make_guided_discrete_chunk_kernel_mxu (:1351-1532) behind
 // _guided_discrete_mxu_call / attach_fused_guided_discrete_kernels
 // (:1535,1588).  Launched with n_steps = 1 it is also the guided model's
-// per-step hooks.
+// per-step hooks.  K = 1 never reaches it: with one state q = 1, and the
+// wrapper launches hmm_chunk_kernel_k, the same chain.
 //
 // The proposal q(z' | z, y, t) = softmax(MLP([onehot(z), y, t/T])) depends
 // on a particle only through z in {0..K-1}: y and t/T are per-step scalars.
@@ -602,11 +603,17 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
 // 4,096 particle updates a CTA makes per step, spread over the CTA's
 // threads so that its latency is a few dependent adds per layer.
 
-constexpr int kGuidedMaxLayers = 8;
-constexpr int kGuidedMaxWidth = 64;   // widest layer of the proposal net
+// The activations of the K source states live in dynamic shared memory,
+// two buffers of K * stride floats (stride = the widest layer), so the net's
+// width is bounded by what one CTA may hold: kGuidedActBytes for the two
+// buffers, the rest of the 227 KB for the kernel's static tables (under
+// 1 KB at K = 8).  The layers' weights are read from global memory.
+constexpr int kGuidedMaxLayers = 32;
+constexpr int kGuidedActBytes = 232448 - 1024;
 
 struct NetDims {
   int n_layers;
+  int stride;                         // widest layer, floats per state row
   int dims[kGuidedMaxLayers + 1];     // [K + 2, H1, ..., K]
 };
 
@@ -616,10 +623,9 @@ template <int K>
 __device__ __forceinline__ void guided_tables(
     const float* __restrict__ net, const NetDims& nd,
     const float* __restrict__ tab, const float* __restrict__ ltab, float y,
-    float tf, float (*act)[K * kGuidedMaxWidth], float* cum, float* ssum,
-    float* rn) {
+    float tf, float* act, float* cum, float* ssum, float* rn) {
   const int tid = threadIdx.x;
-  const int h1 = nd.dims[1];
+  const int h1 = nd.dims[1], w = nd.stride;
   // layer 0: the one-hot input selects row a of W0
   for (int idx = tid; idx < K * h1; idx += kThreads) {
     const int a = idx / h1, j = idx - a * h1;
@@ -628,8 +634,7 @@ __device__ __forceinline__ void guided_tables(
                   __fmul_rn(__ldg(net + (K + 1) * h1 + j), tf)),
         __ldg(net + (K + 2) * h1 + j));
     const float pre = __fadd_rn(__ldg(net + a * h1 + j), c);
-    act[0][a * kGuidedMaxWidth + j] =
-        nd.n_layers > 1 ? fmaxf(pre, 0.f) : pre;
+    act[a * w + j] = nd.n_layers > 1 ? fmaxf(pre, 0.f) : pre;
   }
   __syncthreads();
   int off = (K + 3) * h1;
@@ -637,24 +642,24 @@ __device__ __forceinline__ void guided_tables(
     const int n_in = nd.dims[l], n_out = nd.dims[l + 1];
     const float* W = net + off;
     const float* b = W + n_in * n_out;
-    const float* prev = act[(l - 1) & 1];
-    float* cur = act[l & 1];
+    const float* prev = act + ((l - 1) & 1) * K * w;
+    float* cur = act + (l & 1) * K * w;
     for (int idx = tid; idx < K * n_out; idx += kThreads) {
       const int a = idx / n_out, j = idx - a * n_out;
       float acc = __ldg(b + j);
       for (int i = 0; i < n_in; ++i)
-        acc = __fadd_rn(acc, __fmul_rn(prev[a * kGuidedMaxWidth + i],
+        acc = __fadd_rn(acc, __fmul_rn(prev[a * w + i],
                                        __ldg(W + i * n_out + j)));
-      cur[a * kGuidedMaxWidth + j] =
+      cur[a * w + j] =
           l < nd.n_layers - 1 ? fmaxf(acc, 0.f) : acc;
     }
     off += n_in * n_out + n_out;
     __syncthreads();
   }
-  const float* logits = act[(nd.n_layers - 1) & 1];
+  const float* logits = act + ((nd.n_layers - 1) & 1) * K * w;
   if (tid < K * K) {
     const int a = tid / K, b = tid - a * K;
-    const float* l = logits + a * kGuidedMaxWidth;
+    const float* l = logits + a * w;
     float m = l[0];
 #pragma unroll
     for (int k = 1; k < K; ++k) m = fmaxf(m, l[k]);
@@ -691,7 +696,7 @@ guided_chunk_kernel(const float* __restrict__ tab,
                     const float* __restrict__ w_in, int* __restrict__ s_out,
                     float* __restrict__ w_out, float* __restrict__ rec) {
   static_assert(K >= 2 && K <= 8, "2 <= K <= 8");
-  __shared__ float act[2][K * kGuidedMaxWidth];
+  extern __shared__ float act[];   // 2 x K x nd.stride, dynamic
   __shared__ float cum[K * K];
   __shared__ float ssum[K];
   __shared__ float rn[K * K];
@@ -829,7 +834,7 @@ extern "C" {
 int hmm_island_size() { return kIsland; }
 int hmm_max_k() { return kMaxK; }
 int guided_max_layers() { return kGuidedMaxLayers; }
-int guided_max_width() { return kGuidedMaxWidth; }
+int guided_act_bytes() { return kGuidedActBytes; }
 
 // Returns cudaGetLastError() after the launch (0 = launched).  dims: host
 // array of n_layers + 1 layer sizes [K + 2, H1, ..., K]; net: the layers
@@ -847,16 +852,28 @@ int guided_chunk_launch(int K, const float* tab, const float* ltab,
     return (int)cudaErrorInvalidValue;
   NetDims nd;
   nd.n_layers = n_layers;
+  nd.stride = 0;
   for (int l = 0; l <= kGuidedMaxLayers; ++l) {
     nd.dims[l] = l <= n_layers ? dims[l] : 0;
-    if (l <= n_layers && (dims[l] < 1 || dims[l] > kGuidedMaxWidth))
-      return (int)cudaErrorInvalidValue;
+    if (l <= n_layers && dims[l] < 1) return (int)cudaErrorInvalidValue;
+    if (l >= 1 && l <= n_layers && dims[l] > nd.stride) nd.stride = dims[l];
   }
+  const long long act_bytes = 2LL * K * nd.stride * (long long)sizeof(float);
+  if (act_bytes > kGuidedActBytes) return (int)cudaErrorInvalidValue;
   const int grid = (int)(n / kIsland);
+  // the opt-in above 48 KB, once per instance
+  static bool opted[9] = {};
   switch (K) {
 #define GUIDED_CHUNK_CASE(KK)                                                \
   case KK:                                                                   \
-    guided_chunk_kernel<KK><<<grid, kThreads, 0, st>>>(                      \
+    if (!opted[KK]) {                                                        \
+      const int e = (int)cudaFuncSetAttribute(                               \
+          guided_chunk_kernel<KK>,                                           \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kGuidedActBytes);     \
+      if (e) return e;                                                       \
+      opted[KK] = true;                                                      \
+    }                                                                        \
+    guided_chunk_kernel<KK><<<grid, kThreads, (size_t)act_bytes, st>>>(      \
         tab, ltab, net, nd, T, ys, n_steps, ctrl, k0, k1, t0, island_every,  \
         thresh, s_in, w_in, s_out, w_out, rec);                              \
     break;

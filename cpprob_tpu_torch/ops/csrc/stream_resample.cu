@@ -3,10 +3,10 @@
 // lse_stats_kernel + lse_combine_kernel replace _logsumexp_stats_kernel /
 // logsumexp_stats (cpprob_tpu/ops/pallas_resample.py:727,743): one sweep
 // gives (m, wtot) = (max lw, sum exp(lw - m)).
-// pass1_tile_sums_kernel, pass1_scan_tiles_kernel and pass1_finish_kernel
-// replace _pass1_kernel / _pass1 (pallas_resample.py:113,771): the start
-// slot of every particle, st_j = ceil(n * cdf_{j-1} - u0) clipped to [0, n],
-// from the exclusive prefix of the normalised weights.
+// pass1_scan_kernel replaces _pass1_kernel / _pass1 (pallas_resample.py:
+// 113,771): the start slot of every particle, st_j = ceil(n * cdf_{j-1} -
+// u0) clipped to [0, n], from the exclusive prefix of the normalised
+// weights, in one pass (see its note below).
 // pass2_tile_kernel replaces the three pass-2 variants behind
 // _streaming_resample: scatter (_pass2_scatter_body,
 // pallas_resample.py:516,645,706), fast (_pass2_fast_body, :326,469,499)
@@ -23,14 +23,13 @@
 // exact.
 //
 // What bounds them on an H100: memory.  The epoch reads the weights twice
-// (stats, tile sums) and a third time with the values' pass, writes the
-// start slots and reads them back in pass 2: ~24 B per particle, ~0.4 GB at
-// 2^24, about 0.12 ms at the card's 3.35 TB/s.  The design is the simple
-// right one: the TPU's sequential grid with a Kahan carry becomes
-// per-tile sums, a one-CTA scan of the tile totals and a finishing pass;
-// the MXU scatter and telescoping value differences become a scatter of
-// owner indices per tile, so the output is the exact expansion of the start
-// slots, with no float error.
+// (stats, pass 1), writes the start slots and reads them back with the
+// values in pass 2: ~20 B per particle, ~0.34 GB at 2^24, about 0.1 ms at
+// the card's 3.35 TB/s.  The TPU's sequential grid with a Kahan carry
+// becomes one single-pass scan with a decoupled look-back; the MXU scatter
+// and telescoping value differences become a scatter of owner indices per
+// tile, so the output is the exact expansion of the start slots, with no
+// float error.
 //
 // Numerics: exp, the weight prefix and the slot arithmetic are float64
 // (the reference's float32 prefix with a Kahan carry is exact only to
@@ -40,9 +39,10 @@
 // not have.
 //
 // flag (int32 device scalar, may be null = on): when it is 0 the stats and
-// pass-1 kernels return at once and pass 2 copies the values, so a chunk
-// boundary that does not resample costs three near-empty launches and one
-// copy, and the host never reads the flag.
+// pass-1 kernels return at once (pass 1 leaves its scratch untouched) and
+// pass 2 copies the values, so a chunk boundary that does not resample
+// costs three near-empty launches and one copy, and the host never reads
+// the flag.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,13 +53,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 16;
-constexpr int kTile = kThreads * kPerThread;  // particles per pass-1 tile
-constexpr int kScanThreads = 1024;
 
 // Shared-memory index of tile element l, padded by one word per 32 so that
 // both the coalesced (l = i*kThreads + tid) and the per-thread contiguous
-// (l = tid*kPerThread + k) access patterns are free of bank conflicts.
+// (l = tid*kPer + k) access patterns are free of bank conflicts.
 __device__ __forceinline__ int pad(int l) { return l + (l >> 5); }
 
 __device__ __forceinline__ bool flag_off(const int* flag) {
@@ -165,98 +162,300 @@ lse_combine_kernel(const float* __restrict__ rec_m,
   }
 }
 
-// K15, step 1: the sum of exp(lw - m) over each tile of kTile particles.
-__global__ void __launch_bounds__(kThreads)
-pass1_tile_sums_kernel(const float* __restrict__ lw, long long n,
-                       const double* __restrict__ stats,
-                       const int* __restrict__ flag,
-                       double* __restrict__ tile_sum) {
-  __shared__ double red[kThreads / 32];
-  __shared__ double bcast[1];
-  if (flag_off(flag)) return;
-  const double m = stats[0];
-  const long long base = (long long)blockIdx.x * kTile;
-  double v[1] = {0.0};
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const long long g = base + i * kThreads + threadIdx.x;
-    if (g < n) v[0] += exp((double)lw[g] - m);
-  }
-  block_sum<kThreads, 1>(v, red, bcast);
-  if (threadIdx.x == 0) tile_sum[blockIdx.x] = v[0];
+// K15: pass 1 as one single-pass scan.  A CTA takes its tiles by a ticket
+// (atomicAdd on ctr[0], not blockIdx: every tile before t then belongs to
+// a CTA that is already running, so the look-back below always ends).  It
+// loads the tile with coalesced 16-byte loads, through shared memory to the
+// threads that own kPer contiguous weights each; they take e = exp(lw - m)
+// in float64 once, keep it in registers, and scan the tile in float64: a
+// thread's serial sum, then a block exclusive scan.  Thread 0
+// publishes the tile's aggregate (status 1), the block looks back over its
+// predecessors, kP1Threads at a time, to the nearest one with an inclusive
+// prefix (status 2), and the tile publishes its own inclusive prefix.
+// Values go out before their status word (st.release) and are read after
+// it (ld.acquire), so a status seen means its value is there.  The CTAs are
+// persistent and hold one tile back: each runs the body of its new tile
+// before the look-back and the slots of the one before, so a look-back
+// starts one body after its own aggregate went out, when the predecessors
+// it waits for have mostly published theirs.
+//
+// The look-back adds the aggregates after the inclusive prefix it found one
+// by one in tile order, so every inclusive prefix is the serial sum agg_0 +
+// agg_1 + ... of the tile aggregates, whichever predecessors had published:
+// the result does not depend on timing, and two calls give the same slots.
+// A particle's prefix is the tile's exclusive prefix plus its prefix within
+// the tile, which the threads form before the look-back (the look-back then
+// delays only an add and the slot per particle).  The threads' starts
+// within the tile are made non-decreasing by a block max-scan, and each
+// slot is capped at the slot of the next thread's start, the last thread's
+// at the slot of the tile's inclusive prefix (the very value the next tile
+// reads as its exclusive prefix), so the start slots are monotone by
+// construction.  The slots go out through shared memory too, as coalesced
+// 16-byte stores.  The slot multiplies by 1 / wtot, taken once, in place of a
+// division per particle (float64 still; a last-bit difference moves a slot
+// only where n * cdf - u0 lies within ~2^-52 n of an integer).
+//
+// Scratch (per stream, zeroed once when the wrapper allocates it): ctr[0]
+// the ticket, ctr[1] the CTAs done, status[n_tiles], vals[2 n_tiles] (the
+// aggregates, then the inclusive prefixes).  The last CTA to finish (ctr[1])
+// zeroes ctr and status, so the next call finds them clean with no memset
+// launch and no host sync, inside a CUDA graph too.  Two streams must not
+// share one scratch: the wrapper keeps one per stream.
+//
+// What bounds it: bytes, 4 B read and 4 B written per particle; the
+// float64 work, ~32 double-precision instructions a particle in the SASS
+// (the exp's polynomial and its special cases, the prefix adds, the slot
+// arithmetic; chip_smoke.py counts them), takes less at half the float32
+// rate.  util/pass1_parts.py times the kernel with each part taken out.
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(double* p, double v) {
+  asm volatile("st.relaxed.gpu.global.f64 [%0], %1;" ::"l"(p), "d"(v) : "memory");
+}
+__device__ __forceinline__ double ld_relaxed(const double* p) {
+  double v;
+  asm volatile("ld.relaxed.gpu.global.f64 %0, [%1];" : "=d"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// K15, step 2: one CTA turns the tile sums into exclusive tile offsets.
-__global__ void __launch_bounds__(kScanThreads)
-pass1_scan_tiles_kernel(const double* __restrict__ tile_sum, int n_tiles,
-                        const int* __restrict__ flag,
-                        double* __restrict__ tile_off) {
-  __shared__ double warp_tot[kScanThreads / 32];
-  __shared__ double total;
-  if (flag_off(flag)) return;
-  const int per = (n_tiles + kScanThreads - 1) / kScanThreads;
-  const int lo = min(n_tiles, (int)threadIdx.x * per);
-  const int hi = min(n_tiles, lo + per);
-  double s = 0.0;
-  for (int i = lo; i < hi; ++i) s += tile_sum[i];
-  double run = block_exclusive_scan<kScanThreads>(s, warp_tot, &total);
-  for (int i = lo; i < hi; ++i) {
-    tile_off[i] = run;
-    run += tile_sum[i];
+constexpr int kP1Threads = 256;  // pass 1: threads per CTA, the look-back's window
+constexpr int kPer = 16;         // pass 1: particles per thread
+
+// The exclusive prefix of tile t > 0.  Every thread of the block calls it
+// and gets it.  The block polls its kP1Threads nearest predecessors at once
+// (each thread one status word, spinning while it is 0), takes the nearest
+// with an inclusive prefix, j, and moves its window back if there is none;
+// then thread 0 adds agg[j+1 .. t-1] to incl[j] one by one, in tile order.
+// found: kP1Threads / 32 ints, buf: kP1Threads doubles, res: one double.
+__device__ __forceinline__ double look_back(int t, const int* status,
+                                            const double* agg,
+                                            const double* incl, int* found,
+                                            double* buf, double* res) {
+  constexpr int kWarps = kP1Threads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int hi = t - 1, j;
+  for (;;) {
+    const int idx = hi - tid;
+    int sv = 1;
+    if (idx >= 0) {
+      do sv = ld_acquire(status + idx); while (sv == 0);
+    }
+    const unsigned inc = __ballot_sync(0xffffffffu, idx >= 0 && sv == 2);
+    if (lane == 0) found[warp] = inc ? warp * 32 + __ffs(inc) - 1 : kP1Threads;
+    __syncthreads();  // also orders the threads' acquires before the loads below
+    int f = kP1Threads;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) f = min(f, found[w]);
+    __syncthreads();
+    if (f < kP1Threads) {
+      j = hi - f;
+      break;
+    }
+    hi -= kP1Threads;
   }
+  double acc = tid == 0 ? ld_relaxed(incl + j) : 0.0;
+  for (int b = j + 1; b < t; b += kP1Threads) {
+    if (b + tid < t) buf[tid] = ld_relaxed(agg + b + tid);
+    __syncthreads();
+    if (tid == 0) {
+      const int cnt = min(kP1Threads, t - b);
+      for (int l = 0; l < cnt; ++l) acc = __dadd_rn(acc, buf[l]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) *res = acc;
+  __syncthreads();
+  return *res;
 }
 
-// K15, step 3: each tile's exclusive prefix in particle order (thread t
-// takes particles t*kPerThread .. +kPerThread-1 of the tile, staged through
-// shared memory so that global reads and writes stay coalesced), then the
-// start slots.  The prefix is capped at the next tile's offset: the tile
-// sums of step 1 add in another order than this pass, and without the cap
-// a last particle of negligible weight could round past the next tile's
-// first one and break the monotone slots that pass 2 relies on.
-__global__ void __launch_bounds__(kThreads)
-pass1_finish_kernel(const float* __restrict__ lw, long long n,
-                    const double* __restrict__ stats,
-                    const double* __restrict__ u0p,
-                    const int* __restrict__ flag,
-                    const double* __restrict__ tile_off,
-                    int* __restrict__ st) {
-  __shared__ float tile_lw[kTile + kTile / 32];
-  __shared__ int tile_st[kTile + kTile / 32];
-  __shared__ double warp_tot[kThreads / 32];
-  __shared__ double total;
-  if (flag_off(flag)) return;
-  const double m = stats[0], wtot = stats[1], u0 = *u0p;
-  const double nd = (double)n;
-  const long long base = (long long)blockIdx.x * kTile;
-  const double next =
-      blockIdx.x + 1 < gridDim.x ? tile_off[blockIdx.x + 1] : INFINITY;
+// The start slot of a particle whose exclusive prefix is r, rw = 1 / wtot:
+// monotone non-decreasing in r (each step rounds to nearest, or is ceil or
+// a clamp).
+__device__ __forceinline__ int start_slot(double r, double rw, double nd,
+                                          double u0, int n) {
+  const double x = __dsub_rn(__dmul_rn(nd, __dmul_rn(r, rw)), u0);
+  return min(max((int)ceil(x), 0), n);
+}
+
+// One tile's first half: load, exp, the scan within the tile, the
+// aggregate published.  Leaves in e[] each particle's prefix within the
+// tile and returns the aggregate; *next: this thread's cap within the tile
+// (the next thread's start, or the aggregate for the last thread).  The
+// weights arrive by coalesced 16-byte loads and pass through stage (padded
+// shared memory) to the threads that own them, kPer contiguous each.
+__device__ __forceinline__ double tile_body(
+    int tile, const float* __restrict__ lw, long long n, int vec, double m,
+    int* status, double* agg, double* incl, double (&e)[kPer], double* next,
+    double* warp_tot, double* total, double* buf, float* stage) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long tbase = (long long)tile * kP1Threads * kPer;
+  if (vec && tbase + kP1Threads * kPer <= n) {
+    const float4* p = reinterpret_cast<const float4*>(lw + tbase);
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int l = i * kThreads + threadIdx.x;
-    tile_lw[pad(l)] = (base + l < n) ? lw[base + l] : -INFINITY;
+    for (int i = 0; i < kPer / 4; ++i) {
+      const int l = 4 * (i * kP1Threads + tid);
+      const float4 v = __ldg(p + i * kP1Threads + tid);
+      stage[pad(l)] = v.x;
+      stage[pad(l + 1)] = v.y;
+      stage[pad(l + 2)] = v.z;
+      stage[pad(l + 3)] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int l = i * kP1Threads + tid;
+      stage[pad(l)] = tbase + l < n ? lw[tbase + l] : -INFINITY;
+    }
   }
   __syncthreads();
-  double e[kPerThread];
+#pragma unroll
+  for (int q = 0; q < kPer / 4; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // 0 past n
+      e[4 * q + i] = exp((double)stage[pad(tid * kPer + 4 * q + i)] - m);
   double s = 0.0;
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    e[k] = exp((double)tile_lw[pad(threadIdx.x * kPerThread + k)] - m);
-    s += e[k];
+  for (int k = 0; k < kPer; ++k) s = __dadd_rn(s, e[k]);
+  const double ex = block_exclusive_scan<kP1Threads>(s, warp_tot, total);
+  const double a = *total;
+  if (tid == 0) {  // tile 0's aggregate is its inclusive prefix
+    st_relaxed(tile == 0 ? incl : agg + tile, a);
+    st_release(status + tile, tile == 0 ? 2 : 1);
   }
-  double run = tile_off[blockIdx.x] +
-               block_exclusive_scan<kThreads>(s, warp_tot, &total);
+  // each thread's start, capped at the aggregate and made non-decreasing
+  // (a block max-scan), then each particle's running prefix in place of e
+  double start = fmin(ex, a);
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const double x = __dsub_rn(__dmul_rn(nd, fmin(run, next) / wtot), u0);
-    tile_st[pad(threadIdx.x * kPerThread + k)] =
-        (int)fmin(fmax(ceil(x), 0.0), nd);
-    run += e[k];
+  for (int o = 1; o < 32; o <<= 1) {
+    const double y = __shfl_up_sync(0xffffffffu, start, o);
+    if (lane >= o) start = fmax(start, y);
+  }
+  if (lane == 31) warp_tot[warp] = start;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) start = fmax(start, warp_tot[w]);
+  buf[tid] = start;
+  __syncthreads();
+  *next = tid + 1 < kP1Threads ? buf[tid + 1] : a;
+  double run = start;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const double ek = e[k];
+    e[k] = run;
+    run = __dadd_rn(run, ek);
+  }
+  __syncthreads();  // buf and warp_tot are free again
+  return a;
+}
+
+// The pass-1 kernel: a persistent CTA takes tiles by ticket and runs them
+// one behind the other: the body of its new tile, then the look-back and
+// the slots of the tile before it, so that a tile looks back one body
+// after publishing its aggregate, when its predecessors have mostly
+// published theirs.  pend (dynamic shared memory, kPer x kP1Threads
+// doubles): the held tile's prefixes within the tile, each thread's own.
+__global__ void __launch_bounds__(kP1Threads)
+pass1_scan_kernel(const float* __restrict__ lw, long long n, int vec,
+                  const double* __restrict__ stats,
+                  const double* __restrict__ u0p, const int* __restrict__ flag,
+                  int n_tiles, int* __restrict__ ctr, int* __restrict__ status,
+                  double* __restrict__ vals, int* __restrict__ st) {
+  static_assert(kPer % 4 == 0, "whole 16-byte vectors per thread");
+  constexpr int kWarps = kP1Threads / 32;
+  extern __shared__ double pend[];
+  __shared__ double warp_tot[kWarps];
+  __shared__ double total, res;
+  __shared__ double buf[kP1Threads];  // max-scan starts, look-back aggregates
+  __shared__ int found[kWarps];
+  __shared__ int tile_s, last_s;
+  // a tile's weights on the way in, then the held tile's slots on the way
+  // out (padded: conflict-free both ways)
+  __shared__ float stage[kP1Threads * kPer + kP1Threads * kPer / 32];
+  if (flag_off(flag)) return;
+  const int tid = threadIdx.x;
+  int* stage_i = reinterpret_cast<int*>(stage);
+  double* agg = vals;
+  double* incl = vals + n_tiles;
+  const double m = stats[0], rw = 1.0 / stats[1], u0 = *u0p, nd = (double)n;
+
+  int held = -1;            // the tile whose slots are still to be written
+  double held_a = 0.0, held_next = 0.0;
+  for (;;) {
+    if (tid == 0) tile_s = atomicAdd(ctr, 1);
+    __syncthreads();
+    const int tile = tile_s;
+    double e[kPer], next = 0.0, a = 0.0;
+    if (tile < n_tiles)
+      a = tile_body(tile, lw, n, vec, m, status, agg, incl, e, &next,
+                          warp_tot, &total, buf, stage);
+    else
+      __syncthreads();  // every thread has read tile_s
+    if (held >= 0) {
+      double excl = 0.0;
+      if (held > 0) {
+        excl = look_back(held, status, agg, incl, found, buf, &res);
+        if (tid == 0) {
+          st_relaxed(incl + held, __dadd_rn(excl, held_a));
+          st_release(status + held, 2);
+        }
+      }
+      // capping a prefix at excl + next is capping its slot at that
+      // prefix's slot (start_slot is monotone); the last thread's cap is
+      // the inclusive prefix just published, the next tile's first prefix
+      const int cap_slot = start_slot(__dadd_rn(excl, held_next), rw, nd, u0, (int)n);
+      // through stage (free since the body's scan) to coalesced 16-byte
+      // stores
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        stage_i[pad(tid * kPer + k)] =
+            min(start_slot(__dadd_rn(excl, pend[k * kP1Threads + tid]), rw, nd, u0,
+                           (int)n),
+                cap_slot);
+      __syncthreads();
+      const long long tbase = (long long)held * kP1Threads * kPer;
+      if (vec && tbase + kP1Threads * kPer <= n) {
+        int4* out = reinterpret_cast<int4*>(st + tbase);
+#pragma unroll
+        for (int i = 0; i < kPer / 4; ++i) {
+          const int l = 4 * (i * kP1Threads + tid);
+          out[i * kP1Threads + tid] = make_int4(stage_i[pad(l)], stage_i[pad(l + 1)],
+                                                stage_i[pad(l + 2)], stage_i[pad(l + 3)]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int l = i * kP1Threads + tid;
+          if (tbase + l < n) st[tbase + l] = stage_i[pad(l)];
+        }
+      }
+    }
+    if (tile >= n_tiles) break;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) pend[k * kP1Threads + tid] = e[k];
+    held = tile;
+    held_a = a;
+    held_next = next;
+  }
+
+  // the last CTA to finish leaves the scratch clean for the next call
+  if (tid == 0) {
+    __threadfence();
+    last_s = atomicAdd(ctr + 1, 1) == (int)gridDim.x - 1;
   }
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int l = i * kThreads + threadIdx.x;
-    if (base + l < n) st[base + l] = tile_st[pad(l)];
+  if (last_s) {
+    __threadfence();
+    for (int i = tid; i < n_tiles; i += kP1Threads) status[i] = 0;
+    if (tid == 0) {
+      ctr[0] = 0;
+      ctr[1] = 0;
+    }
   }
 }
 
@@ -353,7 +552,8 @@ pass2_tile_kernel(const int* __restrict__ st, const float* __restrict__ vals,
 
 extern "C" {
 
-int stream_tile() { return kTile; }
+int pass1_threads() { return kP1Threads; }
+int pass1_per_thread() { return kPer; }
 int pass2_out_tile() { return kOutTile; }
 
 // Each returns cudaGetLastError() after its launches (0 = launched).
@@ -368,21 +568,32 @@ int lse_stats_launch(const float* lw, long long n, const int* flag,
   return (int)cudaGetLastError();
 }
 
+// ctr (2), status (n_tiles, zero) and vals (2 n_tiles): the scratch.  The
+// grid is as many CTAs as the card holds at once, at most one per tile.
 int pass1_launch(const float* lw, long long n, const double* stats,
-                 const double* u0, const int* flag, double* tile_sum,
-                 double* tile_off, int* st, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int n_tiles = (int)((n + kTile - 1) / kTile);
-  pass1_tile_sums_kernel<<<n_tiles, kThreads, 0, s>>>(lw, n, stats, flag,
-                                                      tile_sum);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  pass1_scan_tiles_kernel<<<1, kScanThreads, 0, s>>>(tile_sum, n_tiles, flag,
-                                                     tile_off);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  pass1_finish_kernel<<<n_tiles, kThreads, 0, s>>>(lw, n, stats, u0, flag,
-                                                   tile_off, st);
+                 const double* u0, const int* flag, int* ctr, int* status,
+                 double* vals, int* st, void* stream) {
+  static int grid = 0;  // once: the opt-in and the occupancy
+  const int smem = kPer * kP1Threads * (int)sizeof(double);
+  if (grid == 0) {
+    int err = (int)cudaFuncSetAttribute(
+        pass1_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (!err) err = (int)cudaGetDevice(&dev);
+    if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!err)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, pass1_scan_kernel, kP1Threads, smem);
+    if (err) return err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    grid = sms * per_sm;
+  }
+  const long long tile = (long long)kP1Threads * kPer;
+  const int n_tiles = (int)((n + tile - 1) / tile);
+  const int vec = ((uintptr_t)lw % 16 == 0) && ((uintptr_t)st % 16 == 0);
+  pass1_scan_kernel<<<grid < n_tiles ? grid : n_tiles, kP1Threads, smem,
+                      (cudaStream_t)stream>>>(
+      lw, n, vec, stats, u0, flag, n_tiles, ctr, status, vals, st);
   return (int)cudaGetLastError();
 }
 

@@ -20,10 +20,13 @@ K = 1 and 9..32):
 
 - ``guided_chunk`` (K13, <- ``_make_guided_discrete_chunk_kernel(_mxu)``
   behind ``attach_fused_guided_discrete_kernels``): the chunk kernel of a
-  guided K-state HMM (2 <= K <= 8), whose categorical proposal net runs in
+  guided K-state HMM (1 <= K <= 8), whose categorical proposal net runs in
   the kernel as K x K tables built once per step (see the note in
   ``csrc/fused_hmm.cu``); the same frame as ``hmm_chunk`` (exchange
-  synthesis, n_valid, islands, records).  Its hooks: :func:`guided_hooks`.
+  synthesis, n_valid, islands, records).  With one state the proposal is
+  q = 1 and the RN correction 0, so K = 1 launches the unguided chunk
+  kernel's run-time-K instance, which computes that chain.  Its hooks:
+  :func:`guided_hooks`.
 
 Each has a plain PyTorch version of the same function (``hmm_init_plain``,
 ``hmm_chunk_plain``, ``guided_chunk_plain``).  The public wrappers take the
@@ -54,15 +57,19 @@ __all__ = [
     "hmm_chunk", "hmm_chunk_plain", "stats_from_partials",
     "make_fused_hmm_ssm", "fused_hmm_hooks", "MAX_K", "GUIDED_MAX_K",
     "GuidedTables", "guided_tables_plain", "guided_chunk_plain",
-    "guided_chunk", "guided_hooks",
+    "guided_chunk", "guided_hooks", "GUIDED_MAX_LAYERS", "GUIDED_ACT_BYTES",
+    "guided_max_width",
 ]
 
 ISLAND_SIZE = 4096       # 256 threads x 16 particles: one CTA of the chunk kernel
 _THREADS = 256
 MAX_K = 32               # states the kernels take (csrc/fused_hmm.cu kMaxK)
 GUIDED_MAX_K = 8         # states the guided kernel takes
-_GUIDED_MAX_LAYERS = 8   # csrc/fused_hmm.cu kGuidedMaxLayers
-_GUIDED_MAX_WIDTH = 64   # csrc/fused_hmm.cu kGuidedMaxWidth
+GUIDED_MAX_LAYERS = 32   # csrc/fused_hmm.cu kGuidedMaxLayers
+# shared memory for the net's activations, two buffers of K x (widest
+# layer) float32 (csrc/fused_hmm.cu kGuidedActBytes): what one CTA may hold
+# (227 KB) less 1 KB for the kernel's static tables
+GUIDED_ACT_BYTES = 232448 - 1024
 
 # kernel launches by wrapper, counted where each kernel is launched; a
 # one-step launch of the chunk kernel (the per-step hooks) counts under
@@ -138,13 +145,15 @@ class GuidedTables:
             raise ValueError(
                 f"expected an smc_csis 'discrete' proposal net: inputs "
                 f"[onehot({K}), y, t/T], outputs {K} logits")
-        if len(Ws) > _GUIDED_MAX_LAYERS:
+        if len(Ws) > GUIDED_MAX_LAYERS:
             raise ValueError(f"the guided kernel takes at most "
-                             f"{_GUIDED_MAX_LAYERS} layers, got {len(Ws)}")
+                             f"{GUIDED_MAX_LAYERS} layers, got {len(Ws)}")
         widest = max(W.shape[1] for W in Ws)
-        if widest > _GUIDED_MAX_WIDTH:
-            raise ValueError(f"the guided kernel takes layers of at most "
-                             f"{_GUIDED_MAX_WIDTH} units, got {widest}")
+        if widest > guided_max_width(K):
+            raise ValueError(
+                f"the guided kernel keeps the net's activations in "
+                f"{GUIDED_ACT_BYTES} B of shared memory, which holds layers of "
+                f"at most {guided_max_width(K)} units at K = {K}; got {widest}")
         return cls(log_trans, tuple(Ws), tuple(bs), int(T))
 
     @property
@@ -165,6 +174,12 @@ class GuidedTables:
                 "Ws": [t(W) for W in self.Ws], "bs": [t(b) for b in self.bs],
             }
         return self._device_tables[device]
+
+
+def guided_max_width(K: int) -> int:
+    """The widest layer the guided kernel takes at K states: two buffers of
+    K x width float32 activations in ``GUIDED_ACT_BYTES``."""
+    return GUIDED_ACT_BYTES // (2 * K * 4)
 
 
 # --------------------------------------------------------------------------
@@ -366,19 +381,19 @@ def _lib():
         lib.hmm_chunk_launch.restype = i
         lib.guided_max_layers.argtypes = []
         lib.guided_max_layers.restype = i
-        lib.guided_max_width.argtypes = []
-        lib.guided_max_width.restype = i
+        lib.guided_act_bytes.argtypes = []
+        lib.guided_act_bytes.restype = i
         lib.guided_chunk_launch.argtypes = [
             i, p, p, p, i, ctypes.POINTER(ctypes.c_int), f, p, i, p, u32, u32,
             u32, i, f, p, p, p, p, p, ctypes.c_longlong, p]
         lib.guided_chunk_launch.restype = i
         if (lib.hmm_island_size() != ISLAND_SIZE or lib.hmm_max_k() != MAX_K
-                or lib.guided_max_layers() != _GUIDED_MAX_LAYERS
-                or lib.guided_max_width() != _GUIDED_MAX_WIDTH):
+                or lib.guided_max_layers() != GUIDED_MAX_LAYERS
+                or lib.guided_act_bytes() != GUIDED_ACT_BYTES):
             raise RuntimeError("csrc/fused_hmm.cu island size or limits differ "
                                f"from ISLAND_SIZE={ISLAND_SIZE}, MAX_K={MAX_K}, "
-                               f"guided {_GUIDED_MAX_LAYERS} layers of "
-                               f"{_GUIDED_MAX_WIDTH}")
+                               f"guided {GUIDED_MAX_LAYERS} layers in "
+                               f"{GUIDED_ACT_BYTES} B")
     return lib
 
 
@@ -472,9 +487,10 @@ def guided_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
                  island_thresh: float = 0.5, count_key: str = "guided_chunk"):
     """Guided chunk (K13) on the device of ``states``: the kernel on CUDA
     tensors, :func:`guided_chunk_plain` on CPU tensors (arguments as there;
-    islands of ``ISLAND_SIZE``).  ``count_key``: the entry of
-    :data:`LAUNCHES` the launch counts under.  Returns (states, log_w,
-    records)."""
+    islands of ``ISLAND_SIZE``).  At K = 1 (q = 1, no RN correction) the
+    launch is the unguided chunk kernel's, the same chain.  ``count_key``:
+    the entry of :data:`LAUNCHES` the launch counts under.  Returns
+    (states, log_w, records)."""
     dev = states.device
     n, K = states.shape[0], spec.K
     if states.dim() != 1 or n % ISLAND_SIZE != 0:
@@ -490,13 +506,17 @@ def guided_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
             island_every=island_every, island_thresh=island_thresh)
     if dev.type != "cuda":
         raise ValueError(f"guided_chunk runs on cpu or cuda tensors, not {dev}")
-    if not 2 <= K <= GUIDED_MAX_K:
-        raise ValueError(f"the guided kernel takes 2 <= K <= {GUIDED_MAX_K}")
+    if not 1 <= K <= GUIDED_MAX_K:
+        raise ValueError(f"the guided kernel takes 1 <= K <= {GUIDED_MAX_K}")
     if log_w.shape != states.shape:
         raise ValueError("log_w must have the shape of states")
     if n >= 2 ** 31 or t0 < 0 or t0 + ys.shape[0] >= 2 ** 24:
         raise ValueError("n must be < 2^31 and t0 + n_steps < 2^24 (t/T is "
                          "formed in float32)")
+    if K == 1:
+        return hmm_chunk(seed, states, log_w, ys, ctrl, spec, t0=t0,
+                         island_every=island_every, island_thresh=island_thresh,
+                         count_key=count_key)
     tab = spec.tables(dev)["packed"]
     gtab = gt.tables(dev)
     dims = gt.dims

@@ -237,7 +237,7 @@ def attach_fused_guided_discrete_kernels(trans, means, stds=None,
                                          island_thresh: float = 0.5,
                                          island_counts: list | None = None):
     """A guided K-state HMM (``z_t ~ trans[z_{t-1}]``, ``y_t ~
-    N(means[z_t], stds[z_t])``, 2 <= K <= 8) whose categorical proposal, a
+    N(means[z_t], stds[z_t])``, 1 <= K <= 8) whose categorical proposal, a
     net trained with ``kind="discrete"`` (features ``[onehot(z_prev), y,
     t/T]``, K logits), runs inside the fused chunk kernel K13:
 
@@ -253,11 +253,15 @@ def attach_fused_guided_discrete_kernels(trans, means, stds=None,
     ``proposal_logpdf`` serve the same net through the engine's unfused
     guided step.  ``island_every`` / ``island_thresh`` / ``island_counts``:
     the interior island checks, as in :func:`make_fused_discrete_ssm`.
-    Raises ``ValueError`` for K outside 2..8 or a net of another shape."""
+    At K = 1 the proposal is q = 1 and the chunk hook launches the
+    unguided chunk kernel (:func:`~.fused_hmm.guided_chunk`).  Raises
+    ``ValueError`` for K outside 1..8, a net of another shape, or one beyond
+    the kernel's limits (``GUIDED_MAX_LAYERS`` layers; layers as wide as
+    :func:`~.fused_hmm.guided_max_width` allows)."""
     trans = np.asarray(trans, np.float64)
     K = trans.shape[0]
-    if not 2 <= K <= GUIDED_MAX_K:
-        raise ValueError(f"guided discrete kernels support 2 <= K <= "
+    if not 1 <= K <= GUIDED_MAX_K:
+        raise ValueError(f"guided discrete kernels support 1 <= K <= "
                          f"{GUIDED_MAX_K}, got {K}")
     from ..interop import spec_from_numpy
 

@@ -10,7 +10,12 @@ kernel or raises):
   (2,) tensor on the population's device.
 - :func:`resample_pass1` (K15, <- ``_pass1``): the start slots
   ``st_j = ceil(n * cdf_{j-1} - u0)`` clipped to [0, n], int32, from the
-  exclusive prefix of the normalised weights.
+  exclusive prefix of the normalised weights: one single-pass scan
+  (``pass1_scan_kernel``, a decoupled look-back over tiles of
+  ``512 * PASS1_PER_THREAD`` particles) that reads each weight once and
+  writes each slot once.  Its scratch (a ticket, a tile count and a status
+  word per tile) is kept per stream, zeroed once, and left clean by each
+  launch; two streams never share one.
 - :func:`resample_pass2` (K16, <- ``_streaming_resample(impl=...)``):
   slot ``i`` takes the value of the last particle ``j`` with ``st_j <= i``;
   the exact expansion of the start slots, by one kernel
@@ -39,13 +44,14 @@ from .population import current_stream as _stream
 from .population import raise_on as _raise_on
 
 __all__ = [
-    "IMPLS", "LAUNCHES", "OUT_TILE", "logsumexp_stats", "logsumexp_stats_plain", "resample_pass1",
+    "IMPLS", "LAUNCHES", "OUT_TILE", "PASS1_PER_THREAD", "logsumexp_stats", "logsumexp_stats_plain", "resample_pass1",
     "resample_pass1_plain", "resample_pass2", "resample_pass2_plain",
     "streaming_available", "streaming_systematic_resample_values",
 ]
 
 _THREADS = 256
-_TILE = 4096            # particles per pass-1 tile (csrc/stream_resample.cu)
+_P1_THREADS = 256       # threads per CTA of pass 1 (csrc kP1Threads)
+PASS1_PER_THREAD = 16   # particles per thread of pass 1 (csrc kPer)
 OUT_TILE = 128 * 128    # slots per pass-2 tile
 IMPLS = ("scatter", "fast", "merge")
 
@@ -106,19 +112,22 @@ def _lib():
     lib = load_library("stream_resample")
     if lib.pass1_launch.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.stream_tile.argtypes = []
-        lib.stream_tile.restype = i
+        for name in ("pass1_threads", "pass1_per_thread"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
         lib.lse_stats_launch.argtypes = [p, ll, p, p, p, i, p, p]
         lib.lse_stats_launch.restype = i
-        lib.pass1_launch.argtypes = [p, ll, p, p, p, p, p, p, p]
+        lib.pass1_launch.argtypes = [p, ll, p, p, p, p, p, p, p, p]
         lib.pass1_launch.restype = i
         lib.pass2_tile_launch.argtypes = [p, p, ll, p, i, p, p]
         lib.pass2_tile_launch.restype = i
         lib.pass2_out_tile.argtypes = []
         lib.pass2_out_tile.restype = i
-        if (lib.stream_tile(), lib.pass2_out_tile()) != (_TILE, OUT_TILE):
+        if (lib.pass1_threads(), lib.pass1_per_thread(), lib.pass2_out_tile()) != (
+                _P1_THREADS, PASS1_PER_THREAD, OUT_TILE):
             raise RuntimeError("csrc/stream_resample.cu tiles differ from "
-                               f"_TILE={_TILE}, OUT_TILE={OUT_TILE}")
+                               f"{_P1_THREADS} x {PASS1_PER_THREAD}, "
+                               f"OUT_TILE={OUT_TILE}")
     return lib
 
 
@@ -173,11 +182,31 @@ def logsumexp_stats(log_w: torch.Tensor, flag=None) -> torch.Tensor:
     return stats
 
 
+# pass 1's scratch by (device, stream): (ctr (2,), status (cap,), vals
+# (2 cap,)); ctr and status zeroed once here, and zero again after every
+# launch (the kernel's last CTA clears them)
+_PASS1_SCRATCH: dict = {}
+
+
+def _pass1_scratch(dev, stream: int, n_tiles: int):
+    key = (dev, stream)
+    sc = _PASS1_SCRATCH.get(key)
+    if sc is None or sc[1].shape[0] < n_tiles:
+        cap = max(n_tiles, 1024)
+        sc = (torch.zeros(2, dtype=torch.int32, device=dev),
+              torch.zeros(cap, dtype=torch.int32, device=dev),
+              torch.empty(2 * cap, dtype=torch.float64, device=dev))
+        _PASS1_SCRATCH[key] = sc
+    ctr, status, vals = sc
+    # the kernel reads the inclusive prefixes at vals[n_tiles:]
+    return ctr, status, vals[:2 * n_tiles]
+
+
 def resample_pass1(u0, log_w: torch.Tensor, stats: torch.Tensor,
                    flag=None) -> torch.Tensor:
     """Start slots (n,) int32 for the comb offset ``u0`` (float64 scalar
     tensor on the population's device) and ``stats`` from
-    :func:`logsumexp_stats`: the kernels on CUDA tensors (undefined where
+    :func:`logsumexp_stats`: the kernel on CUDA tensors (undefined where
     ``flag`` is 0), the plain version on CPU tensors."""
     dev = log_w.device
     u0 = torch.as_tensor(u0, dtype=torch.float64, device=dev)
@@ -190,15 +219,15 @@ def resample_pass1(u0, log_w: torch.Tensor, stats: torch.Tensor,
     if stats.shape != (2,) or u0.numel() != 1:
         raise ValueError("stats must be (m, wtot) and u0 one element")
     lib = _lib()
-    n_tiles = -(-n // _TILE)
-    tile_sum = torch.empty(n_tiles, dtype=torch.float64, device=dev)
-    tile_off = torch.empty(n_tiles, dtype=torch.float64, device=dev)
+    stream = _stream(dev)
+    ctr, status, vals = _pass1_scratch(dev, stream.value,
+                                       -(-n // (_P1_THREADS * PASS1_PER_THREAD)))
     st = torch.empty(n, dtype=torch.int32, device=dev)
     err = lib.pass1_launch(log_w.data_ptr(), n, stats.data_ptr(),
-                           u0.data_ptr(), _flag_ptr(flag, dev),
-                           tile_sum.data_ptr(), tile_off.data_ptr(),
-                           st.data_ptr(), _stream(dev))
-    _raise_on(err, "pass1 kernels")
+                           u0.data_ptr(), _flag_ptr(flag, dev), ctr.data_ptr(),
+                           status.data_ptr(), vals.data_ptr(), st.data_ptr(),
+                           stream)
+    _raise_on(err, "pass1_scan_kernel")
     LAUNCHES["pass1"] += 1
     return st
 

@@ -150,7 +150,7 @@ def time_ms(fn, reps):
 # each calibration's kernel line: name, TPU kernel
 CALIBRATIONS = {
     "fp32": ("fp32_chain_kernel (K17)", "examples/roofline.py:60"),
-    "tensor_cores": ("tensor_core_kernel (K18, mma.sync m16n8k16 bf16)",
+    "tensor_cores": ("tensor_core_kernel (K18, wgmma m64n64k16 bf16)",
                      "examples/roofline.py:86"),
     "hbm": ("add_one_kernel (K19, 512 MB moved)", "examples/roofline.py:125"),
     "normals": ("normal_rate_kernel (K20a, Box-Muller pairs)",

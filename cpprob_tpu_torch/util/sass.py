@@ -11,11 +11,16 @@ without it).  Prints one JSON line per source: for
 each function its registers and instruction count in each version and
 whether the instructions are the same, so a change to a source that should
 leave its kernels' code alone shows that it did.
+
+:func:`kernel_report` reads one kernel of a library the port has built
+(``ops/_build.py``): its registers and spills from the build's ptxas lines
+and its opcodes from ``cuobjdump -sass`` of the library.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import re
 import subprocess
@@ -24,12 +29,15 @@ from pathlib import Path
 
 from ..ops._build import NVCC_FLAGS, _nvcc
 
-__all__ = ["compare", "parse_registers", "parse_sass"]
+__all__ = ["compare", "kernel_report", "parse_registers", "parse_sass",
+           "parse_spills"]
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _REGS = re.compile(r"Used (\d+) registers")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
 
 
@@ -65,6 +73,50 @@ def parse_registers(log: str) -> dict:
         if m and cur is not None:
             out[cur] = int(m.group(1))
             cur = None
+    return out
+
+
+def parse_spills(log: str) -> dict:
+    """Function name -> (spill store bytes, spill load bytes), from ``ptxas
+    -v`` output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = _PROPS.search(line)
+        if m:
+            cur = _name(m.group(1))
+            continue
+        m = _SPILL.search(line)
+        if m and cur is not None:
+            out[cur] = (int(m.group(1)), int(m.group(2)))
+            cur = None
+    return out
+
+
+def kernel_report(lib: str, kernel: str) -> dict:
+    """The kernels of the built library ``lib`` (``ops/_build.py``, built
+    by this process) whose mangled names contain ``kernel``: for each, its
+    registers, spill bytes and the count of each opcode in its SASS (the
+    mnemonic before the first dot, predicates dropped)."""
+    from ..ops import _build
+
+    path = _build.library_path(lib)
+    dump = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True, check=True)
+    log = _build.BUILD_LOGS.get(lib, "")
+    regs, spills = parse_registers(log), parse_spills(log)
+    out = {}
+    for f, insns in parse_sass(dump.stdout).items():
+        if kernel not in f:
+            continue
+        ops = collections.Counter()
+        for i in insns:
+            words = i.split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                ops[words[0].split(".")[0]] += 1
+        out[f] = {"registers": regs.get(f), "spills": spills.get(f),
+                  "instructions": len(insns), "opcodes": dict(ops)}
     return out
 
 

@@ -253,6 +253,93 @@ def test_guided_discrete_matches_pallas_interpret(mxu, flag, n_valid, t0):
     np.testing.assert_allclose(lme, float(lme_r), rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("sizes,mxu", [
+    ([7, 128, 128, 128, 5], True), ([7, 256, 5], False),
+    ([7] + [16] * 9 + [5], True), ([7] + [16] * 9 + [5], False)],
+    ids=["wide-mxu", "wide-vpu", "deep-mxu", "deep-vpu"])
+def test_guided_discrete_wide_and_deep_nets_match_pallas_interpret(sizes, mxu):
+    """Nets past the old 64-unit, 8-layer limits (a [7, 128, 128, 128, 5]
+    net and ten layers of 16) through the plain version against both JAX
+    twins, as the narrow net above.  The reference's per-unit twin unrolls
+    every weight into its trace, so it gets one step, and its wide net one
+    hidden layer of 256 (128 x 128 layers take minutes to trace there)."""
+    K = 5
+    params = _net(sizes, 21, scale=1.0 / np.sqrt(sizes[1]))
+    rng = np.random.default_rng(22)
+    states = rng.integers(0, K, N).astype(np.int32)
+    w0 = (0.3 * rng.standard_normal(N)).astype(np.float32)
+    ys = np.array([0.5, -1.5][:2 if mxu else 1], np.float32)
+    nv = len(ys)
+    ticks = np.array([100, 300, 600, 900], np.int32)
+    s_r, w_r, ess_r, cat_r, lme_r = _discrete_ref(params, mxu).fused_chunk_exchange_t_batch(
+        jax.random.key(0), jnp.asarray(states), jnp.asarray(w0), jnp.asarray(ys),
+        jnp.int32(nv), jnp.int32(1), jnp.asarray(ticks), jnp.int32(3))
+    spec, gt = _discrete_port(params)
+    assert gt.dims == sizes
+    s, w, rec = guided_chunk_plain(
+        0, torch.as_tensor(states), torch.as_tensor(w0), torch.as_tensor(ys),
+        torch.tensor([1, *ticks, nv], dtype=torch.int32), spec, gt, t0=3,
+        island_size=N, draws=(torch.zeros(len(ys), N), torch.zeros(0, 1)))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
+    # float32 sums over 128 inputs in another order (the MXU twin's dots)
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_r), rtol=1e-5, atol=5e-5)
+    ess, cat_w, lme = (x.numpy() for x in stats_from_partials(rec, N))
+    np.testing.assert_allclose(cat_w, np.asarray(cat_r), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ess, float(ess_r), rtol=1e-4)
+    np.testing.assert_allclose(lme, float(lme_r), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_guided_one_state_chain_matches_reference(mxu):
+    """K = 1: q = 1, the RN correction is 0, and the guided chunk is the
+    unguided K = 1 chain: against the reference's K = 1 model in interpret
+    mode (pinned draws), against the unguided plain chunk bit for bit, and
+    the sweep's logZ against the forward recursion."""
+    from cpprob_tpu_torch import build_smc_run
+    from cpprob_tpu_torch.ops.fused_hmm import hmm_chunk_plain
+    from cpprob_tpu_torch.ops.fused_ssm import discrete_hmm_log_evidence
+
+    trans, means, stds, init = [[1.0]], [0.4], [0.8], [1.0]
+    params = _net([3, 8, 8, 1], 23, scale=0.6)
+    rng = np.random.default_rng(24)
+    w0 = (0.3 * rng.standard_normal(N)).astype(np.float32)
+    ys = np.array([0.5, -1.5, 2.2], np.float32)
+    ref = ref_attach_discrete(trans, means, stds, init, params=params, T=T,
+                              block_r=8, interpret=True, mxu=mxu)
+    s_r, w_r, ess_r, _, lme_r = ref.fused_chunk_exchange_t_batch(
+        jax.random.key(0), jnp.zeros(N, jnp.int32), jnp.asarray(w0),
+        jnp.asarray(ys), jnp.int32(3), jnp.int32(0), jnp.zeros((0,), jnp.int32),
+        jnp.int32(2))
+    spec, gt = _discrete_port(params, 1, np.array(trans), means, stds, init)
+    ctrl = torch.tensor([0, 3], dtype=torch.int32)
+    draws = (torch.zeros(len(ys), N), torch.zeros(0, 1))
+    args = (0, torch.zeros(N, dtype=torch.int32), torch.as_tensor(w0),
+            torch.as_tensor(ys), ctrl, spec)
+    s, w, rec = guided_chunk_plain(*args, gt, t0=2, island_size=N, draws=draws)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_r), rtol=1e-5, atol=2e-5)
+    ess, _, lme = stats_from_partials(rec, N)
+    np.testing.assert_allclose(float(ess), float(ess_r), rtol=1e-4)
+    np.testing.assert_allclose(float(lme), float(lme_r), rtol=0, atol=1e-4)
+    s_u, w_u, rec_u = hmm_chunk_plain(*args, t0=2, island_size=N, draws=draws)
+    assert torch.equal(s, s_u) and torch.equal(w, w_u) and torch.equal(rec, rec_u)
+    # the wrapper on CPU tensors (Philox draws) equals the unguided chunk
+    n = fused_hmm.ISLAND_SIZE
+    got = guided_chunk(5, torch.zeros(n, dtype=torch.int32), torch.zeros(n),
+                       torch.as_tensor(ys), ctrl, spec, gt, t0=2)
+    want = fused_hmm.hmm_chunk(5, torch.zeros(n, dtype=torch.int32), torch.zeros(n),
+                               torch.as_tensor(ys), ctrl, spec, t0=2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # one state: every particle carries the same weight, logZ is exact
+    model = attach_fused_guided_discrete_kernels(
+        trans, means, stds, init, params=mlp_params_from_numpy(params, device="cpu"), T=T)
+    obs = np.array([0.5, -1.5, 2.2, 0.1, 0.9, -0.3, 1.4], np.float32)
+    exact = discrete_hmm_log_evidence(trans, means, stds, init, obs)
+    for chunk in (4, 1):
+        res = build_smc_run(model, n, chunk=chunk)(3, torch.as_tensor(obs))
+        assert abs(float(res.log_evidence) - exact) < 1e-4, (chunk, exact)
+
+
 def test_guided_discrete_one_step_matches_reference_math():
     """The per-step hook (K13 launched for one step) at u = 0 against the
     smc_csis arithmetic, as tests/test_pallas_ssm.py:418-446 checks the
@@ -402,15 +489,27 @@ def test_guided_builders_reject_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="K <= 8"):
         attach_fused_guided_discrete_kernels(np.full((9, 9), 1 / 9), np.arange(9.0),
                                              params=_net([11, 8, 9], 0), T=T)
-    with pytest.raises(ValueError, match="2 <= K"):
-        attach_fused_guided_discrete_kernels([[1.0]], [0.0], params=_net([3, 4, 1], 0),
-                                             T=T)
+    # K = 1 is served; a net deeper than the kernel's NetDims is not
+    assert attach_fused_guided_discrete_kernels(
+        [[1.0]], [0.0], params=_net([3, 4, 1], 0), T=T).fused_hooks_guided
+    with pytest.raises(ValueError, match="at most 32 layers"):
+        attach_fused_guided_discrete_kernels([[1.0]], [0.0],
+                                             params=_net([3] + [4] * 32 + [1], 0), T=T)
     with pytest.raises(ValueError, match="discrete"):
         attach_fused_guided_discrete_kernels(TRANS5, MEANS5, STDS5, INIT5,
                                              params=_net([8, 8, 5], 0), T=T)
-    with pytest.raises(ValueError, match="at most 64 units"):
+    # the widest layer the shared memory holds, and one unit more
+    widest = fused_hmm.guided_max_width(5)
+    assert widest == (232448 - 1024) // 40
+    GuidedTables.from_params(np.log(TRANS5), _zero_net([7, widest, 5]), T)
+    with pytest.raises(ValueError, match=f"shared memory.*at most {widest} units"):
         attach_fused_guided_discrete_kernels(TRANS5, MEANS5, STDS5, INIT5,
-                                             params=_net([7, 65, 5], 0), T=T)
+                                             params=_zero_net([7, widest + 1, 5]), T=T)
+
+
+def _zero_net(sizes):
+    return [{"w": np.zeros((a, b), np.float32), "b": np.zeros(b, np.float32)}
+            for a, b in zip(sizes[:-1], sizes[1:])]
 
 
 def _captures_tensor(x, nx, t):

@@ -335,3 +335,20 @@ def test_sass_comparison_parses_cuobjdump_and_ptxas():
            "ptxas info    : Used 8 registers\n")
     assert sass.parse_registers(log) == {"_Z6kernelPf": 40,
                                          "_ZN44_GLOBAL__N__11_a_cu_5otherEv": 8}
+
+
+def test_sass_report_parses_spills():
+    """``util/sass.py`` reads each function's spill bytes from ptxas -v (the
+    registers as before), as ``chip_smoke.py``'s SASS check prints them."""
+    from cpprob_tpu_torch.util import sass
+
+    log = ("ptxas info    : Compiling entry function '_Z1kPf' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1kPf\n"
+           "    16 bytes stack frame, 80 bytes spill stores, 72 bytes spill loads\n"
+           "ptxas info    : Used 64 registers, used 1 barriers\n"
+           "ptxas info    : Function properties for "
+           "_ZN44_GLOBAL__N__ab182f26_11_a_cu_5otherEv\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
+    assert sass.parse_spills(log) == {"_Z1kPf": (80, 72),
+                                      "_ZN44_GLOBAL__N__11_a_cu_5otherEv": (0, 0)}
+    assert sass.parse_registers(log) == {"_Z1kPf": 64}

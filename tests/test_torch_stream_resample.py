@@ -348,3 +348,73 @@ def test_pass2_tile_kernel_on_the_card(n):
         for impl in sr.IMPLS if n % TILE == 0 else ("scatter", "fast"):
             assert torch.equal(sr.resample_pass2(s, vals, impl=impl),
                                sr.resample_pass2_plain(s, vals, impl=impl))
+
+
+# ---------------------------------------------------------------------------
+# pass 1 as one single-pass scan (pass1_scan_kernel): a race in its
+# look-back shows only as an intermittent mismatch, so each case runs the
+# kernel many times
+
+
+def _pass1_card_case(lw, u0=0.37, flag=None):
+    stats = sr.logsumexp_stats(lw)
+    u0 = torch.tensor(u0, dtype=torch.float64, device=lw.device)
+    st = sr.resample_pass1(u0, lw, stats, flag)
+    want = sr.resample_pass1_plain(u0, lw, stats)
+    # float64 sums in another order (the tile scan, the reciprocal of wtot):
+    # at most 16 slots of 2^24 may move, as chip_smoke.py's PASS1_SLACK
+    assert int((st != want).sum()) <= 16
+    assert bool((st[1:] >= st[:-1]).all()) and int(st[0]) == 0
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4097, (1 << 20) + 3, 1 << 24])
+def test_pass1_scan_kernel_on_the_card(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: pass1_scan_kernel runs only on the card")
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    lw = 2 * torch.randn(n, generator=gen, device="cuda")
+    first = _pass1_card_case(lw)
+    assert torch.equal(sr.resample_pass1(0.37, lw, sr.logsumexp_stats(lw)), first)
+
+
+@pytest.mark.cuda
+def test_pass1_scan_kernel_back_to_back_and_degenerate_weights():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: pass1_scan_kernel runs only on the card")
+    n = 1 << 24
+    lw = 2 * torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(5),
+                         device="cuda")
+    first = _pass1_card_case(lw)
+    stats = sr.logsumexp_stats(lw)
+    for _ in range(64):
+        assert torch.equal(sr.resample_pass1(0.37, lw, stats), first)
+    # flag 0 leaves the scratch clean for the flag-1 call after it
+    off, on = (torch.tensor(f, dtype=torch.int32, device="cuda") for f in (0, 1))
+    sr.resample_pass1(0.37, lw, stats, off)
+    assert torch.equal(_pass1_card_case(lw, flag=on), first)
+    heavy = torch.full((n,), -100.0, device="cuda")
+    heavy[12345] = 0.0
+    st = _pass1_card_case(heavy)
+    assert int(st[12345]) == 0 and int(st[12346]) == n
+    lone = torch.full((n,), -float("inf"), device="cuda")
+    lone[777] = 0.0
+    st = _pass1_card_case(lone)
+    assert int(st[777]) == 0 and int(st[778]) == n
+
+
+def test_pass1_parts_variants_find_their_lines():
+    """``util/pass1_parts.py`` (the card's breakdown of pass 1's time)
+    builds its variants by substituting lines of the kernel source: each
+    still finds its line, and only ``full`` is the source unchanged."""
+    from pathlib import Path
+
+    from cpprob_tpu_torch.util import pass1_parts
+
+    src = (Path(sr.__file__).parent / "csrc" / "stream_resample.cu").read_text()
+    variants = pass1_parts.variant_sources(src)
+    assert set(variants) == set(pass1_parts.VARIANTS)
+    assert [k for k, v in variants.items() if v == src] == ["full"]
+    with pytest.raises(ValueError, match="is gone"):
+        pass1_parts.variant_sources(src.replace("look_back(held", "look_back2(held"))
