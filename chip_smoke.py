@@ -67,14 +67,20 @@ and the script exits non-zero without printing its last line:
 7. guided SMC (``guided_phases``): the two proposal nets trained on the
    card by ``train_ssm_proposal`` with ``examples/kernel_bench.py``'s
    settings (a set-up stage; fails unless the loss fell); K12 (Triton, the
-   guided linear-Gaussian model: t0 1 and 9, n_valid 8 and 7) and K13
+   guided linear-Gaussian model: t0 1 and 9, n_valid 8 and 7), its
+   tensor-core twin (CUDA ``guided_tc_kernel``: one step on path 7's net
+   and four random nets, ``TC_NETS``, within ``TC_STEP_TOL``, where its
+   1xTF32 variant must fail; its chunks against its own one-step launches,
+   bit for bit; each build's SASS must show TF32 ``HMMA`` and no local
+   memory, ``check_tc_sass``) and K13
    (CUDA, the guided 5-state chain: flag 0 and 1, n_valid 8 and 7, island
    off, and a 16-slot chunk whose forced island check fires; its one-step
    launch at 2^20; its instances for K = 2, 3, 8 at 2^20 with untrained
    nets, and K = 1, a [7, 128, 128, 128, 5] net and a [7, 2048, 5] one)
    against their plain versions at 2^24; path 7,
    ``build_smc_run(attach_fused_guided_scalar_kernels(...), 2^24,
-   chunk=8)`` against Kalman; path 8, ``build_smc_run(
+   chunk=8)`` against Kalman, with ``mxu=True`` (the twin, the default)
+   and with ``mxu=False`` (K12); path 8, ``build_smc_run(
    attach_fused_guided_discrete_kernels(...), 2^24, chunk=8)`` (K9 then
    K13); path 9a, the same model per step at 2^20 (K13 one-step launches,
    T = 12); path 9b, ``island_every=8`` at ``chunk=16`` (the interior
@@ -101,7 +107,7 @@ and the script exits non-zero without printing its last line:
    entry its bound against the published peaks and its calibrated bound
    (``analyze_kernels``: the binding resource and the fraction, at most 1);
    the whole analysis in ``chiprun_out/roofline.json``;
-11. one JSON line on the 24 kernel entries (each with ``bound_ms``,
+11. one JSON line on the 25 kernel entries (each with ``bound_ms``,
    ``bound_by``, ``library_ms`` where one PyTorch call computes the same
    function, ``calibrated_bound_ms`` and ``calibrated_by``), the card line,
    and the result line ``{"ok": true, "device": {...}}``.
@@ -154,6 +160,9 @@ PASS1_F64_OPS = 511 / 16
 # The kernels' work by resource and their bounds (bound_ms against the
 # published peaks, calibrated_bound_ms against the card's own calibration)
 # live in cpprob_tpu_torch/util/roofline.py; each phase imports them there.
+# Entries read on the roofline line only (a kernel's other configuration,
+# not a kernel of its own: K3 is K2's kernel without the island check).
+ROOFLINE_EXTRA = []
 
 
 def _sync():
@@ -630,10 +639,17 @@ def hmm_phases(card, stages):
     for name, (ms, plain_ms) in timing.items():
         print(f"[{card}] {name} at n={MAIN_N}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
+    # K3: the same kernel without the island check, beside its plain version
     no_island_ms = time_ms(lambda: fused_hmm.hmm_chunk(
         seed, s0, w0, ys, ctrl, spec, t0=1, island_every=0), 10)
-    print(f"[{card}] chunk at n={MAIN_N}, island_every=0: kernel "
-          f"{no_island_ms:.4f} ms")
+    no_island_plain = time_ms(lambda: fused_hmm.hmm_chunk_plain(
+        seed, s0, w0, ys, ctrl, spec, t0=1, island_every=0), 1)
+    print(f"[{card}] chunk at n={MAIN_N}, island_every=0 (K3): kernel "
+          f"{no_island_ms:.4f} ms, plain {no_island_plain:.4f} ms")
+    ROOFLINE_EXTRA.append(
+        {"name": "hmm_chunk_kernel (K3, island_every=0)", "ms": no_island_ms,
+         "launches": None, "plain_ms": no_island_plain,
+         **chain_chunk_bound(MAIN_N, 3, int(n_valid))})
     with stages.stage("profile", sync=True):
         profile_sweeps(run, obs, card)
 
@@ -1540,6 +1556,19 @@ CHAIN_NET_SEED = 6
 # torch's may differ in the last bit (they agreed bit for bit at 2^24 on an
 # H100 80GB HBM3 at 700.00 W, chip_smoke.py's check_guided_kernels)
 GUIDED_TOL = 1e-5
+# K12's tensor-core twin against the same plain version over one step,
+# where the net's rounding is not carried through later moves: states and
+# log_w within TC_STEP_TOL of 1 + |plain|.  Its products are 3xTF32
+# (float32-level, ~2^-21 a product) and its sums take another order: over
+# the nets below it read 1.5e-6 to 6.4e-6, its 1xTF32 variant 4.1e-4 to
+# 1.4e-2 (an H100 80GB HBM3 at 700 W), so the tolerance sits 3x above the
+# one and 20x below the other
+TC_STEP_TOL = 2e-5
+# the nets the twin is held on besides path 7's trained [3,16,16,2]: the
+# sizes of tests/test_torch_guided_tc.py's packing test (padding, two
+# hidden->hidden products) and the widest it takes (guided_tc_max_width);
+# random, seeded, at the trainer's initial scale
+TC_NETS = ([3, 8, 8, 2], [3, 24, 24, 2], [3, 16, 16, 16, 2], [3, 32, 32, 2])
 
 
 def guided_trans_lp(x, nx, t):
@@ -1585,6 +1614,145 @@ def train_guides(card, stages):
     return nets["lg"], nets["chain"]
 
 
+def _tc_net(sizes, seed):
+    """A random ``kind="normal"`` net of ``sizes`` on the card, from a
+    seeded numpy generator: weights at the trainer's initial scale
+    (``mlp_init``: N(0, 2 / fan_in)), biases N(0, 0.1^2); the raw output's
+    bias keeps std near 1."""
+    import numpy as np
+
+    from cpprob_tpu_torch.interop import mlp_params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    layers = [{"w": (math.sqrt(2.0 / a) * rng.standard_normal((a, b))).astype(np.float32),
+               "b": (0.1 * rng.standard_normal(b)).astype(np.float32)}
+              for a, b in zip(sizes[:-1], sizes[1:])]
+    layers[-1]["b"][1] += 0.5
+    return mlp_params_from_numpy(layers, device="cuda")
+
+
+def build_twins(twins):
+    """Builds the tensor-core twins' generated sources, one nvcc each, all
+    started together; prints each one's registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cpprob_tpu_torch.ops import _build
+
+    with ThreadPoolExecutor(len(twins)) as pool:
+        list(pool.map(lambda k: k._library(), twins))
+    for k in twins:
+        for line in _build.BUILD_LOGS.get(k.library, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {k.library} {k.layer_sizes()}:", line.strip())
+
+
+def check_tc_sass(twin):
+    """The tensor-core twin's machine code: TF32 ``HMMA`` (mma.sync), and
+    no spill and no other local-memory access (``LDL``/``STL``).  Returns
+    (registers, spills)."""
+    from cpprob_tpu_torch.util.sass import kernel_report
+
+    rep = kernel_report(twin.library, "guided_tc_kernel")
+    if len(rep) != 1:
+        raise AssertionError(f"guided_tc_kernel: {len(rep)} functions in the library")
+    (f, r), = rep.items()
+    hmma = {o: c for o, c in r["full"].items() if o.startswith("HMMA")}
+    local = sum(c for o, c in r["opcodes"].items() if o in ("LDL", "STL"))
+    print(f"SASS guided_tc_kernel {twin.layer_sizes()}: {r['registers']} registers, spills {r['spills']}, {local} local loads "
+          f"and stores, {r['instructions']} instructions, {hmma}")
+    if not hmma or not all("TF32" in o for o in hmma):
+        raise AssertionError("guided_tc_kernel: no TF32 HMMA in its SASS")
+    if r["spills"] not in (None, (0, 0)) or local:
+        raise AssertionError(f"guided_tc_kernel uses local memory: spills "
+                             f"{r['spills']}, {local} LDL/STL")
+    return r["registers"], r["spills"]
+
+
+def _rel_err(got, want):
+    """max |got - want| / (1 + |want|)."""
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+def check_twin(lg_params, x0, w0, ys, n, seed):
+    """K12's tensor-core twin on the card.  One step (n_valid 1, t0 1 and
+    2: each half of a Box-Muller pair) against the plain version on path
+    7's net and the ``TC_NETS``, within ``TC_STEP_TOL``; on the same
+    inputs its 1xTF32 variant (``util/guided_tc_parts.py`` ``one_tf32``)
+    must fall outside it, so the check tells float32-level products from
+    TF32-level ones.  Then its chunks (t0 1 and 9, n_valid 8 and 7, a
+    ragged n, two nets) against the same steps taken one launch at a time,
+    bit for bit: the chunk's draws, masking and carried state add nothing
+    to a step.  Each build's SASS by ``check_tc_sass``.  Returns the
+    largest |dlog_w| against the plain version."""
+    from cpprob_tpu_torch.ops.guided_tc import GuidedTensorCoreKernel
+    from cpprob_tpu_torch.ops.triton_ssm import guided_scalar_chunk_plain
+    from cpprob_tpu_torch.util.guided_tc_parts import variant_kernel
+
+    dev = x0.device
+    print(f"K12 mxu (the tensor-core twin) against the same plain version over "
+          f"one step: states and log_w within {TC_STEP_TOL} of 1 + |plain| "
+          "(3xTF32 products and another order of summation in the net); its "
+          "1xTF32 variant must fall outside; slots beyond 1e-5 counted")
+    nets = [lg_params] + [_tc_net(sizes, i) for i, sizes in enumerate(TC_NETS)]
+    twins = [GuidedTensorCoreKernel(p, guided_trans_lp, guided_obs_lp, LG_T) for p in nets]
+    controls = [variant_kernel("one_tf32", p, guided_trans_lp, guided_obs_lp, LG_T)
+                for p in nets]
+    build_twins(twins + controls)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    worst = 0.0
+    for twin, control in zip(twins, controls):
+        for t0 in (1, 2):
+            ys_c = ys[0][t0 - 1:]
+            out_k = twin.chunk(seed, x0, w0, ys_c, one, t0=t0)
+            out_c = control.chunk(seed, x0, w0, ys_c, one, t0=t0)
+            out_p = guided_scalar_chunk_plain(twin.params, guided_trans_lp, guided_obs_lp,
+                                              LG_T, seed, x0, w0, ys_c, one, t0=t0)
+            _sync()
+            what = f"K12 mxu {twin.layer_sizes()} n={n} t0={t0} n_valid=1"
+            e_k = max(_rel_err(a, b) for a, b in zip(out_k[:2], out_p[:2]))
+            e_c = max(_rel_err(a, b) for a, b in zip(out_c[:2], out_p[:2]))
+            dx = float((out_k[0] - out_p[0]).abs().max())
+            dw = float((out_k[1] - out_p[1]).abs().max())
+            beyond = int(((out_k[0] - out_p[0]).abs() > 1e-5).sum()
+                         + ((out_k[1] - out_p[1]).abs() > 1e-5).sum())
+            print(f"check {what}: max|d|/(1+|p|) {e_k:.3g} (1xTF32 variant {e_c:.3g}), "
+                  f"max|dx|={dx:.3g} max|dlog_w|={dw:.3g}, {beyond} slots beyond 1e-5 "
+                  f"(tolerance {TC_STEP_TOL})")
+            if not e_k <= TC_STEP_TOL:
+                raise AssertionError(f"{what}: {e_k} outside {TC_STEP_TOL}")
+            if not e_c > TC_STEP_TOL:
+                raise AssertionError(f"{what}: the 1xTF32 variant ({e_c}) passes the "
+                                     "check too, so it does not hold the products")
+            _close_stats(out_k[2], out_p[2], n, what)
+            worst = max(worst, dw)
+            del out_k, out_c, out_p
+
+    print("K12 mxu's chunks against the same steps launched one at a time: "
+          "states, log_w and records bit-equal")
+    cases = [(twins[0], t0, ys_c, nv, n) for t0, ys_c in ((1, ys[0]), (9, ys[1]))
+             for nv in (LG_CHUNK, LG_CHUNK - 1)]
+    cases += [(twins[0], 1, ys[0], LG_CHUNK, n - 77), (twins[3], 9, ys[1], LG_CHUNK, n)]
+    for twin, t0, ys_c, nv, m in cases:
+        xs, ws = x0[:m], w0[:m]
+        out_k = twin.chunk(seed, xs, ws, ys_c, torch.full((), nv, dtype=torch.int32,
+                                                          device=dev), t0=t0)
+        x, w = xs, ws
+        for s in range(nv):
+            x, w, rec = twin.chunk(seed, x, w, ys_c[s:], one, t0=t0 + s)
+        _sync()
+        n_diff = int(((out_k[0] != x) | (out_k[1] != w)).sum())
+        print(f"check K12 mxu {twin.layer_sizes()} n={m} t0={t0} n_valid={nv}/{LG_CHUNK} "
+              f"against {nv} one-step launches: {n_diff} slots differ, records "
+              f"{'equal' if torch.equal(out_k[2], rec) else 'differ'}")
+        if n_diff or not torch.equal(out_k[2], rec):
+            raise AssertionError(f"K12 mxu n={m} t0={t0} n_valid={nv}: the chunk is not "
+                                 "its steps")
+        del out_k, x, w
+    for twin in twins + controls:
+        check_tc_sass(twin)
+    return worst
+
+
 def _guided_tables(params):
     import numpy as np
 
@@ -1596,9 +1764,10 @@ def _guided_tables(params):
 
 def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
                          n_step=GUIDED_STEP_N, seed=CHECK_SEED):
-    """K12 and K13 against their plain versions on the card at the guided
-    paths' shapes.  K12 (the LG net, t0 1 and 9, n_valid 8 and 7) within
-    ``GUIDED_TOL``; K13 (the chain's net on K9's population: flag 0 and 1,
+    """K12, its tensor-core twin and K13 against their plain versions on
+    the card at the guided paths' shapes.  K12 (the LG net, t0 1 and 9,
+    n_valid 8 and 7) within ``GUIDED_TOL``; the twin by
+    :func:`check_twin`; K13 (the chain's net on K9's population: flag 0 and 1,
     n_valid 8 and 7, island off; the 16-slot chunk with an island check at
     a threshold that fires) and its one-step launch (K = 5, 2^20, flag 0 and
     1) by :func:`_compare_chunk`, as K8: the tables take the same operations
@@ -1649,6 +1818,8 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
             _close_stats(out_k[2], out_p[2], n, what)
             errs["guided_scalar"] = max(errs["guided_scalar"], dw)
             del out_k, out_p
+
+    errs["guided_tc"] = check_twin(lg_params, x0, w0, ys, n, seed)
     del x0, w0
 
     print("K13 against its plain version: states equal and log_w within 1e-5 "
@@ -1741,9 +1912,10 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
 
 
 def guided_phases(card, stages):
-    """Guided SMC: the two nets trained on the card, K12 and K13 against
-    their plain versions, paths 7, 8, 9a, 9b (16 sweeps each) and 9c
-    (``GUIDED_SMC_SWEEPS``), timings.  Returns the kernel lines."""
+    """Guided SMC: the two nets trained on the card, K12, its tensor-core
+    twin and K13 against their plain versions, paths 7 (with each twin), 8,
+    9a, 9b (16 sweeps each) and 9c (``GUIDED_SMC_SWEEPS``), timings.
+    Returns the kernel lines."""
     from cpprob_tpu_torch import build_smc_run, smc
     from cpprob_tpu_torch.interop import spec_from_numpy
     from cpprob_tpu_torch.models.linear_gaussian import (
@@ -1751,7 +1923,7 @@ def guided_phases(card, stages):
         linear_gaussian_ssm,
         simulate_observations,
     )
-    from cpprob_tpu_torch.ops import fused_hmm, triton_ssm
+    from cpprob_tpu_torch.ops import fused_hmm, guided_tc, triton_ssm
     from cpprob_tpu_torch.ops import stream_resample as sr
     from cpprob_tpu_torch.ops.fused_ssm import (
         attach_fused_guided_discrete_kernels,
@@ -1762,29 +1934,43 @@ def guided_phases(card, stages):
         bound,
         guided_net_ops,
         guided_table_ops,
+        guided_tc_ops,
     )
 
     dev = torch.device("cuda")
     lg_params, chain_params = train_guides(card, stages)
     with stages.stage("guided_kernel_vs_plain", sync=True):
         errs = check_guided_kernels(lg_params, chain_params)
-    counters = (triton_ssm.LAUNCHES, sr.LAUNCHES, fused_hmm.LAUNCHES)
+    counters = (triton_ssm.LAUNCHES, guided_tc.LAUNCHES, sr.LAUNCHES, fused_hmm.LAUNCHES)
 
-    # path 7: the guided linear-Gaussian model, K12 at 8 and 7 steps
+    # path 7: the guided linear-Gaussian model at 8 and 7 steps, with the
+    # reference's default (mxu=True: the tensor-core twin) and with
+    # mxu=False (the Triton K12)
     obs = _lg_obs(dev)
     exact_lg = kalman_filter_1d(simulate_observations(LG_T, 0))[2]
-    lg = attach_fused_guided_scalar_kernels(
-        linear_gaussian_ssm, lg_params, LG_T,
-        trans_logpdf_elem=guided_trans_lp, obs_logpdf_elem=guided_obs_lp)
-    run7 = build_smc_run(lg, GUIDED_N, chunk=GUIDED_CHUNK)
-    with stages.stage("guided_path7", sync=True):
-        got7, times7, _ = run_path(
-            run7, obs, SWEEPS, counters, exact_lg,
-            f"path 7: guided LG (K12) n={GUIDED_N} T={LG_T} chunk={GUIDED_CHUNK}",
-            epochs_each=False)
     n_ch = -(-(LG_T - 1) // GUIDED_CHUNK)
-    _expect(got7, {"guided": SWEEPS * n_ch, "lse_stats": SWEEPS * n_ch,
-                   "pass1": SWEEPS * n_ch, "pass2": SWEEPS * n_ch}, "path 7")
+    runs7, got7, times7, se7 = {}, {}, {}, {}
+    for mxu, key in ((True, "guided_tc"), (False, "guided")):
+        lg = attach_fused_guided_scalar_kernels(
+            linear_gaussian_ssm, lg_params, LG_T, trans_logpdf_elem=guided_trans_lp,
+            obs_logpdf_elem=guided_obs_lp, mxu=mxu)
+        runs7[mxu] = build_smc_run(lg, GUIDED_N, chunk=GUIDED_CHUNK)
+        if mxu:
+            twin7 = lg.fused_chunk_t_batch.kernel
+        with stages.stage(f"guided_path7_mxu_{mxu}", sync=True):
+            got7[mxu], times7[mxu], res = run_path(
+                runs7[mxu], obs, SWEEPS, counters, exact_lg,
+                f"path 7 (mxu={mxu}: {type(lg.fused_chunk_t_batch.kernel).__name__}): "
+                f"guided LG n={GUIDED_N} T={LG_T} chunk={GUIDED_CHUNK}",
+                epochs_each=False)
+        _expect(got7[mxu], {key: SWEEPS * n_ch, "lse_stats": SWEEPS * n_ch,
+                            "pass1": SWEEPS * n_ch, "pass2": SWEEPS * n_ch},
+                f"path 7 mxu={mxu}")
+        zs = torch.stack([r.log_evidence for r in res]).double()
+        se7[mxu] = float(zs.std() / math.sqrt(SWEEPS))
+    print(f"path 7: logZ SE over {SWEEPS} sweeps {se7[True]:.3g} (mxu=True) and "
+          f"{se7[False]:.3g} (mxu=False)")
+    run7 = runs7[True]
 
     # path 8: the guided 5-state chain, K9 then K13 at 8 and 7 steps
     ys5 = _chain_obs(5, T, 0)
@@ -1859,12 +2045,15 @@ def guided_phases(card, stages):
     c1 = torch.tensor([1, *[GUIDED_STEP_N * (k + 1) // 5 for k in range(4)], 1],
                       dtype=torch.int32, device=dev)
     y5 = obs12[5].reshape(1)
+    # one plain version serves both twins of K12
+    plain7 = time_ms(lambda: triton_ssm.guided_scalar_chunk_plain(
+        lg_params, guided_trans_lp, guided_obs_lp, LG_T, seed, x0, w0, ys[0],
+        valid[0], t0=1), 2)
     timing = {
-        "guided_scalar": (
-            time_ms(lambda: k12.chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
-            time_ms(lambda: triton_ssm.guided_scalar_chunk_plain(
-                lg_params, guided_trans_lp, guided_obs_lp, LG_T, seed, x0, w0,
-                ys[0], valid[0], t0=1), 2)),
+        "guided_tc": (time_ms(lambda: twin7.chunk(seed, x0, w0, ys[0], valid[0], t0=1),
+                              10), plain7),
+        "guided_scalar": (time_ms(lambda: k12.chunk(seed, x0, w0, ys[0], valid[0], t0=1),
+                                  10), plain7),
         "guided_chunk": (
             time_ms(lambda: fused_hmm.guided_chunk(seed, s0, wc0, ys8[0], c8,
                                                     spec5, gt), 10),
@@ -1879,8 +2068,11 @@ def guided_phases(card, stages):
     }
     for name, (ms, plain_ms) in timing.items():
         print(f"[{card}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    print(f"K12 compiled: (registers, spills) per thread {k12.registers}")
-    for name, run, o, times in (("7", run7, obs, times7), ("8", run8, obs5, times8),
+    print(f"K12 compiled: (registers, spills) per thread {k12.registers}; K12 mxu "
+          f"{check_tc_sass(twin7)}")
+    for name, run, o, times in (("7 (mxu=True)", runs7[True], obs, times7[True]),
+                                ("7 (mxu=False)", runs7[False], obs, times7[False]),
+                                ("8", run8, obs5, times8),
                                 ("9a", run9a, obs12, times9a),
                                 ("9b", run9b, obs5, times9b)):
         n_path = GUIDED_STEP_N if name == "9a" else GUIDED_N
@@ -1909,7 +2101,11 @@ def guided_phases(card, stages):
                      philox_calls=n * steps)
 
     ps12 = GUIDED_N * int(valid[0])
+    tc_ops = guided_tc_ops(sizes12)
     bounds = {
+        "guided_tc": bound(16 * GUIDED_N, ps12 * tc_ops["f32_ops"],
+                           tf32_macs=ps12 * tc_ops["tf32_macs"], philox_calls=ps12 / 2,
+                           normal_pairs=ps12 / 2, exp_log_pairs=ps12),
         "guided_scalar": bound(16 * GUIDED_N, ps12 * k12_f32, philox_calls=ps12 / 2,
                                normal_pairs=ps12 / 2, exp_log_pairs=ps12),
         "guided_chunk": k13_bound(GUIDED_N, int(v8[0])),
@@ -1917,7 +2113,8 @@ def guided_phases(card, stages):
     }
     print(f"bounds: K12 {k12_f32} float operations, half a Philox call and "
           f"Box-Muller pair and one exp + log1p pair per particle-step for the "
-          f"{sizes12} net; K13 tables {table_ops} operations per CTA-step; "
+          f"{sizes12} net; K12 mxu {tc_ops['tf32_macs']} TF32 multiply-adds and "
+          f"{tc_ops['f32_ops']} float operations; K13 tables {table_ops} operations per CTA-step; "
           + ", ".join(f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
                       for k, v in bounds.items()))
 
@@ -1931,7 +2128,11 @@ def guided_phases(card, stages):
     return [
         line("guided_chunk_kernel (K12, [3,16,16,2] net)", "guided_scalar",
              "triton", "cpprob_tpu_torch/ops/triton_ssm.py",
-             "cpprob_tpu/ops/pallas_ssm.py:948", got7["guided"]),
+             "cpprob_tpu/ops/pallas_ssm.py:887", got7[False]["guided"]),
+        line(f"guided_tc_kernel (K12 mxu, [3,16,16,2] net, 3xTF32 mma.sync, "
+             f"{guided_tc.GROUPS} particles a thread)", "guided_tc", "cuda",
+             "cpprob_tpu_torch/ops/csrc/guided_tc.cuh",
+             "cpprob_tpu/ops/pallas_ssm.py:948", got7[True]["guided_tc"]),
         line("guided_chunk_kernel<K> (K13, K = 5, [7,16,16,5] net)",
              "guided_chunk", "cuda", cu, "cpprob_tpu/ops/pallas_ssm.py:1351",
              got8["guided_chunk"] + got9b["guided_chunk"]),
@@ -2253,12 +2454,12 @@ def main():
     calibrations, peaks = roofline_phases(card, stages)
     kernels += calibrations
     print(stages.report())
-    roofline_line(card, peaks, kernels)
+    roofline_line(card, peaks, kernels + ROOFLINE_EXTRA)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "calibrated_bound_ms", "calibrated_by")
     missing = [(k["name"], key) for k in kernels for key in keys if key not in k]
-    if missing or len(kernels) != 24:
+    if missing or len(kernels) != 25:
         raise AssertionError(f"kernels line: {len(kernels)} entries, missing {missing}")
     print(json.dumps({"kernels": kernels}))
     print(card)

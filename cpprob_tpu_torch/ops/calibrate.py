@@ -51,7 +51,6 @@ __all__ = [
     "calibrate_transcendental_plain", "tensor_core_operands",
 ]
 
-_THREADS = 256
 FP32_N = (1 << 15) * 128          # calibrate_vpu: rows 2^15 x 128 lanes
 FP32_STEPS = 2048 // 8            # chain 2048 over eight chains
 TC_DIM = 64                       # csrc/calibrate.cu kTcDim
@@ -176,7 +175,7 @@ def _lib():
             getattr(lib, name).restype = i
         lib.fp32_chain_launch.argtypes = [p, ll, i, p, p]
         lib.tensor_core_launch.argtypes = [p, p, ll, i, p, p]
-        lib.add_one_launch.argtypes = [p, ll, p, i, p]
+        lib.add_one_launch.argtypes = [p, ll, p, p]
         lib.normal_rate_launch.argtypes = [p, ll, i, u, u, u, p, p]
         lib.philox_rate_launch.argtypes = [p, ll, i, u, u, u, p, p]
         lib.transcendental_launch.argtypes = [p, ll, i, p, p]
@@ -255,10 +254,8 @@ def calibrate_hbm(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     if n % 4:
         raise ValueError(f"add_one_kernel takes a length that is a multiple of 4, got {n}")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = max(1, min(-(-n // (4 * _THREADS)), 16 * sms))
     return _launch("add_one_kernel", "hbm", x, lambda lib, out, s: (
-        lib.add_one_launch(x.data_ptr(), n, out.data_ptr(), grid, s)))
+        lib.add_one_launch(x.data_ptr(), n, out.data_ptr(), s)))
 
 
 def calibrate_normals(seed: int, x: torch.Tensor, pairs: int = PRNG_DRAWS // 2,

@@ -225,19 +225,18 @@ tensor_core_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// K19: out = x + 1, 16-byte loads and stores, grid-stride.
+// K19: out = x + 1, one float4 a thread with streaming cache hints
+// (ld.global.cs / st.global.cs: the 512 MB stream is not kept in L2), a
+// grid that covers the array once (PyTorch's elementwise shape).  Two or
+// four float4s in flight a thread, plain loads and stores, or one wave of
+// resident CTAs striding over the array were no faster (PERF.md §6).
 __global__ void __launch_bounds__(kThreads)
 add_one_kernel(const float4* __restrict__ x, long long n4,
                float4* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4;
-       i += stride) {
-    float4 v = x[i];
-    v.x += 1.f;
-    v.y += 1.f;
-    v.z += 1.f;
-    v.w += 1.f;
-    out[i] = v;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i < n4) {
+    const float4 v = __ldcs(x + i);
+    __stcs(out + i, make_float4(v.x + 1.f, v.y + 1.f, v.z + 1.f, v.w + 1.f));
   }
 }
 
@@ -313,10 +312,11 @@ int tensor_core_launch(const float* a, const float* b, long long rows,
   return (int)cudaGetLastError();
 }
 
-int add_one_launch(const float* x, long long n, float* out, int grid,
-                   void* stream) {
-  add_one_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(x), n / 4, reinterpret_cast<float4*>(out));
+int add_one_launch(const float* x, long long n, float* out, void* stream) {
+  const long long n4 = n / 4;
+  add_one_kernel<<<(int)((n4 + kThreads - 1) / kThreads), kThreads, 0,
+                   (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(x), n4, reinterpret_cast<float4*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,9 @@ families).
 - :func:`attach_fused_guided_scalar_kernels`: a scalar model with a
   ``kind="normal"`` proposal net (trained by
   :func:`~cpprob_tpu_torch.inference.smc_csis.train_ssm_proposal`) fused
-  into the Triton chunk kernel K12 (:class:`.triton_ssm.GuidedScalarKernel`).
+  into a guided chunk kernel: by default (``mxu=True``) K12's tensor-core
+  twin (:class:`.guided_tc.GuidedTensorCoreKernel`, CUDA), else the Triton
+  K12 (:class:`.triton_ssm.GuidedScalarKernel`).
 - :func:`attach_fused_guided_discrete_kernels`: a K-state HMM (2 <= K <= 8)
   with a ``kind="discrete"`` proposal net fused into the CUDA chunk kernel
   K13 (:func:`.fused_hmm.guided_chunk`), which builds the proposal's K x K
@@ -45,7 +47,8 @@ import torch
 from ..inference.smc import StateSpaceModel
 from ..inference.smc_csis import proposal_hooks
 from .fused_hmm import GUIDED_MAX_K, fused_hmm_hooks, guided_hooks, stats_from_partials
-from .triton_ssm import GuidedScalarKernel, UserKernel
+from .guided_tc import GuidedTensorCoreKernel
+from .triton_ssm import GuidedScalarKernel, UserKernel, check_scalar_net
 
 __all__ = [
     "make_fused_discrete_ssm",
@@ -193,10 +196,11 @@ def attach_fused_vector_kernels(base_model, step_elem, state_dim: int):
 
 
 def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
-                                       trans_logpdf_elem, obs_logpdf_elem):
+                                       trans_logpdf_elem, obs_logpdf_elem,
+                                       mxu: bool = True):
     """``base_model`` (scalar continuous states) guided by ``params``, a
     ``kind="normal"`` proposal net (features ``[z_prev, y, t/T]``, outputs
-    ``(mean, raw)``), with the guided chunk kernel K12 installed as the
+    ``(mean, raw)``), with a guided chunk kernel installed as the
     time-aware chunk hook ``fused_chunk_t_batch``:
 
     >>> lg = attach_fused_guided_scalar_kernels(
@@ -204,20 +208,38 @@ def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
     ...     trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp)
     >>> run = build_smc_run(lg, 1 << 24, chunk=8)
 
+    ``mxu=True`` (the default, as the reference's) installs the tensor-core
+    twin (:class:`.guided_tc.GuidedTensorCoreKernel`: the net's hidden
+    layers on ``mma.sync`` in 3xTF32, CUDA built at the first launch) for a
+    net with at least one hidden layer; ``mxu=False``, or a linear ``[3,
+    2]`` head, installs the Triton K12 (:class:`.triton_ssm.GuidedScalarKernel`).
+    Both compute the plain version's function, the twin to within
+    float32-level rounding of the net; on CPU tensors both run it.  The
+    hook carries its kernel object as ``fused_chunk_t_batch.kernel``.
+
     ``trans_logpdf_elem(x, nx, t)`` and ``obs_logpdf_elem(nx, y, t)`` are the
     model's densities as elementwise functions under the contract of
     :mod:`.triton_ssm`.  A net of another shape or a density outside the
-    contract raises ``ValueError`` here.  The same net serves the engine's
-    unfused guided step (``proposal_sample`` / ``proposal_logpdf``: chunk 1
-    and runs with history), so the guide is never dropped; the in-kernel
-    weights carry the exact RN correction, so the evidence estimator is
-    that of the unguided kernel."""
-    kernel = GuidedScalarKernel(params, trans_logpdf_elem, obs_logpdf_elem, T)
+    contract raises ``ValueError`` here, as does, with ``mxu=True``, a
+    hidden layer wider than :func:`.guided_tc.guided_tc_max_width` or a
+    density the twin does not render to C++ (the message names
+    ``mxu=False``).  The same net serves the engine's unfused guided step
+    (``proposal_sample`` / ``proposal_logpdf``: chunk 1 and runs with
+    history), so the guide is never dropped; the in-kernel weights carry
+    the exact RN correction, so the evidence estimator is that of the
+    unguided kernel."""
+    if mxu and len(check_scalar_net(params)[0]) >= 2:
+        kernel = GuidedTensorCoreKernel(params, trans_logpdf_elem,
+                                        obs_logpdf_elem, T)
+    else:
+        kernel = GuidedScalarKernel(params, trans_logpdf_elem, obs_logpdf_elem, T)
 
     def fused_chunk(key, states, log_w, ys, n_valid, t0):
         x, w, rec = kernel.chunk(key, states, log_w, ys,
                                  n_valid.to(torch.int32), t0=t0)
         return x, w, stats_from_partials(rec, states.shape[0])[0]
+
+    fused_chunk.kernel = kernel
 
     sample, logpdf = proposal_hooks(params, T, kind="normal")
     return dataclasses.replace(

@@ -1,8 +1,8 @@
 """The user-physics chunk kernels (Triton) — counterparts of
 ``_make_scalar_chunk_kernel`` and ``_make_vector_chunk_kernel``
 (``cpprob_tpu/ops/pallas_ssm.py:588-630,730-772``), and of the guided
-scalar chunk kernel ``_make_guided_scalar_chunk_kernel(_mxu)``
-(``pallas_ssm.py:887-1037``).
+scalar chunk kernel's elementwise twin ``_make_guided_scalar_chunk_kernel``
+(``pallas_ssm.py:887-945``; its MXU twin is ``ops/guided_tc.py``).
 
 One Triton kernel template serves the first two: D = 1 is K10 (scalar
 states, (n,) float32), D > 1 is K11 (vector states, (n, D) float32, read
@@ -86,8 +86,10 @@ the same order.  What bounds K12 on an H100: for hidden width H about 3H
 + 2H² + 5H float operations per particle-step (~640 at H = 16; the kernel
 keeps multiplies and adds apart), plus half a Philox call, the draw's and
 q's transcendentals and the densities, against 16 B per particle per
-chunk: float32 issue, not memory.  Putting the H x H layer on the tensor
-cores is later work.
+chunk: float32 issue, not memory.  This kernel runs with
+``attach_fused_guided_scalar_kernels(..., mxu=False)``; the default
+(``mxu=True``) puts the hidden layers on the tensor cores
+(``ops/guided_tc.py``).
 
 The generated kernel source goes to ``ops/_build/`` (one file per physics
 and D, and per guided model), and Triton's cache to
@@ -769,17 +771,20 @@ class GuidedScalarKernel:
         return render_guided_source(self._net, self._trans, self._obs, self.T)
 
     def chunk(self, seed: int, states: torch.Tensor, log_w: torch.Tensor,
-              ys: torch.Tensor, n_valid=None, *, t0: int = 1):
+              ys: torch.Tensor, n_valid=None, *, t0: int = 1, draws=None):
         """The chunk on the device of ``states`` (n,) float32: the kernel on
-        CUDA tensors, :func:`guided_scalar_chunk_plain` on CPU tensors.
-        Returns (states, log_w, records)."""
+        CUDA tensors, :func:`guided_scalar_chunk_plain` on CPU tensors
+        (``draws``: eps in place of Philox, CPU only).  Returns (states,
+        log_w, records)."""
         dev = states.device
         if states.dim() != 1 or log_w.shape != states.shape:
             raise ValueError("states and log_w must be (n,) alike")
         if dev.type == "cpu":
             return guided_scalar_chunk_plain(
                 self.params, self.trans, self.obs, self.T, seed, states, log_w,
-                ys, n_valid, t0=t0)
+                ys, n_valid, t0=t0, draws=draws)
+        if draws is not None:
+            raise ValueError("draws= is for the plain version on CPU tensors")
         n, n_steps = states.shape[0], ys.shape[0]
         if not 0 < n < 2 ** 31 or t0 < 0 or t0 + n_steps >= 2 ** 24:
             raise ValueError("need 0 < n < 2^31 and t0 + n_steps < 2^24 "

@@ -13,7 +13,8 @@ has two bounds:
 
 - ``bound_ms`` against the published peaks (3.35 TB/s; 67 TFLOP/s for the
   work outside the tensor cores, integer and float64 operations counted at
-  that rate too; 989 TFLOP/s bf16 on the tensor cores), and
+  that rate too; 989 TFLOP/s bf16 and 495 TFLOP/s TF32 on the tensor
+  cores), and
 - ``calibrated_bound_ms``, the largest of count / effective rate over its
   resources, with the resource (``calibrated_by``) and the kernel's
   fraction of it.  The effective rate of a resource is the larger of its
@@ -36,18 +37,20 @@ import torch
 
 __all__ = [
     "EXP_LOG_OPS", "F32_OPS_PER_S", "HBM_BYTES_PER_S", "PEAKS", "PHILOX_OPS",
-    "RESOURCES", "TC_BF16_MACS_PER_S", "analyze_kernels", "bound",
-    "calibrate_peaks", "calibrated_rates", "calibration_work",
+    "RESOURCES", "TC_BF16_MACS_PER_S", "TC_TF32_MACS_PER_S", "analyze_kernels",
+    "bound", "calibrate_peaks", "calibrated_rates", "calibration_work",
     "chain_chunk_bound", "chain_init_bound", "guided_net_ops",
-    "guided_table_ops", "main", "normal_chunk_bound", "peaks_from_runs",
-    "time_ms", "uncalibrated_setters",
+    "guided_table_ops", "guided_tc_ops", "main",
+    "normal_chunk_bound", "peaks_from_runs", "time_ms", "uncalibrated_setters",
 ]
 
 # H100 SXM datasheet peaks (dense): HBM, float32 outside the tensor cores,
-# bf16 on the tensor cores (989 TFLOP/s = 494.5 T multiply-adds/s)
+# bf16 on the tensor cores (989 TFLOP/s = 494.5 T multiply-adds/s), TF32 on
+# the tensor cores (495 TFLOP/s)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TC_BF16_MACS_PER_S = 989e12 / 2
+TC_TF32_MACS_PER_S = 495e12 / 2
 # operations of one Philox4x32-10 call: ten rounds of two 32x32->64
 # multiplies (4 ops) and four xors, and the uniform's shift, convert and
 # scale; of one Box-Muller pair (log, sqrt, sin and cos, 2 multiplies); of
@@ -59,28 +62,32 @@ EXP_LOG_OPS = 4
 # the resources a kernel's work is split into, and the peak each is read
 # against: bytes (HBM), float32 and 32-bit integer operations (the FMA and
 # ALU pipes), float64 operations, tensor-core bf16 multiply-adds, Philox
-# calls, Box-Muller pairs (each with its Philox call), exp + log1p pairs
+# calls, Box-Muller pairs (each with its Philox call), exp + log1p pairs,
+# tensor-core TF32 multiply-adds
 RESOURCES = ("bytes", "f32_ops", "f64_ops", "tc_macs", "philox_calls",
-             "normal_pairs", "exp_log_pairs")
+             "normal_pairs", "exp_log_pairs", "tf32_macs")
 
 
 def bound(n_bytes=0, f32_ops=0, *, f64_ops=0, tc_macs=0, philox_calls=0,
-          normal_pairs=0, exp_log_pairs=0, library_ms=None):
+          normal_pairs=0, exp_log_pairs=0, tf32_macs=0, library_ms=None):
     """A kernel's work by resource (``counts``) and its bound against the
     published peaks: the larger of its bytes over the HBM rate and its
     operations over the rate of their type (float32, integer and float64
     operations, Philox calls at ``PHILOX_OPS``, Box-Muller pairs at
     ``BOX_MULLER_OPS``, exp/log pairs at ``EXP_LOG_OPS``, over 67 TFLOP/s;
-    tensor-core multiply-adds over 494.5 T/s).  ``library_ms``: the time of
-    one PyTorch call for the same function, or None."""
+    bf16 tensor-core multiply-adds over 494.5 T/s, TF32 ones over 247.5
+    T/s).  ``library_ms``: the time of one PyTorch call for the same
+    function, or None."""
     counts = {"bytes": n_bytes, "f32_ops": f32_ops, "f64_ops": f64_ops,
               "tc_macs": tc_macs, "philox_calls": philox_calls,
-              "normal_pairs": normal_pairs, "exp_log_pairs": exp_log_pairs}
+              "normal_pairs": normal_pairs, "exp_log_pairs": exp_log_pairs,
+              "tf32_macs": tf32_macs}
     counts = {k: float(v) for k, v in counts.items() if v}
     ops = (f32_ops + f64_ops + PHILOX_OPS * philox_calls
            + BOX_MULLER_OPS * normal_pairs + EXP_LOG_OPS * exp_log_pairs)
     ms_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    ms_o = max(ops / F32_OPS_PER_S, tc_macs / TC_BF16_MACS_PER_S) * 1e3
+    ms_o = max(ops / F32_OPS_PER_S, tc_macs / TC_BF16_MACS_PER_S,
+               tf32_macs / TC_TF32_MACS_PER_S) * 1e3
     return {"bound_ms": max(ms_b, ms_o),
             "bound_by": "bytes" if ms_b >= ms_o else "operations",
             "library_ms": library_ms, "counts": counts}
@@ -120,6 +127,25 @@ def guided_net_ops(sizes):
     ops = 3 * sizes[1]
     ops += sum(2 * a * b for a, b in zip(sizes[1:-1], sizes[2:]))
     return ops + sum(sizes[2:-1])
+
+
+def guided_tc_ops(sizes):
+    """K12's tensor-core twin (``ops/guided_tc.py``) per particle-step, for
+    a net of ``sizes`` (hidden widths padded to multiples of 8, as run):
+    ``tf32_macs``, three TF32 multiply-adds (3xTF32, the fewest that give
+    float32-level products on the tensor cores) per weight of the
+    hidden->hidden layers; ``f32_ops``, the first layer (a multiply-add and
+    a max per unit), a max per later hidden unit (the bias is the first
+    product's addend), the output layer (a multiply-add per weight, 2 ops)
+    and the tail's 14 (move 2, log q 4, densities and weight 8, as K12's
+    bound counts them).  The TF32 split of each activation (3 operations)
+    and the quad's adds of the output layer are work of the kernel's
+    design, not of the function, and are not counted."""
+    ps = [sizes[0], *(-(-h // 8) * 8 for h in sizes[1:-1]), sizes[-1]]
+    hidden = ps[1:-1]
+    macs = sum(a * b for a, b in zip(hidden[:-1], hidden[1:]))
+    f32 = 3 * hidden[0] + sum(hidden[1:]) + 4 * hidden[-1] + 14
+    return {"tf32_macs": 3 * macs, "f32_ops": f32}
 
 
 def guided_table_ops(sizes, K):
@@ -278,8 +304,9 @@ def peaks_from_runs(runs):
 
 def calibrated_rates(peaks):
     """The rate each resource is read against: the calibrations, float64 at
-    half the float32 rate (the H100's ratio; not calibrated), a Box-Muller
-    pair at half the normal rate."""
+    half the float32 rate and TF32 multiply-adds at half the bf16 rate (the
+    H100's ratios; neither is calibrated), a Box-Muller pair at half the
+    normal rate."""
     return {
         "bytes": peaks["hbm_marginal_bytes_per_s"],
         "f32_ops": peaks["fp32_flops_per_s"],
@@ -288,6 +315,7 @@ def calibrated_rates(peaks):
         "philox_calls": peaks["philox_calls_per_s"],
         "normal_pairs": peaks["normal_variates_per_s"] / 2,
         "exp_log_pairs": peaks["exp_log1p_pairs_per_s"],
+        "tf32_macs": peaks["tensor_core_bf16_macs_per_s"] / 2,
     }
 
 

@@ -94,9 +94,11 @@ def parse_spills(log: str) -> dict:
 
 def kernel_report(lib: str, kernel: str) -> dict:
     """The kernels of the built library ``lib`` (``ops/_build.py``, built
-    by this process) whose mangled names contain ``kernel``: for each, its
-    registers, spill bytes and the count of each opcode in its SASS (the
-    mnemonic before the first dot, predicates dropped)."""
+    by this process: a ``csrc`` name or a generated library's
+    "<name>-<hash>") whose mangled names contain ``kernel``: for each, its
+    registers, spill bytes, the count of each opcode in its SASS (the
+    mnemonic before the first dot, predicates dropped) and of each opcode
+    with its modifiers (``full``, e.g. ``HMMA.1688.F32.TF32``)."""
     from ..ops import _build
 
     path = _build.library_path(lib)
@@ -108,15 +110,17 @@ def kernel_report(lib: str, kernel: str) -> dict:
     for f, insns in parse_sass(dump.stdout).items():
         if kernel not in f:
             continue
-        ops = collections.Counter()
+        ops, full = collections.Counter(), collections.Counter()
         for i in insns:
             words = i.split()
             if words and words[0].startswith("@"):
                 words = words[1:]
             if words:
                 ops[words[0].split(".")[0]] += 1
+                full[words[0]] += 1
         out[f] = {"registers": regs.get(f), "spills": spills.get(f),
-                  "instructions": len(insns), "opcodes": dict(ops)}
+                  "instructions": len(insns), "opcodes": dict(ops),
+                  "full": dict(full)}
     return out
 
 

@@ -46,6 +46,7 @@ from cpprob_tpu_torch.ops.fused_ssm import (
     attach_fused_guided_discrete_kernels,
     attach_fused_guided_scalar_kernels,
 )
+from cpprob_tpu_torch.ops.guided_tc import GuidedTensorCoreKernel
 from cpprob_tpu_torch.ops.triton_ssm import (
     GUIDED_BLOCK,
     GuidedScalarKernel,
@@ -141,9 +142,15 @@ def test_guided_scalar_matches_pallas_interpret(mxu, t0, n_valid):
     s_r, w_r, ess_r = ref.fused_chunk_t_batch(
         jax.random.key(0), jnp.asarray(x0), jnp.asarray(w0), jnp.asarray(ys),
         jnp.int32(n_valid), jnp.int32(t0))
-    s, w, rec = guided_scalar_chunk_plain(
-        mlp_params_from_numpy(params, device="cpu"), trans_lp, obs_lp, T, 0,
-        torch.as_tensor(x0), torch.as_tensor(w0), torch.as_tensor(ys),
+    # the port's model with the same mxu: the twin's kernel object, run on
+    # CPU tensors (its plain version) with the reference's pinned eps = 0
+    model = attach_fused_guided_scalar_kernels(
+        linear_gaussian_ssm, mlp_params_from_numpy(params, device="cpu"), T,
+        trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp, mxu=mxu)
+    kernel = model.fused_chunk_t_batch.kernel
+    assert isinstance(kernel, GuidedTensorCoreKernel if mxu else GuidedScalarKernel)
+    s, w, rec = kernel.chunk(
+        0, torch.as_tensor(x0), torch.as_tensor(w0), torch.as_tensor(ys),
         torch.tensor(n_valid, dtype=torch.int32), t0=t0,
         draws=torch.zeros(len(ys), 1))
     # states: float32 rounding of the net (the MXU twin sums its dots in

@@ -47,13 +47,59 @@ def _owners(st, n):
 
 
 def test_logsumexp_stats_matches_pallas():
+    """The port's float64 (m, wtot) against the reference kernel's float32
+    pair (the reference's own test holds its wtot to XLA's at the same
+    rtol, tests/test_pallas_resample.py:148) and against an independent
+    numpy float64 sum; every message carries the numbers."""
     lw, _ = _weights_values(7, 2 * TILE, 3.0)
     m_j, wtot_j = logsumexp_stats(jnp.asarray(lw), interpret=True)
     stats = sr.logsumexp_stats_plain(torch.as_tensor(lw))
-    assert stats.dtype == torch.float64 and stats.shape == (2,)
-    assert float(stats[0]) == float(m_j)
-    np.testing.assert_allclose(float(stats[1]), float(wtot_j), rtol=1e-5)
-    assert torch.equal(sr.logsumexp_stats(torch.as_tensor(lw)), stats)
+    exact = np.exp(lw.astype(np.float64) - lw.max()).sum()
+    said = (f"reference (m, wtot) = ({float(m_j)!r}, {float(wtot_j)!r}); port "
+            f"{stats.tolist()}; numpy float64 wtot {exact!r}")
+    assert stats.dtype == torch.float64 and stats.shape == (2,), said
+    assert float(stats[0]) == float(m_j) == float(lw.max()), said
+    np.testing.assert_allclose(float(stats[1]), exact, rtol=1e-12, err_msg=said)
+    np.testing.assert_allclose(float(stats[1]), float(wtot_j), rtol=1e-5, err_msg=said)
+    assert torch.equal(sr.logsumexp_stats(torch.as_tensor(lw)), stats), said
+
+
+def test_logsumexp_stats_first_call_in_a_fresh_process():
+    """The port's first float64 statistics of a process, at the default
+    intra-op thread count, against an independent numpy float64 sum at
+    1e-12, and equal to a second call: importing the port makes PyTorch's
+    first multi-threaded CPU ``exp`` (``util/cpu_math.py``), which can be
+    wrong in one thread's chunk where every later one is exact."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import numpy as np, torch\n"
+        "from cpprob_tpu_torch.ops import stream_resample as sr\n"
+        "lw = np.random.default_rng(7).normal(0, 3.0, 8 * 32768).astype(np.float32)\n"
+        "stats = sr.logsumexp_stats_plain(torch.as_tensor(lw))\n"
+        "exact = np.exp(lw.astype(np.float64) - lw.max()).sum()\n"
+        "np.testing.assert_allclose(float(stats[1]), exact, rtol=1e-12)\n"
+        "assert torch.equal(sr.logsumexp_stats_plain(torch.as_tensor(lw)), stats)\n"
+        "print(torch.get_num_threads())\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_first_exp_after_the_import_is_exact(seed):
+    """``util/first_exp.py``'s fresh process with the port imported: its
+    first float32 (seed 0: float64 first) and float64 ``exp`` within 4 ulp
+    and 1e-13 of numpy's."""
+    from cpprob_tpu_torch.util import first_exp
+
+    got = first_exp.first_exp_errors(True, seed)
+    assert got["first"] == ("float64" if seed == 0 else "float32")
+    assert got["float32"] <= 2.4e-7 and got["float64"] <= 1e-13, got
 
 
 @pytest.mark.parametrize("n_tiles", [1, 3])
