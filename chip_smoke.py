@@ -15,7 +15,12 @@ and the script exits non-zero without printing its last line:
    16-slot chunk): the init kernel, and the chunk kernel with the flag off
    and on, n_valid 15 and 8 of 16, and the island check off, forced
    (thresh 2.0), at the main path's 0.5, never firing (0.0) and at a
-   threshold that splits the islands; a multi-chunk sweep (chunk 4) whose
+   threshold that splits the islands, and the main path's launch from t0
+   = 2, 3 and 4 besides 1 (the transition draws come four steps from a
+   Philox call, so each start cuts the groups elsewhere); the chunk
+   against its own one-step launches, bit for bit (``check_chunk_steps``:
+   t0 4 to 7, island checks off and never firing); a multi-chunk sweep
+   (chunk 4) whose
    boundary resamples go through the flag and ticks;
    ``build_smc_run(make_fused_hmm_ssm(island_every=8), 2^26, chunk=16)`` on
    the headline benchmark's observations (T = 16) for 16 sweeps, checked
@@ -26,8 +31,11 @@ and the script exits non-zero without printing its last line:
    (``chiprun_out/sweep_trace.json``: device time by kernel, busy share);
    before them, the SASS of the two kernels redesigned last
    (``check_sass``): ``tensor_core_kernel`` is wgmma alone (``HGMMA``, no
-   ``HMMA``), and ``pass1_scan_kernel``'s double-precision instructions a
-   particle match its bound's count;
+   ``HMMA``), ``pass1_scan_kernel``'s double-precision instructions a
+   particle match its bound's count, and each chain kernel instance's
+   registers and local memory (``check_chain_sass``: none in
+   ``hmm_chunk_kernel<K>``, ``hmm_chunk_kernel_k`` and
+   ``guided_chunk_kernel<K>``);
 4. the continuous-state path (``lg_phases``): at 2^24 particles, the LG
    chunk kernel against its plain version (t0 odd, even and 9, n_valid 8
    and 7), the one-step launch (and eight of them against one eight-step
@@ -45,7 +53,8 @@ and the script exits non-zero without printing its last line:
 5. the kernel-from-spec family (``spec_phases``): K9 and K8 against their
    plain versions for K = 5 at 2^24 (8- and 16-slot chunks), K = 12 and 32
    at 2^20 (4-slot chunks) and K = 1, the flag off and on, n_valid short,
-   the island check forced, at 0.5 and at 0.0; K4 and K5 (one-step
+   the island check forced, at 0.5 and at 0.0, from t0 = 1 to 4; K = 5
+   and 12 against their one-step launches; K4 and K5 (one-step
    launches of the chunk kernel behind the HMM's per-step hooks) against
    ``hmm_chunk_plain`` at n_steps = 1; path 1,
    ``build_smc_run(make_fused_discrete_ssm(5-state chain), 2^24,
@@ -74,7 +83,8 @@ and the script exits non-zero without printing its last line:
    bit for bit; each build's SASS must show TF32 ``HMMA`` and no local
    memory, ``check_tc_sass``) and K13
    (CUDA, the guided 5-state chain: flag 0 and 1, n_valid 8 and 7, island
-   off, and a 16-slot chunk whose forced island check fires; its one-step
+   off, and a 16-slot chunk whose forced island check fires, from t0 = 1
+   to 4, and against its one-step launches; its one-step
    launch at 2^20; its instances for K = 2, 3, 8 at 2^20 with untrained
    nets, and K = 1, a [7, 128, 128, 128, 5] net and a [7, 2048, 5] one)
    against their plain versions at 2^24; path 7,
@@ -249,18 +259,58 @@ def check_kernels(n=MAIN_N, seed=CHECK_SEED):
     ctrl = torch.tensor([0, n // 3, 2 * n // 3, ISLAND_EVERY],
                         dtype=torch.int32, device=dev)
     cases.append((ctrl, ISLAND_EVERY, 2.0, 0.0))
+    cases = [(1, *c) for c in cases]
+    # the main path's launch from t0 = 2, 3, 4 (mod 4: 2, 3, 0; t0 = 1 above):
+    # the first and the cut groups of four steps move with the start
+    cases += [(t0, *cases[2][1:]) for t0 in (2, 3, 4)]
+    cases.append((3, *cases[1][1:]))
 
-    for ctrl, island_every, thresh, want in cases:
-        kw = dict(t0=1, island_every=island_every, island_thresh=thresh)
+    for t0, ctrl, island_every, thresh, want in cases:
+        kw = dict(t0=t0, island_every=island_every, island_thresh=thresh)
         out_k = hmm_chunk(seed, s_k, w_k, ys, ctrl, spec, **kw)
         out_p = hmm_chunk_plain(seed, s_k, w_k, ys, ctrl, spec, **kw)
         _sync()
-        what = (f"chunk n={n} flag={int(ctrl[0])} n_valid={int(ctrl[-1])}/"
+        what = (f"chunk n={n} t0={t0} flag={int(ctrl[0])} n_valid={int(ctrl[-1])}/"
                 f"{ys.shape[0]} island_every={island_every} thresh={thresh:.6g}")
         errs["chunk"] = max(errs["chunk"], _compare_chunk(out_k, out_p, K, n,
                                                           what, want))
         del out_k, out_p
+    ctrl = torch.tensor([1, n // 3, 2 * n // 3, int(n_valid)], dtype=torch.int32,
+                        device=dev)
+    check_chunk_steps(
+        lambda s, w, y, c, t0, every, thresh: hmm_chunk(
+            seed, s, w, y, c, spec, t0=t0, island_every=every, island_thresh=thresh),
+        s_k, w_k, ys, ctrl, K, f"K2 n={n}")
     return errs
+
+
+def check_chunk_steps(chunk, s0, w0, ys, ctrl, K, what, every=ISLAND_EVERY):
+    """A chunk kernel on the card against its steps launched one at a time
+    (the chunk's flag and ticks on the first launch, flag 0 after, up to
+    n_valid), bit for bit in states, weights and records: from t0 = 4, 5, 6,
+    7 (0 to 3 mod 4), without island checks and with checks every
+    ``every`` steps that never fire (thresh 0: the kernel ends its tiles
+    there and draws the cut group of four steps again).  ``chunk(s, w, ys,
+    ctrl, t0, island_every, thresh)`` launches the kernel."""
+    n_valid = int(ctrl[K])
+    for t0 in (4, 5, 6, 7):
+        for island_every, thresh in ((0, 0.5), (every, 0.0)):
+            out = chunk(s0, w0, ys, ctrl, t0, island_every, thresh)
+            s, w, rec = s0, w0, None
+            for t in range(n_valid):
+                c = ctrl.clone()
+                c[K] = 1
+                if t:
+                    c[0] = 0
+                s, w, rec = chunk(s, w, ys[t:t + 1].contiguous(), c, t0 + t, 0, 0.5)
+            _sync()
+            if not all(torch.equal(a, b) for a, b in zip(out, (s, w, rec))):
+                raise AssertionError(f"{what} t0={t0} island_every={island_every}: "
+                                     f"the chunk differs from its one-step launches")
+            del out, s, w, rec
+    print(f"check {what}: each chunk (t0 4 to 7, n_valid {n_valid}/{ys.shape[0]}, "
+          f"island checks off and every {every} at thresh 0) equals its "
+          f"{n_valid} one-step launches, bit for bit")
 
 
 def check_multichunk(n=CHECK_N, chunk=4, seeds=8):
@@ -500,6 +550,31 @@ def check_sass():
           f"bound counts {PASS1_F64_OPS})")
     if abs(f64 - PASS1_F64_OPS) > 0.2 * PASS1_F64_OPS:
         raise AssertionError("pass1_scan_kernel: PASS1_F64_OPS is stale")
+    check_chain_sass()
+
+
+def check_chain_sass():
+    """The chain chunk kernels (``hmm_chunk_kernel<K>`` for K = 2..8,
+    ``hmm_chunk_kernel_k``, ``guided_chunk_kernel<K>``): each
+    instance's registers and local memory (stack frame, spill bytes,
+    ``LDL``/``STL`` in its SASS), which must be none."""
+    from cpprob_tpu_torch.util.sass import kernel_report
+
+    for kernel in ("hmm_chunk_kernel", "guided_chunk_kernel"):
+        rep = kernel_report("fused_hmm", kernel)
+        if len(rep) != (8 if kernel == "hmm_chunk_kernel" else 7):
+            raise AssertionError(f"{kernel}: {len(rep)} instances in the library")
+        for f, r in sorted(rep.items()):
+            ops = r["opcodes"]
+            local = ops.get("LDL", 0) + ops.get("STL", 0)
+            print(f"SASS {f}: {r['registers']} registers, stack frame {r['stack']} B, "
+                  f"spills {r['spills']}, {local} LDL/STL, {r['instructions']} "
+                  f"instructions")
+            if r["registers"] is None or r["stack"] is None:
+                raise AssertionError(f"{f}: no ptxas report (the library was "
+                                     f"built by another process)")
+            if r["stack"] or r["spills"] != (0, 0) or local:
+                raise AssertionError(f"{f} uses local memory")
 
 
 def profile_sweeps(run, obs, card, sweeps=8, trace="sweep_trace.json"):
@@ -1052,17 +1127,29 @@ def check_spec_kernels(n=SPEC_N, n_big=BIGK_N, seed=CHECK_SEED):
             cases += [(isl_ys, ctrl, isl_every, 2.0, "fires"),
                       (isl_ys, ctrl, isl_every, 0.5, None),
                       (isl_ys, ctrl, isl_every, 0.0, 0.0)]
-        for ys_c, ctrl, every, thresh, want in (cases[:1] if K == 1 else cases):
-            kw = dict(t0=1, island_every=every, island_thresh=thresh)
+        cases = [(1, *c) for c in cases]
+        # the first case from t0 = 2, 3, 4 as well (2, 3, 0 mod 4)
+        cases += [(t0, *cases[0][1:]) for t0 in (2, 3, 4)]
+        for t0, ys_c, ctrl, every, thresh, want in (cases[:1] if K == 1 else cases):
+            kw = dict(t0=t0, island_every=every, island_thresh=thresh)
             out_k = hmm_chunk(seed, s_k, w_k, ys_c, ctrl, spec, **kw)
             out_p = hmm_chunk_plain(seed, s_k, w_k, ys_c, ctrl, spec, **kw)
             _sync()
-            what = (f"spec chunk K={K} n={size} flag={int(ctrl[0])} n_valid="
+            what = (f"spec chunk K={K} n={size} t0={t0} flag={int(ctrl[0])} n_valid="
                     f"{int(ctrl[-1])}/{ys_c.shape[0]} island_every={every} "
                     f"thresh={thresh}")
             errs["spec_chunk"] = max(errs["spec_chunk"], _compare_chunk(
                 out_k, out_p, K, size, what, want))
             del out_k, out_p
+        if K in (5, 12):
+            # the register instance (K8) and the run-time-K one
+            ctrl = torch.tensor([1, *ticks, chunk - 1], dtype=torch.int32, device=dev)
+            check_chunk_steps(
+                lambda s, w, y, c, t0, every, thresh: hmm_chunk(
+                    seed, s, w, y, c, spec, t0=t0, island_every=every,
+                    island_thresh=thresh),
+                s_k, w_k, ys0, ctrl, K, f"spec chunk K={K} n={size}",
+                every=3 if K == 5 else 2)
     return errs
 
 
@@ -1327,10 +1414,12 @@ def spec_phases(card, stages):
     launches["init"] += got["init"]
 
     # path 3: K = 12 and 32 at 2^20
+    runs3 = {}
     for K in (12, 32):
         ysk = _chain_obs(K, BIGK_T, K)
         runk = build_smc_run(make_fused_discrete_ssm(*_chain(K)), BIGK_N,
                              chunk=BIGK_CHUNK)
+        runs3[K] = (runk, torch.as_tensor(ysk, device=dev))
         with stages.stage(f"spec_path3_K{K}", sync=True):
             got, _, _ = run_path(runk, torch.as_tensor(ysk, device=dev),
                                  SHORT_SWEEPS, counters,
@@ -1409,6 +1498,13 @@ def spec_phases(card, stages):
     print(f"[{card}] path 1 back-to-back sweeps: {b2b:.4f} ms each by CUDA events, "
           f"{SPEC_N * T / (b2b * 1e-3):.6g} particle-steps/s; median synced sweep "
           f"{statistics.median(times1) * 1e3:.3f} ms")
+    b2b = time_ms(lambda: run2(20_001, obs5), SWEEPS)
+    print(f"[{card}] path 2 back-to-back sweeps: {b2b:.4f} ms each by CUDA events, "
+          f"{SPEC_N * T / (b2b * 1e-3):.6g} particle-steps/s")
+    for K, (runk, ysk) in runs3.items():
+        b2b = time_ms(lambda: runk(20_002, ysk), SHORT_SWEEPS)
+        print(f"[{card}] path 3 K={K} back-to-back sweeps: {b2b:.4f} ms each by CUDA "
+              f"events, {BIGK_N * BIGK_T / (b2b * 1e-3):.6g} particle-steps/s")
     print(f"[{card}] path 4 back-to-back sweeps: chunk=1 (K4) "
           f"{time_ms(lambda: run4(21_000, obs), SHORT_SWEEPS):.4f} ms, smc() (K5) "
           f"{time_ms(lambda: run5(22_000, obs), SHORT_SWEEPS):.4f} ms")
@@ -1848,6 +1944,22 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
         errs["guided_chunk"] = max(errs["guided_chunk"], _compare_chunk(
             out_k, out_p, K, n, what, want))
         del out_k, out_p
+    # K13 from t0 = 2, 3, 4 (2, 3, 0 mod 4), and against its one-step launches
+    for t0 in (2, 3, 4):
+        ctrl = torch.tensor([0, *ticks, GUIDED_CHUNK - 1], dtype=torch.int32, device=dev)
+        out_k = guided_chunk(seed, s0, w0, ys8[0], ctrl, spec5, gt, t0=t0)
+        out_p = guided_chunk_plain(seed, s0, w0, ys8[0], ctrl, spec5, gt, t0=t0)
+        _sync()
+        errs["guided_chunk"] = max(errs["guided_chunk"], _compare_chunk(
+            out_k, out_p, K, n, f"K13 n={n} t0={t0} flag=0 n_valid="
+            f"{GUIDED_CHUNK - 1}/{GUIDED_CHUNK}", None))
+        del out_k, out_p
+    ctrl = torch.tensor([1, *ticks, GUIDED_CHUNK - 1], dtype=torch.int32, device=dev)
+    check_chunk_steps(
+        lambda s, w, y, c, t0, every, thresh: guided_chunk(
+            seed, s, w, y, c, spec5, gt, t0=t0, island_every=every,
+            island_thresh=thresh),
+        s0, w0, ys8[0].contiguous(), ctrl, K, f"K13 n={n}", every=3)
     del s0, w0
 
     s1, w1, _ = hmm_init(seed, obs5[0], n_step, spec5)
@@ -2088,9 +2200,10 @@ def guided_phases(card, stages):
 
     # the bounds: K12 per particle-step half a Philox call and half a pair,
     # the net, softplus (an exp + log1p pair), the move (2), log q (4), the
-    # two densities (4 each) and the weight (2); K13 per particle-step one
-    # Philox call, the target (1), the walk (2(K-1)) and the weight (1), and
-    # per CTA of ISLAND_SIZE particles and step the tables
+    # two densities (4 each) and the weight (2); K13 per particle-step a
+    # quarter of a Philox call (a uniform: one of its four words, as
+    # chain_chunk_bound counts), the target (1), the walk (2(K-1)) and the
+    # weight (1), and per CTA of ISLAND_SIZE particles and step the tables
     sizes12 = k12.layer_sizes()
     k12_f32 = guided_net_ops(sizes12) + 14
     table_ops = guided_table_ops(gt.dims, 5)
@@ -2098,7 +2211,7 @@ def guided_phases(card, stages):
     def k13_bound(n, steps):
         return bound(16 * n, n * steps * 2 * 5
                      + n // fused_hmm.ISLAND_SIZE * steps * table_ops,
-                     philox_calls=n * steps)
+                     philox_calls=n * steps / 4)
 
     ps12 = GUIDED_N * int(valid[0])
     tc_ops = guided_tc_ops(sizes12)

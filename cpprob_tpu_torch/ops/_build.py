@@ -54,8 +54,13 @@ def _digest(src_bytes: bytes, flags: list) -> str:
 
 def _build(name: str, src: Path, lib_path: Path, flags: list):
     """Compile ``src`` into ``lib_path`` unless it is there already; the
-    compiler's output goes to ``BUILD_LOGS[name]``."""
+    compiler's output goes to ``BUILD_LOGS[name]`` and beside the library
+    (``<library>.log``), where a process that finds the library built reads
+    it."""
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
+        if name not in BUILD_LOGS and log_path.exists():
+            BUILD_LOGS[name] = log_path.read_text()
         return
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
@@ -67,6 +72,7 @@ def _build(name: str, src: Path, lib_path: Path, flags: list):
             raise RuntimeError(
                 f"nvcc failed on {src.name}:\n{proc.stdout}{proc.stderr}")
         BUILD_LOGS[name] = proc.stdout + proc.stderr
+        log_path.write_text(BUILD_LOGS[name])
         os.replace(tmp, lib_path)   # atomic: no half-written library
     finally:
         if os.path.exists(tmp):

@@ -13,33 +13,48 @@
 // and _step_kernel (pallas_hmm.py:66-100, flag 0).
 //
 // Two designs, one arithmetic:
-// - K = 2..8 (hmm_*_kernel<K>): the emission tables, the per-step emission
-//   row and the per-category sums are K-sized register arrays, fully
-//   unrolled; K is a template parameter, one instance per K.
+// - K = 2..8 (hmm_*_kernel<K>): the per-category sums and the init
+//   kernel's emission tables are K-sized register arrays, fully unrolled,
+//   and each thread holds its particles in registers; K is a template
+//   parameter, one instance per K.
 // - K = 1 and 9..32 (hmm_*_kernel_k, K at run time): K-sized arrays in
 //   registers would spill (and need compile-time K), so the transition CDF
-//   (rows at an odd stride), the emission tables and each step's emission
-//   row live in shared memory; a particle's next state is a binary search
-//   of its CDF row (the rows are non-decreasing, so the search gives the
-//   count of entries <= u that the compare-and-add of the small-K design
-//   and the plain version give); the K per-category sums are one warp
-//   reduction per category over the thread's own particles, written to
-//   shared memory and summed across warps; the init kernel counts the
-//   states in a shared-memory histogram (integer atomics: exact and
-//   order-free) and forms its record from the counts, since every particle
-//   in state k carries the same t = 0 weight.
+//   (rows at an odd stride), the emission tables and each tile's emission
+//   rows live in shared memory, and so does the chunk's population (held
+//   in registers beside the binary search, it spilled); a particle's next
+//   state is a binary search of its CDF row (the rows are non-decreasing,
+//   so the search gives the count of entries <= u that the compare-and-add
+//   of the small-K design and the plain version give); the K per-category
+//   sums are one warp reduction per category over the thread's own
+//   particles, written to shared memory and summed across warps; the init
+//   kernel counts the states in a shared-memory histogram (integer atomics:
+//   exact and order-free) and forms its record from the counts, since every
+//   particle in state k carries the same t = 0 weight.
+//
+// The transition draws: the uniform of particle g at absolute step t is word
+// t & 3 of Philox4x32-10 at counter (g, t >> 2, 2, 0) under the sweep's key,
+// so one call serves four steps (stream 2; the init draw is (g, 0, 0, 0) and
+// an island's offset (island, t, 1, 0), so no two uses share a counter).  A
+// launch whose first step is not a multiple of 4, and a one-step launch,
+// makes the call for its own first group, and a group cut by an island
+// check makes it again after the check: the draws do not depend on how a
+// sweep is chunked, and a chunk equals its steps launched one at a time.
 //
 // What bounds them on an H100: the chunk kernel reads and writes 16 B per
-// particle per chunk (state + weight, in and out) but spends, per
-// particle-step, one Philox4x32-10 call (10 rounds of two 32x32 multiplies
-// plus xors, ~60 integer operations), a CDF lookup (K-1 compares, or a
-// binary search of at most 5 shared loads) and ~10 float operations.  At 8
-// to 15 steps per chunk that is ~1000 integer operations per 16 B, far above
-// the card's ratio of compute to HBM bandwidth, so the kernel is bound by
-// integer and ALU issue, not by memory.  Each thread holds its P particles
-// in registers across the whole chunk, the emission is computed once per
-// step for the K states, and the island check is one max and one sum
-// reduction per CTA every island_every steps.
+// particle per chunk (state + weight, in and out) and spends, per
+// particle-step, a quarter of a Philox4x32-10 call (10 rounds of two 32x32
+// multiplies plus xors, ~60 integer operations a call), a CDF lookup (K-1
+// compares, or a binary search of at most 5 shared loads), an emission
+// lookup and an add.  At 8 to 15 steps per chunk that is still a few hundred
+// integer operations per 16 B, above the card's ratio of compute to HBM
+// bandwidth, so the kernel is bound by integer and ALU issue.  The loop runs
+// tiles of steps: a tile ends at an island check, at the last step, or after
+// at most kTile steps on a group boundary.  Each tile's K-entry emission rows
+// are computed into shared memory first (one barrier a tile,
+// double-buffered), then each thread runs its kPerThread particles one after
+// the other through the whole tile, so only one particle's four words are
+// live at a time (the words of 16 particles held across steps would cost 48
+// registers).  The island check is one max and one sum reduction per CTA.
 //
 // Numerics: the emission, the weight update and the island ticks use
 // round-to-nearest intrinsics, so the compiler fuses no multiply-add and the
@@ -60,10 +75,85 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kIsland = 4096;                      // particles per CTA
 constexpr int kPerThread = 16;                     // particles per thread
-constexpr int kIsland = kThreads * kPerThread;     // particles per CTA
+constexpr int kThreads = kIsland / kPerThread;
+constexpr int kWarps = kThreads / 32;
+
+// The transition draws' stream (the third counter word); init draws use
+// stream 0 and the islands' offsets stream 1.
+constexpr uint32_t kTransitionStream = 2u;
+// The most steps a tile of the chunk kernels runs (a multiple of 4): the
+// emission rows of a tile live in shared memory.  Tiles of 16 and 32 steps
+// time the same; 4 and 8, more barriers, are slower (util/chain_parts.py
+// times the other values of these constants).
+constexpr int kTile = 32;
+static_assert(kTile >= 4 && kTile % 4 == 0, "a tile is whole groups of 4");
+// How many of a thread's particles the compiler interleaves in a tile of
+// the run-time-K chunk kernel (its population lives in shared memory, so
+// the loop need not be unrolled to keep it in registers).
+constexpr int kUnroll = 2;
+// The CTAs an SM is asked to hold of a chunk kernel (__launch_bounds__'s
+// second argument, so at most 65536 / (kThreads * that) registers a
+// thread): 1,024 threads (64 registers) where the kernel fits them without
+// spilling (K <= 3 and the run-time-K kernel), 768 (80 registers) elsewhere.
+// Asked for nothing, ptxas chose 64 registers and spilled at K = 6; asked
+// for one CTA, it took up to 153 and ran slower.
+static_assert(kThreads <= 768, "a CTA of at most 768 threads");
+constexpr int min_blocks(bool fits_64) {
+  return (fits_64 ? 1024 : 768) / kThreads;
+}
+
+// The end of the tile that starts at step t (relative to the launch's first
+// step, absolute t0): the next island check, n_run (the last step to run),
+// or the last group boundary of absolute time at most Tile steps on,
+// whichever comes first.
+template <int Tile>
+__device__ __forceinline__ int tile_end(int t, uint32_t t0, int n_run,
+                                        int island_every) {
+  int end = n_run;
+  if (island_every > 0) end = min(end, (t / island_every + 1) * island_every);
+  const long long cap = (((long long)t0 + t + Tile) & ~3LL) - (long long)t0;
+  return cap < end ? (int)cap : end;
+}
+
+// Steps 0 .. len-1 of a tile whose first step is absolute step ta, for
+// particle g: one Philox call per group of four absolute steps (the tile's
+// first group may start past its word 0, its last end before word 3), and
+// step(j, u) for step j of the tile with its uniform u.
+template <class Step>
+__device__ __forceinline__ void tile_steps(uint32_t g, uint32_t ta, int len,
+                                           uint2 key, Step& step) {
+  for (int j = 0; j < len;) {
+    const uint32_t tj = ta + (uint32_t)j;
+    const uint4 b =
+        philox4x32_10(make_uint4(g, tj >> 2, kTransitionStream, 0u), key);
+    const int first = (int)(tj & 3u);
+    const int last = min(4, first + len - j);   // words first .. last-1
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q >= first && q < last)
+        step(j + q - first,
+             philox_u01(q == 0 ? b.x : q == 1 ? b.y : q == 2 ? b.z : b.w));
+    }
+    j += last - first;
+  }
+}
+
+// The emission rows of a tile's len steps (observations ys[0 .. len)) into
+// e, row j at e + j * K, one entry a thread: the arithmetic of emission().
+__device__ __forceinline__ void emission_rows(const float* __restrict__ tab,
+                                              int K,
+                                              const float* __restrict__ ys,
+                                              int len, float* e) {
+  const float* mu = tab + K * (K - 1);   // means | 0.5/sigma^2 | log-normaliser
+  for (int idx = threadIdx.x; idx < len * K; idx += kThreads) {
+    const int j = idx / K, k = idx - j * K;
+    const float d = __fsub_rn(__ldg(ys + j), __ldg(mu + k));
+    e[idx] = __fsub_rn(__ldg(mu + 2 * K + k),
+                       __fmul_rn(__fmul_rn(__ldg(mu + K + k), d), d));
+  }
+}
 
 // -(y - mu_k)^2 * 0.5/sigma_k^2 + log-normaliser_k for every state k.
 template <int K>
@@ -168,7 +258,7 @@ hmm_init_kernel(const float* __restrict__ tab, const float* __restrict__ y0,
 // kPerThread of them (index base + i*kThreads + tid) in registers for the
 // whole chunk.  ctrl = [flag, ticks (K-1), n_valid].
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks(K <= 3))
 hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
                  int n_steps, const int* __restrict__ ctrl, uint32_t k0,
                  uint32_t k1, uint32_t t0, int island_every, float thresh,
@@ -177,12 +267,11 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
                  float* __restrict__ rec) {
   static_assert(K >= 2, "K >= 2");
   __shared__ float cdf[K * (K - 1)];
+  __shared__ float erow[2][kTile * K];
   __shared__ float red[kWarps * (K + 2)];
   __shared__ float bcast[K + 2];
   __shared__ int collapse_s;
   if (threadIdx.x < K * (K - 1)) cdf[threadIdx.x] = tab[threadIdx.x];
-  float mu[K], hiv[K], lc[K];
-  load_emission_tables<K>(tab, mu, hiv, lc);
 
   const int flag = ctrl[0];
   int tick[K - 1];
@@ -210,31 +299,40 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
       w[i] = w_in[g];
     }
   }
-  __syncthreads();  // cdf
 
+  // steps at or past n_valid leave the particles alone, and a check after
+  // step t can fire only while t + 1 < n_valid: both end at n_run
+  const int n_run = max(0, min(n_steps, n_valid));
   const float nb = (float)kIsland;
   float count = 0.f;
-  for (int t = 0; t < n_steps; ++t) {
+  for (int t = 0, buf = 0; t < n_run; buf ^= 1) {
+    const int end = tile_end<kTile>(t, t0, n_run, island_every);
+    const int len = end - t;
+    const float* e = erow[buf];
+    emission_rows(tab, K, ys + t, len, erow[buf]);
+    __syncthreads();   // the tile's rows (and, at the first, the CDF)
     const uint32_t ta = t0 + (uint32_t)t;
-    if (t < n_valid) {
-      float e[K];
-      emission<K>(__ldg(ys + t), mu, hiv, lc, e);
 #pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const uint32_t g = base + i * kThreads + threadIdx.x;
-        const float u =
-            philox_u01(philox4x32_10(make_uint4(g, ta, 0u, 0u), key).x);
-        const float* row = cdf + s[i] * (K - 1);
+    for (int i = 0; i < kPerThread; ++i) {
+      int si = s[i];
+      float wi = w[i];
+      auto step = [&](int j, float u) {
+        const float* row = cdf + si * (K - 1);
         int ns = 0;
 #pragma unroll
         for (int k = 0; k < K - 1; ++k) ns += (u >= row[k]);
-        s[i] = ns;
-        w[i] = __fadd_rn(w[i], pick<K>(ns, e));
-      }
+        si = ns;
+        wi = __fadd_rn(wi, e[j * K + ns]);
+      };
+      tile_steps(base + i * kThreads + threadIdx.x, ta, len, key, step);
+      s[i] = si;
+      w[i] = wi;
     }
-    if (island_every > 0 && (t + 1) % island_every == 0 && t < n_steps - 1) {
-      // the island's Kish ESS; on collapse a block-local systematic
-      // exchange resample at the island's log-mean weight
+    t = end;
+    if (island_every > 0 && t % island_every == 0 && t < n_run) {
+      // the check after step t - 1: the island's Kish ESS; on collapse a
+      // block-local systematic exchange resample at the island's log-mean
+      // weight
       float m = -INFINITY;
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) m = fmaxf(m, w[i]);
@@ -252,12 +350,11 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
       }
       block_sum<kThreads, K + 1>(v, red, bcast);
       // one thread decides, every thread follows
-      if (threadIdx.x == 0)
-        collapse_s = (v[0] * v[0] < thresh * nb * v[1]) && (t + 1 < n_valid);
+      if (threadIdx.x == 0) collapse_s = v[0] * v[0] < thresh * nb * v[1];
       __syncthreads();
       if (collapse_s) {
-        const float u0 = philox_u01(
-            philox4x32_10(make_uint4(blockIdx.x, ta, 1u, 0u), key).x);
+        const float u0 = philox_u01(philox4x32_10(
+            make_uint4(blockIdx.x, t0 + (uint32_t)(t - 1), 1u, 0u), key).x);
         int tk[K - 1];
         float cum = 0.f;
 #pragma unroll
@@ -426,9 +523,10 @@ hmm_init_kernel_k(int K, const float* __restrict__ tab,
   }
 }
 
-// hmm_chunk_kernel with K at run time: the same steps, island checks and
-// records, the tables and each step's emission row in shared memory.
-__global__ void __launch_bounds__(kThreads)
+// hmm_chunk_kernel with K at run time: the same tiles, island checks and
+// records, the population, the tables and each tile's emission rows in
+// shared memory.
+__global__ void __launch_bounds__(kThreads, min_blocks(true))
 hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
                    const float* __restrict__ ys, int n_steps,
                    const int* __restrict__ ctrl, uint32_t k0, uint32_t k1,
@@ -436,9 +534,10 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
                    const int* __restrict__ s_in, const float* __restrict__ w_in,
                    int* __restrict__ s_out, float* __restrict__ w_out,
                    float* __restrict__ rec) {
+  __shared__ int st[kIsland];
+  __shared__ float wt[kIsland];
   __shared__ float cdf[kMaxK * kMaxStride];
-  __shared__ float mu[kMaxK], hiv[kMaxK], lc[kMaxK];
-  __shared__ float emis[2][kMaxK];
+  __shared__ float erow[2][kTile * kMaxK];
   __shared__ int tick[kMaxK];
   __shared__ int isl_tick[kMaxK];
   __shared__ float red[kWarps * (kMaxK + 2)];
@@ -452,11 +551,6 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
   const int tid = threadIdx.x;
   for (int j = tid; j < K * km1; j += kThreads)
     cdf[(j / km1) * row_stride + j % km1] = tab[j];
-  if (tid < K) {
-    mu[tid] = tab[K * km1 + tid];
-    hiv[tid] = tab[K * km1 + K + tid];
-    lc[tid] = tab[K * km1 + 2 * K + tid];
-  }
   if (tid < km1) tick[tid] = ctrl[1 + tid];
   const int flag = ctrl[0];
   const int n_valid = ctrl[K];
@@ -464,61 +558,66 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
   const uint32_t base = blockIdx.x * (uint32_t)kIsland;
   __syncthreads();   // tables, ticks
 
-  int s[kPerThread];
-  float w[kPerThread];
-#pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
-    const uint32_t g = base + i * kThreads + tid;
+    const int jl = i * kThreads + tid;
+    const uint32_t g = base + jl;
     if (flag) {
       int v = 0;
       for (int k = 0; k < km1; ++k) v += ((long long)g >= tick[k]);
-      s[i] = v;
-      w[i] = 0.f;
+      st[jl] = v;
+      wt[jl] = 0.f;
     } else {
-      s[i] = s_in[g];
-      w[i] = w_in[g];
+      st[jl] = s_in[g];
+      wt[jl] = w_in[g];
     }
   }
 
+  const int n_run = max(0, min(n_steps, n_valid));   // as hmm_chunk_kernel
   const float nb = (float)kIsland;
   float count = 0.f;
+  int s[kPerThread];   // a check's and the record's copies of the states
   float ew[kPerThread];
-  for (int t = 0; t < n_steps; ++t) {
+  for (int t = 0, buf = 0; t < n_run; buf ^= 1) {
+    const int end = tile_end<kTile>(t, t0, n_run, island_every);
+    const int len = end - t;
+    const float* e = erow[buf];   // double-buffered: one barrier a tile
+    emission_rows(tab, K, ys + t, len, erow[buf]);
+    __syncthreads();
     const uint32_t ta = t0 + (uint32_t)t;
-    if (t < n_valid) {   // uniform across the block
-      float* e = emis[t & 1];   // double-buffered: one barrier per step
-      if (tid < K) {
-        const float d = __fsub_rn(__ldg(ys + t), mu[tid]);
-        e[tid] = __fsub_rn(lc[tid], __fmul_rn(__fmul_rn(hiv[tid], d), d));
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const uint32_t g = base + i * kThreads + tid;
-        const float u =
-            philox_u01(philox4x32_10(make_uint4(g, ta, 0u, 0u), key).x);
-        const int ns = count_le(cdf + s[i] * row_stride, km1, u);
-        s[i] = ns;
-        w[i] = __fadd_rn(w[i], e[ns]);
-      }
+#pragma unroll kUnroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int jl = i * kThreads + tid;
+      int si = st[jl];
+      float wi = wt[jl];
+      auto step = [&](int j, float u) {
+        const int ns = count_le(cdf + si * row_stride, km1, u);
+        si = ns;
+        wi = __fadd_rn(wi, e[j * K + ns]);
+      };
+      tile_steps(base + jl, ta, len, key, step);
+      st[jl] = si;
+      wt[jl] = wi;
     }
-    if (island_every > 0 && (t + 1) % island_every == 0 && t < n_steps - 1) {
+    t = end;
+    if (island_every > 0 && t % island_every == 0 && t < n_run) {
       float m = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < kPerThread; ++i) m = fmaxf(m, w[i]);
+      for (int i = 0; i < kPerThread; ++i) m = fmaxf(m, wt[i * kThreads + tid]);
       m = block_max<kThreads>(m, red, bcast);
 #pragma unroll
-      for (int i = 0; i < kPerThread; ++i) ew[i] = expf(w[i] - m);
+      for (int i = 0; i < kPerThread; ++i) {
+        s[i] = st[i * kThreads + tid];
+        ew[i] = expf(wt[i * kThreads + tid] - m);
+      }
       block_cat_sums(s, ew, km1, red, sums);
       // one thread decides and places the island's ticks; every thread
       // follows
       if (tid == 0) {
-        const int c = (sums[0] * sums[0] < thresh * nb * sums[1]) &&
-                      (t + 1 < n_valid);
+        const int c = sums[0] * sums[0] < thresh * nb * sums[1];
         collapse_s = c;
         if (c) {
-          const float u0 = philox_u01(
-              philox4x32_10(make_uint4(blockIdx.x, ta, 1u, 0u), key).x);
+          const float u0 = philox_u01(philox4x32_10(
+              make_uint4(blockIdx.x, t0 + (uint32_t)(t - 1), 1u, 0u), key).x);
           float cum = 0.f;
           for (int k = 0; k < km1; ++k) {
             cum = __fadd_rn(cum, sums[2 + k]);
@@ -531,13 +630,12 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
       __syncthreads();
       if (collapse_s) {
         const float lme_b = lme_s;
-#pragma unroll
         for (int i = 0; i < kPerThread; ++i) {
           const int jl = i * kThreads + tid;
           int ns = 0;
           for (int k = 0; k < km1; ++k) ns += (jl >= isl_tick[k]);
-          s[i] = ns;
-          w[i] = lme_b;
+          st[jl] = ns;
+          wt[jl] = lme_b;
         }
         count += 1.f;
       }
@@ -548,14 +646,15 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
   float m = -INFINITY;
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
-    const uint32_t g = base + i * kThreads + tid;
-    s_out[g] = s[i];
-    w_out[g] = w[i];
-    m = fmaxf(m, w[i]);
+    const int jl = i * kThreads + tid;
+    s[i] = st[jl];
+    s_out[base + jl] = s[i];
+    w_out[base + jl] = wt[jl];
+    m = fmaxf(m, wt[jl]);
   }
   m = block_max<kThreads>(m, red, bcast);
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) ew[i] = expf(w[i] - m);
+  for (int i = 0; i < kPerThread; ++i) ew[i] = expf(wt[i * kThreads + tid] - m);
   block_cat_sums(s, ew, K, red, sums);
   if (tid == 0) {
     float* out = rec + (long long)blockIdx.x * (K + 4);
@@ -582,11 +681,14 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
 //              source state a, m_a their max); ssum[a] = cum[a][K-1];
 //   rn[a][b]   log_trans[a][b] + (log g(y | b) - (l_ab - m_a - log ssum[a])),
 //              the RN weight of the move a -> b.
-// Each particle then does K8's work: one uniform u on K8's Philox counter
-// (particle, t, 0), the next state b = #{k < K-1 : cum[a][k] <= u ssum[a]}
-// (the reference's target >= cum walk, pallas_ssm.py:1313-1319,1442-1448),
-// and w += rn[a][b].  The exchange synthesis at chunk start, n_valid
-// masking, the island checks and the records are K8's code.
+// Each particle then does K8's work: one uniform u, K8's draw (word t & 3
+// of Philox at (particle, t >> 2, 2, 0)), the next state b = #{k < K-1 :
+// cum[a][k] <= u ssum[a]} (the reference's target >= cum walk,
+// pallas_ssm.py:1313-1319,1442-1448), and w += rn[a][b].  The exchange
+// synthesis at chunk start, n_valid masking, the island checks, the records
+// and the tiles are K8's code; a tile here is at most one group of four
+// steps (kGuidedTile), whose tables are built one step after the other into
+// four slots before the particles run through the tile.
 //
 // Table build, per step: layer 0 (pre[a][j] = W0[a][j] + (W0[K][j] y +
 // W0[K+1][j] t/T + b0[j]), one thread per (state, unit)), then each layer
@@ -596,8 +698,9 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
 // order (round-to-nearest intrinsics), so all CTAs hold the same tables, and
 // the plain version (ops/fused_hmm.py guided_chunk_plain) repeats it.
 //
-// What bounds it on an H100: the particle work is K8's (one Philox4x32-10
-// call and K-1 compares per particle-step, 16 B per particle per chunk
+// What bounds it on an H100: the particle work is K8's (a quarter of a
+// Philox4x32-10 call and K-1 compares per particle-step, 16 B per particle
+// per chunk
 // through HBM): integer issue.  The table build is ~K (K+2) H + K H^2 + K^2 H
 // multiply-adds per CTA-step (~2.1k at K = 5, H = 16), under 1 % of the
 // 4,096 particle updates a CTA makes per step, spread over the CTA's
@@ -606,10 +709,12 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
 // The activations of the K source states live in dynamic shared memory,
 // two buffers of K * stride floats (stride = the widest layer), so the net's
 // width is bounded by what one CTA may hold: kGuidedActBytes for the two
-// buffers, the rest of the 227 KB for the kernel's static tables (under
-// 1 KB at K = 8).  The layers' weights are read from global memory.
+// buffers, the rest of the 227 KB for the kernel's static tables (four
+// steps' tables and the reductions' scratch: under 3 KB at K = 8).  The
+// layers' weights are read from global memory.
 constexpr int kGuidedMaxLayers = 32;
-constexpr int kGuidedActBytes = 232448 - 1024;
+constexpr int kGuidedActBytes = 232448 - 3072;
+constexpr int kGuidedTile = 4;   // steps a tile of the guided kernel runs
 
 struct NetDims {
   int n_layers;
@@ -685,7 +790,7 @@ __device__ __forceinline__ void guided_tables(
 // One CTA = one island of kIsland particles in registers, as in
 // hmm_chunk_kernel<K>.  ctrl = [flag, ticks (K-1), n_valid].
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, min_blocks(false))
 guided_chunk_kernel(const float* __restrict__ tab,
                     const float* __restrict__ ltab,
                     const float* __restrict__ net, NetDims nd, float T,
@@ -697,9 +802,9 @@ guided_chunk_kernel(const float* __restrict__ tab,
                     float* __restrict__ w_out, float* __restrict__ rec) {
   static_assert(K >= 2 && K <= 8, "2 <= K <= 8");
   extern __shared__ float act[];   // 2 x K x nd.stride, dynamic
-  __shared__ float cum[K * K];
-  __shared__ float ssum[K];
-  __shared__ float rn[K * K];
+  __shared__ float cum[kGuidedTile][K * K];
+  __shared__ float ssum[kGuidedTile][K];
+  __shared__ float rn[kGuidedTile][K * K];
   __shared__ float red[kWarps * (K + 2)];
   __shared__ float bcast[K + 2];
   __shared__ int collapse_s;
@@ -729,29 +834,39 @@ guided_chunk_kernel(const float* __restrict__ tab,
     }
   }
 
+  const int n_run = max(0, min(n_steps, n_valid));   // as hmm_chunk_kernel
   const float nb = (float)kIsland;
   float count = 0.f;
-  for (int t = 0; t < n_steps; ++t) {
+  for (int t = 0; t < n_run;) {
+    const int end = tile_end<kGuidedTile>(t, t0, n_run, island_every);
+    const int len = end - t;
+    // each step's tables into its slot; the build's barriers also keep the
+    // slots from being rewritten before every thread has left the last tile
+    for (int j = 0; j < len; ++j) {
+      const float tf = __fdiv_rn((float)(t0 + (uint32_t)(t + j)), T);
+      guided_tables<K>(net, nd, tab, ltab, __ldg(ys + t + j), tf, act,
+                       cum[j], ssum[j], rn[j]);
+    }
     const uint32_t ta = t0 + (uint32_t)t;
-    if (t < n_valid) {   // uniform across the block
-      const float tf = __fdiv_rn((float)ta, T);
-      guided_tables<K>(net, nd, tab, ltab, __ldg(ys + t), tf, act, cum,
-                       ssum, rn);
 #pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const uint32_t g = base + i * kThreads + threadIdx.x;
-        const float u =
-            philox_u01(philox4x32_10(make_uint4(g, ta, 0u, 0u), key).x);
-        const int a = s[i];
-        const float target = __fmul_rn(u, ssum[a]);
+    for (int i = 0; i < kPerThread; ++i) {
+      int si = s[i];
+      float wi = w[i];
+      auto step = [&](int j, float u) {
+        const int a = si;
+        const float target = __fmul_rn(u, ssum[j][a]);
         int ns = 0;
 #pragma unroll
-        for (int k = 0; k < K - 1; ++k) ns += (cum[a * K + k] <= target);
-        s[i] = ns;
-        w[i] = __fadd_rn(w[i], rn[a * K + ns]);
-      }
+        for (int k = 0; k < K - 1; ++k) ns += (cum[j][a * K + k] <= target);
+        si = ns;
+        wi = __fadd_rn(wi, rn[j][a * K + ns]);
+      };
+      tile_steps(base + i * kThreads + threadIdx.x, ta, len, key, step);
+      s[i] = si;
+      w[i] = wi;
     }
-    if (island_every > 0 && (t + 1) % island_every == 0 && t < n_steps - 1) {
+    t = end;
+    if (island_every > 0 && t % island_every == 0 && t < n_run) {
       float m = -INFINITY;
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) m = fmaxf(m, w[i]);
@@ -768,12 +883,11 @@ guided_chunk_kernel(const float* __restrict__ tab,
         for (int k = 0; k < K - 1; ++k) v[2 + k] += (s[i] == k) ? ew : 0.f;
       }
       block_sum<kThreads, K + 1>(v, red, bcast);
-      if (threadIdx.x == 0)
-        collapse_s = (v[0] * v[0] < thresh * nb * v[1]) && (t + 1 < n_valid);
+      if (threadIdx.x == 0) collapse_s = v[0] * v[0] < thresh * nb * v[1];
       __syncthreads();
       if (collapse_s) {
-        const float u0 = philox_u01(
-            philox4x32_10(make_uint4(blockIdx.x, ta, 1u, 0u), key).x);
+        const float u0 = philox_u01(philox4x32_10(
+            make_uint4(blockIdx.x, t0 + (uint32_t)(t - 1), 1u, 0u), key).x);
         int tk[K - 1];
         float cw = 0.f;
 #pragma unroll

@@ -49,7 +49,7 @@ import math
 import numpy as np
 import torch
 
-from .philox import philox_uniform, split_seed
+from .philox import philox_uniform, philox_uniforms4, split_seed
 from .population import current_stream, launch_population, mlp_layers
 
 __all__ = [
@@ -58,18 +58,23 @@ __all__ = [
     "make_fused_hmm_ssm", "fused_hmm_hooks", "MAX_K", "GUIDED_MAX_K",
     "GuidedTables", "guided_tables_plain", "guided_chunk_plain",
     "guided_chunk", "guided_hooks", "GUIDED_MAX_LAYERS", "GUIDED_ACT_BYTES",
-    "guided_max_width",
+    "guided_max_width", "INIT_STREAM", "ISLAND_STREAM", "TRANSITION_STREAM",
 ]
 
 ISLAND_SIZE = 4096       # 256 threads x 16 particles: one CTA of the chunk kernel
+# the third Philox counter word of each draw (csrc/fused_hmm.cu): the initial
+# state (particle, 0, 0, 0), an island's offset (island, t, 1, 0), and the
+# transition uniforms of four absolute steps (particle, t >> 2, 2, 0), word
+# t & 3 for step t
+INIT_STREAM, ISLAND_STREAM, TRANSITION_STREAM = 0, 1, 2
 _THREADS = 256
 MAX_K = 32               # states the kernels take (csrc/fused_hmm.cu kMaxK)
 GUIDED_MAX_K = 8         # states the guided kernel takes
 GUIDED_MAX_LAYERS = 32   # csrc/fused_hmm.cu kGuidedMaxLayers
 # shared memory for the net's activations, two buffers of K x (widest
 # layer) float32 (csrc/fused_hmm.cu kGuidedActBytes): what one CTA may hold
-# (227 KB) less 1 KB for the kernel's static tables
-GUIDED_ACT_BYTES = 232448 - 1024
+# (227 KB) less 3 KB for the kernel's static tables (four steps' tables)
+GUIDED_ACT_BYTES = 232448 - 3072
 
 # kernel launches by wrapper, counted where each kernel is launched; a
 # one-step launch of the chunk kernel (the per-step hooks) counts under
@@ -213,12 +218,12 @@ def _category_sums(e: torch.Tensor, s2: torch.Tensor, n_cat: int) -> torch.Tenso
 def hmm_init_plain(seed: int, y0: torch.Tensor, n: int, spec: HMMSpec, *,
                    draws: torch.Tensor | None = None):
     """Plain version of the init kernel.  ``draws``: (n,) float32
-    uniforms in place of Philox counter (index, 0, 0).  Returns (states
+    uniforms in place of Philox counter (index, 0, 0, 0).  Returns (states
     int32 (n,), log_w float32 (n,), records (1, K+4))."""
     dev = y0.device
     tab = spec.tables(dev)
     u = draws if draws is not None else philox_uniform(
-        seed, torch.arange(n, device=dev), 0, 0)
+        seed, torch.arange(n, device=dev), 0, INIT_STREAM)
     s = (u[:, None] >= tab["init_cdf"][None, :]).sum(1)
     w = _emission(tab, y0)[s]
     rec = _records(w[None], s[None], spec.K, torch.zeros(1, device=dev))
@@ -232,7 +237,9 @@ def hmm_chunk_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
                     island_size: int = ISLAND_SIZE, draws=None):
     """Plain version of the chunk kernel.  ``ctrl``: int32 [flag, ticks
     (K-1), n_valid]; ``t0``: absolute time of the chunk's first step (the
-    Philox counter).  ``draws``: ``(u, u0)`` with ``u`` (n_steps, n) the
+    Philox counters: the uniform of step t is word ``t & 3`` of particle
+    g's counter ``(g, t >> 2, TRANSITION_STREAM, 0)``, so the draws do not
+    depend on the chunking).  ``draws``: ``(u, u0)`` with ``u`` (n_steps, n) the
     transition uniforms and ``u0`` (n_checks, n_islands) the island offsets,
     in place of Philox.  Returns (states int32, log_w float32, records
     (n / island_size, K+4))."""
@@ -266,10 +273,14 @@ def _chunk_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     n_blk = float(island_size)
     j_local = torch.arange(island_size, device=dev)
     n_check = 0
+    group = None
     for t in range(n_steps):
         valid = t < n_valid
-        u = draws[0][t] if draws is not None else philox_uniform(
-            seed, g, t0 + t, 0)
+        ta = t0 + t
+        if draws is None and (group is None or ta & 3 == 0):
+            # the four uniforms of the group of absolute steps holding ta
+            group = philox_uniforms4(seed, g, ta >> 2, TRANSITION_STREAM)
+        u = draws[0][t] if draws is not None else group[ta & 3]
         ns, dw = move(t, s, u)
         nw = w + dw
         s = torch.where(valid, ns, s)
@@ -281,7 +292,7 @@ def _chunk_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
             se, se2 = e.sum(1), (e * e).sum(1)
             collapse = (se * se < island_thresh * n_blk * se2) & (t + 1 < n_valid)
             u0 = draws[1][n_check] if draws is not None else philox_uniform(
-                seed, torch.arange(n_isl, device=dev), t0 + t, 1)
+                seed, torch.arange(n_isl, device=dev), t0 + t, ISLAND_STREAM)
             n_check += 1
             cum = torch.cumsum(_category_sums(e, s2, K - 1), 1)
             tk = torch.clamp(torch.ceil(n_blk * (cum / se[:, None]) - u0[:, None]),

@@ -6,17 +6,19 @@ a plain version and its kernel draw the same numbers from the same
 products are taken in 16-bit limbs so that no intermediate leaves the
 signed 64-bit range.
 
-Counters used by the port: ``(particle index, absolute time step, stream,
-0)``, keyed on the sweep's 64-bit seed split into two 32-bit words.
-Stream 0 draws the per-particle transition uniforms, stream 1 the
-per-island systematic offset.
+Counters used by the chain kernels (``fused_hmm``), keyed on the sweep's
+64-bit seed split into two 32-bit words: ``(particle, 0, 0, 0)`` the
+initial state; ``(island, absolute step t, 1, 0)`` an island's systematic
+offset; ``(particle, t >> 2, 2, 0)`` the transition uniforms of four
+absolute steps, word ``t & 3`` for step t (:func:`philox_uniforms4`).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["philox4x32", "philox_uniform", "uniform_from_bits", "split_seed"]
+__all__ = ["philox4x32", "philox_uniform", "philox_uniforms4", "uniform_from_bits",
+           "split_seed"]
 
 _M0 = 0xD2511F53
 _M1 = 0xCD9E8D57
@@ -71,3 +73,11 @@ def philox_uniform(seed: int, c0, c1, c2=0) -> torch.Tensor:
     k0, k1 = split_seed(seed)
     x, _, _, _ = philox4x32(c0, c1, c2, 0, k0, k1)
     return uniform_from_bits(x)
+
+
+def philox_uniforms4(seed: int, c0, c1, c2=0) -> torch.Tensor:
+    """float32 uniforms from the four words of Philox at counter ``(c0, c1,
+    c2, 0)`` under ``seed``, stacked on a new first axis of length 4: the
+    uniforms a kernel draws from one call, word j at ``[j]``."""
+    k0, k1 = split_seed(seed)
+    return torch.stack([uniform_from_bits(x) for x in philox4x32(c0, c1, c2, 0, k0, k1)])

@@ -95,17 +95,21 @@ def bound(n_bytes=0, f32_ops=0, *, f64_ops=0, tc_macs=0, philox_calls=0,
 
 def chain_chunk_bound(n, K, steps, checks=0):
     """The K-state chunk kernels (K2, K4, K5, K8): 16 B per particle (state
-    and weight in and out); per particle-step one Philox call, the
-    inverse-CDF walk (2(K-1)) and the weight update (K); per particle and
-    island check an exp and K + 3 sums."""
+    and weight in and out); per particle-step a quarter of a Philox call
+    (a uniform is one of the call's four words), the inverse-CDF walk
+    (2(K-1)) and the weight update (K); per particle and island check an exp
+    and K + 3 sums.  A bound is the least time the card could take for
+    the same work, so it counts what these inputs need (four uniforms from
+    a call), not what a design spends (a kernel may throw words away)."""
     return bound(16 * n + 4 * steps, n * steps * (3 * K - 2) + n * checks * (K + 4),
-                 philox_calls=n * steps)
+                 philox_calls=n * steps / 4)
 
 
 def chain_init_bound(n, K):
-    """The init kernels (K1, K9): 8 B written per particle; one Philox call,
-    the inverse-CDF walk, the emission pick and the record's sums."""
-    return bound(8 * n, n * (4 * K + 1), philox_calls=n)
+    """The init kernels (K1, K9): 8 B written per particle; a quarter of a
+    Philox call (one uniform), the inverse-CDF walk, the emission pick and
+    the record's sums; counted as :func:`chain_chunk_bound` counts."""
+    return bound(8 * n, n * (4 * K + 1), philox_calls=n / 4)
 
 
 def normal_chunk_bound(n, steps, D=1, physics_ops=6):

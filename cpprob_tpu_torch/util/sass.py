@@ -30,7 +30,7 @@ from pathlib import Path
 from ..ops._build import NVCC_FLAGS, _nvcc
 
 __all__ = ["compare", "kernel_report", "parse_registers", "parse_sass",
-           "parse_spills"]
+           "parse_spills", "parse_stack"]
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
@@ -38,6 +38,7 @@ _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _REGS = re.compile(r"Used (\d+) registers")
 _PROPS = re.compile(r"Function properties for (\S+)")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_STACK = re.compile(r"(\d+) bytes stack frame")
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
 
 
@@ -92,11 +93,28 @@ def parse_spills(log: str) -> dict:
     return out
 
 
+def parse_stack(log: str) -> dict:
+    """Function name -> bytes of its stack frame (local memory it keeps
+    besides spills: arrays indexed at run time, say), from ``ptxas -v``
+    output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = _PROPS.search(line)
+        if m:
+            cur = _name(m.group(1))
+            continue
+        m = _STACK.search(line)
+        if m and cur is not None:
+            out[cur] = int(m.group(1))
+            cur = None
+    return out
+
+
 def kernel_report(lib: str, kernel: str) -> dict:
     """The kernels of the built library ``lib`` (``ops/_build.py``, built
     by this process: a ``csrc`` name or a generated library's
     "<name>-<hash>") whose mangled names contain ``kernel``: for each, its
-    registers, spill bytes, the count of each opcode in its SASS (the
+    registers, spill bytes, stack frame bytes, the count of each opcode in its SASS (the
     mnemonic before the first dot, predicates dropped) and of each opcode
     with its modifiers (``full``, e.g. ``HMMA.1688.F32.TF32``)."""
     from ..ops import _build
@@ -105,7 +123,7 @@ def kernel_report(lib: str, kernel: str) -> dict:
     dump = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(path)],
                           capture_output=True, text=True, check=True)
     log = _build.BUILD_LOGS.get(lib, "")
-    regs, spills = parse_registers(log), parse_spills(log)
+    regs, spills, stack = parse_registers(log), parse_spills(log), parse_stack(log)
     out = {}
     for f, insns in parse_sass(dump.stdout).items():
         if kernel not in f:
@@ -119,7 +137,7 @@ def kernel_report(lib: str, kernel: str) -> dict:
                 ops[words[0].split(".")[0]] += 1
                 full[words[0]] += 1
         out[f] = {"registers": regs.get(f), "spills": spills.get(f),
-                  "instructions": len(insns), "opcodes": dict(ops),
+                  "stack": stack.get(f), "instructions": len(insns), "opcodes": dict(ops),
                   "full": dict(full)}
     return out
 

@@ -1,0 +1,70 @@
+"""Whole sweeps of the chain paths timed back to back on the card, for
+comparing two checkouts of the port in one call.
+
+    PYTHONPATH=CHECKOUT python3 cpprob_tpu_torch/util/sweep_times.py
+
+The package is imported by absolute name, so ``PYTHONPATH`` picks the
+checkout whose code runs (this file may come from another).  Sweeps, each
+by CUDA events over back-to-back sweeps after a warm-up (``time_ms``): the
+HMM main path (2^26 particles, T = 16, chunk 16, island_every 8: K1, K2),
+the HMM per step at 2^20 (chunk 1: K4; ``smc()`` with history: K5), a
+5-state chain at 2^24 (chunk 8: K9, K8) and the same chain guided by a
+random ``[7,16,16,5]`` net at 2^24 (chunk 8: K13) and per step at 2^20
+(K13 one-step).  The chain is the K-state recipe of tests/test_tpu_hw.py
+at K = 5 with standard normal observations from ``default_rng(0)``.
+Prints one JSON line: the card and the ms of each sweep.  It needs the card.
+"""
+
+import json
+import sys
+
+import numpy as np
+import torch
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise RuntimeError("sweep_times times the card: no CUDA device")
+    from cpprob_tpu_torch import build_smc_run, smc
+    from cpprob_tpu_torch.inference.nn import mlp_init
+    from cpprob_tpu_torch.models import simulate_observations
+    from cpprob_tpu_torch.ops.fused_hmm import make_fused_hmm_ssm
+    from cpprob_tpu_torch.ops.fused_ssm import (
+        attach_fused_guided_discrete_kernels,
+        make_fused_discrete_ssm,
+    )
+    from cpprob_tpu_torch.util.profiling import gpu_name_and_power
+    from cpprob_tpu_torch.util.roofline import time_ms
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    chain5 = (rng.dirichlet(np.ones(5), size=5), np.linspace(-3.0, 3.0, 5),
+              np.linspace(0.5, 1.6, 5), np.full(5, 0.2))
+    obs = torch.as_tensor(simulate_observations(16, 0), device=dev)
+    obs5 = torch.as_tensor(np.random.default_rng(0).standard_normal(16)
+                           .astype(np.float32), device=dev)
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    guided5 = attach_fused_guided_discrete_kernels(
+        *chain5, params=mlp_init([7, 16, 16, 5], gen), T=16)
+    hmm = make_fused_hmm_ssm()
+    runs = {
+        "hmm_2^26_chunk16_island8": (build_smc_run(
+            make_fused_hmm_ssm(island_every=8), 1 << 26, chunk=16), obs, 16),
+        "hmm_2^20_chunk1": (build_smc_run(hmm, 1 << 20), obs, 8),
+        "hmm_2^20_smc": (lambda seed, o: smc(hmm, o, 1 << 20, seed), obs, 8),
+        "chain5_2^24_chunk8": (build_smc_run(
+            make_fused_discrete_ssm(*chain5), 1 << 24, chunk=8), obs5, 16),
+        "guided5_2^24_chunk8": (build_smc_run(guided5, 1 << 24, chunk=8), obs5, 16),
+        "guided5_2^20_chunk1": (build_smc_run(guided5, 1 << 20), obs5, 8),
+    }
+    ms = {name: time_ms(lambda: run(20_000, o), reps)
+          for name, (run, o, reps) in runs.items()}
+    out = {"card": gpu_name_and_power(),
+           "package": sys.modules["cpprob_tpu_torch"].__file__, "ms": ms}
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -19,13 +19,20 @@ from cpprob_tpu.ops.pallas_hmm import pallas_hmm_fused_chunk, pallas_hmm_fused_i
 from cpprob_tpu_torch.interop import population_from_numpy, spec_from_numpy
 from cpprob_tpu_torch.ops import fused_hmm
 from cpprob_tpu_torch.ops.fused_hmm import (
+    ISLAND_SIZE,
     hmm_chunk,
     hmm_chunk_plain,
     hmm_init,
     hmm_init_plain,
     stats_from_partials,
 )
-from cpprob_tpu_torch.ops.philox import philox4x32, philox_uniform
+from cpprob_tpu_torch.ops.philox import (
+    philox4x32,
+    philox_uniform,
+    philox_uniforms4,
+    split_seed,
+    uniform_from_bits,
+)
 
 torch.set_num_threads(2)
 
@@ -179,6 +186,148 @@ def test_philox_uniforms():
     # another time step or stream draws other numbers
     assert not np.array_equal(u, philox_uniform(12345, torch.arange(n), 4, 0).numpy())
     assert not np.array_equal(u, philox_uniform(12345, torch.arange(n), 3, 1).numpy())
+
+
+# --------------------------------------------------------------------------
+# the transition draws: four steps from each Philox call
+
+
+def _chain_spec(K):
+    rng = np.random.RandomState(30 + K)
+    return spec_from_numpy(rng.dirichlet(np.ones(K), size=K), 2 * rng.normal(size=K),
+                           rng.uniform(0.5, 1.5, K), rng.dirichlet(np.ones(K)))
+
+
+def test_philox_uniforms4_are_the_four_words():
+    g = torch.arange(1000)
+    u4 = philox_uniforms4(99, g, 7, 2)
+    words = philox4x32(g, 7, 2, 0, *split_seed(99))
+    assert u4.shape == (4, 1000) and u4.dtype == torch.float32
+    for j in range(4):
+        assert torch.equal(u4[j], uniform_from_bits(words[j]))
+    assert torch.equal(u4[0], philox_uniform(99, g, 7, 2))
+
+
+@pytest.mark.parametrize("ta", [4, 5, 6, 7, 9])
+def test_plain_draw_is_word_t_mod_4_of_the_group_counter(ta):
+    """A one-step chunk at absolute step ta moves particle g with word
+    ta & 3 of Philox at (g, ta >> 2, 2, 0): its next states are that
+    uniform's against the transition CDF, and no other word's."""
+    n, seed = ISLAND_SIZE, 4242
+    rng = np.random.RandomState(ta)
+    s0 = torch.as_tensor(rng.randint(0, 3, n).astype(np.int32))
+    ctrl = torch.tensor([0, 0, 0, 1], dtype=torch.int32)
+    s, _, _ = hmm_chunk_plain(seed, s0, torch.zeros(n), torch.tensor([0.4]), ctrl,
+                              SPEC, t0=ta)
+    assert fused_hmm.TRANSITION_STREAM == 2
+    words = philox4x32(torch.arange(n), ta >> 2, 2, 0, *split_seed(seed))
+    cdf = torch.as_tensor(SPEC.trans_cdf)[s0.long()]
+    moved = [(uniform_from_bits(x)[:, None] >= cdf).sum(1) for x in words]
+    assert torch.equal(s.long(), moved[ta & 3])
+    assert not any(torch.equal(s.long(), m) for j, m in enumerate(moved) if j != ta & 3)
+
+
+def test_init_island_and_transition_counters_never_coincide():
+    """Over a sweep's range (two islands, absolute steps 1 to 63) the init
+    draws (g, 0, 0), the island offsets (island, t, 1) and the transition
+    groups (g, t >> 2, 2) are disjoint sets of counters, and each (particle,
+    step) takes a (counter, word) of its own."""
+    n, T = 2 * ISLAND_SIZE, 64
+    gg, tt = np.meshgrid(np.arange(n), np.arange(1, T), indexing="ij")
+    gg, tt = gg.ravel().tolist(), tt.ravel().tolist()
+    init = {(g, 0, fused_hmm.INIT_STREAM) for g in range(n)}
+    island = {(i, t, fused_hmm.ISLAND_STREAM)
+              for i in range(n // ISLAND_SIZE) for t in range(1, T)}
+    trans = {(g, t >> 2, fused_hmm.TRANSITION_STREAM) for g, t in zip(gg, tt)}
+    assert not init & island and not init & trans and not island & trans
+    assert len({(g, t >> 2, t & 3) for g, t in zip(gg, tt)}) == len(gg)
+    assert len(trans) == n * 16          # groups 0 .. 15
+
+
+def _one_step_launches(run, s, w, ys, ctrl, K, t0):
+    """The steps of a chunk launched one at a time, up to n_valid: the
+    chunk's flag and ticks on the first launch, flag 0 after."""
+    rec = None
+    for t in range(int(ctrl[K])):
+        c = ctrl.clone()
+        c[K] = 1
+        if t:
+            c[0] = 0
+        s, w, rec = run(s, w, ys[t:t + 1], c, t0 + t)
+    return s, w, rec
+
+
+def pinned_step_draws(seed, n, t0, steps, island_every):
+    """The draws of a chunk from step t0, taken step by step: ``(u, u0)``
+    for ``draws=``, u[t] word (t0 + t) & 3 of (g, (t0 + t) >> 2, 2, 0), one
+    u0 row (island, t0 + t, 1, 0) per check."""
+    g = torch.arange(n)
+    u = torch.stack([philox_uniforms4(seed, g, (t0 + t) >> 2, 2)[(t0 + t) & 3]
+                     for t in range(steps)])
+    checks = [t for t in range(steps - 1) if (t + 1) % island_every == 0]
+    u0 = torch.stack([philox_uniform(seed, torch.arange(n // ISLAND_SIZE), t0 + t, 1)
+                      for t in checks])
+    return u, u0
+
+
+CHECKS = {"none": (0, 0.5), "silent": (3, 0.0), "firing": (3, 2.0)}
+
+
+@pytest.mark.parametrize("checks", list(CHECKS))
+@pytest.mark.parametrize("t0", [4, 5, 6, 7])
+@pytest.mark.parametrize("K", [3, 5, 12])
+def test_chunk_equals_its_steps_one_at_a_time(K, t0, checks):
+    """A chunk starting at t0 = 0, 1, 2, 3 (mod 4), with n_valid 6 of 8
+    cutting a group of four steps, against its steps launched one at a
+    time, bit for bit: without island checks, and with a check every 3
+    steps that never fires (thresh 0: the kernels end a tile there and
+    draw the cut group again).  With a check that fires (thresh 2), against
+    the same chunk on the per-step draws pinned through ``draws=``."""
+    n, steps, n_valid, seed = 2 * ISLAND_SIZE, 8, 6, 77
+    spec = SPEC if K == 3 else _chain_spec(K)
+    rng = np.random.RandomState(10 * K + t0)
+    s0 = torch.as_tensor(rng.randint(0, K, n).astype(np.int32))
+    w0 = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+    ys = torch.as_tensor(rng.normal(size=steps).astype(np.float32))
+    ctrl = torch.tensor([1, *[n * (k + 1) // K for k in range(K - 1)], n_valid],
+                        dtype=torch.int32)
+    every, thresh = CHECKS[checks]
+    out = hmm_chunk_plain(seed, s0, w0, ys, ctrl, spec, t0=t0,
+                          island_every=every, island_thresh=thresh)
+    if checks == "firing":
+        ref = hmm_chunk_plain(seed, s0, w0, ys, ctrl, spec, t0=t0,
+                              island_every=every, island_thresh=thresh,
+                              draws=pinned_step_draws(seed, n, t0, steps, every))
+        assert float(out[2][:, -1].min()) == 1.0    # the t = 2 check, every island
+    else:
+        ref = _one_step_launches(
+            lambda s, w, y, c, t: hmm_chunk_plain(seed, s, w, y, c, spec, t0=t),
+            s0, w0, ys, ctrl, K, t0)
+        assert float(out[2][:, -1].max()) == 0.0
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+def test_chain_parts_variants_find_their_lines(tmp_path):
+    """``util/chain_parts.py`` (the card's comparison of the chain kernels'
+    designs) builds its variants by substituting one line of
+    ``csrc/fused_hmm.cu`` each: each still finds its line, only ``kept`` is
+    the source unchanged, and the headers are included from the source's
+    own directory."""
+    from cpprob_tpu_torch.util import chain_parts
+
+    kept = chain_parts.variant_source(chain_parts.VARIANTS["kept"])
+    assert f'#include "{chain_parts._CSRC.resolve()}/philox.cuh"' in kept
+    for name, subs in chain_parts.VARIANTS.items():
+        text = chain_parts.variant_source(subs)
+        assert (text == kept) == (name == "kept")
+    assert "constexpr int kTile = 4;" in chain_parts.variant_source(
+        chain_parts.VARIANTS["tile4"])
+    (tmp_path / "fused_hmm.cu").write_text(
+        (chain_parts._CSRC / "fused_hmm.cu").read_text().replace("kTile = 32;", "kTile = 64;"))
+    assert f'#include "{tmp_path.resolve()}/' in chain_parts.variant_source([], tmp_path)
+    with pytest.raises(ValueError, match="is gone"):
+        chain_parts.variant_source(chain_parts.VARIANTS["tile4"], tmp_path)
 
 
 @pytest.mark.parametrize("s0", [0, 1, 2])

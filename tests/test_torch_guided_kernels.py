@@ -52,6 +52,7 @@ from cpprob_tpu_torch.ops.triton_ssm import (
     GuidedScalarKernel,
     guided_scalar_chunk_plain,
 )
+from test_torch_fused_hmm import CHECKS, _one_step_launches, pinned_step_draws
 
 torch.set_num_threads(2)
 
@@ -296,6 +297,41 @@ def test_guided_discrete_wide_and_deep_nets_match_pallas_interpret(sizes, mxu):
     np.testing.assert_allclose(lme, float(lme_r), rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("checks", ["none", "silent", "firing"])
+@pytest.mark.parametrize("t0", [4, 5, 6, 7])
+def test_guided_chunk_equals_its_steps_one_at_a_time(t0, checks):
+    """K13's plain version at K = 5 under K8's draws (word t & 3 of (g,
+    t >> 2, 2, 0)): a chunk from t0 = 0, 1, 2, 3 (mod 4) with n_valid 6 of 8
+    against its steps launched one at a time, bit for bit, without island
+    checks and with a check every 3 steps that never fires; with one that
+    fires, against the chunk on the per-step draws pinned through
+    ``draws=`` (as ``test_chunk_equals_its_steps_one_at_a_time`` of the
+    unguided chain)."""
+    K, n, steps, n_valid, seed = 5, 2 * fused_hmm.ISLAND_SIZE, 8, 6, 91
+    spec, gt = _discrete_port(_net([K + 2, 8, 8, K], 6, scale=0.6))
+    rng = np.random.default_rng(t0)
+    s0 = torch.as_tensor(rng.integers(0, K, n).astype(np.int32))
+    w0 = torch.as_tensor((0.3 * rng.standard_normal(n)).astype(np.float32))
+    ys = torch.as_tensor(rng.standard_normal(steps).astype(np.float32))
+    ctrl = torch.tensor([1, *[n * (k + 1) // K for k in range(K - 1)], n_valid],
+                        dtype=torch.int32)
+    every, thresh = CHECKS[checks]
+    out = guided_chunk_plain(seed, s0, w0, ys, ctrl, spec, gt, t0=t0,
+                             island_every=every, island_thresh=thresh)
+    if checks == "firing":
+        ref = guided_chunk_plain(seed, s0, w0, ys, ctrl, spec, gt, t0=t0,
+                                 island_every=every, island_thresh=thresh,
+                                 draws=pinned_step_draws(seed, n, t0, steps, every))
+        assert float(out[2][:, -1].min()) == 1.0
+    else:
+        ref = _one_step_launches(
+            lambda s, w, y, c, t: guided_chunk_plain(seed, s, w, y, c, spec, gt, t0=t),
+            s0, w0, ys, ctrl, K, t0)
+        assert float(out[2][:, -1].max()) == 0.0
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("mxu", [False, True])
 def test_guided_one_state_chain_matches_reference(mxu):
     """K = 1: q = 1, the RN correction is 0, and the guided chunk is the
@@ -507,7 +543,7 @@ def test_guided_builders_reject_what_the_kernels_cannot_take():
                                              params=_net([8, 8, 5], 0), T=T)
     # the widest layer the shared memory holds, and one unit more
     widest = fused_hmm.guided_max_width(5)
-    assert widest == (232448 - 1024) // 40
+    assert widest == (232448 - 3072) // 40
     GuidedTables.from_params(np.log(TRANS5), _zero_net([7, widest, 5]), T)
     with pytest.raises(ValueError, match=f"shared memory.*at most {widest} units"):
         attach_fused_guided_discrete_kernels(TRANS5, MEANS5, STDS5, INIT5,

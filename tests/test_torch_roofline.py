@@ -192,15 +192,17 @@ def _peaks(**over):
 
 def test_published_bounds_keep_their_counts():
     """The helpers' published bounds are those of the counts before they
-    were split by resource (83 operations a Philox call)."""
+    were split by resource (83 operations a Philox call; the chain kernels'
+    uniforms at a quarter of a call each, one of its four words)."""
     n = 1 << 26
-    old = max(16 * n / 3.35e12, n * 15 * (83 + 7) / 67e12 + n * 7 / 67e12)
+    old = max(16 * n / 3.35e12, n * 15 * (83 / 4 + 7) / 67e12 + n * 7 / 67e12)
     assert rl.chain_chunk_bound(n, 3, 15, checks=1)["bound_ms"] == pytest.approx(old * 1e3)
+    assert rl.chain_chunk_bound(n, 3, 15)["counts"]["philox_calls"] == n * 15 / 4
     n = 1 << 24
     assert rl.normal_chunk_bound(n, 8)["bound_ms"] == pytest.approx(
         n * 8 * (83 / 2 + 4 + 6) / 67e12 * 1e3)
     assert rl.chain_init_bound(n, 5)["bound_ms"] == pytest.approx(
-        max(8 * n / 3.35e12, n * (83 + 21) / 67e12) * 1e3)
+        max(8 * n / 3.35e12, n * (83 / 4 + 21) / 67e12) * 1e3)
     b = rl.bound(8, 0, tc_macs=494.5e12)
     assert b["bound_by"] == "operations" and b["bound_ms"] == pytest.approx(1e3)
     assert b["counts"] == {"bytes": 8.0, "tc_macs": 494.5e12}
@@ -352,3 +354,48 @@ def test_sass_report_parses_spills():
     assert sass.parse_spills(log) == {"_Z1kPf": (80, 72),
                                       "_ZN44_GLOBAL__N__11_a_cu_5otherEv": (0, 0)}
     assert sass.parse_registers(log) == {"_Z1kPf": 64}
+
+
+def test_build_log_is_kept_beside_the_library(tmp_path, monkeypatch):
+    """``ops/_build.py`` keeps the compiler's output beside the library it
+    builds, so a process that finds the library built (a second script in
+    the same checkout) still reads the ptxas report that the SASS checks
+    need.  nvcc is replaced by a stub that writes the library."""
+    import subprocess
+
+    from cpprob_tpu_torch.ops import _build
+
+    calls = []
+
+    def fake_run(cmd, capture_output, text):
+        calls.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "w").close()
+        return subprocess.CompletedProcess(cmd, 0, "ptxas info    : Used 40 registers\n", "")
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_LOGS", {})
+    src, lib = tmp_path / "k.cu", tmp_path / "libk-0.so"
+    src.write_text("// a kernel")
+    _build._build("k", src, lib, [])
+    assert lib.exists() and _build.BUILD_LOGS["k"].startswith("ptxas info")
+    _build.BUILD_LOGS.clear()
+    _build._build("k", src, lib, [])
+    assert len(calls) == 1
+    assert _build.BUILD_LOGS["k"] == "ptxas info    : Used 40 registers\n"
+
+
+def test_sass_report_parses_stack_frames():
+    """``util/sass.py`` reads each function's stack frame (local memory
+    besides spills) from ptxas -v, as ``chip_smoke.py`` holds the chain
+    kernels to none."""
+    from cpprob_tpu_torch.util import sass
+
+    log = ("ptxas info    : Function properties for _Z1kPf\n"
+           "    16 bytes stack frame, 80 bytes spill stores, 72 bytes spill loads\n"
+           "ptxas info    : Function properties for "
+           "_ZN44_GLOBAL__N__ab182f26_11_a_cu_5otherEv\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
+    assert sass.parse_stack(log) == {"_Z1kPf": 16,
+                                     "_ZN44_GLOBAL__N__11_a_cu_5otherEv": 0}
