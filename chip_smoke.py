@@ -65,26 +65,30 @@ and the script exits non-zero without printing its last line:
    for 8 sweeps each; each against the exact forward recursion, with
    launch counts and resamples; timings and a profile of path 1
    (``chiprun_out/spec_sweep_trace.json``);
-6. the user-physics family (``user_phases``): Triton's Philox words against
-   ``ops/philox.py``; K10 (the LG physics, and a non-linear one) against
-   its plain version and against K7 on the same draws; K11 (the 2-D
-   linear-Gaussian model) against its plain version; path 5,
+6. the user-physics family (``user_phases``): K10 (the LG physics, and a
+   non-linear one, rendered to CUDA from the ``step_elem``) against its
+   plain version and against K7 on the same draws; K11 (the 2-D
+   linear-Gaussian model) against its plain version; their libraries'
+   registers, spills and local memory (``check_user_sass``); path 5,
    ``build_smc_run(attach_fused_scalar_kernels(linear_gaussian_ssm,
    lg_step_elem), 2^24, chunk=8)`` for 16 sweeps against Kalman, path 6,
    ``attach_fused_vector_kernels(2-D model, step, 2)`` at 2^20, chunk 4,
-   for 8 sweeps against the 2-D Kalman filter; timings;
+   for 8 sweeps against the 2-D Kalman filter; timings beside K7, in turns;
 7. guided SMC (``guided_phases``): the two proposal nets trained on the
    card by ``train_ssm_proposal`` with ``examples/kernel_bench.py``'s
-   settings (a set-up stage; fails unless the loss fell); K12 (Triton, the
+   settings (a set-up stage; fails unless the loss fell); Triton's Philox
+   words (K12's generator) against ``ops/philox.py``; K12 (Triton, the
    guided linear-Gaussian model: t0 1 and 9, n_valid 8 and 7), its
    tensor-core twin (CUDA ``guided_tc_kernel``: one step on path 7's net
    and four random nets, ``TC_NETS``, within ``TC_STEP_TOL``, where its
    1xTF32 variant must fail; its chunks against its own one-step launches,
    bit for bit; each build's SASS must show TF32 ``HMMA`` and no local
    memory, ``check_tc_sass``) and K13
-   (CUDA, the guided 5-state chain: flag 0 and 1, n_valid 8 and 7, island
-   off, and a 16-slot chunk whose forced island check fires, from t0 = 1
-   to 4, and against its one-step launches; its one-step
+   (CUDA: the tables kernel, one CTA a step, row by row against
+   ``guided_tables_plain``, then the chunk kernel on the guided 5-state
+   chain: flag 0 and 1, n_valid 8 and 7, island off, and a 16-slot chunk
+   whose forced island check fires, from t0 = 1 to 4, and against its
+   one-step launches; its one-step
    launch at 2^20; its instances for K = 2, 3, 8 at 2^20 with untrained
    nets, and K = 1, a [7, 128, 128, 128, 5] net and a [7, 2048, 5] one)
    against their plain versions at 2^24; path 7,
@@ -96,7 +100,8 @@ and the script exits non-zero without printing its last line:
    T = 12); path 9b, ``island_every=8`` at ``chunk=16`` (the interior
    check must fire in the path's own sweeps); path 9c, ``smc()`` with
    history (the engine's unfused guided step: no kernel); each against the
-   exact forward recursion or Kalman, with launch counts; timings and
+   exact forward recursion or Kalman, with launch counts; timings (K13
+   beside K8 at path 8's shapes, in turns; the tables kernel alone) and
    profiles of paths 7 and 8 (``chiprun_out/guided_lg_sweep_trace.json``,
    ``chiprun_out/guided_chain_sweep_trace.json``);
 8. the pass-2 variants (``r1_phases``, R1): ``pass2_tile_kernel`` (K16's
@@ -117,7 +122,7 @@ and the script exits non-zero without printing its last line:
    entry its bound against the published peaks and its calibrated bound
    (``analyze_kernels``: the binding resource and the fraction, at most 1);
    the whole analysis in ``chiprun_out/roofline.json``;
-11. one JSON line on the 25 kernel entries (each with ``bound_ms``,
+11. one JSON line on the 26 kernel entries (each with ``bound_ms``,
    ``bound_by``, ``library_ms`` where one PyTorch call computes the same
    function, ``calibrated_bound_ms`` and ``calibrated_by``), the card line,
    and the result line ``{"ok": true, "device": {...}}``.
@@ -129,6 +134,7 @@ with its plain version are not counted on the ``kernels`` line.
 It needs a CUDA device and never falls back to the CPU.
 """
 
+import itertools
 import json
 import math
 import os
@@ -138,6 +144,7 @@ import time
 
 import torch
 
+from cpprob_tpu_torch.ops import elem
 from cpprob_tpu_torch.util.roofline import time_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -555,12 +562,13 @@ def check_sass():
 
 def check_chain_sass():
     """The chain chunk kernels (``hmm_chunk_kernel<K>`` for K = 2..8,
-    ``hmm_chunk_kernel_k``, ``guided_chunk_kernel<K>``): each
-    instance's registers and local memory (stack frame, spill bytes,
-    ``LDL``/``STL`` in its SASS), which must be none."""
+    ``hmm_chunk_kernel_k``, ``guided_chunk_kernel<K>``) and K13's tables
+    kernel (``guided_tables_kernel<K>``): each instance's registers and
+    local memory (stack frame, spill bytes, ``LDL``/``STL`` in its SASS),
+    which must be none."""
     from cpprob_tpu_torch.util.sass import kernel_report
 
-    for kernel in ("hmm_chunk_kernel", "guided_chunk_kernel"):
+    for kernel in ("hmm_chunk_kernel", "guided_chunk_kernel", "guided_tables_kernel"):
         rep = kernel_report("fused_hmm", kernel)
         if len(rep) != (8 if kernel == "hmm_chunk_kernel" else 7):
             raise AssertionError(f"{kernel}: {len(rep)} instances in the library")
@@ -1205,73 +1213,65 @@ def check_step_kernels(n=STEP_N, seed=CHECK_SEED):
     return errs
 
 
-def check_user_kernels(n=USER_N, n_vec=VEC_N, seed=CHECK_SEED):
-    """The Triton kernels against their plain versions on the card: Triton's
-    Philox words against ops/philox.py; K10 with the LG physics (t0 1, 2
-    and 9; n_valid 8 and 7) and its one-step launch, within 1e-5 (relative,
-    and absolute on the unit scale of the states: the precise libdevice
-    functions and torch's may differ in the last bit); K10 with the LG
-    physics against K7 (lg_chunk) on the same draws, within 1e-5; K10 with
-    a non-linear physics (sin, tanh) within 1e-3 (x' = 0.7x + 2 sin x can
-    grow a last-bit difference ~2.7-fold a step over 8 steps); K11 (D = 2,
-    t0 1 and 2) within 1e-5.  Returns the largest |dlog_w| of each."""
-    from cpprob_tpu_torch.ops import elem, fused_lg, triton_ssm
-    from cpprob_tpu_torch.ops.philox import philox4x32, split_seed
+def growth_step_elem(x, y, eps):
+    """A non-linear physics (sin, tanh, minimum)."""
+    nx = 0.7 * x + 2.0 * elem.sin(x) + 0.5 * eps
+    d = (y - elem.minimum(elem.tanh(nx), 2.0)) / 0.6
+    return nx, -0.5 * d * d - HALF_LOG_2PI
 
-    def growth_step_elem(x, y, eps):
-        # a non-linear physics (sin, tanh, minimum)
-        nx = 0.7 * x + 2.0 * elem.sin(x) + 0.5 * eps
-        d = (y - elem.minimum(elem.tanh(nx), 2.0)) / 0.6
-        return nx, -0.5 * d * d - HALF_LOG_2PI
+
+def check_user_kernels(n=USER_N, n_vec=VEC_N, seed=CHECK_SEED):
+    """The user-physics kernels (CUDA generated from the step_elem) against
+    their plain versions on the card: K10 with the LG physics (t0 1, 2 and
+    9; n_valid 8 and 7) and its one-step launch, within 1e-5 (relative, and
+    absolute on the unit scale of the states: CUDA's precise functions and
+    torch's may differ in the last bit); K10 with the LG physics against K7
+    (lg_chunk) on the same draws, within 1e-5; K10 with a non-linear physics
+    (sin, tanh) within 1e-3 (x' = 0.7x + 2 sin x can grow a last-bit
+    difference ~2.7-fold a step over 8 steps); K11 (D = 2, t0 1 and 2)
+    within 1e-5.  Returns the largest |dlog_w| of each and the kernel
+    objects."""
+    from cpprob_tpu_torch.ops import fused_lg, user_chunk
 
     dev = torch.device("cuda")
-    k0, k1 = split_seed(seed)
-    words = triton_ssm.philox_words(seed, 1 << 16, 7, 3, dev)
-    ref = torch.stack(philox4x32(torch.arange(1 << 16, device=dev), 7, 3, 0,
-                                 k0, k1), 1)
-    _sync()
-    if not torch.equal(words, ref):
-        raise AssertionError("tl.philox differs from ops/philox.py")
-    print("check tl.philox: 2^16 x 4 words equal to ops/philox.py")
-
     obs = _lg_obs(dev)
     x0, w0 = _lg_population(n, seed, obs)
     ys, _ = _lg_chunks(obs)
     errs = {"scalar": 0.0, "vector": 0.0, "scalar_vs_lg": 0.0}
     eight = torch.full((), LG_CHUNK, dtype=torch.int32, device=dev)
     seven = torch.full((), LG_CHUNK - 1, dtype=torch.int32, device=dev)
-    lg_k = triton_ssm.UserKernel(lg_step_elem, 1)
-    growth_k = triton_ssm.UserKernel(growth_step_elem, 1)
-    for t0, ys_c in ((1, ys[0]), (2, ys[0]), (9, ys[1])):
-        for n_valid in (eight, seven):
-            out_k = lg_k.chunk(seed, x0, w0, ys_c, n_valid, t0=t0)
-            out_p = triton_ssm.user_chunk_plain(lg_step_elem, 1, seed, x0, w0,
-                                                ys_c, n_valid, t0=t0)
-            out_7 = fused_lg.lg_chunk(seed, x0, w0, ys_c, n_valid, t0=t0)
-            _sync()
-            what = f"K10 (LG physics) n={n} t0={t0} n_valid={int(n_valid)}/{LG_CHUNK}"
-            for a, b, tag in ((out_k, out_p, "plain"), (out_k, out_7, "K7")):
-                torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-5,
-                                           msg=f"{what} vs {tag}: states")
-                torch.testing.assert_close(a[1], b[1], rtol=1e-5, atol=1e-5,
-                                           msg=f"{what} vs {tag}: log_w")
-                _close_stats(a[2], b[2], n, f"{what} vs {tag}")
-            e_p = float((out_k[1] - out_p[1]).abs().max())
-            e_7 = float((out_k[1] - out_7[1]).abs().max())
-            errs["scalar"] = max(errs["scalar"], e_p)
-            errs["scalar_vs_lg"] = max(errs["scalar_vs_lg"], e_7)
-            print(f"check {what}: max|dlog_w| vs plain {e_p:.3g} (states "
-                  f"{float((out_k[0] - out_p[0]).abs().max()):.3g}), vs K7 "
-                  f"{e_7:.3g}, bit-equal to K7: {torch.equal(out_k[0], out_7[0]) and torch.equal(out_k[1], out_7[1])}")
-            del out_k, out_p, out_7
+    lg_k = user_chunk.UserKernel(lg_step_elem, 1)
+    growth_k = user_chunk.UserKernel(growth_step_elem, 1)
+    for (t0, ys_c), n_valid in itertools.product(
+            ((1, ys[0]), (2, ys[0]), (9, ys[1])), (eight, seven)):
+        out_p = user_chunk.user_chunk_plain(lg_step_elem, 1, seed, x0, w0, ys_c,
+                                            n_valid, t0=t0)
+        out_7 = fused_lg.lg_chunk(seed, x0, w0, ys_c, n_valid, t0=t0)
+        out_k = lg_k.chunk(seed, x0, w0, ys_c, n_valid, t0=t0)
+        _sync()
+        what = f"K10 (LG physics) n={n} t0={t0} n_valid={int(n_valid)}/{LG_CHUNK}"
+        for a, b, tag in ((out_k, out_p, "plain"), (out_k, out_7, "K7")):
+            torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-5,
+                                       msg=f"{what} vs {tag}: states")
+            torch.testing.assert_close(a[1], b[1], rtol=1e-5, atol=1e-5,
+                                       msg=f"{what} vs {tag}: log_w")
+            _close_stats(a[2], b[2], n, f"{what} vs {tag}")
+        e_p = float((out_k[1] - out_p[1]).abs().max())
+        e_7 = float((out_k[1] - out_7[1]).abs().max())
+        errs["scalar"] = max(errs["scalar"], e_p)
+        errs["scalar_vs_lg"] = max(errs["scalar_vs_lg"], e_7)
+        print(f"check {what}: max|dlog_w| vs plain {e_p:.3g} (states "
+              f"{float((out_k[0] - out_p[0]).abs().max()):.3g}), vs K7 "
+              f"{e_7:.3g}, bit-equal to K7: {torch.equal(out_k[0], out_7[0]) and torch.equal(out_k[1], out_7[1])}")
+        del out_k, out_p, out_7
     out_k = lg_k.chunk(seed, x0, w0, obs[1].reshape(1), t0=1, step=True)
-    out_p = triton_ssm.user_chunk_plain(lg_step_elem, 1, seed, x0, w0,
+    out_p = user_chunk.user_chunk_plain(lg_step_elem, 1, seed, x0, w0,
                                         obs[1].reshape(1), t0=1)
     _sync()
     torch.testing.assert_close(out_k[1], out_p[1], rtol=1e-5, atol=1e-5,
                                msg="K10 one-step launch: log_w")
     out_k = growth_k.chunk(seed, x0, w0, ys[0], eight, t0=1)
-    out_p = triton_ssm.user_chunk_plain(growth_step_elem, 1, seed, x0, w0,
+    out_p = user_chunk.user_chunk_plain(growth_step_elem, 1, seed, x0, w0,
                                         ys[0], eight, t0=1)
     _sync()
     torch.testing.assert_close(out_k[0], out_p[0], rtol=1e-3, atol=1e-3,
@@ -1290,11 +1290,11 @@ def check_user_kernels(n=USER_N, n_vec=VEC_N, seed=CHECK_SEED):
     model = lg2d_model(dev)
     xv = model.init_sample_batch(gen, n_vec)
     wv = model.obs_logpdf_batch(xv, vobs[0], 0)
-    vec_k = triton_ssm.UserKernel(lg2d_step_elem, 2)
+    vec_k = user_chunk.UserKernel(lg2d_step_elem, 2)
     four = torch.full((), VEC_CHUNK, dtype=torch.int32, device=dev)
     for t0 in (1, 2):
         out_k = vec_k.chunk(seed, xv, wv, vys[0], four, t0=t0)
-        out_p = triton_ssm.user_chunk_plain(lg2d_step_elem, 2, seed, xv, wv,
+        out_p = user_chunk.user_chunk_plain(lg2d_step_elem, 2, seed, xv, wv,
                                             vys[0], four, t0=t0)
         _sync()
         what = f"K11 (D=2) n={n_vec} t0={t0}"
@@ -1307,7 +1307,37 @@ def check_user_kernels(n=USER_N, n_vec=VEC_N, seed=CHECK_SEED):
         errs["vector"] = max(errs["vector"], err)
         print(f"check {what}: max|dx|={float((out_k[0] - out_p[0]).abs().max()):.3g} "
               f"max|dlog_w|={err:.3g}")
-    return errs
+    return errs, (lg_k, growth_k, vec_k)
+
+
+def check_user_sass(kernels):
+    """The generated user libraries' machine code: each user_chunk_kernel's
+    registers, spills and local memory.  None may spill, and none may keep
+    a stack frame larger than K7's (``lg_chunk_kernel``), whose one frame
+    (and its LDL/STL) is the slow-path argument reduction of the precise
+    ``sincosf`` (for |x| > 105615, never a Box-Muller angle), which every
+    Box-Muller kernel carries, and which ``elem.sin``/``cos`` share."""
+    from cpprob_tpu_torch.util.sass import kernel_report
+
+    (f7, r7), = kernel_report("fused_lg", "lg_chunk_kernel").items()
+    local7 = r7["opcodes"].get("LDL", 0) + r7["opcodes"].get("STL", 0)
+    print(f"SASS K7 {f7}: {r7['registers']} registers, stack frame {r7['stack']} B, "
+          f"spills {r7['spills']}, {local7} LDL/STL")
+    for k in kernels:
+        rep = kernel_report(k.library, "user_chunk_kernel")
+        if len(rep) != 1:
+            raise AssertionError(f"{k.library}: {len(rep)} user_chunk_kernel functions")
+        for f, r in sorted(rep.items()):
+            ops = r["opcodes"]
+            local = ops.get("LDL", 0) + ops.get("STL", 0)
+            print(f"SASS {k.library} {f}: {r['registers']} registers, stack frame "
+                  f"{r['stack']} B, spills {r['spills']}, {local} LDL/STL, "
+                  f"{r['instructions']} instructions, {ops.get('MUFU', 0)} MUFU, "
+                  f"loops {r['loops'][:2]}")
+            if r["registers"] is None or r["stack"] is None:
+                raise AssertionError(f"{f}: no ptxas report")
+            if r["spills"] != (0, 0) or r["stack"] > r7["stack"]:
+                raise AssertionError(f"{f} uses local memory beyond K7's")
 
 
 def _chunk_obs(obs, chunk):
@@ -1539,16 +1569,16 @@ def spec_phases(card, stages):
 
 
 def user_phases(card, stages):
-    """The user-physics family: kernel checks (K10, K11), paths 5 and 6,
-    timings.  Returns the kernel lines."""
+    """The user-physics family: kernel checks (K10, K11) and their machine
+    code, paths 5 and 6, timings beside K7.  Returns the kernel lines."""
     from cpprob_tpu_torch import build_smc_run
     from cpprob_tpu_torch.models.linear_gaussian import (
         kalman_filter_1d,
         linear_gaussian_ssm,
         simulate_observations,
     )
+    from cpprob_tpu_torch.ops import fused_lg, user_chunk
     from cpprob_tpu_torch.ops import stream_resample as sr
-    from cpprob_tpu_torch.ops import triton_ssm
     from cpprob_tpu_torch.ops.fused_ssm import (
         attach_fused_scalar_kernels,
         attach_fused_vector_kernels,
@@ -1557,14 +1587,16 @@ def user_phases(card, stages):
 
     dev = torch.device("cuda")
     with stages.stage("user_kernel_vs_plain", sync=True):
-        errs = check_user_kernels()
+        errs, kernels = check_user_kernels()
+        check_user_sass(kernels)
+    lg_k, _, vec_k = kernels
     obs = _lg_obs(dev)
     exact = kalman_filter_1d(simulate_observations(LG_T, 0))[2]
     run5 = build_smc_run(attach_fused_scalar_kernels(linear_gaussian_ssm,
                                                      lg_step_elem),
                          USER_N, chunk=LG_CHUNK)
     with stages.stage("user_path5", sync=True):
-        got5, times5, _ = run_path(run5, obs, SWEEPS, (triton_ssm.LAUNCHES, sr.LAUNCHES),
+        got5, times5, _ = run_path(run5, obs, SWEEPS, (user_chunk.LAUNCHES, sr.LAUNCHES),
                                    exact, f"path 5: K10 (LG physics) n={USER_N} chunk={LG_CHUNK}")
     n_ch = -(-(LG_T - 1) // LG_CHUNK)
     _expect(got5, {"scalar": SWEEPS * n_ch, "lse_stats": SWEEPS * n_ch,
@@ -1575,7 +1607,7 @@ def user_phases(card, stages):
                                                      lg2d_step_elem, 2),
                          VEC_N, chunk=VEC_CHUNK)
     with stages.stage("user_path6", sync=True):
-        got6, times6, res6 = run_path(run6, vobs, SHORT_SWEEPS, (triton_ssm.LAUNCHES,),
+        got6, times6, res6 = run_path(run6, vobs, SHORT_SWEEPS, (user_chunk.LAUNCHES,),
                                       kalman_2d_loglik(vys),
                                       f"path 6: K11 (2-D LG) n={VEC_N} chunk={VEC_CHUNK}")
     _expect(got6, {"vector": SHORT_SWEEPS * -(-(len(vys) - 1) // VEC_CHUNK)}, "path 6")
@@ -1585,44 +1617,45 @@ def user_phases(card, stages):
     seed = CHECK_SEED
     x0, w0 = _lg_population(USER_N, seed, obs)
     ys, valid = _lg_chunks(obs)
-    lg_k = triton_ssm.UserKernel(lg_step_elem, 1)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     model = lg2d_model(dev)
     xv = model.init_sample_batch(gen, VEC_N)
     wv = model.obs_logpdf_batch(xv, vobs[0], 0)
     vys_c, vvalid = _chunk_obs(vobs, VEC_CHUNK)
-    vec_k = triton_ssm.UserKernel(lg2d_step_elem, 2)
+    # K10 beside K7, in turns, and K11
+    runs = {"K7": lambda: fused_lg.lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1),
+            "K10": lambda: lg_k.chunk(seed, x0, w0, ys[0], valid[0], t0=1)}
+    turns = {"K10": [], "K7": []}
+    for name in ("K10", "K7", "K7", "K10"):
+        turns[name].append(time_ms(runs[name], 10))
+    print(f"[{card}] K10 (LG physics) beside K7 (n={USER_N}, 8 steps, in turns): "
+          + ", ".join(f"{k} " + "/".join(f"{v:.4f}" for v in t) for k, t in turns.items())
+          + " ms")
     timing = {
-        "scalar": (
-            time_ms(lambda: lg_k.chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
-            time_ms(lambda: triton_ssm.user_chunk_plain(
-                lg_step_elem, 1, seed, x0, w0, ys[0], valid[0], t0=1), 2)),
-        "vector": (
-            time_ms(lambda: vec_k.chunk(seed, xv, wv, vys_c[0], vvalid[0], t0=1), 10),
-            time_ms(lambda: triton_ssm.user_chunk_plain(
-                lg2d_step_elem, 2, seed, xv, wv, vys_c[0], vvalid[0], t0=1), 2)),
+        "scalar": (statistics.mean(turns["K10"]), time_ms(lambda: user_chunk.user_chunk_plain(
+            lg_step_elem, 1, seed, x0, w0, ys[0], valid[0], t0=1), 2)),
+        "vector": (time_ms(lambda: vec_k.chunk(seed, xv, wv, vys_c[0], vvalid[0], t0=1), 10),
+                   time_ms(lambda: user_chunk.user_chunk_plain(
+                       lg2d_step_elem, 2, seed, xv, wv, vys_c[0], vvalid[0], t0=1), 2)),
     }
-    from cpprob_tpu_torch.ops import fused_lg
-
-    k7_ms = time_ms(lambda: fused_lg.lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10)
-    for name, (ms, plain_ms) in timing.items():
-        print(f"[{card}] {name} user kernel: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    for name, (k_ms, plain_ms) in timing.items():
+        print(f"[{card}] {name} user kernel: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms")
     print(f"[{card}] K10 (LG physics) {timing['scalar'][0]:.4f} ms against K7 "
-          f"{k7_ms:.4f} ms on the same chunk (n={USER_N}, 8 steps)")
+          f"{statistics.mean(turns['K7']):.4f} ms on the same chunk (n={USER_N}, 8 steps)")
     b2b = time_ms(lambda: run5(20_000, obs), SWEEPS)
     print(f"[{card}] path 5 back-to-back sweeps: {b2b:.4f} ms each by CUDA events, "
           f"{USER_N * LG_T / (b2b * 1e-3):.6g} particle-steps/s; path 6 "
           f"{time_ms(lambda: run6(21_000, vobs), SHORT_SWEEPS):.4f} ms")
 
-    src = "cpprob_tpu_torch/ops/triton_ssm.py"
+    src = "cpprob_tpu_torch/ops/csrc/user_chunk.cuh"
     return [
-        {"name": "user_chunk_kernel (D=1, LG physics)", "route": "triton",
+        {"name": "user_chunk_kernel (D=1, LG physics)", "route": "cuda",
          "source": src, "replaces": "cpprob_tpu/ops/pallas_ssm.py:588",
          "launches": got5["scalar"], "max_abs_err": errs["scalar"],
          "ms": timing["scalar"][0], "plain_ms": timing["scalar"][1],
          **normal_chunk_bound(USER_N, int(valid[0]))},
-        {"name": "user_chunk_kernel (D=2, 2-D LG physics)", "route": "triton",
+        {"name": "user_chunk_kernel (D=2, 2-D LG physics)", "route": "cuda",
          "source": src, "replaces": "cpprob_tpu/ops/pallas_ssm.py:730",
          "launches": got6["vector"], "max_abs_err": errs["vector"],
          "ms": timing["vector"][0], "plain_ms": timing["vector"][1],
@@ -1858,6 +1891,32 @@ def _guided_tables(params):
                                     params, T)
 
 
+def _check_tables(ys, ctrl, spec, gt, t0, what):
+    """The tables kernel's rows before n_valid against guided_tables_plain on
+    the same device, within 1e-6 relative (the same operations in the same
+    order: equal but for a transcendental's last bit).  Returns the largest
+    |difference|."""
+    from cpprob_tpu_torch.ops.fused_hmm import guided_tables, guided_tables_plain
+
+    dev = ys.device
+    got = guided_tables(ys, ctrl, spec, gt, t0=t0)
+    tab, gtab = spec.tables(dev), gt.tables(dev)
+    rows = []
+    for t in range(ys.shape[0]):
+        tf = torch.tensor(float(t0 + t), dtype=torch.float32, device=dev) / float(gt.T)
+        cum, ssum, rn = guided_tables_plain(tab, gtab, ys[t], tf)
+        rows.append(torch.cat([cum.reshape(-1), ssum, rn.reshape(-1)]))
+    nv = min(int(ctrl[-1]), ys.shape[0])
+    want = torch.stack(rows)[:nv]
+    got = got[:nv]
+    _sync()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0, msg=f"{what}: tables")
+    err = float((got - want).abs().max())
+    print(f"check {what}: {nv} rows, {int((got != want).sum())} of {got.numel()} "
+          f"entries not bit-equal, max|d|={err:.3g}")
+    return err
+
+
 def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
                          n_step=GUIDED_STEP_N, seed=CHECK_SEED):
     """K12, its tensor-core twin and K13 against their plain versions on
@@ -1879,13 +1938,24 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
         guided_chunk_plain,
         hmm_init,
     )
+    from cpprob_tpu_torch.ops.philox import philox4x32, split_seed
     from cpprob_tpu_torch.ops.triton_ssm import (
         GuidedScalarKernel,
         guided_scalar_chunk_plain,
+        philox_words,
     )
 
     dev = torch.device("cuda")
-    errs = {"guided_scalar": 0.0, "guided_chunk": 0.0, "guided_step": 0.0}
+    errs = {"guided_scalar": 0.0, "guided_chunk": 0.0, "guided_step": 0.0,
+            "guided_tables": 0.0}
+    k0, k1 = split_seed(seed)
+    words = philox_words(seed, 1 << 16, 7, 3, dev)
+    ref = torch.stack(philox4x32(torch.arange(1 << 16, device=dev), 7, 3, 0,
+                                 k0, k1), 1)
+    _sync()
+    if not torch.equal(words, ref):
+        raise AssertionError("tl.philox differs from ops/philox.py")
+    print("check tl.philox (K12's generator): 2^16 x 4 words equal to ops/philox.py")
     print(f"K12 against its plain version: states and log_w within "
           f"{GUIDED_TOL} (libdevice's transcendentals against torch's may "
           "differ in the last bit)")
@@ -1944,6 +2014,12 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
         errs["guided_chunk"] = max(errs["guided_chunk"], _compare_chunk(
             out_k, out_p, K, n, what, want))
         del out_k, out_p
+    # the tables kernel against guided_tables_plain, row by row, on the card
+    for t0, ys_c, nv in ((1, ys8[0], GUIDED_CHUNK), (9, ys8[1], GUIDED_CHUNK - 1),
+                         (1, ys16[0], int(v16[0]))):
+        ctrl = torch.tensor([0, *ticks, nv], dtype=torch.int32, device=dev)
+        errs["guided_tables"] = max(errs["guided_tables"], _check_tables(
+            ys_c, ctrl, spec5, gt, t0, f"K13 tables t0={t0} steps={ys_c.shape[0]}"))
     # K13 from t0 = 2, 3, 4 (2, 3, 0 mod 4), and against its one-step launches
     for t0 in (2, 3, 4):
         ctrl = torch.tensor([0, *ticks, GUIDED_CHUNK - 1], dtype=torch.int32, device=dev)
@@ -1992,6 +2068,8 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
         ctrl = torch.tensor([1, *[n_step * (k + 1) // K for k in range(K - 1)],
                              GUIDED_CHUNK], dtype=torch.int32, device=dev)
         kw = dict(t0=1, island_every=4, island_thresh=2.0)
+        errs["guided_tables"] = max(errs["guided_tables"], _check_tables(
+            ys_k[0], ctrl, spec_k, gt_k, 1, f"K13 tables K={K}"))
         out_k = guided_chunk(seed, sk, wk, ys_k[0], ctrl, spec_k, gt_k, **kw)
         out_p = guided_chunk_plain(seed, sk, wk, ys_k[0], ctrl, spec_k, gt_k, **kw)
         _sync()
@@ -2014,6 +2092,9 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
         ctrl = torch.tensor([1, *[n_step * (k + 1) // K for k in range(K - 1)],
                              GUIDED_CHUNK], dtype=torch.int32, device=dev)
         kw = dict(t0=1, island_every=4, island_thresh=2.0)
+        if K > 1:
+            errs["guided_tables"] = max(errs["guided_tables"], _check_tables(
+                ys_k[0], ctrl, spec_k, gt_k, 1, f"K13 tables net {sizes}"))
         out_k = guided_chunk(seed, sk, wk, ys_k[0], ctrl, spec_k, gt_k, **kw)
         out_p = guided_chunk_plain(seed, sk, wk, ys_k[0], ctrl, spec_k, gt_k, **kw)
         _sync()
@@ -2095,8 +2176,9 @@ def guided_phases(card, stages):
             run8, obs5, SWEEPS, counters, exact5,
             f"path 8: guided chain K=5 (K13) n={GUIDED_N} T={T} chunk={GUIDED_CHUNK}",
             epochs_each=False)
-    _expect(got8, {"init": SWEEPS, "guided_chunk": SWEEPS * -(-(T - 1) // GUIDED_CHUNK)},
-            "path 8")
+    n_ch8 = -(-(T - 1) // GUIDED_CHUNK)
+    _expect(got8, {"init": SWEEPS, "guided_chunk": SWEEPS * n_ch8,
+                   "guided_tables": SWEEPS * n_ch8}, "path 8")
 
     # path 9a: the same model per step (K13 launched for one step)
     ys12 = _chain_obs(5, GUIDED_STEP_T, GUIDED_STEP_SEED)
@@ -2108,7 +2190,8 @@ def guided_phases(card, stages):
             run9a, obs12, SWEEPS, counters, exact12,
             f"path 9a: guided chain chunk=1 (K13 one-step) n={GUIDED_STEP_N} "
             f"T={GUIDED_STEP_T}", epochs_each=False)
-    _expect(got9a, {"guided_step_exchange": SWEEPS * (GUIDED_STEP_T - 1)}, "path 9a")
+    _expect(got9a, {"guided_step_exchange": SWEEPS * (GUIDED_STEP_T - 1),
+                    "guided_tables": SWEEPS * (GUIDED_STEP_T - 1)}, "path 9a")
 
     # path 9b: the guided whole sweep with interior island checks
     island_counts = []
@@ -2122,7 +2205,8 @@ def guided_phases(card, stages):
             run9b, obs5, SWEEPS, counters, exact5,
             f"path 9b: guided chain K=5 n={GUIDED_N} chunk={GUIDED_ISLAND_CHUNK} "
             f"island_every={ISLAND_EVERY}", epochs_each=False)
-    _expect(got9b, {"init": SWEEPS, "guided_chunk": SWEEPS}, "path 9b")
+    _expect(got9b, {"init": SWEEPS, "guided_chunk": SWEEPS, "guided_tables": SWEEPS},
+            "path 9b")
     interior = float(torch.stack(island_counts[-SWEEPS:]).mean())
     print(f"path 9b: interior resamples per island per sweep (mean) {interior:.4f}")
     if not interior > 0:
@@ -2178,8 +2262,21 @@ def guided_phases(card, stages):
             time_ms(lambda: fused_hmm.guided_chunk_plain(
                 seed, s1, w1, y5, c1, spec5, gt, t0=5), 4)),
     }
+    timing["guided_tables"] = (
+        time_ms(lambda: fused_hmm.guided_tables(ys8[0], c8, spec5, gt), 10),
+        time_ms(lambda: fused_hmm.guided_tables(ys8[0].cpu(), c8.cpu(), spec5, gt), 2))
     for name, (ms, plain_ms) in timing.items():
         print(f"[{card}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # K13 (the tables kernel and the chunk kernel) beside K8, the same
+    # particle loop without the tables, at path 8's shapes, in turns
+    pair = {"K13": lambda: fused_hmm.guided_chunk(seed, s0, wc0, ys8[0], c8, spec5, gt),
+            "K8": lambda: fused_hmm.hmm_chunk(seed, s0, wc0, ys8[0], c8, spec5)}
+    turns = {"K13": [], "K8": []}
+    for name in ("K13", "K8", "K8", "K13"):
+        turns[name].append(time_ms(pair[name], 10))
+    print(f"[{card}] K13 beside K8 (K = 5, n={GUIDED_N}, {int(v8[0])} steps, in turns): "
+          + ", ".join(f"{k} " + "/".join(f"{v:.4f}" for v in t) for k, t in turns.items())
+          + " ms")
     print(f"K12 compiled: (registers, spills) per thread {k12.registers}; K12 mxu "
           f"{check_tc_sass(twin7)}")
     for name, run, o, times in (("7 (mxu=True)", runs7[True], obs, times7[True]),
@@ -2203,14 +2300,19 @@ def guided_phases(card, stages):
     # two densities (4 each) and the weight (2); K13 per particle-step a
     # quarter of a Philox call (a uniform: one of its four words, as
     # chain_chunk_bound counts), the target (1), the walk (2(K-1)) and the
-    # weight (1), and per CTA of ISLAND_SIZE particles and step the tables
+    # weight (1), and once per step the tables (the tables kernel's work:
+    # the net's weights read, the tables written)
     sizes12 = k12.layer_sizes()
     k12_f32 = guided_net_ops(sizes12) + 14
     table_ops = guided_table_ops(gt.dims, 5)
+    net_bytes = 4 * sum((a + 1) * b for a, b in zip(gt.dims[:-1], gt.dims[1:]))
+
+    def tables_bound(steps):
+        return bound(net_bytes + 4 * steps * (2 * 25 + 5 + 1), steps * table_ops)
 
     def k13_bound(n, steps):
-        return bound(16 * n, n * steps * 2 * 5
-                     + n // fused_hmm.ISLAND_SIZE * steps * table_ops,
+        t = tables_bound(steps)["counts"]
+        return bound(16 * n + t["bytes"], n * steps * 2 * 5 + t["f32_ops"],
                      philox_calls=n * steps / 4)
 
     ps12 = GUIDED_N * int(valid[0])
@@ -2223,11 +2325,12 @@ def guided_phases(card, stages):
                                normal_pairs=ps12 / 2, exp_log_pairs=ps12),
         "guided_chunk": k13_bound(GUIDED_N, int(v8[0])),
         "guided_step": k13_bound(GUIDED_STEP_N, 1),
+        "guided_tables": tables_bound(int(v8[0])),
     }
     print(f"bounds: K12 {k12_f32} float operations, half a Philox call and "
           f"Box-Muller pair and one exp + log1p pair per particle-step for the "
           f"{sizes12} net; K12 mxu {tc_ops['tf32_macs']} TF32 multiply-adds and "
-          f"{tc_ops['f32_ops']} float operations; K13 tables {table_ops} operations per CTA-step; "
+          f"{tc_ops['f32_ops']} float operations; K13 tables {table_ops} operations a step; "
           + ", ".join(f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
                       for k, v in bounds.items()))
 
@@ -2246,12 +2349,16 @@ def guided_phases(card, stages):
              f"{guided_tc.GROUPS} particles a thread)", "guided_tc", "cuda",
              "cpprob_tpu_torch/ops/csrc/guided_tc.cuh",
              "cpprob_tpu/ops/pallas_ssm.py:948", got7[True]["guided_tc"]),
-        line("guided_chunk_kernel<K> (K13, K = 5, [7,16,16,5] net)",
-             "guided_chunk", "cuda", cu, "cpprob_tpu/ops/pallas_ssm.py:1351",
+        line("guided_chunk_kernel<K> after guided_tables_kernel<K> (K13, K = 5, "
+             "[7,16,16,5] net)", "guided_chunk", "cuda", cu,
+             "cpprob_tpu/ops/pallas_ssm.py:1351",
              got8["guided_chunk"] + got9b["guided_chunk"]),
-        line("guided_chunk_kernel<K> (K13, n_steps=1, flag and ticks live)",
-             "guided_step", "cuda", cu, "cpprob_tpu/ops/pallas_ssm.py:1351",
-             got9a["guided_step_exchange"]),
+        line("guided_chunk_kernel<K> after guided_tables_kernel<K> (K13, n_steps=1, "
+             "flag and ticks live)", "guided_step", "cuda", cu,
+             "cpprob_tpu/ops/pallas_ssm.py:1351", got9a["guided_step_exchange"]),
+        line("guided_tables_kernel<K> (K13's tables, K = 5, [7,16,16,5] net, one CTA "
+             "a step)", "guided_tables", "cuda", cu, "cpprob_tpu/ops/pallas_ssm.py:1351",
+             got8["guided_tables"] + got9a["guided_tables"] + got9b["guided_tables"]),
     ]
 
 
@@ -2572,7 +2679,7 @@ def main():
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "calibrated_bound_ms", "calibrated_by")
     missing = [(k["name"], key) for k in kernels for key in keys if key not in k]
-    if missing or len(kernels) != 25:
+    if missing or len(kernels) != 26:
         raise AssertionError(f"kernels line: {len(kernels)} entries, missing {missing}")
     print(json.dumps({"kernels": kernels}))
     print(card)

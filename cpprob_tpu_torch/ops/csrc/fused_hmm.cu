@@ -665,18 +665,18 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
 }
 
 // ---------------------------------------------------------------------------
-// The guided chunk kernel (K13): replaces _make_guided_discrete_chunk_kernel
-// (cpprob_tpu/ops/pallas_ssm.py:1225-1348) and its MXU twin
-// _make_guided_discrete_chunk_kernel_mxu (:1351-1532) behind
-// _guided_discrete_mxu_call / attach_fused_guided_discrete_kernels
-// (:1535,1588).  Launched with n_steps = 1 it is also the guided model's
-// per-step hooks.  K = 1 never reaches it: with one state q = 1, and the
+// The guided chunk kernel (K13) and its tables kernel: replace
+// _make_guided_discrete_chunk_kernel (cpprob_tpu/ops/pallas_ssm.py:1225-1348)
+// and its MXU twin _make_guided_discrete_chunk_kernel_mxu (:1351-1532)
+// behind _guided_discrete_mxu_call / attach_fused_guided_discrete_kernels
+// (:1535,1588).  Launched with n_steps = 1 they are also the guided model's
+// per-step hooks.  K = 1 never reaches them: with one state q = 1, and the
 // wrapper launches hmm_chunk_kernel_k, the same chain.
 //
 // The proposal q(z' | z, y, t) = softmax(MLP([onehot(z), y, t/T])) depends
 // on a particle only through z in {0..K-1}: y and t/T are per-step scalars.
-// So the CTA evaluates the net K times per step (the reference evaluates it
-// once per particle) and keeps three tables in shared memory:
+// So the net is evaluated K times per step (the reference evaluates it once
+// per particle) into three tables a step:
 //   cum[a][k]  running sums of exp(l_ak - m_a) over k (l the logits of
 //              source state a, m_a their max); ssum[a] = cum[a][K-1];
 //   rn[a][b]   log_trans[a][b] + (log g(y | b) - (l_ab - m_a - log ssum[a])),
@@ -686,35 +686,49 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
 // cum[a][k] <= u ssum[a]} (the reference's target >= cum walk,
 // pallas_ssm.py:1313-1319,1442-1448), and w += rn[a][b].  The exchange
 // synthesis at chunk start, n_valid masking, the island checks, the records
-// and the tiles are K8's code; a tile here is at most one group of four
-// steps (kGuidedTile), whose tables are built one step after the other into
-// four slots before the particles run through the tile.
+// and the tiles are K8's code.
 //
-// Table build, per step: layer 0 (pre[a][j] = W0[a][j] + (W0[K][j] y +
-// W0[K+1][j] t/T + b0[j]), one thread per (state, unit)), then each layer
-// one thread per (state, unit) summing in input order, then one thread per
-// (a, b) for the softmax sums and the RN entry: one barrier per layer and
-// one after the tables.  Every CTA runs the same arithmetic in the same
-// order (round-to-nearest intrinsics), so all CTAs hold the same tables, and
-// the plain version (ops/fused_hmm.py guided_chunk_plain) repeats it.
-//
-// What bounds it on an H100: the particle work is K8's (a quarter of a
-// Philox4x32-10 call and K-1 compares per particle-step, 16 B per particle
-// per chunk
-// through HBM): integer issue.  The table build is ~K (K+2) H + K H^2 + K^2 H
-// multiply-adds per CTA-step (~2.1k at K = 5, H = 16), under 1 % of the
-// 4,096 particle updates a CTA makes per step, spread over the CTA's
-// threads so that its latency is a few dependent adds per layer.
+// The tables depend on neither the particles nor the CTA, so a launch
+// builds each step's once: guided_tables_kernel, one CTA per step, writes
+// them to a global buffer of n_steps x (2K^2 + K) floats, and the chunk
+// kernel, launched after it with programmatic dependent launch, loads its
+// population while the tables are built, waits for them
+// (griddepcontrol.wait), copies a tile's tables into shared memory with one
+// barrier and runs its particles through the tile.  Built in every CTA, one
+// step after the other, the tables cost each CTA (n_layers + 1) barriers a
+// step with most of its threads idle: the chunk kernel took 0.580 ms where
+// K8, the same particle loop, takes 0.347 ms; the tables kernel and the
+// chunk kernel take 0.390 ms; every CTA building all its tile's steps at
+// once, n_layers + 1 barriers a tile, 0.430 ms (H100 80GB HBM3 at 700 W,
+// 2^24 particles x 8 steps, K = 5, a [7,16,16,5] net;
+// util/guided_chain_parts.py).
 
-// The activations of the K source states live in dynamic shared memory,
-// two buffers of K * stride floats (stride = the widest layer), so the net's
-// width is bounded by what one CTA may hold: kGuidedActBytes for the two
-// buffers, the rest of the 227 KB for the kernel's static tables (four
-// steps' tables and the reductions' scratch: under 3 KB at K = 8).  The
-// layers' weights are read from global memory.
+// Table build (guided_build), for S steps at once: layer 0 (pre[s][a][j] =
+// W0[a][j] + (W0[K][j] y_s + W0[K+1][j] t_s/T + b0[j]), one thread per
+// (step, state, unit)), then each layer one thread per (step, state, unit)
+// summing in input order, then one thread per (step, a, b) for the softmax
+// sums and the RN entry: one barrier per layer and one after the tables,
+// whatever S.  The arithmetic and its order are those of the plain version
+// (ops/fused_hmm.py guided_tables_plain, round-to-nearest intrinsics), so
+// the tables are bit-identical to it.
+//
+// What bounds the chunk kernel on an H100: K8's particle work (a quarter of
+// a Philox4x32-10 call and K-1 compares per particle-step, 16 B per
+// particle per chunk through HBM): integer issue.  The tables kernel is a
+// few thousand multiply-adds a step, latency-bound (one CTA a step), and
+// runs while the chunk kernel's CTAs load their population.
+
+// The tables kernel keeps the activations of the K source states in dynamic
+// shared memory, two buffers of K * stride floats (stride = the widest
+// layer), so the net's width is bounded by kGuidedActBytes, what one CTA may
+// hold (227 KB) less 3 KB.  The layers' weights are read from global memory.
 constexpr int kGuidedMaxLayers = 32;
 constexpr int kGuidedActBytes = 232448 - 3072;
-constexpr int kGuidedTile = 4;   // steps a tile of the guided kernel runs
+// The chunk kernel is launched with programmatic dependent launch, so its
+// CTAs load their population while the tables kernel runs; false launches
+// it after the tables kernel has finished (util/guided_chain_parts.py times
+// both, and the tables built in every CTA).
+constexpr bool kGuidedPdl = true;
 
 struct NetDims {
   int n_layers;
@@ -722,24 +736,36 @@ struct NetDims {
   int dims[kGuidedMaxLayers + 1];     // [K + 2, H1, ..., K]
 };
 
-// The step's tables from the net at (y, tf).  Every thread calls it; it
-// ends with a barrier, after which cum, ssum and rn are valid.
+// Floats of one step's tables: cum (K x K) | ssum (K) | rn (K x K).
 template <int K>
-__device__ __forceinline__ void guided_tables(
-    const float* __restrict__ net, const NetDims& nd,
-    const float* __restrict__ tab, const float* __restrict__ ltab, float y,
-    float tf, float* act, float* cum, float* ssum, float* rn) {
+__host__ __device__ constexpr int guided_tab_floats() {
+  return 2 * K * K + K;
+}
+
+// The tables of S consecutive steps (step s: observation ys[s], absolute
+// time ta + s) from the net, into out[s * guided_tab_floats<K>() ...].
+// act: 2 * S * K * nd.stride floats of shared memory.  Every thread calls
+// it; it ends with a barrier, after which out is valid.
+template <int K>
+__device__ __forceinline__ void guided_build(
+    const float* net, const NetDims& nd, const float* __restrict__ tab,
+    const float* __restrict__ ltab, const float* __restrict__ ys, int S,
+    uint32_t ta, float T, float* act, float* out) {
+  constexpr int kTab = guided_tab_floats<K>();
   const int tid = threadIdx.x;
-  const int h1 = nd.dims[1], w = nd.stride;
+  const int h1 = nd.dims[1], w = nd.stride, rows = S * K;
   // layer 0: the one-hot input selects row a of W0
-  for (int idx = tid; idx < K * h1; idx += kThreads) {
-    const int a = idx / h1, j = idx - a * h1;
+  for (int idx = tid; idx < rows * h1; idx += kThreads) {
+    const int r = idx / h1, j = idx - r * h1;
+    const int s = r / K, a = r - s * K;
+    const float y = __ldg(ys + s);
+    const float tf = __fdiv_rn((float)(ta + (uint32_t)s), T);
     const float c = __fadd_rn(
-        __fadd_rn(__fmul_rn(__ldg(net + K * h1 + j), y),
-                  __fmul_rn(__ldg(net + (K + 1) * h1 + j), tf)),
-        __ldg(net + (K + 2) * h1 + j));
-    const float pre = __fadd_rn(__ldg(net + a * h1 + j), c);
-    act[a * w + j] = nd.n_layers > 1 ? fmaxf(pre, 0.f) : pre;
+        __fadd_rn(__fmul_rn(net[K * h1 + j], y),
+                  __fmul_rn(net[(K + 1) * h1 + j], tf)),
+        net[(K + 2) * h1 + j]);
+    const float pre = __fadd_rn(net[a * h1 + j], c);
+    act[r * w + j] = nd.n_layers > 1 ? fmaxf(pre, 0.f) : pre;
   }
   __syncthreads();
   int off = (K + 3) * h1;
@@ -747,64 +773,82 @@ __device__ __forceinline__ void guided_tables(
     const int n_in = nd.dims[l], n_out = nd.dims[l + 1];
     const float* W = net + off;
     const float* b = W + n_in * n_out;
-    const float* prev = act + ((l - 1) & 1) * K * w;
-    float* cur = act + (l & 1) * K * w;
-    for (int idx = tid; idx < K * n_out; idx += kThreads) {
-      const int a = idx / n_out, j = idx - a * n_out;
-      float acc = __ldg(b + j);
+    const float* prev = act + ((l - 1) & 1) * rows * w;
+    float* cur = act + (l & 1) * rows * w;
+    for (int idx = tid; idx < rows * n_out; idx += kThreads) {
+      const int r = idx / n_out, j = idx - r * n_out;
+      float acc = b[j];
       for (int i = 0; i < n_in; ++i)
-        acc = __fadd_rn(acc, __fmul_rn(prev[a * w + i],
-                                       __ldg(W + i * n_out + j)));
-      cur[a * w + j] =
-          l < nd.n_layers - 1 ? fmaxf(acc, 0.f) : acc;
+        acc = __fadd_rn(acc, __fmul_rn(prev[r * w + i], W[i * n_out + j]));
+      cur[r * w + j] = l < nd.n_layers - 1 ? fmaxf(acc, 0.f) : acc;
     }
     off += n_in * n_out + n_out;
     __syncthreads();
   }
-  const float* logits = act + ((nd.n_layers - 1) & 1) * K * w;
-  if (tid < K * K) {
-    const int a = tid / K, b = tid - a * K;
-    const float* l = logits + a * w;
+  const float* logits = act + ((nd.n_layers - 1) & 1) * rows * w;
+  constexpr int kMu = K * (K - 1);
+  for (int idx = tid; idx < S * K * K; idx += kThreads) {
+    const int s = idx / (K * K), e = idx - s * (K * K);
+    const int a = e / K, b = e - a * K;
+    const float* l = logits + (s * K + a) * w;
     float m = l[0];
 #pragma unroll
     for (int k = 1; k < K; ++k) m = fmaxf(m, l[k]);
-    float s = 0.f, cb = 0.f;
+    float sum = 0.f, cb = 0.f;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const float e = expf(__fsub_rn(l[k], m));
-      s = k == 0 ? e : __fadd_rn(s, e);
-      if (k == b) cb = s;
+      const float ek = expf(__fsub_rn(l[k], m));
+      sum = k == 0 ? ek : __fadd_rn(sum, ek);
+      if (k == b) cb = sum;
     }
-    cum[tid] = cb;
-    if (b == 0) ssum[a] = s;
-    const float lq = __fsub_rn(__fsub_rn(l[b], m), logf(s));
-    constexpr int kMu = K * (K - 1);
-    const float d = __fsub_rn(y, __ldg(tab + kMu + b));
+    float* o = out + s * kTab;
+    o[e] = cb;
+    if (b == 0) o[K * K + a] = sum;
+    const float lq = __fsub_rn(__fsub_rn(l[b], m), logf(sum));
+    const float d = __fsub_rn(__ldg(ys + s), __ldg(tab + kMu + b));
     const float g = __fsub_rn(__ldg(tab + kMu + 2 * K + b),
                               __fmul_rn(__fmul_rn(__ldg(tab + kMu + K + b), d), d));
-    rn[tid] = __fadd_rn(__ldg(ltab + tid), __fsub_rn(g, lq));
+    o[K * K + K + e] = __fadd_rn(__ldg(ltab + e), __fsub_rn(g, lq));
   }
   __syncthreads();
 }
 
+// One CTA per step of the launch: that step's tables into tabs.  ctrl =
+// [flag, ticks (K-1), n_valid]: a step at or past n_valid is never read.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+guided_tables_kernel(const float* __restrict__ tab,
+                     const float* __restrict__ ltab,
+                     const float* __restrict__ net, NetDims nd, float T,
+                     const float* __restrict__ ys,
+                     const int* __restrict__ ctrl, uint32_t t0,
+                     float* __restrict__ tabs) {
+  extern __shared__ float act[];   // 2 x K x nd.stride, dynamic
+  // the chunk kernel, launched next with programmatic dependent launch, may
+  // start loading its population now
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int s = blockIdx.x;
+  if (s >= ctrl[K]) return;
+  guided_build<K>(net, nd, tab, ltab, ys + s, 1, t0 + (uint32_t)s, T, act,
+                  tabs + (long long)s * guided_tab_floats<K>());
+}
+
 // One CTA = one island of kIsland particles in registers, as in
-// hmm_chunk_kernel<K>.  ctrl = [flag, ticks (K-1), n_valid].
+// hmm_chunk_kernel<K>.  ctrl = [flag, ticks (K-1), n_valid].  tabs: the
+// launch's tables from guided_tables_kernel, copied into shared memory a
+// tile (up to kTile steps) at a time: the dynamic shared memory holds one
+// tile's tables.
 template <int K>
 __global__ void __launch_bounds__(kThreads, min_blocks(false))
-guided_chunk_kernel(const float* __restrict__ tab,
-                    const float* __restrict__ ltab,
-                    const float* __restrict__ net, NetDims nd, float T,
-                    const float* __restrict__ ys, int n_steps,
+guided_chunk_kernel(const float* tabs, int n_steps,
                     const int* __restrict__ ctrl, uint32_t k0, uint32_t k1,
                     uint32_t t0, int island_every, float thresh,
                     const int* __restrict__ s_in,
                     const float* __restrict__ w_in, int* __restrict__ s_out,
                     float* __restrict__ w_out, float* __restrict__ rec) {
   static_assert(K >= 2 && K <= 8, "2 <= K <= 8");
-  extern __shared__ float act[];   // 2 x K x nd.stride, dynamic
-  __shared__ float cum[kGuidedTile][K * K];
-  __shared__ float ssum[kGuidedTile][K];
-  __shared__ float rn[kGuidedTile][K * K];
+  constexpr int kTab = guided_tab_floats<K>();
+  extern __shared__ float tables[];   // a tile's tables, dynamic
   __shared__ float red[kWarps * (K + 2)];
   __shared__ float bcast[K + 2];
   __shared__ int collapse_s;
@@ -837,29 +881,29 @@ guided_chunk_kernel(const float* __restrict__ tab,
   const int n_run = max(0, min(n_steps, n_valid));   // as hmm_chunk_kernel
   const float nb = (float)kIsland;
   float count = 0.f;
+  // the tables kernel has finished and its writes are visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   for (int t = 0; t < n_run;) {
-    const int end = tile_end<kGuidedTile>(t, t0, n_run, island_every);
+    const int end = tile_end<kTile>(t, t0, n_run, island_every);
     const int len = end - t;
-    // each step's tables into its slot; the build's barriers also keep the
-    // slots from being rewritten before every thread has left the last tile
-    for (int j = 0; j < len; ++j) {
-      const float tf = __fdiv_rn((float)(t0 + (uint32_t)(t + j)), T);
-      guided_tables<K>(net, nd, tab, ltab, __ldg(ys + t + j), tf, act,
-                       cum[j], ssum[j], rn[j]);
-    }
+    if (t > 0) __syncthreads();   // every thread has left the last tile
+    for (int i = threadIdx.x; i < len * kTab; i += kThreads)
+      tables[i] = __ldcg(tabs + (long long)t * kTab + i);
+    __syncthreads();
     const uint32_t ta = t0 + (uint32_t)t;
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       int si = s[i];
       float wi = w[i];
       auto step = [&](int j, float u) {
+        const float* c = tables + j * kTab;
         const int a = si;
-        const float target = __fmul_rn(u, ssum[j][a]);
+        const float target = __fmul_rn(u, c[K * K + a]);
         int ns = 0;
 #pragma unroll
-        for (int k = 0; k < K - 1; ++k) ns += (cum[j][a * K + k] <= target);
+        for (int k = 0; k < K - 1; ++k) ns += (c[a * K + k] <= target);
         si = ns;
-        wi = __fadd_rn(wi, rn[j][a * K + ns]);
+        wi = __fadd_rn(wi, c[K * K + K + a * K + ns]);
       };
       tile_steps(base + i * kThreads + threadIdx.x, ta, len, key, step);
       s[i] = si;
@@ -941,6 +985,22 @@ guided_chunk_kernel(const float* __restrict__ tab,
   }
 }
 
+// The checked NetDims of a net of n_layers layers of sizes dims (host
+// array [K + 2, H1, ..., K]); false if the kernels do not take it.
+bool guided_net_dims(int K, int n_layers, const int* dims, NetDims* nd) {
+  if (n_layers < 1 || n_layers > kGuidedMaxLayers || dims[0] != K + 2 ||
+      dims[n_layers] != K)
+    return false;
+  nd->n_layers = n_layers;
+  nd->stride = 0;
+  for (int l = 0; l <= kGuidedMaxLayers; ++l) {
+    nd->dims[l] = l <= n_layers ? dims[l] : 0;
+    if (l <= n_layers && dims[l] < 1) return false;
+    if (l >= 1 && l <= n_layers && dims[l] > nd->stride) nd->stride = dims[l];
+  }
+  return 2LL * K * nd->stride * (long long)sizeof(float) <= kGuidedActBytes;
+}
+
 }  // namespace
 
 extern "C" {
@@ -952,45 +1012,70 @@ int guided_act_bytes() { return kGuidedActBytes; }
 
 // Returns cudaGetLastError() after the launch (0 = launched).  dims: host
 // array of n_layers + 1 layer sizes [K + 2, H1, ..., K]; net: the layers
-// packed as W (in x out, row-major) then b (out), layer after layer.
-int guided_chunk_launch(int K, const float* tab, const float* ltab,
-                        const float* net, int n_layers, const int* dims,
-                        float T, const float* ys, int n_steps, const int* ctrl,
-                        uint32_t k0, uint32_t k1, uint32_t t0,
-                        int island_every, float thresh, const int* s_in,
-                        const float* w_in, int* s_out, float* w_out,
-                        float* rec, long long n, void* stream) {
+// packed as W (in x out, row-major) then b (out), layer after layer; tabs:
+// n_steps x (2K^2 + K) floats, the tables guided_chunk_launch reads next.
+int guided_tables_launch(int K, const float* tab, const float* ltab,
+                         const float* net, int n_layers, const int* dims,
+                         float T, const float* ys, int n_steps,
+                         const int* ctrl, uint32_t t0, float* tabs,
+                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n % kIsland != 0 || n_layers < 1 || n_layers > kGuidedMaxLayers ||
-      dims[0] != K + 2 || dims[n_layers] != K)
-    return (int)cudaErrorInvalidValue;
   NetDims nd;
-  nd.n_layers = n_layers;
-  nd.stride = 0;
-  for (int l = 0; l <= kGuidedMaxLayers; ++l) {
-    nd.dims[l] = l <= n_layers ? dims[l] : 0;
-    if (l <= n_layers && dims[l] < 1) return (int)cudaErrorInvalidValue;
-    if (l >= 1 && l <= n_layers && dims[l] > nd.stride) nd.stride = dims[l];
-  }
-  const long long act_bytes = 2LL * K * nd.stride * (long long)sizeof(float);
-  if (act_bytes > kGuidedActBytes) return (int)cudaErrorInvalidValue;
-  const int grid = (int)(n / kIsland);
+  if (n_steps < 1 || !guided_net_dims(K, n_layers, dims, &nd))
+    return (int)cudaErrorInvalidValue;
+  const size_t act_bytes = 2 * (size_t)K * nd.stride * sizeof(float);
   // the opt-in above 48 KB, once per instance
   static bool opted[9] = {};
   switch (K) {
-#define GUIDED_CHUNK_CASE(KK)                                                \
+#define GUIDED_TABLES_CASE(KK)                                               \
   case KK:                                                                   \
     if (!opted[KK]) {                                                        \
       const int e = (int)cudaFuncSetAttribute(                               \
-          guided_chunk_kernel<KK>,                                           \
+          guided_tables_kernel<KK>,                                          \
           cudaFuncAttributeMaxDynamicSharedMemorySize, kGuidedActBytes);     \
       if (e) return e;                                                       \
       opted[KK] = true;                                                      \
     }                                                                        \
-    guided_chunk_kernel<KK><<<grid, kThreads, (size_t)act_bytes, st>>>(      \
-        tab, ltab, net, nd, T, ys, n_steps, ctrl, k0, k1, t0, island_every,  \
-        thresh, s_in, w_in, s_out, w_out, rec);                              \
+    guided_tables_kernel<KK><<<n_steps, kThreads, act_bytes, st>>>(          \
+        tab, ltab, net, nd, T, ys, ctrl, t0, tabs);                          \
     break;
+    GUIDED_TABLES_CASE(2) GUIDED_TABLES_CASE(3) GUIDED_TABLES_CASE(4)
+    GUIDED_TABLES_CASE(5) GUIDED_TABLES_CASE(6) GUIDED_TABLES_CASE(7)
+    GUIDED_TABLES_CASE(8)
+#undef GUIDED_TABLES_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Returns cudaGetLastError() after the launch (0 = launched).  tabs: the
+// n_steps tables guided_tables_launch wrote (launched just before, on the
+// same stream).
+int guided_chunk_launch(int K, const float* tabs, int n_steps, const int* ctrl,
+                        uint32_t k0, uint32_t k1, uint32_t t0,
+                        int island_every, float thresh, const int* s_in,
+                        const float* w_in, int* s_out, float* w_out,
+                        float* rec, long long n, void* stream) {
+  if (n % kIsland != 0 || n_steps < 1) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n / kIsland));
+  cfg.blockDim = dim3(kThreads);
+  // one tile's tables
+  cfg.dynamicSmemBytes =
+      (size_t)(n_steps < kTile ? n_steps : kTile) * (2 * K * K + K) * sizeof(float);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kGuidedPdl ? 1 : 0;
+  switch (K) {
+#define GUIDED_CHUNK_CASE(KK)                                                \
+  case KK:                                                                   \
+    return (int)cudaLaunchKernelEx(&cfg, guided_chunk_kernel<KK>, tabs,      \
+                                   n_steps, ctrl, k0, k1, t0, island_every,  \
+                                   thresh, s_in, w_in, s_out, w_out, rec);
     GUIDED_CHUNK_CASE(2) GUIDED_CHUNK_CASE(3) GUIDED_CHUNK_CASE(4)
     GUIDED_CHUNK_CASE(5) GUIDED_CHUNK_CASE(6) GUIDED_CHUNK_CASE(7)
     GUIDED_CHUNK_CASE(8)
@@ -998,7 +1083,6 @@ int guided_chunk_launch(int K, const float* tab, const float* ltab,
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 #define HMM_SMALL_K(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)

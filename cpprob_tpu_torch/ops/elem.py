@@ -1,12 +1,12 @@
 """The elementwise namespace of user physics (``step_elem``).
 
-A ``step_elem`` written against this namespace runs twice over: on torch
-tensors in the plain versions (here each name is the torch function), and
-inside the Triton chunk kernel of :mod:`.triton_ssm`, where each
-``elem.<name>`` call becomes the Triton function of the same name (precise
-libdevice ``exp``, ``log``, ``sin``, ``cos``, ``tanh``; ``tl.sqrt_rn``;
-``tl.where``, ``tl.minimum``, ``tl.maximum``).  See :mod:`.triton_ssm` for
-the whole contract.
+A ``step_elem`` or a guided density written against this namespace runs
+twice over: on torch tensors in the plain versions (here each name is the
+torch function), and inside a generated kernel, where each ``elem.<name>``
+call becomes CUDA C++ (:mod:`.render`: precise ``expf``, ``logf``,
+``sinf``, ``cosf``, ``tanhf``; ``__fsqrt_rn``; ``?:``, ``fminf``,
+``fmaxf``) or, in the Triton K12 (:mod:`.triton_ssm`), the Triton function
+of the same name.  See :mod:`.render` for the whole contract.
 
 A number may stand for either value operand of ``where``, ``minimum``
 and ``maximum``; it is broadcast on the device, never copied from the

@@ -20,10 +20,10 @@ K = 1 and 9..32):
 
 - ``guided_chunk`` (K13, <- ``_make_guided_discrete_chunk_kernel(_mxu)``
   behind ``attach_fused_guided_discrete_kernels``): the chunk kernel of a
-  guided K-state HMM (1 <= K <= 8), whose categorical proposal net runs in
-  the kernel as K x K tables built once per step (see the note in
-  ``csrc/fused_hmm.cu``); the same frame as ``hmm_chunk`` (exchange
-  synthesis, n_valid, islands, records).  With one state the proposal is
+  guided K-state HMM (1 <= K <= 8), whose categorical proposal net becomes
+  K x K tables built once per step of the launch by a tables kernel ahead
+  of the chunk kernel (see the note in ``csrc/fused_hmm.cu``); the same
+  frame as ``hmm_chunk`` (exchange synthesis, n_valid, islands, records).  With one state the proposal is
   q = 1 and the RN correction 0, so K = 1 launches the unguided chunk
   kernel's run-time-K instance, which computes that chain.  Its hooks:
   :func:`guided_hooks`.
@@ -50,7 +50,8 @@ import numpy as np
 import torch
 
 from .philox import philox_uniform, philox_uniforms4, split_seed
-from .population import current_stream, launch_population, mlp_layers
+from .population import (check_tensor, current_stream, launch_population,
+                         mlp_layers, raise_on)
 
 __all__ = [
     "HMMSpec", "ISLAND_SIZE", "LAUNCHES", "hmm_init", "hmm_init_plain",
@@ -58,7 +59,8 @@ __all__ = [
     "make_fused_hmm_ssm", "fused_hmm_hooks", "MAX_K", "GUIDED_MAX_K",
     "GuidedTables", "guided_tables_plain", "guided_chunk_plain",
     "guided_chunk", "guided_hooks", "GUIDED_MAX_LAYERS", "GUIDED_ACT_BYTES",
-    "guided_max_width", "INIT_STREAM", "ISLAND_STREAM", "TRANSITION_STREAM",
+    "guided_max_width", "guided_tables", "INIT_STREAM", "ISLAND_STREAM",
+    "TRANSITION_STREAM",
 ]
 
 ISLAND_SIZE = 4096       # 256 threads x 16 particles: one CTA of the chunk kernel
@@ -71,17 +73,19 @@ _THREADS = 256
 MAX_K = 32               # states the kernels take (csrc/fused_hmm.cu kMaxK)
 GUIDED_MAX_K = 8         # states the guided kernel takes
 GUIDED_MAX_LAYERS = 32   # csrc/fused_hmm.cu kGuidedMaxLayers
-# shared memory for the net's activations, two buffers of K x (widest
-# layer) float32 (csrc/fused_hmm.cu kGuidedActBytes): what one CTA may hold
-# (227 KB) less 3 KB for the kernel's static tables (four steps' tables)
+# shared memory for the net's activations in the tables kernel, two buffers
+# of K x (widest layer) float32 (csrc/fused_hmm.cu kGuidedActBytes): what one
+# CTA may hold (227 KB) less 3 KB
 GUIDED_ACT_BYTES = 232448 - 3072
 
 # kernel launches by wrapper, counted where each kernel is launched; a
 # one-step launch of the chunk kernel (the per-step hooks) counts under
 # "step_exchange", "step_ess" or "step" instead of "chunk", and those of
-# the guided kernel under "guided_step_exchange" or "guided_step_ess"
+# the guided kernel under "guided_step_exchange" or "guided_step_ess"; every
+# guided launch is preceded by one of the tables kernel ("guided_tables")
 LAUNCHES = {"init": 0, "chunk": 0, "step_exchange": 0, "step_ess": 0, "step": 0,
-            "guided_chunk": 0, "guided_step_exchange": 0, "guided_step_ess": 0}
+            "guided_chunk": 0, "guided_step_exchange": 0, "guided_step_ess": 0,
+            "guided_tables": 0}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -156,7 +160,7 @@ class GuidedTables:
         widest = max(W.shape[1] for W in Ws)
         if widest > guided_max_width(K):
             raise ValueError(
-                f"the guided kernel keeps the net's activations in "
+                f"the guided tables kernel keeps the net's activations in "
                 f"{GUIDED_ACT_BYTES} B of shared memory, which holds layers of "
                 f"at most {guided_max_width(K)} units at K = {K}; got {widest}")
         return cls(log_trans, tuple(Ws), tuple(bs), int(T))
@@ -182,7 +186,7 @@ class GuidedTables:
 
 
 def guided_max_width(K: int) -> int:
-    """The widest layer the guided kernel takes at K states: two buffers of
+    """The widest layer the guided kernels take at K states: two buffers of
     K x width float32 activations in ``GUIDED_ACT_BYTES``."""
     return GUIDED_ACT_BYTES // (2 * K * 4)
 
@@ -394,10 +398,7 @@ def _lib():
         lib.guided_max_layers.restype = i
         lib.guided_act_bytes.argtypes = []
         lib.guided_act_bytes.restype = i
-        lib.guided_chunk_launch.argtypes = [
-            i, p, p, p, i, ctypes.POINTER(ctypes.c_int), f, p, i, p, u32, u32,
-            u32, i, f, p, p, p, p, p, ctypes.c_longlong, p]
-        lib.guided_chunk_launch.restype = i
+        _guided_argtypes(lib)
         if (lib.hmm_island_size() != ISLAND_SIZE or lib.hmm_max_k() != MAX_K
                 or lib.guided_max_layers() != GUIDED_MAX_LAYERS
                 or lib.guided_act_bytes() != GUIDED_ACT_BYTES):
@@ -406,6 +407,19 @@ def _lib():
                                f"guided {GUIDED_MAX_LAYERS} layers in "
                                f"{GUIDED_ACT_BYTES} B")
     return lib
+
+
+def _guided_argtypes(lib):
+    """The ctypes signatures of the guided launches of ``lib`` (the port's
+    ``fused_hmm`` library or a variant of its source)."""
+    p, i, u32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+    dims = ctypes.POINTER(ctypes.c_int)
+    lib.guided_tables_launch.argtypes = [i, p, p, p, i, dims, f, p, i, p, u32,
+                                         p, p]
+    lib.guided_tables_launch.restype = i
+    lib.guided_chunk_launch.argtypes = [i, p, i, p, u32, u32, u32, i, f, p, p, p,
+                                        p, p, ctypes.c_longlong, p]
+    lib.guided_chunk_launch.restype = i
 
 
 def _check_k(spec: HMMSpec):
@@ -492,12 +506,54 @@ def hmm_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
         records=(n // ISLAND_SIZE, K + 4), counts=LAUNCHES, count_key=count_key)
 
 
+def _net_args(spec: HMMSpec, gt: GuidedTables, dev) -> tuple:
+    """The leading arguments of the tables launch: K, the model's and the
+    net's device tables, and the net's layer sizes and horizon."""
+    dims = gt.dims
+    gtab = gt.tables(dev)
+    return (spec.K, spec.tables(dev)["packed"].data_ptr(),
+            gtab["log_trans"].data_ptr(), gtab["net"].data_ptr(), len(dims) - 1,
+            (ctypes.c_int * len(dims))(*dims), float(gt.T))
+
+
+def guided_tables(ys: torch.Tensor, ctrl: torch.Tensor, spec: HMMSpec,
+                  gt: GuidedTables, *, t0: int = 1) -> torch.Tensor:
+    """The guided kernel's tables of each step of a launch whose first step
+    is absolute step ``t0`` (observations ``ys``), as (n_steps, 2K^2 + K)
+    float32 rows ``cum (K x K) | ssum (K) | rn (K x K)``: the tables kernel
+    on CUDA tensors (one CTA a step; rows at and past n_valid = ``ctrl[K]``
+    are left unwritten), the stacked :func:`guided_tables_plain` on CPU
+    tensors."""
+    dev, K, n_steps = ys.device, spec.K, ys.shape[0]
+    if dev.type == "cpu":
+        tab, gtab = spec.tables(dev), gt.tables(dev)
+        rows = []
+        for t in range(n_steps):
+            tf = torch.tensor(float(t0 + t), dtype=torch.float32) / float(gt.T)
+            cum, ssum, rn = guided_tables_plain(tab, gtab, ys[t], tf)
+            rows.append(torch.cat([cum.reshape(-1), ssum, rn.reshape(-1)]))
+        return torch.stack(rows)
+    if dev.type != "cuda":
+        raise ValueError(f"guided_tables runs on cpu or cuda tensors, not {dev}")
+    if not 2 <= K <= GUIDED_MAX_K:
+        raise ValueError(f"the guided tables kernel takes 2 <= K <= {GUIDED_MAX_K}")
+    for t, name, dtype in ((ys, "ys", torch.float32), (ctrl, "ctrl", torch.int32)):
+        check_tensor(t, name, dtype, dev)
+    tabs = torch.empty((n_steps, 2 * K * K + K), device=dev)
+    raise_on(_lib().guided_tables_launch(
+        *_net_args(spec, gt, dev), ys.data_ptr(), n_steps, ctrl.data_ptr(), t0,
+        tabs.data_ptr(), current_stream(dev)), "guided_tables_kernel")
+    LAUNCHES["guided_tables"] += 1
+    return tabs
+
+
 def guided_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
                  ys: torch.Tensor, ctrl: torch.Tensor, spec: HMMSpec,
                  gt: GuidedTables, *, t0: int = 1, island_every: int = 0,
                  island_thresh: float = 0.5, count_key: str = "guided_chunk"):
-    """Guided chunk (K13) on the device of ``states``: the kernel on CUDA
-    tensors, :func:`guided_chunk_plain` on CPU tensors (arguments as there;
+    """Guided chunk (K13) on the device of ``states``: on CUDA tensors the
+    tables kernel (:func:`guided_tables`) and the chunk kernel, which reads
+    them; :func:`guided_chunk_plain` on CPU tensors (arguments as there;
     islands of ``ISLAND_SIZE``).  At K = 1 (q = 1, no RN correction) the
     launch is the unguided chunk kernel's, the same chain.  ``count_key``:
     the entry of :data:`LAUNCHES` the launch counts under.  Returns
@@ -528,17 +584,13 @@ def guided_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
         return hmm_chunk(seed, states, log_w, ys, ctrl, spec, t0=t0,
                          island_every=island_every, island_thresh=island_thresh,
                          count_key=count_key)
-    tab = spec.tables(dev)["packed"]
-    gtab = gt.tables(dev)
-    dims = gt.dims
-    c_dims = (ctypes.c_int * len(dims))(*dims)
     k0, k1 = split_seed(seed)
+    # the launch's tables (one CTA a step), then the chunk kernel reading them
+    tabs = guided_tables(ys, ctrl, spec, gt, t0=t0)
 
     def launch(out_s, out_w, rec):
         return _lib().guided_chunk_launch(
-            K, tab.data_ptr(), gtab["log_trans"].data_ptr(),
-            gtab["net"].data_ptr(), len(dims) - 1, c_dims, float(gt.T),
-            ys.data_ptr(), ys.shape[0], ctrl.data_ptr(), k0, k1, t0,
+            K, tabs.data_ptr(), ys.shape[0], ctrl.data_ptr(), k0, k1, t0,
             island_every, island_thresh, states.data_ptr(), log_w.data_ptr(),
             out_s.data_ptr(), out_w.data_ptr(), rec.data_ptr(), n,
             current_stream(dev))

@@ -11,9 +11,9 @@ families).
   tables and draw 24-bit Philox uniforms (``block_r`` and ``interpret``
   are TPU parameters and are not carried over).
 - :func:`attach_fused_scalar_kernels` / :func:`attach_fused_vector_kernels`:
-  a continuous-state model's physics as an elementwise ``step_elem`` run by
-  the Triton chunk kernel of :mod:`.triton_ssm` (K10, K11); see there for
-  the contract ``step_elem`` keeps.
+  a continuous-state model's physics as an elementwise ``step_elem``,
+  rendered to CUDA C++ in the chunk kernel of :mod:`.user_chunk` (K10,
+  K11); :mod:`.render` sets out the contract ``step_elem`` keeps.
 - :func:`attach_fused_guided_scalar_kernels`: a scalar model with a
   ``kind="normal"`` proposal net (trained by
   :func:`~cpprob_tpu_torch.inference.smc_csis.train_ssm_proposal`) fused
@@ -48,7 +48,8 @@ from ..inference.smc import StateSpaceModel
 from ..inference.smc_csis import proposal_hooks
 from .fused_hmm import GUIDED_MAX_K, fused_hmm_hooks, guided_hooks, stats_from_partials
 from .guided_tc import GuidedTensorCoreKernel
-from .triton_ssm import GuidedScalarKernel, UserKernel, check_scalar_net
+from .triton_ssm import GuidedScalarKernel, check_scalar_net
+from .user_chunk import UserKernel
 
 __all__ = [
     "make_fused_discrete_ssm",
@@ -150,7 +151,7 @@ def attach_fused_scalar_kernels(base_model, step_elem):
     kernel (K10) installed as the time-aware chunk hook
     ``fused_chunk_t_batch`` and, launched for one step, as
     ``fused_step_batch``.  ``step_elem(x, y, eps) -> (x', log_emission)``
-    keeps the contract of :mod:`.triton_ssm`; a function outside it raises
+    keeps the contract of :mod:`.render`; a function outside it raises
     ``ValueError`` here.  The linear-Gaussian model is the instance
 
     >>> def lg_step_elem(x, y, eps):
@@ -180,7 +181,7 @@ def attach_fused_vector_kernels(base_model, step_elem, state_dim: int):
     user-physics chunk kernel over D planes (K11) installed as
     ``fused_chunk_t_batch`` and ``vector_state_dim`` set.
     ``step_elem(x_0, .., x_{D-1}, y, eps_0, .., eps_{D-1}) -> (x'_0, ..,
-    x'_{D-1}, log_emission)`` keeps the contract of :mod:`.triton_ssm`.
+    x'_{D-1}, log_emission)`` keeps the contract of :mod:`.render`.
     Chunk-boundary resampling takes the sorted-key vector epoch
     (:func:`~cpprob_tpu_torch.inference.resampling.sorted_systematic_resample_values_nd`)."""
     D = int(state_dim)
@@ -219,7 +220,7 @@ def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
 
     ``trans_logpdf_elem(x, nx, t)`` and ``obs_logpdf_elem(nx, y, t)`` are the
     model's densities as elementwise functions under the contract of
-    :mod:`.triton_ssm`.  A net of another shape or a density outside the
+    :mod:`.render`.  A net of another shape or a density outside the
     contract raises ``ValueError`` here, as does, with ``mxu=True``, a
     hidden layer wider than :func:`.guided_tc.guided_tc_max_width` or a
     density the twin does not render to C++ (the message names

@@ -26,16 +26,12 @@ parts.  :func:`tc_net_plain` replays that arithmetic from the packed
 buffer in plain torch, so the packing is held to ``_net_plain`` on the
 CPU.
 
-The densities keep the contract of :mod:`.triton_ssm` and are rendered to
-C++ (:func:`render_density`): ``+ - * /`` as the round-to-nearest
-intrinsics (no contraction, so each rounds as torch's float32 operation
-does), ``elem.sqrt`` as ``__fsqrt_rn``, ``exp log sin cos tanh`` as
-CUDA's precise ``expf logf sinf cosf tanhf``, ``where`` as ``?:``,
-``minimum``/``maximum`` as ``fminf``/``fmaxf``, comparisons, unary minus,
-locals and tuple unpacking as they stand, captured numbers as float32
-literals that convert back exactly.  Anything else raises ``ValueError``
-when the kernel object is built; the message names ``mxu=False``, which
-runs the Triton K12 on the density.
+The densities keep the contract of :mod:`.render` and are rendered to
+C++ by it (:func:`render_density`: round-to-nearest intrinsics, CUDA's
+precise transcendentals, so each operation rounds as torch's float32 one
+does).  Anything else raises ``ValueError`` when the kernel object is
+built; the message names ``mxu=False``, which runs the Triton K12 on the
+density.
 
 Limits: at least one hidden layer (a linear ``[3, 2]`` head takes the
 Triton K12, as the reference's ``pallas_ssm.py:1135`` does); hidden widths
@@ -46,7 +42,6 @@ tensors the wrapper runs :func:`~.triton_ssm.guided_scalar_chunk_plain`.
 
 from __future__ import annotations
 
-import ast
 import ctypes
 
 import numpy as np
@@ -54,7 +49,8 @@ import torch
 
 from .philox import split_seed
 from .population import launch_population
-from .triton_ssm import analyse_elem, check_scalar_net, guided_scalar_chunk_plain
+from .render import analyse_elem, render_function
+from .triton_ssm import check_scalar_net, guided_scalar_chunk_plain
 
 __all__ = ["GROUPS", "LAUNCHES", "GuidedTensorCoreKernel",
            "guided_tc_max_width", "pack_weights", "padded_sizes",
@@ -240,142 +236,16 @@ def tc_net_plain(packed: torch.Tensor, sizes, x: torch.Tensor, y, tf):
 # the densities in C++
 
 
-_FUNCS = {"_elem_exp": ("expf", 1), "_elem_log": ("logf", 1),
-          "_elem_sqrt": ("__fsqrt_rn", 1), "_elem_sin": ("sinf", 1),
-          "_elem_cos": ("cosf", 1), "_elem_tanh": ("tanhf", 1),
-          "_elem_minimum": ("fminf", 2), "_elem_maximum": ("fmaxf", 2),
-          "_div_rn": ("__fdiv_rn", 2)}
-_BINOPS = {ast.Add: "__fadd_rn", ast.Sub: "__fsub_rn", ast.Mult: "__fmul_rn"}
-_CMPOPS = {ast.Lt: "<", ast.LtE: "<=", ast.Gt: ">", ast.GtE: ">=",
-           ast.Eq: "==", ast.NotEq: "!="}
-
-
-def _f32_literal(v) -> str:
-    """A number as a C++ float literal that converts back to its float32
-    value exactly."""
-    f = np.float32(v)
-    if np.isnan(f):
-        return "NAN"
-    if np.isinf(f):
-        return "INFINITY" if f > 0 else "(-INFINITY)"
-    return f"{float(f)!r}f"
-
-
-class _Cpp:
-    """Renders the body of a rewritten elementwise function (the output of
-    :func:`~.triton_ssm.analyse_elem`) as C++ statements."""
-
-    def __init__(self, name: str, consts: dict, prefix: str):
-        self.name, self.consts, self.prefix = name, consts, prefix
-        self.declared: set = set()
-        self.tmp = 0
-
-    def fail(self, node, what: str):
-        raise ValueError(
-            f"{self.name}: {what} ({ast.unparse(node)!r}) is outside what the "
-            "tensor-core kernel renders to C++; build the model with mxu=False "
-            "to run this density on the Triton kernel")
-
-    def expr(self, node) -> str:
-        if isinstance(node, ast.Constant):
-            if isinstance(node.value, bool):
-                return "true" if node.value else "false"
-            if isinstance(node.value, (int, float)):
-                return _f32_literal(node.value)
-            self.fail(node, "a constant that is not a number")
-        if isinstance(node, ast.Name):
-            key = node.id[len(self.prefix):] if node.id.startswith(self.prefix) else None
-            if key in self.consts:
-                v = self.consts[key]
-                return ("true" if v else "false") if isinstance(v, bool) else _f32_literal(v)
-            if node.id in _FUNCS or node.id == "_elem_where":
-                self.fail(node, "an elem function other than called")
-            return f"v_{node.id}"
-        if isinstance(node, ast.BinOp):
-            fn = _BINOPS.get(type(node.op))
-            if fn is None:
-                self.fail(node, f"the operator {type(node.op).__name__}")
-            return f"{fn}({self.expr(node.left)}, {self.expr(node.right)})"
-        if isinstance(node, ast.UnaryOp):
-            if isinstance(node.op, ast.USub):
-                return f"(-{self.expr(node.operand)})"
-            if isinstance(node.op, ast.UAdd):
-                return self.expr(node.operand)
-            self.fail(node, f"the operator {type(node.op).__name__}")
-        if isinstance(node, ast.Compare):
-            if len(node.ops) != 1 or type(node.ops[0]) not in _CMPOPS:
-                self.fail(node, "a chained or non-numeric comparison")
-            return (f"({self.expr(node.left)} {_CMPOPS[type(node.ops[0])]} "
-                    f"{self.expr(node.comparators[0])})")
-        if isinstance(node, ast.Call):
-            fname = node.func.id if isinstance(node.func, ast.Name) else None
-            if node.keywords:
-                self.fail(node, "a call with keyword arguments")
-            if fname == "_elem_where":
-                if len(node.args) != 3:
-                    self.fail(node, "where without three arguments")
-                c, a, b = (self.expr(v) for v in node.args)
-                return f"({c} ? {a} : {b})"
-            if fname not in _FUNCS:
-                self.fail(node, "a call outside the elem namespace")
-            fn, arity = _FUNCS[fname]
-            if len(node.args) != arity:
-                self.fail(node, f"a call with {len(node.args)} arguments")
-            return f"{fn}({', '.join(self.expr(v) for v in node.args)})"
-        self.fail(node, f"the expression {type(node).__name__}")
-
-    def assign(self, name: str, value: str) -> str:
-        if name in self.declared:
-            return f"v_{name} = {value};"
-        self.declared.add(name)
-        return f"auto v_{name} = {value};"
-
-    def stmt(self, node) -> list:
-        if isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant) \
-                and isinstance(node.value.value, str):
-            return []                                    # a docstring
-        if isinstance(node, ast.Return):
-            if node.value is None or isinstance(node.value, ast.Tuple):
-                self.fail(node, "a return of other than one value")
-            return [f"return {self.expr(node.value)};"]
-        if isinstance(node, ast.Assign) and len(node.targets) == 1:
-            target = node.targets[0]
-            if isinstance(target, ast.Name):
-                return [self.assign(target.id, self.expr(node.value))]
-            if (isinstance(target, ast.Tuple) and isinstance(node.value, ast.Tuple)
-                    and len(target.elts) == len(node.value.elts)
-                    and all(isinstance(e, ast.Name) for e in target.elts)):
-                # the right side first, then the names, as Python does
-                tmps = []
-                out = []
-                for v in node.value.elts:
-                    tmps.append(f"tu{self.tmp}")
-                    out.append(f"const auto {tmps[-1]} = {self.expr(v)};")
-                    self.tmp += 1
-                out += [self.assign(e.id, tmp) for e, tmp in zip(target.elts, tmps)]
-                return out
-        if isinstance(node, ast.AugAssign) and isinstance(node.target, ast.Name):
-            value = self.expr(ast.BinOp(left=ast.Name(id=node.target.id, ctx=ast.Load()),
-                                        op=node.op, right=node.value))
-            return [self.assign(node.target.id, value)]
-        self.fail(node, f"the statement {type(node).__name__}")
-
-
 def render_density(fn, name: str, args: str, prefix: str) -> str:
     """The C++ ``__device__`` function ``float name(float, float, float)``
-    of an elementwise density under the contract of :mod:`.triton_ssm`
+    of an elementwise density under the contract of :mod:`.render`
     (``args`` describes its arguments).  Raises ``ValueError`` on anything
-    outside the contract or outside what the renderer takes."""
+    outside it; the message names ``mxu=False``, which runs the density on
+    the Triton K12."""
     src, consts = analyse_elem(fn, 3, name, args, prefix=prefix)
-    fn_node = ast.parse(src).body[0]
-    r = _Cpp(name, consts, prefix)
-    body = [line for s in fn_node.body for line in r.stmt(s)]
-    if not body or not body[-1].startswith("return "):
-        raise ValueError(f"{name} must end in a return of one value; build the "
-                         "model with mxu=False to run it on the Triton kernel")
-    params = ", ".join(f"float v_{a.arg}" for a in fn_node.args.args)
-    lines = "\n".join(f"  {b}" for b in body)
-    return f"__device__ __forceinline__ float {name}({params}) {{\n{lines}\n}}\n"
+    return render_function(src, consts, prefix, hint=(
+        "build the model with mxu=False to run this density on the Triton "
+        "kernel"))
 
 
 _SOURCE = """\

@@ -1,127 +1,73 @@
-"""The user-physics chunk kernels (Triton) — counterparts of
-``_make_scalar_chunk_kernel`` and ``_make_vector_chunk_kernel``
-(``cpprob_tpu/ops/pallas_ssm.py:588-630,730-772``), and of the guided
-scalar chunk kernel's elementwise twin ``_make_guided_scalar_chunk_kernel``
-(``pallas_ssm.py:887-945``; its MXU twin is ``ops/guided_tc.py``).
+"""K12, the guided scalar chunk kernel (Triton) — counterpart of the
+elementwise twin ``_make_guided_scalar_chunk_kernel`` (``cpprob_tpu/ops/
+pallas_ssm.py:887-945``; its MXU twin is ``ops/guided_tc.py``).
 
-One Triton kernel template serves the first two: D = 1 is K10 (scalar
-states, (n,) float32), D > 1 is K11 (vector states, (n, D) float32, read
-and written plane by plane).  Per particle it runs ``n_steps`` of the
-user's physics with ``n_valid`` masking, and writes one (max, sum e, sum
-e^2) record per program of ``BLOCK`` particles (e = exp(w - max w), the
-layout :func:`~.fused_hmm.stats_from_partials` combines).  A second
-template is K12 (:class:`GuidedScalarKernel`, below).
-
-**The step_elem contract.**  The physics is a plain ``def`` function
-(not a lambda)
-
-    step_elem(x_0, ..., x_{D-1}, y, eps_0, ..., eps_{D-1})
-        -> (x'_0, ..., x'_{D-1}, log_emission)
-
-over elementwise float32 values: ``x_d`` the state planes, ``y`` the
-step's observation (a scalar), ``eps_d`` independent standard normals.  Its
-body may use arithmetic operators, comparisons, local names, tuple
-unpacking, and the functions of :mod:`cpprob_tpu_torch.ops.elem`
-(``exp``, ``log``, ``sqrt``, ``sin``, ``cos``, ``tanh``, ``where``,
-``minimum``, ``maximum``), named through the module (``elem.exp``) or
-imported from it.  It may capture numbers (int, float, bool, numpy
-scalars), from its closure or its module, and number attributes of
-modules (``math.pi``); each becomes a compile-time constant of the
-kernel.  Nothing else: no tensors, no other functions.  Every returned
-value must depend on a state plane or on eps (a plane, not a scalar).
-
-The plain version (:func:`user_chunk_plain`) calls the same function on
-torch tensors.  The kernel path reads the function's source, checks it
-against the contract and raises ``ValueError`` when the model is built
-(:class:`UserKernel`), and compiles it into the kernel at the first
-launch; a Triton compile error raises there.  A CUDA tensor is never given
-to the plain version.
-
-**Draws.**  The Box-Muller pair of absolute step t for plane d sits on
-Philox4x32-10 counter (particle, t // 2, d, 0) under the sweep's seed: its
-cos half at even t, its sin half at odd t (a launch starting at odd t
-recomputes the pair).  So draws do not depend on how a sweep is chunked,
-and at D = 1 they are the linear-Gaussian kernel's (``csrc/fused_lg.cu``):
-K10 with the LG physics is K7 draw for draw.  Triton's ``tl.philox`` is
-Philox4x32-10 with the seed's low and high words as the key, the
-generator of ``ops/philox.py``; the transcendentals are libdevice's precise
-ones, square root and division round to nearest (``tl.sqrt_rn``,
-``tl.div_rn``: the kernel's default ones are approximate), and the kernel
-is compiled with ``enable_fp_fusion=False``, so it rounds as the plain
-version does.
-
-What bounds it on an H100: per particle-step half a Philox call and a
-log/sqrt/sin-or-cos per plane, plus the physics, against 8(D + 1) bytes
-read and written per chunk: issue-bound, not memory-bound.  The design
-keeps the planes and the weight of ``BLOCK / (32 num_warps)`` particles per
-thread in registers across the chunk.
-
-**K12, the guided scalar chunk kernel.**  A proposal net trained by
+A proposal net trained by
 :func:`cpprob_tpu_torch.inference.smc_csis.train_ssm_proposal` with
 ``kind="normal"`` (layers ``[3, H.., 2]``, inputs ``[z_prev, y, t/T]``,
 outputs ``(mean, raw)``) runs inside the kernel: per particle-step the
-Box-Muller eps of absolute step t (the draws above, plane 0: K7's and
-K10's draws), the net, the move ``z' = mean + std * eps`` with ``std =
+Box-Muller eps of absolute step t (Philox4x32-10 counter (particle, t // 2,
+0, 0), its cos half at even t and its sin half at odd t: the draws of K7
+and K10), the net, the move ``z' = mean + std * eps`` with ``std =
 softplus(raw) + 1e-6`` (the q the trainer fits and the fallback hooks
 serve), and the weight ``log_w += trans_logpdf_elem(z, z', t) +
 obs_logpdf_elem(z', y, t) - log q(z' | z, y)``.  The two densities keep the
-contract above with the signatures
+elementwise contract of :mod:`.render` with the signatures
 
     trans_logpdf_elem(x, nx, t) -> log p(nx | x)
     obs_logpdf_elem(nx, y, t) -> log g(y | nx)
 
 where ``t`` is the absolute step as a float32 scalar (exact below 2^24);
-the same body rules hold, and a violation raises ``ValueError`` when the
-kernel is built.  Only z_prev is per particle, so the first layer is ``x *
-w_x + c_j`` with ``c_j = w_y * y + w_t * t/T + b_j`` formed once per step;
-the other layers are unrolled multiplies and adds in the order of the
-reference's elementwise twin, the last hidden layer streamed into the two
-outputs so that only one hidden layer is live in registers.  The weights
-are baked into the generated source as float32 constants, as the
-reference's ``_make_mlp_elem`` bakes them: they become immediate operands
-of the multiplies, costing no loads and no registers, at the price of one
-Triton compile per trained net, at its first launch.  The plain
-version (:func:`guided_scalar_chunk_plain`) does the same operations in
-the same order.  What bounds K12 on an H100: for hidden width H about 3H
-+ 2H² + 5H float operations per particle-step (~640 at H = 16; the kernel
-keeps multiplies and adds apart), plus half a Philox call, the draw's and
-q's transcendentals and the densities, against 16 B per particle per
-chunk: float32 issue, not memory.  This kernel runs with
+a violation raises ``ValueError`` when the kernel is built.  Only z_prev is
+per particle, so the first layer is ``x * w_x + c_j`` with ``c_j = w_y * y
++ w_t * t/T + b_j`` formed once per step; the other layers are unrolled
+multiplies and adds in the order of the reference's elementwise twin, the
+last hidden layer streamed into the two outputs so that only one hidden
+layer is live in registers.  The weights are baked into the generated
+source as float32 constants, as the reference's ``_make_mlp_elem`` bakes
+them: they become immediate operands of the multiplies, costing no loads
+and no registers, at the price of one Triton compile per trained net, at
+its first launch.  Triton's ``tl.philox`` is Philox4x32-10 with the seed's
+low and high words as the key, the generator of ``ops/philox.py``
+(:func:`philox_words` holds it there on the card); the transcendentals are
+libdevice's precise ones, square root and division round to nearest
+(``tl.sqrt_rn``, ``tl.div_rn``), and the kernel is compiled with
+``enable_fp_fusion=False``, so it rounds as the plain version
+(:func:`guided_scalar_chunk_plain`) does.
+
+What bounds K12 on an H100: for hidden width H about 3H + 2H² + 5H float
+operations per particle-step (~640 at H = 16; the kernel keeps multiplies
+and adds apart), plus half a Philox call, the draw's and q's
+transcendentals and the densities, against 16 B per particle per chunk:
+float32 issue, not memory.  This kernel runs with
 ``attach_fused_guided_scalar_kernels(..., mxu=False)``; the default
 (``mxu=True``) puts the hidden layers on the tensor cores
 (``ops/guided_tc.py``).
 
-The generated kernel source goes to ``ops/_build/`` (one file per physics
-and D, and per guided model), and Triton's cache to
-``ops/_build/triton_cache``.
+The generated kernel source goes to ``ops/_build/`` (one file per guided
+model), and Triton's cache to ``ops/_build/triton_cache``.
 """
 
 from __future__ import annotations
 
-import ast
 import hashlib
 import importlib.util
-import inspect
 import math
-import numbers
 import os
 import sys
-import textwrap
-import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from . import elem as _elem
 from .fused_lg import normal_steps
 from .population import launch_population, mlp_layers
+from .render import analyse_elem
+from .user_chunk import block_records
 
-__all__ = ["BLOCK", "GUIDED_BLOCK", "LAUNCHES", "UserKernel",
-           "user_chunk_plain", "GuidedScalarKernel", "guided_scalar_chunk_plain",
-           "check_scalar_net", "philox_words"]
+__all__ = ["GUIDED_BLOCK", "LAUNCHES", "GuidedScalarKernel",
+           "guided_scalar_chunk_plain", "check_scalar_net", "philox_words"]
 
-BLOCK = 4096             # particles per program: one record each
 _NUM_WARPS = 8
 # K12: 512 particles per program over 8 warps, 2 per thread: a hidden layer
 # of 16 units then fits in 78 registers; at 4 per thread the kernel took
@@ -130,50 +76,12 @@ GUIDED_BLOCK = 512
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-# kernel launches, counted where the kernel is launched: "scalar" (K10,
-# D = 1), "scalar_step" (its one-step launch), "vector" (K11, D > 1),
-# "guided" (K12)
-LAUNCHES = {"scalar": 0, "scalar_step": 0, "vector": 0, "guided": 0}
+# kernel launches, counted where the kernel is launched
+LAUNCHES = {"guided": 0}
 
 
 # --------------------------------------------------------------------------
 # plain version
-
-
-def user_chunk_plain(step_elem, D: int, seed: int, states: torch.Tensor,
-                     log_w: torch.Tensor, ys: torch.Tensor, n_valid=None, *,
-                     t0: int = 1, draws=None):
-    """Plain version of the chunk kernel.  ``states`` (n,) for D = 1, else
-    (n, D); ``n_valid``: int32 scalar tensor (``None``: every step valid);
-    ``t0``: absolute time of the first step.  ``draws``: eps of shape
-    (n_steps, D, n) or broadcastable, in place of Philox.  Returns (states,
-    log_w, records (ceil(n / BLOCK), 3))."""
-    n, n_steps = states.shape[0], ys.shape[0]
-    dev = states.device
-    xs = [states] if D == 1 else list(states.unbind(1))
-    w = log_w
-    nv = (torch.tensor(n_steps) if n_valid is None
-          else torch.as_tensor(n_valid).reshape(())).to(dev)
-    philox = normal_steps(seed, torch.arange(n, device=dev), t0, n_steps,
-                          D) if draws is None else None
-    for t in range(n_steps):
-        eps = (next(philox) if draws is None
-               else [torch.broadcast_to(draws[t][d], (n,)) for d in range(D)])
-        out = step_elem(*xs, ys[t], *eps)
-        valid = t < nv
-        xs = [torch.where(valid, nx, x) for nx, x in zip(out[:D], xs)]
-        w = torch.where(valid, w + out[D], w)
-    new = xs[0] if D == 1 else torch.stack(xs, 1)
-    return new, w, _records(w, BLOCK)
-
-
-def _records(w: torch.Tensor, block: int) -> torch.Tensor:
-    """(ceil(n / block), 3) records (max, sum e, sum e^2) of ``w``."""
-    pad = -w.shape[0] % block
-    w2 = torch.nn.functional.pad(w, (0, pad), value=-math.inf).view(-1, block)
-    m = w2.amax(1)
-    e = torch.exp(w2 - m[:, None])
-    return torch.stack([m, e.sum(1), (e * e).sum(1)], 1)
 
 
 def check_scalar_net(params):
@@ -246,138 +154,7 @@ def guided_scalar_chunk_plain(params, trans_logpdf_elem, obs_logpdf_elem,
         valid = t < nv
         x = torch.where(valid, nx, x)
         w = torch.where(valid, w + dlw, w)
-    return x, w, _records(w, GUIDED_BLOCK)
-
-
-# --------------------------------------------------------------------------
-# the step_elem contract: source analysis (no Triton needed)
-
-
-def _free_names(fn_node: ast.FunctionDef) -> set:
-    args = {a.arg for a in fn_node.args.args}
-    stored = {n.id for n in ast.walk(fn_node)
-              if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Store)}
-    loaded = {n.id for n in ast.walk(fn_node)
-              if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load)}
-    return loaded - args - stored
-
-
-def _number(v):
-    if isinstance(v, (bool, np.bool_)):
-        return bool(v)
-    if isinstance(v, numbers.Integral):
-        return int(v)
-    if isinstance(v, numbers.Real):
-        return float(v)
-    return None
-
-
-class _Rewrite(ast.NodeTransformer):
-    """Maps the elem namespace to the kernel's ``_elem_*`` functions and
-    module attributes that are numbers to constants; captured numbers
-    become ``<prefix><name>`` constants."""
-
-    def __init__(self, env: dict, consts: dict, fn: str, prefix: str):
-        self.env, self.consts, self.fn, self.prefix = env, consts, fn, prefix
-
-    def visit_Attribute(self, node):
-        if isinstance(node.value, ast.Name) and node.value.id in self.env:
-            mod = self.env[node.value.id]
-            if mod is _elem:
-                if node.attr not in _elem.NAMES:
-                    raise ValueError(f"{self.fn}: elem.{node.attr} is not in "
-                                     f"the namespace {_elem.NAMES}")
-                return ast.copy_location(
-                    ast.Name(id=f"_elem_{node.attr}", ctx=node.ctx), node)
-            if isinstance(mod, types.ModuleType):
-                val = _number(getattr(mod, node.attr, None))
-                if val is not None:
-                    return ast.copy_location(ast.Constant(val), node)
-        raise ValueError(f"{self.fn}: attribute {ast.unparse(node)} is outside "
-                         "the contract (elem functions and module numbers)")
-
-    def visit_BinOp(self, node):
-        # a / b rounds to nearest, as torch's division does (the kernel's
-        # default division is approximate)
-        node = self.generic_visit(node)
-        if isinstance(node.op, ast.Div):
-            return ast.copy_location(ast.Call(
-                func=ast.Name(id="_div_rn", ctx=ast.Load()),
-                args=[node.left, node.right], keywords=[]), node)
-        return node
-
-    def visit_Name(self, node):
-        if node.id in self.consts:
-            return ast.copy_location(
-                ast.Name(id=f"{self.prefix}{node.id}", ctx=node.ctx), node)
-        v = self.env.get(node.id, node)
-        if v is not node and callable(v):
-            for name in _elem.NAMES:
-                if v is getattr(_elem, name):
-                    return ast.copy_location(
-                        ast.Name(id=f"_elem_{name}", ctx=node.ctx), node)
-        return node
-
-
-def analyse_step_elem(step_elem, D: int):
-    """Check ``step_elem`` against the contract (module docstring).
-    Returns (the function's source rewritten for the kernel, named
-    ``step_elem``, and the captured constants {name: number}).  Raises
-    ``ValueError`` on anything outside the contract."""
-    return analyse_elem(step_elem, 2 * D + 1, "step_elem",
-                        f"x_0..x_{D - 1}, y, eps_0..eps_{D - 1}")
-
-
-def analyse_elem(fn, n_args: int, name: str, args: str, prefix: str = "_k_"):
-    """Check an elementwise function against the contract of the module
-    docstring, with ``n_args`` positional arguments (described by
-    ``args``).  Returns (its source rewritten for the kernel, renamed
-    ``name``, and the captured constants {name: number}, which the source
-    reads as ``<prefix><name>``).  Raises ``ValueError`` on anything
-    outside the contract."""
-    if not isinstance(fn, types.FunctionType):
-        raise ValueError(f"{name} must be a plain Python function")
-    if fn.__name__ == "<lambda>":
-        raise ValueError(f"{name} must be a def function, not a lambda: "
-                         "the kernel is compiled from its source")
-    try:
-        src = textwrap.dedent(inspect.getsource(fn))
-    except (OSError, TypeError) as e:
-        raise ValueError(f"{name} has no readable source: {e}") from None
-    fn_node = next(n for n in ast.parse(src).body
-                   if isinstance(n, ast.FunctionDef))
-    if any(isinstance(n, (ast.Import, ast.ImportFrom, ast.Global,
-                          ast.Nonlocal)) for n in ast.walk(fn_node)):
-        raise ValueError(f"{name} may not import or declare globals: "
-                         "import the elem namespace at module level")
-    a = fn_node.args
-    if (a.vararg or a.kwarg or a.kwonlyargs or a.defaults or a.posonlyargs
-            or len(a.args) != n_args):
-        raise ValueError(f"{name} must take {n_args} positional "
-                         f"arguments ({args})")
-    cv = inspect.getclosurevars(fn)
-    env = {**cv.builtins, **cv.globals, **cv.nonlocals}
-    consts = {}
-    for free in sorted(_free_names(fn_node)):
-        if free not in env:
-            raise ValueError(f"{name}: unknown name {free!r}")
-        v = env[free]
-        num = _number(v)
-        if num is not None:
-            consts[free] = num
-        elif v is _elem or any(v is getattr(_elem, f) for f in _elem.NAMES):
-            continue
-        elif isinstance(v, types.ModuleType):
-            continue     # only its number attributes pass _Rewrite
-        else:
-            raise ValueError(
-                f"{name}: {free!r} is a {type(v).__name__}; the kernel "
-                "takes captured numbers and the elem namespace only")
-    fn_node.decorator_list = []
-    fn_node.name = name
-    fn_node = _Rewrite(env, consts, name, prefix).visit(fn_node)
-    ast.fix_missing_locations(fn_node)
-    return ast.unparse(fn_node), consts
+    return x, w, block_records(w, GUIDED_BLOCK)
 
 
 # --------------------------------------------------------------------------
@@ -385,7 +162,7 @@ def analyse_elem(fn, n_args: int, name: str, args: str, prefix: str = "_k_"):
 
 
 _HEADER = '''\
-# Generated by cpprob_tpu_torch/ops/triton_ssm.py from {origin}.
+# Generated by cpprob_tpu_torch/ops/triton_ssm.py for {origin}.
 import triton
 import triton.language as tl
 {libdevice_import}
@@ -455,41 +232,7 @@ def _normal_pair(seed, g, pair, plane: tl.constexpr):
 
 '''
 
-_TEMPLATE = _HEADER + '''
-@triton.jit
-{step_elem}
-
-
-@triton.jit(do_not_specialize=["seed", "t0", "n", "n_steps"])
-def user_chunk_kernel(x_ptr, w_ptr, ys_ptr, nv_ptr, xo_ptr, wo_ptr, rec_ptr,
-                      n, n_steps, seed, t0, BLOCK: tl.constexpr):
-    pid = tl.program_id(0)
-    offs = pid * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < n
-    g = offs.to(tl.uint32)
-{load_planes}
-    w = tl.load(w_ptr + offs, mask=mask, other=-float("inf"))
-    n_valid = tl.minimum(tl.load(nv_ptr), n_steps)
-    for t in range(0, n_valid):
-        ta = t0 + t
-        y = tl.load(ys_ptr + t)
-        even = (ta % 2) == 0
-        if even | (t == 0):
-{draw_pairs}
-        else:
-{reuse_sin}
-        {step_out} = step_elem({step_args})
-{advance}
-    w = tl.where(mask, w, -float("inf"))
-{store_planes}
-    tl.store(wo_ptr + offs, w, mask=mask)
-    m = tl.max(w, axis=0)
-    e = tl.where(mask, libdevice.exp(w - m), 0.0)
-    tl.store(rec_ptr + pid * 3, m)
-    tl.store(rec_ptr + pid * 3 + 1, tl.sum(e, axis=0))
-    tl.store(rec_ptr + pid * 3 + 2, tl.sum(e * e, axis=0))
-
-
+_PHILOX_TEMPLATE = _HEADER + '''
 @triton.jit
 def philox_words_kernel(out_ptr, seed, c1, c2, n, BLOCK: tl.constexpr):
     offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
@@ -559,36 +302,6 @@ def _libdevice_import() -> str:
         return "from triton.language.extra import libdevice"
     except ImportError:
         return "from triton.language.extra.cuda import libdevice"
-
-
-def render_source(step_src: str, consts: dict, D: int) -> str:
-    """The generated module's source for a rewritten ``step_elem`` of D
-    planes (needs ``triton`` installed only for the libdevice path)."""
-    ind = " " * 4
-    planes = range(D)
-    fill = {
-        "origin": "a user step_elem",
-        "libdevice_import": _libdevice_import(),
-        "constants": "\n".join(f"_k_{k} = tl.constexpr({v!r})"
-                               for k, v in sorted(consts.items())),
-        "step_elem": step_src,
-        "load_planes": "\n".join(
-            f"{ind}x{d} = tl.load(x_ptr + offs * {D} + {d}, mask=mask, other=0.0)\n"
-            f"{ind}sn{d} = tl.zeros([BLOCK], tl.float32)" for d in planes),
-        "draw_pairs": "\n".join(
-            f"{ind * 3}e{d}, sn{d} = _normal_pair(seed, g, (ta // 2).to(tl.uint32), {d})\n"
-            f"{ind * 3}e{d} = tl.where(even, e{d}, sn{d})" for d in planes),
-        "reuse_sin": "\n".join(f"{ind * 3}e{d} = sn{d}" for d in planes),
-        "step_out": ", ".join([f"nx{d}" for d in planes] + ["lw"]),
-        "step_args": ", ".join([f"x{d}" for d in planes] + ["y"]
-                               + [f"e{d}" for d in planes]),
-        "advance": "\n".join([f"{ind * 2}x{d} = nx{d}" for d in planes]
-                             + [f"{ind * 2}w = w + lw"]),
-        "store_planes": "\n".join(
-            f"{ind}tl.store(xo_ptr + offs * {D} + {d}, x{d}, mask=mask)"
-            for d in planes),
-    }
-    return _TEMPLATE.format(**fill)
 
 
 def _f32(v) -> str:
@@ -678,72 +391,6 @@ def _load_generated(source: str):
     return mod
 
 
-class UserKernel:
-    """The chunk kernel of one ``step_elem`` over ``D`` planes.  Building it
-    checks the physics against the contract (``ValueError``); the Triton
-    kernel itself is generated and compiled at the first CUDA launch."""
-
-    def __init__(self, step_elem, D: int):
-        if D < 1:
-            raise ValueError(f"state dimension must be >= 1, got {D}")
-        self.step_elem, self.D = step_elem, int(D)
-        self._step_src, self._consts = analyse_step_elem(step_elem, self.D)
-        self._module = None
-        self._all_steps: dict = {}
-
-    def source(self) -> str:
-        """The generated kernel module's source."""
-        return render_source(self._step_src, self._consts, self.D)
-
-    def module(self):
-        if self._module is None:
-            self._module = _load_generated(self.source())
-        return self._module
-
-    def chunk(self, seed: int, states: torch.Tensor, log_w: torch.Tensor,
-              ys: torch.Tensor, n_valid=None, *, t0: int = 1,
-              step: bool = False):
-        """The chunk on the device of ``states``: the kernel on CUDA tensors,
-        :func:`user_chunk_plain` on CPU tensors.  ``step``: a one-step
-        launch (counted apart).  Returns (states, log_w, records)."""
-        D, dev = self.D, states.device
-        want = (states.shape[0],) if D == 1 else (states.shape[0], D)
-        if tuple(states.shape) != want or log_w.shape != states.shape[:1]:
-            raise ValueError(f"states must be {'(n,)' if D == 1 else f'(n, {D})'} "
-                             "and log_w (n,)")
-        if dev.type == "cpu":
-            return user_chunk_plain(self.step_elem, D, seed, states, log_w,
-                                    ys, n_valid, t0=t0)
-        n, n_steps = states.shape[0], ys.shape[0]
-        if not 0 < n < 2 ** 31 or t0 < 0 or t0 + n_steps >= 2 ** 32:
-            raise ValueError("need 0 < n < 2^31 and t0 + n_steps < 2^32")
-        if n_valid is None:
-            if dev not in self._all_steps:
-                self._all_steps[dev] = torch.full((1,), 2 ** 30, dtype=torch.int32,
-                                             device=dev)
-            n_valid = self._all_steps[dev]
-        elif n_valid.numel() != 1:
-            raise ValueError("n_valid must be one int32 element")
-        seed64 = int(seed) & 0xFFFFFFFFFFFFFFFF
-        grid = -(-n // BLOCK)
-        key = "vector" if D > 1 else ("scalar_step" if step else "scalar")
-
-        def launch(x_out, w_out, rec):
-            self.module().user_chunk_kernel[(grid,)](
-                states, log_w, ys, n_valid, x_out, w_out, rec, n, n_steps,
-                seed64, t0, BLOCK=BLOCK, num_warps=_NUM_WARPS,
-                enable_fp_fusion=False)
-
-        return launch_population(
-            f"user_chunk_kernel (D={D})", launch, device=dev,
-            inputs=[(states, "states", torch.float32),
-                    (log_w, "log_w", torch.float32),
-                    (ys, "ys", torch.float32),
-                    (n_valid, "n_valid", torch.int32)],
-            outputs=[(want, torch.float32), ((n,), torch.float32)],
-            records=(grid, 3), counts=LAUNCHES, count_key=key)
-
-
 class GuidedScalarKernel:
     """K12, the guided chunk kernel of one proposal net and two densities
     (module docstring).  Building it checks the net's shape and the
@@ -823,8 +470,9 @@ def philox_words(seed: int, n: int, c1: int, c2: int, device) -> torch.Tensor:
     """(n, 4) Philox4x32-10 words of ``tl.philox`` at counters (i, c1, c2,
     0), i < n, as int64 values in [0, 2^32): held against
     :func:`~.philox.philox4x32` on the card."""
-    mod = _load_generated(render_source("def step_elem(x, y, e):\n"
-                                        "    return x, y", {}, 1))
+    mod = _load_generated(_PHILOX_TEMPLATE.format(
+        origin="the Philox words check", libdevice_import=_libdevice_import(),
+        constants=""))
     out = torch.empty((n, 4), dtype=torch.int32, device=device)
     mod.philox_words_kernel[(-(-n // 1024),)](
         out, int(seed) & 0xFFFFFFFFFFFFFFFF, c1, c2, n, BLOCK=1024)

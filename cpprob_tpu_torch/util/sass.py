@@ -15,6 +15,8 @@ leave its kernels' code alone shows that it did.
 :func:`kernel_report` reads one kernel of a library the port has built
 (``ops/_build.py``): its registers and spills from the build's ptxas lines
 and its opcodes from ``cuobjdump -sass`` of the library.
+:func:`cubin_report` reads the kernels of any cubin (a Triton kernel's,
+say) the same way, and :func:`parse_loops` the instructions of each loop.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ from pathlib import Path
 
 from ..ops._build import NVCC_FLAGS, _nvcc
 
-__all__ = ["compare", "kernel_report", "parse_registers", "parse_sass",
-           "parse_spills", "parse_stack"]
+__all__ = ["compare", "cubin_report", "kernel_report", "parse_loops",
+           "parse_registers", "parse_sass", "parse_spills", "parse_stack"]
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
@@ -40,6 +42,9 @@ _PROPS = re.compile(r"Function properties for (\S+)")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _STACK = re.compile(r"(\d+) bytes stack frame")
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/")
+_BRA = re.compile(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b)")
 
 
 def _name(mangled: str) -> str:
@@ -60,6 +65,84 @@ def parse_sass(text: str) -> dict:
         if m and cur is not None:
             cur.append(" ".join(m.group(1).split()))
     return out
+
+
+def parse_loops(text: str) -> dict:
+    """Function name -> the instruction count of each loop (a backward
+    branch to a label or an address, counted from its target to the
+    branch), from ``cuobjdump -sass`` output, largest first."""
+    out, cur = {}, None
+    labels, addrs, branches, n = {}, {}, [], 0
+
+    def close():
+        if cur is not None:
+            found = []
+            for i, lab, addr in branches:
+                j = labels.get(lab) if lab else addrs.get(addr)
+                if j is not None and j <= i:
+                    found.append(i - j + 1)
+            out[cur] = sorted(found, reverse=True)
+
+    for line in text.splitlines():
+        m = _FUNC.match(line)
+        if m:
+            close()
+            cur, labels, addrs, branches, n = _name(m.group(1)), {}, {}, [], 0
+            continue
+        m = _LABEL.match(line)
+        if m:
+            labels[m.group(1)] = n
+            continue
+        m = _INSN.search(line)
+        if m and cur is not None:
+            a = _ADDR.search(line)
+            if a:
+                addrs[int(a.group(1), 16)] = n
+            b = _BRA.search(m.group(1))
+            if b:
+                branches.append((n, b.group(1), int(b.group(2), 16) if b.group(2) else None))
+            n += 1
+    close()
+    return out
+
+
+def _opcodes(insns) -> tuple:
+    ops, full = collections.Counter(), collections.Counter()
+    for i in insns:
+        words = i.split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            ops[words[0].split(".")[0]] += 1
+            full[words[0]] += 1
+    return dict(ops), dict(full)
+
+
+def _dump(binary: Path, out: Path | None) -> str:
+    """``cuobjdump -sass`` of ``binary`` (also written to ``out``)."""
+    text = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(binary)],
+                          capture_output=True, text=True, check=True).stdout
+    if out is not None:
+        out.write_text(text)
+    return text
+
+
+def cubin_report(cubin: Path, kernel: str = "", out: Path | None = None) -> dict:
+    """The kernels of ``cubin`` whose names contain ``kernel``: for each,
+    its instruction count, the count of each opcode (as
+    :func:`kernel_report`), local-memory accesses (``LDL``/``STL``) and the
+    instruction count of its loops (:func:`parse_loops`).  ``out``: a file
+    for the whole SASS."""
+    text = _dump(cubin, out)
+    loops = parse_loops(text)
+    found = {}
+    for f, insns in parse_sass(text).items():
+        if kernel in f:
+            ops, full = _opcodes(insns)
+            found[f] = {"instructions": len(insns), "opcodes": ops, "full": full,
+                        "ldl_stl": ops.get("LDL", 0) + ops.get("STL", 0),
+                        "loops": loops.get(f, [])}
+    return found
 
 
 def parse_registers(log: str) -> dict:
@@ -110,36 +193,30 @@ def parse_stack(log: str) -> dict:
     return out
 
 
-def kernel_report(lib: str, kernel: str) -> dict:
+def kernel_report(lib: str, kernel: str, out: Path | None = None) -> dict:
     """The kernels of the built library ``lib`` (``ops/_build.py``, built
     by this process: a ``csrc`` name or a generated library's
     "<name>-<hash>") whose mangled names contain ``kernel``: for each, its
     registers, spill bytes, stack frame bytes, the count of each opcode in its SASS (the
-    mnemonic before the first dot, predicates dropped) and of each opcode
-    with its modifiers (``full``, e.g. ``HMMA.1688.F32.TF32``)."""
+    mnemonic before the first dot, predicates dropped), of each opcode
+    with its modifiers (``full``, e.g. ``HMMA.1688.F32.TF32``) and the
+    instruction count of each loop (``loops``, :func:`parse_loops`).
+    ``out``: a file for the library's whole SASS."""
     from ..ops import _build
 
-    path = _build.library_path(lib)
-    dump = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(path)],
-                          capture_output=True, text=True, check=True)
+    text = _dump(_build.library_path(lib), out)
     log = _build.BUILD_LOGS.get(lib, "")
     regs, spills, stack = parse_registers(log), parse_spills(log), parse_stack(log)
-    out = {}
-    for f, insns in parse_sass(dump.stdout).items():
+    loops = parse_loops(text)
+    found = {}
+    for f, insns in parse_sass(text).items():
         if kernel not in f:
             continue
-        ops, full = collections.Counter(), collections.Counter()
-        for i in insns:
-            words = i.split()
-            if words and words[0].startswith("@"):
-                words = words[1:]
-            if words:
-                ops[words[0].split(".")[0]] += 1
-                full[words[0]] += 1
-        out[f] = {"registers": regs.get(f), "spills": spills.get(f),
-                  "stack": stack.get(f), "instructions": len(insns), "opcodes": dict(ops),
-                  "full": dict(full)}
-    return out
+        ops, full = _opcodes(insns)
+        found[f] = {"registers": regs.get(f), "spills": spills.get(f),
+                    "stack": stack.get(f), "instructions": len(insns), "opcodes": ops,
+                    "full": full, "loops": loops.get(f, [])}
+    return found
 
 
 def _build(csrc: Path, name: str, cubin: Path):

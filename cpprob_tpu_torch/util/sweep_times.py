@@ -10,8 +10,10 @@ HMM main path (2^26 particles, T = 16, chunk 16, island_every 8: K1, K2),
 the HMM per step at 2^20 (chunk 1: K4; ``smc()`` with history: K5), a
 5-state chain at 2^24 (chunk 8: K9, K8) and the same chain guided by a
 random ``[7,16,16,5]`` net at 2^24 (chunk 8: K13) and per step at 2^20
-(K13 one-step).  The chain is the K-state recipe of tests/test_tpu_hw.py
-at K = 5 with standard normal observations from ``default_rng(0)``.
+(K13 one-step), and the linear-Gaussian physics as a user ``step_elem`` at
+2^24 (chunk 8: K10 and the streaming epoch).  The chain is the K-state
+recipe of tests/test_tpu_hw.py at K = 5 with standard normal observations
+from ``default_rng(0)``.
 Prints one JSON line: the card and the ms of each sweep.  It needs the card.
 """
 
@@ -21,6 +23,14 @@ import sys
 import numpy as np
 import torch
 
+HALF_LOG_2PI = 0.9189385332046727
+
+
+def lg_step_elem(x, y, eps):
+    nx = x + eps
+    d = y - nx
+    return nx, -0.5 * d * d - HALF_LOG_2PI
+
 
 def main():
     if not torch.cuda.is_available():
@@ -29,8 +39,13 @@ def main():
     from cpprob_tpu_torch.inference.nn import mlp_init
     from cpprob_tpu_torch.models import simulate_observations
     from cpprob_tpu_torch.ops.fused_hmm import make_fused_hmm_ssm
+    from cpprob_tpu_torch.models.linear_gaussian import linear_gaussian_ssm
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        simulate_observations as lg_observations,
+    )
     from cpprob_tpu_torch.ops.fused_ssm import (
         attach_fused_guided_discrete_kernels,
+        attach_fused_scalar_kernels,
         make_fused_discrete_ssm,
     )
     from cpprob_tpu_torch.util.profiling import gpu_name_and_power
@@ -57,6 +72,9 @@ def main():
             make_fused_discrete_ssm(*chain5), 1 << 24, chunk=8), obs5, 16),
         "guided5_2^24_chunk8": (build_smc_run(guided5, 1 << 24, chunk=8), obs5, 16),
         "guided5_2^20_chunk1": (build_smc_run(guided5, 1 << 20), obs5, 8),
+        "user_lg_2^24_chunk8": (build_smc_run(attach_fused_scalar_kernels(
+            linear_gaussian_ssm, lg_step_elem), 1 << 24, chunk=8),
+            torch.as_tensor(lg_observations(16, 0), device=dev), 16),
     }
     ms = {name: time_ms(lambda: run(20_000, o), reps)
           for name, (run, o, reps) in runs.items()}

@@ -438,6 +438,46 @@ def _island_args():
     return trans, params, ys
 
 
+def test_guided_tables_wrapper_stacks_the_plain_tables():
+    """``guided_tables`` on CPU tensors: each step's row is cum | ssum | rn
+    of ``guided_tables_plain`` at that step's observation and t/T, the rows
+    the tables kernel writes on the card and the chunk kernel reads."""
+    spec, gt = _discrete_port(_net([7, 8, 8, 5], 3))
+    ys = torch.tensor([0.5, -1.25, 2.0, 0.0])
+    ctrl = torch.tensor([0, 0, 0, 0, 0, 4], dtype=torch.int32)
+    rows = fused_hmm.guided_tables(ys, ctrl, spec, gt, t0=7)
+    assert rows.shape == (4, 2 * 25 + 5) and rows.dtype == torch.float32
+    tab, gtab = spec.tables("cpu"), gt.tables("cpu")
+    for t in range(4):
+        tf = torch.tensor(float(7 + t), dtype=torch.float32) / float(T)
+        cum, ssum, rn = guided_tables_plain(tab, gtab, ys[t], tf)
+        assert torch.equal(rows[t], torch.cat([cum.reshape(-1), ssum, rn.reshape(-1)]))
+    assert torch.equal(rows[:, 25:30], rows[:, 4:25:5])      # ssum = cum[:, K-1]
+
+
+def test_guided_chain_parts_variants_find_their_lines():
+    """``util/guided_chain_parts.py`` builds K13's designs by substituting
+    lines of ``csrc/fused_hmm.cu``: each still finds its lines, only
+    ``tables_kernel`` is the source as it is, and ``in_cta`` (every CTA
+    building its tables) keeps no tables wait or copy in the chunk
+    kernel."""
+    from pathlib import Path
+
+    from cpprob_tpu_torch.util import chain_parts, guided_chain_parts
+
+    kept_text = (Path(fused_hmm.__file__).parent / "csrc" / "fused_hmm.cu").read_text()
+    kept = chain_parts.variant_source([])
+    for name, subs in guided_chain_parts.VARIANTS.items():
+        text = chain_parts.variant_source(
+            guided_chain_parts.in_cta_subs(kept_text) if subs is None else subs)
+        assert (text == kept) == (name == "tables_kernel")
+    in_cta = chain_parts.variant_source(guided_chain_parts.in_cta_subs(kept_text))
+    assert "asm volatile(\"griddepcontrol.wait" not in in_cta
+    assert "__ldcg(tabs" not in in_cta
+    assert "guided_build<K>(net, nd, tab, ltab, ys + t, len" in in_cta
+    assert in_cta.count("int guided_chunk_launch(") == 1
+
+
 def test_guided_island_threshold_zero_is_no_island():
     """tests/test_pallas_ssm.py:593-611: threshold 0 equals no island, bit
     for bit; and the port's frame equals the JAX island kernel's."""

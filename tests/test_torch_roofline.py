@@ -399,3 +399,27 @@ def test_sass_report_parses_stack_frames():
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
     assert sass.parse_stack(log) == {"_Z1kPf": 16,
                                      "_ZN44_GLOBAL__N__11_a_cu_5otherEv": 0}
+
+
+def test_sass_loops_are_counted_from_label_to_backward_branch():
+    """``util/sass.py`` counts each loop's instructions (a backward branch
+    to a label), as ``util/user_parts.py`` reads a kernel's step loop."""
+    from cpprob_tpu_torch.util import sass
+
+    dump = (
+        "        Function : _Z1kPf\n"
+        "        /*0000*/                   MOV R1, c[0x0][0x28] ;\n"
+        ".L_x_0:\n"
+        "        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;\n"
+        ".L_x_1:\n"
+        "        /*0020*/                   FADD R3, R3, R2 ;\n"
+        "        /*0030*/              @P0 BRA `(.L_x_1) ;\n"
+        "        /*0040*/                   ISETP.GE.AND P1, PT, R2, 0x8, PT ;\n"
+        "        /*0050*/             @!P1 BRA `(.L_x_0) ;\n"
+        "        /*0060*/                   BRA `(.L_x_2) ;\n"
+        ".L_x_2:\n"
+        "        /*0070*/                   EXIT ;\n"
+        "        Function : _Z1gv\n"
+        "        /*0000*/                   EXIT ;\n")
+    assert sass.parse_loops(dump) == {"_Z1kPf": [5, 2], "_Z1gv": []}
+    assert len(sass.parse_sass(dump)["_Z1kPf"]) == 8

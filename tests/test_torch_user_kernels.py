@@ -1,4 +1,4 @@
-"""The port's user-physics kernels (``cpprob_tpu_torch.ops.triton_ssm``:
+"""The port's user-physics kernels (``cpprob_tpu_torch.ops.user_chunk``:
 K10 scalar, K11 vector) and the vector resample epoch, against the JAX
 package.
 
@@ -9,8 +9,8 @@ oracle are the ones of ``tests/test_vector_ssm.py``, written here with the
 port's batched hooks.  Statistical checks use the 4·SE + 0.02 rule.
 """
 
-import ast
 import math
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,13 +33,13 @@ from cpprob_tpu_torch.models.linear_gaussian import (
     linear_gaussian_ssm,
     simulate_observations,
 )
-from cpprob_tpu_torch.ops import elem, triton_ssm
+from cpprob_tpu_torch.ops import _build, elem, user_chunk
 from cpprob_tpu_torch.ops.fused_ssm import (
     attach_fused_scalar_kernels,
     attach_fused_vector_kernels,
 )
 from cpprob_tpu_torch.ops.fused_lg import lg_chunk_plain
-from cpprob_tpu_torch.ops.triton_ssm import UserKernel, user_chunk_plain
+from cpprob_tpu_torch.ops.user_chunk import UserKernel, user_chunk_plain
 from tests.test_vector_ssm import A, H, HALF_LOG_2PI, kalman_2d_loglik, make_lg2d
 
 torch.set_num_threads(2)
@@ -206,13 +206,22 @@ def test_vector_draws_are_independent_planes():
 
 
 def test_step_elem_contract():
+    """The physics is rendered into the generated CUDA source (a device
+    function with one output reference a returned value, its elem calls as
+    CUDA's precise functions, captured numbers as float32 literals, the
+    planes read and written through the template's adaptor); a function
+    outside the contract raises when the kernel object is built."""
     k = UserKernel(growth_step_elem, 1)
     src = k.source()
-    ast.parse(src)                                # a valid module
-    assert "_elem_sin(x)" in src and "_elem_tanh(nx)" in src
-    assert "_k_half_log_2pi = tl.constexpr(0.9189385332046727)" in src
+    assert ("__device__ __forceinline__ void step_elem(float v_x, float v_y, "
+            "float v_eps, float& o_0, float& o_1)") in src
+    assert "sinf(v_x)" in src and "tanhf(v_nx)" in src and "fminf(v_h, 2.0f)" in src
+    assert f"{float(np.float32(half_log_2pi))!r}f" in src
+    assert "constexpr int kD = 1;" in src and '#include "user_chunk.cuh"' in src
     k2 = UserKernel(lg2d_step_elem, 2)
-    assert "x1 = tl.load(x_ptr + offs * 2 + 1" in k2.source()
+    assert ("step_elem(x[0], x[1], y, eps[0], eps[1], nx[0], nx[1], log_emission);"
+            in k2.source())
+    assert "constexpr int kD = 2;" in k2.source()
     with pytest.raises(ValueError, match="lambda"):
         UserKernel(lambda x, y, e: (x, x), 1)
     table = torch.ones(3)
@@ -334,13 +343,13 @@ def test_user_kernels_match_plain_on_card():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     import chip_smoke
 
-    errs = chip_smoke.check_user_kernels(1 << 16)
+    errs, _ = chip_smoke.check_user_kernels(1 << 16)
     assert errs["scalar"] < 1e-3 and errs["vector"] < 1e-3
 
 
-def test_triton_is_not_imported_on_the_cpu_path():
-    import sys
-
+def test_no_library_is_built_or_loaded_on_the_cpu_path():
     k = UserKernel(lg_step_elem, 1)
+    before = dict(_build._LIBS)
     k.chunk(0, torch.zeros(4096), torch.zeros(4096), torch.zeros(2))
-    assert "triton" not in sys.modules or triton_ssm.LAUNCHES["scalar"] == 0
+    assert _build._LIBS == before and k.library is None
+    assert user_chunk.LAUNCHES["scalar"] == 0 and "triton" not in sys.modules
