@@ -76,9 +76,12 @@ and the script exits non-zero without printing its last line:
    for 8 sweeps against the 2-D Kalman filter; timings beside K7, in turns;
 7. guided SMC (``guided_phases``): the two proposal nets trained on the
    card by ``train_ssm_proposal`` with ``examples/kernel_bench.py``'s
-   settings (a set-up stage; fails unless the loss fell); Triton's Philox
-   words (K12's generator) against ``ops/philox.py``; K12 (Triton, the
-   guided linear-Gaussian model: t0 1 and 9, n_valid 8 and 7), its
+   settings (a set-up stage; fails unless the loss fell); K12 (CUDA
+   generated per net, the net on the FMA pipe: the guided linear-Gaussian
+   model, t0 1 and 9, n_valid 8 and 7; a linear ``[3, 2]`` head, a
+   ``[3,64,64,2]`` net and a density with ``**``; each build's SASS must
+   show no spill and no local memory beyond the precise ``sincosf``'s
+   slow-path frame, ``check_scalar_sass``), its
    tensor-core twin (CUDA ``guided_tc_kernel``: one step on path 7's net
    and four random nets, ``TC_NETS``, within ``TC_STEP_TOL``, where its
    1xTF32 variant must fail; its chunks against its own one-step launches,
@@ -94,7 +97,7 @@ and the script exits non-zero without printing its last line:
    against their plain versions at 2^24; path 7,
    ``build_smc_run(attach_fused_guided_scalar_kernels(...), 2^24,
    chunk=8)`` against Kalman, with ``mxu=True`` (the twin, the default)
-   and with ``mxu=False`` (K12); path 8, ``build_smc_run(
+   and with ``mxu=False`` (K12 on the FMA pipe); path 8, ``build_smc_run(
    attach_fused_guided_discrete_kernels(...), 2^24, chunk=8)`` (K9 then
    K13); path 9a, the same model per step at 2^20 (K13 one-step launches,
    T = 12); path 9b, ``island_every=8`` at ``chunk=16`` (the interior
@@ -905,7 +908,7 @@ def lg_phases(card, stages):
 
 # ---------------------------------------------------------------------------
 # the kernel-from-spec family: K8/K9 (spec chains), K4/K5 (per-step HMM
-# launches), K10/K11 (user physics, Triton)
+# launches), K10/K11 (user physics, CUDA generated from the physics)
 
 TRANS5 = [[0.50, 0.20, 0.10, 0.10, 0.10],
           [0.05, 0.60, 0.20, 0.10, 0.05],
@@ -1073,20 +1076,26 @@ def _compare_chunk(out_k, out_p, K, n, what, want):
 
 
 def _check_init(seed, y0, n, spec, what):
-    """The init kernel against its plain version: states equal, log_w
-    within 1e-5 relative, records close.  Returns (states, log_w, max
-    |dlog_w|) of the kernel."""
+    """The init kernel against its plain version (the initial uniform of
+    particle g is word g & 3 of Philox at (g >> 2, 0, 0, 0) on both sides):
+    states equal bit for bit, log_w within 1e-5 relative, records (from the
+    kernel's state counts) close; at ``n`` and at a ragged 4,099 (a quad cut
+    short).  Returns (states, log_w, max |dlog_w|) of the kernel at n."""
     from cpprob_tpu_torch.ops.fused_hmm import hmm_init, hmm_init_plain
 
-    s_k, w_k, rec_k = hmm_init(seed, y0, n, spec)
-    s_p, w_p, rec_p = hmm_init_plain(seed, y0, n, spec)
-    _sync()
-    if not torch.equal(s_k, s_p):
-        raise AssertionError(f"{what}: states differ")
-    torch.testing.assert_close(w_k, w_p, rtol=1e-5, atol=0, msg=f"{what}: log_w")
-    _close_stats(rec_k, rec_p, n, what)
-    err = float((w_k - w_p).abs().max())
-    print(f"check {what}: states equal, max|dlog_w|={err:.3g}")
+    err = 0.0
+    for size in (4099, n):
+        s_k, w_k, rec_k = hmm_init(seed, y0, size, spec)
+        s_p, w_p, rec_p = hmm_init_plain(seed, y0, size, spec)
+        _sync()
+        if not torch.equal(s_k, s_p):
+            raise AssertionError(f"{what} n={size}: states differ")
+        torch.testing.assert_close(w_k, w_p, rtol=1e-5, atol=0,
+                                   msg=f"{what} n={size}: log_w")
+        _close_stats(rec_k, rec_p, size, f"{what} n={size}")
+        err = max(err, float((w_k - w_p).abs().max()))
+        print(f"check {what} (at n={size}): states equal, max|dlog_w|="
+              f"{float((w_k - w_p).abs().max()):.3g}")
     return s_k, w_k, err
 
 
@@ -1664,8 +1673,9 @@ def user_phases(card, stages):
 
 
 # ---------------------------------------------------------------------------
-# guided SMC: K12 (Triton, the guided linear-Gaussian model) and K13 (CUDA,
-# the guided 5-state chain)
+# guided SMC: K12 (the guided linear-Gaussian model; its elementwise twin on
+# the FMA pipe and its tensor-core twin, CUDA generated per net) and K13
+# (CUDA, the guided 5-state chain)
 
 GUIDED_N = 1 << 24         # paths 7, 8, 9b (examples/kernel_bench.py:192-280)
 GUIDED_CHUNK = 8
@@ -1681,10 +1691,18 @@ GUIDED_SMC_SWEEPS = 4
 # sweeps cannot gate)
 LG_NET_SEED = 10
 CHAIN_NET_SEED = 6
-# K12 against its plain version, as K10: libdevice's transcendentals and
-# torch's may differ in the last bit (they agreed bit for bit at 2^24 on an
-# H100 80GB HBM3 at 700.00 W, chip_smoke.py's check_guided_kernels)
+# K12 against its plain version over its chunks: states and log_w within
+# GUIDED_TOL (relative and absolute).  The kernel rounds each multiply-add of
+# the net once, the plain version emulates that in float64, which differs
+# by an ulp where the float64 sum falls on a float32 tie (rarely); the
+# carried state passes such an ulp on through the later steps
 GUIDED_TOL = 1e-5
+# the K12 instances held to the plain version besides path 7's trained
+# [3,16,16,2]: a linear head (no hidden layer), a net wider than the
+# tensor-core twin takes, and the path's net with a density that uses **
+# (each at GUIDED_EXTRA_N particles)
+K12_NETS = ([3, 2], [3, 64, 64, 2])
+GUIDED_EXTRA_N = 1 << 20
 # K12's tensor-core twin against the same plain version over one step,
 # where the net's rounding is not carried through later moves: states and
 # log_w within TC_STEP_TOL of 1 + |plain|.  Its products are 3xTF32
@@ -1710,6 +1728,17 @@ def guided_obs_lp(nx, y, t):
     """log N(y; nx, 1), the emission of examples/kernel_bench.py:207-209."""
     d = y - nx
     return -0.5 * d * d - HALF_LOG_2PI
+
+
+def guided_trans_lp_pow(x, nx, t):
+    """The transition of ``guided_trans_lp`` with its square written as a
+    power, and a small term that takes the other special exponents of
+    ``**`` (3, 0.5, -1: torch's float32 pow computes them as a * a * a,
+    sqrt and 1 / a, and so does the rendering): K12's check of a density
+    with ``**``."""
+    d = nx - x
+    extra = (1.0 + d ** 2) ** 0.5 - (2.0 + x * x) ** -1 + (0.1 * nx) ** 3
+    return -0.5 * d ** 2 - HALF_LOG_2PI + 1e-3 * extra
 
 
 def train_guides(card, stages):
@@ -1761,8 +1790,9 @@ def _tc_net(sizes, seed):
 
 
 def build_twins(twins):
-    """Builds the tensor-core twins' generated sources, one nvcc each, all
-    started together; prints each one's registers and spills."""
+    """Builds the generated sources of K12's kernel objects (either twin),
+    one nvcc each, all started together; prints each one's registers and
+    spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from cpprob_tpu_torch.ops import _build
@@ -1813,8 +1843,8 @@ def check_twin(lg_params, x0, w0, ys, n, seed):
     bit for bit: the chunk's draws, masking and carried state add nothing
     to a step.  Each build's SASS by ``check_tc_sass``.  Returns the
     largest |dlog_w| against the plain version."""
+    from cpprob_tpu_torch.ops.guided_scalar import guided_scalar_chunk_plain
     from cpprob_tpu_torch.ops.guided_tc import GuidedTensorCoreKernel
-    from cpprob_tpu_torch.ops.triton_ssm import guided_scalar_chunk_plain
     from cpprob_tpu_torch.util.guided_tc_parts import variant_kernel
 
     dev = x0.device
@@ -1882,6 +1912,56 @@ def check_twin(lg_params, x0, w0, ys, n, seed):
     return worst
 
 
+def check_scalar_sass(kernel):
+    """K12's machine code: its registers, no spill, and no local memory
+    beyond a stack frame no larger than K7's (``lg_chunk_kernel``), the
+    slow-path argument reduction of the precise ``sincosf`` of the
+    Box-Muller draws (for |x| > 105615, never a Box-Muller angle), which
+    ptxas keeps in some instances and not in others (as ``check_user_sass``
+    allows K10).  Returns (registers, spills, stack frame bytes)."""
+    from cpprob_tpu_torch.util.sass import kernel_report
+
+    (_, r7), = kernel_report("fused_lg", "lg_chunk_kernel").items()
+    rep = kernel_report(kernel.library, "guided_scalar_kernel")
+    if len(rep) != 1:
+        raise AssertionError(f"{kernel.library}: {len(rep)} guided_scalar_kernel functions")
+    (f, r), = rep.items()
+    ops = r["opcodes"]
+    local = ops.get("LDL", 0) + ops.get("STL", 0)
+    print(f"SASS guided_scalar_kernel {kernel.layer_sizes()} ({kernel.block() // 256} "
+          f"particles a thread): {r['registers']} registers, stack frame {r['stack']} B, "
+          f"spills {r['spills']}, {local} LDL/STL, {r['instructions']} instructions, "
+          f"FFMA {ops.get('FFMA', 0)}, MUFU {ops.get('MUFU', 0)}, loops {r['loops'][:2]}")
+    if r["registers"] is None or r["stack"] is None:
+        raise AssertionError(f"{f}: no ptxas report")
+    if r["spills"] != (0, 0) or r["stack"] > r7["stack"] or (local and not r["stack"]):
+        raise AssertionError(f"{f} uses local memory beyond K7's sincosf frame "
+                             f"({r7['stack']} B)")
+    return r["registers"], r["spills"], r["stack"]
+
+
+def _check_k12(k12, x0, w0, ys_c, n_valid, t0, seed, what):
+    """K12 against its plain version on the same inputs, within
+    ``GUIDED_TOL``; records by ``_close_stats``.  Returns max |dlog_w|."""
+    from cpprob_tpu_torch.ops.guided_scalar import guided_scalar_chunk_plain
+
+    out_k = k12.chunk(seed, x0, w0, ys_c, n_valid, t0=t0)
+    out_p = guided_scalar_chunk_plain(k12.params, k12.trans, k12.obs, k12.T, seed,
+                                      x0, w0, ys_c, n_valid, t0=t0)
+    _sync()
+    n_diff = int(((out_k[0] != out_p[0]) | (out_k[1] != out_p[1])).sum())
+    dx = float((out_k[0] - out_p[0]).abs().max())
+    dw = float((out_k[1] - out_p[1]).abs().max())
+    print(f"check {what}: {n_diff} slots not bit-equal, max|dx|={dx:.3g} "
+          f"max|dlog_w|={dw:.3g} (tolerance {GUIDED_TOL})")
+    torch.testing.assert_close(out_k[0], out_p[0], rtol=GUIDED_TOL,
+                               atol=GUIDED_TOL, msg=f"{what}: states")
+    torch.testing.assert_close(out_k[1], out_p[1], rtol=GUIDED_TOL,
+                               atol=GUIDED_TOL, msg=f"{what}: log_w")
+    _close_stats(out_k[2], out_p[2], x0.shape[0], what)
+    return dw
+
+
 def _guided_tables(params):
     import numpy as np
 
@@ -1921,7 +2001,9 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
                          n_step=GUIDED_STEP_N, seed=CHECK_SEED):
     """K12, its tensor-core twin and K13 against their plain versions on
     the card at the guided paths' shapes.  K12 (the LG net, t0 1 and 9,
-    n_valid 8 and 7) within ``GUIDED_TOL``; the twin by
+    n_valid 8 and 7; the ``K12_NETS`` and the LG net with a density that
+    uses ``**``, at a ragged ``GUIDED_EXTRA_N``) within ``GUIDED_TOL``, and
+    each build's SASS by :func:`check_scalar_sass`; the twin by
     :func:`check_twin`; K13 (the chain's net on K9's population: flag 0 and 1,
     n_valid 8 and 7, island off; the 16-slot chunk with an island check at
     a threshold that fires) and its one-step launch (K = 5, 2^20, flag 0 and
@@ -1938,52 +2020,39 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
         guided_chunk_plain,
         hmm_init,
     )
-    from cpprob_tpu_torch.ops.philox import philox4x32, split_seed
-    from cpprob_tpu_torch.ops.triton_ssm import (
-        GuidedScalarKernel,
-        guided_scalar_chunk_plain,
-        philox_words,
-    )
+    from cpprob_tpu_torch.ops.guided_scalar import GuidedScalarKernel
 
     dev = torch.device("cuda")
     errs = {"guided_scalar": 0.0, "guided_chunk": 0.0, "guided_step": 0.0,
             "guided_tables": 0.0}
-    k0, k1 = split_seed(seed)
-    words = philox_words(seed, 1 << 16, 7, 3, dev)
-    ref = torch.stack(philox4x32(torch.arange(1 << 16, device=dev), 7, 3, 0,
-                                 k0, k1), 1)
-    _sync()
-    if not torch.equal(words, ref):
-        raise AssertionError("tl.philox differs from ops/philox.py")
-    print("check tl.philox (K12's generator): 2^16 x 4 words equal to ops/philox.py")
-    print(f"K12 against its plain version: states and log_w within "
-          f"{GUIDED_TOL} (libdevice's transcendentals against torch's may "
-          "differ in the last bit)")
-    k12 = GuidedScalarKernel(lg_params, guided_trans_lp, guided_obs_lp, LG_T)
+    print(f"K12 against its plain version: states and log_w within {GUIDED_TOL} "
+          "(the plain version emulates each fused multiply-add in float64)")
+    k12s = [GuidedScalarKernel(lg_params, guided_trans_lp, guided_obs_lp, LG_T)]
+    k12s += [GuidedScalarKernel(_tc_net(sizes, 10 + i), guided_trans_lp, guided_obs_lp, LG_T)
+             for i, sizes in enumerate(K12_NETS)]
+    k12s.append(GuidedScalarKernel(lg_params, guided_trans_lp_pow, guided_obs_lp, LG_T))
+    build_twins(k12s)
+    k12 = k12s[0]
     obs = _lg_obs(dev)
     x0, w0 = _lg_population(n, seed, obs)
     ys, _ = _lg_chunks(obs)
     for t0, ys_c in ((1, ys[0]), (9, ys[1])):
         for nv in (LG_CHUNK, LG_CHUNK - 1):
             n_valid = torch.full((), nv, dtype=torch.int32, device=dev)
-            out_k = k12.chunk(seed, x0, w0, ys_c, n_valid, t0=t0)
-            out_p = guided_scalar_chunk_plain(
-                lg_params, guided_trans_lp, guided_obs_lp, LG_T, seed, x0, w0,
-                ys_c, n_valid, t0=t0)
-            _sync()
-            what = f"K12 n={n} t0={t0} n_valid={nv}/{LG_CHUNK}"
-            n_diff = int(((out_k[0] != out_p[0]) | (out_k[1] != out_p[1])).sum())
-            dx = float((out_k[0] - out_p[0]).abs().max())
-            dw = float((out_k[1] - out_p[1]).abs().max())
-            print(f"check {what}: {n_diff} slots not bit-equal, max|dx|={dx:.3g} "
-                  f"max|dlog_w|={dw:.3g} (tolerance {GUIDED_TOL})")
-            torch.testing.assert_close(out_k[0], out_p[0], rtol=GUIDED_TOL,
-                                       atol=GUIDED_TOL, msg=f"{what}: states")
-            torch.testing.assert_close(out_k[1], out_p[1], rtol=GUIDED_TOL,
-                                       atol=GUIDED_TOL, msg=f"{what}: log_w")
-            _close_stats(out_k[2], out_p[2], n, what)
-            errs["guided_scalar"] = max(errs["guided_scalar"], dw)
-            del out_k, out_p
+            errs["guided_scalar"] = max(errs["guided_scalar"], _check_k12(
+                k12, x0, w0, ys_c, n_valid, t0, seed,
+                f"K12 {k12.layer_sizes()} n={n} t0={t0} n_valid={nv}/{LG_CHUNK}"))
+    m = GUIDED_EXTRA_N - 77     # ragged: the last CTA part full
+    full = torch.full((), LG_CHUNK, dtype=torch.int32, device=dev)
+    for k in k12s[1:]:
+        density = "trans with **" if k.trans is guided_trans_lp_pow else "LG densities"
+        for t0, ys_c in ((1, ys[0]), (9, ys[1])):
+            errs["guided_scalar"] = max(errs["guided_scalar"], _check_k12(
+                k, x0[:m], w0[:m], ys_c, full, t0, seed,
+                f"K12 {k.layer_sizes()} ({density}) n={m} t0={t0} "
+                f"n_valid={LG_CHUNK}/{LG_CHUNK}"))
+    for k in k12s:
+        check_scalar_sass(k)
 
     errs["guided_tc"] = check_twin(lg_params, x0, w0, ys, n, seed)
     del x0, w0
@@ -2116,7 +2185,7 @@ def guided_phases(card, stages):
         linear_gaussian_ssm,
         simulate_observations,
     )
-    from cpprob_tpu_torch.ops import fused_hmm, guided_tc, triton_ssm
+    from cpprob_tpu_torch.ops import fused_hmm, guided_scalar, guided_tc
     from cpprob_tpu_torch.ops import stream_resample as sr
     from cpprob_tpu_torch.ops.fused_ssm import (
         attach_fused_guided_discrete_kernels,
@@ -2134,11 +2203,11 @@ def guided_phases(card, stages):
     lg_params, chain_params = train_guides(card, stages)
     with stages.stage("guided_kernel_vs_plain", sync=True):
         errs = check_guided_kernels(lg_params, chain_params)
-    counters = (triton_ssm.LAUNCHES, guided_tc.LAUNCHES, sr.LAUNCHES, fused_hmm.LAUNCHES)
+    counters = (guided_scalar.LAUNCHES, guided_tc.LAUNCHES, sr.LAUNCHES, fused_hmm.LAUNCHES)
 
     # path 7: the guided linear-Gaussian model at 8 and 7 steps, with the
     # reference's default (mxu=True: the tensor-core twin) and with
-    # mxu=False (the Triton K12)
+    # mxu=False (K12 on the FMA pipe)
     obs = _lg_obs(dev)
     exact_lg = kalman_filter_1d(simulate_observations(LG_T, 0))[2]
     n_ch = -(-(LG_T - 1) // GUIDED_CHUNK)
@@ -2150,6 +2219,8 @@ def guided_phases(card, stages):
         runs7[mxu] = build_smc_run(lg, GUIDED_N, chunk=GUIDED_CHUNK)
         if mxu:
             twin7 = lg.fused_chunk_t_batch.kernel
+        else:
+            k12 = lg.fused_chunk_t_batch.kernel
         with stages.stage(f"guided_path7_mxu_{mxu}", sync=True):
             got7[mxu], times7[mxu], res = run_path(
                 runs7[mxu], obs, SWEEPS, counters, exact_lg,
@@ -2227,8 +2298,6 @@ def guided_phases(card, stages):
     # timings at the paths' shapes: K12 on path 7's first chunk, K13 on path
     # 8's (flag 0, 8 steps) and its one-step launch on path 9a's population
     seed = CHECK_SEED
-    k12 = triton_ssm.GuidedScalarKernel(lg_params, guided_trans_lp,
-                                        guided_obs_lp, LG_T)
     x0, w0 = _lg_population(GUIDED_N, seed, obs)
     ys, valid = _lg_chunks(obs)
     spec5 = spec_from_numpy(*_chain(5))
@@ -2242,7 +2311,7 @@ def guided_phases(card, stages):
                       dtype=torch.int32, device=dev)
     y5 = obs12[5].reshape(1)
     # one plain version serves both twins of K12
-    plain7 = time_ms(lambda: triton_ssm.guided_scalar_chunk_plain(
+    plain7 = time_ms(lambda: guided_scalar.guided_scalar_chunk_plain(
         lg_params, guided_trans_lp, guided_obs_lp, LG_T, seed, x0, w0, ys[0],
         valid[0], t0=1), 2)
     timing = {
@@ -2277,7 +2346,17 @@ def guided_phases(card, stages):
     print(f"[{card}] K13 beside K8 (K = 5, n={GUIDED_N}, {int(v8[0])} steps, in turns): "
           + ", ".join(f"{k} " + "/".join(f"{v:.4f}" for v in t) for k, t in turns.items())
           + " ms")
-    print(f"K12 compiled: (registers, spills) per thread {k12.registers}; K12 mxu "
+    # K12 beside its tensor-core twin at path 7's shapes, in turns
+    turns = {"K12": [], "K12 mxu": []}
+    pair = {"K12": lambda: k12.chunk(seed, x0, w0, ys[0], valid[0], t0=1),
+            "K12 mxu": lambda: twin7.chunk(seed, x0, w0, ys[0], valid[0], t0=1)}
+    for name in ("K12", "K12 mxu", "K12 mxu", "K12"):
+        turns[name].append(time_ms(pair[name], 10))
+    print(f"[{card}] K12 beside its tensor-core twin ([3,16,16,2], n={GUIDED_N}, "
+          f"{int(valid[0])} steps, in turns): "
+          + ", ".join(f"{k} " + "/".join(f"{v:.4f}" for v in t) for k, t in turns.items())
+          + " ms")
+    print(f"K12 (registers, spills) {check_scalar_sass(k12)}; K12 mxu "
           f"{check_tc_sass(twin7)}")
     for name, run, o, times in (("7 (mxu=True)", runs7[True], obs, times7[True]),
                                 ("7 (mxu=False)", runs7[False], obs, times7[False]),
@@ -2342,8 +2421,9 @@ def guided_phases(card, stages):
 
     cu = "cpprob_tpu_torch/ops/csrc/fused_hmm.cu"
     return [
-        line("guided_chunk_kernel (K12, [3,16,16,2] net)", "guided_scalar",
-             "triton", "cpprob_tpu_torch/ops/triton_ssm.py",
+        line(f"guided_scalar_kernel (K12, [3,16,16,2] net on the FMA pipe, weights "
+             f"baked in, {k12.block() // 256} particles a thread)", "guided_scalar",
+             "cuda", "cpprob_tpu_torch/ops/csrc/guided_scalar.cuh",
              "cpprob_tpu/ops/pallas_ssm.py:887", got7[False]["guided"]),
         line(f"guided_tc_kernel (K12 mxu, [3,16,16,2] net, 3xTF32 mma.sync, "
              f"{guided_tc.GROUPS} particles a thread)", "guided_tc", "cuda",

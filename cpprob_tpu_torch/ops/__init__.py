@@ -3,6 +3,6 @@ PyTorch version: :mod:`.fused_hmm` (K-state HMM chains, CUDA),
 :mod:`.fused_lg` (the linear-Gaussian model, CUDA), :mod:`.stream_resample`
 (the continuous resample epoch, CUDA), :mod:`.user_chunk` (user physics,
 CUDA generated from the model's function, :mod:`.render`), :mod:`.guided_tc`
-and :mod:`.triton_ssm` (the guided scalar model, CUDA and Triton);
+and :mod:`.guided_scalar` (the guided scalar model, CUDA generated per net);
 :mod:`.fused_ssm` builds models on them and :mod:`.population` launches the
 population kernels."""

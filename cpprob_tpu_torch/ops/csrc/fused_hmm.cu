@@ -28,13 +28,16 @@
 //   sums are one warp reduction per category over the thread's own
 //   particles, written to shared memory and summed across warps; the init
 //   kernel counts the states in a shared-memory histogram (integer atomics:
-//   exact and order-free) and forms its record from the counts, since every
-//   particle in state k carries the same t = 0 weight.
+//   exact and order-free).
+// Both init kernels form their record from the CTA's state counts, since
+// every particle in state k carries the same t = 0 weight (init_record): no
+// exp a particle, and one Philox call serves four particles.
 //
 // The transition draws: the uniform of particle g at absolute step t is word
 // t & 3 of Philox4x32-10 at counter (g, t >> 2, 2, 0) under the sweep's key,
-// so one call serves four steps (stream 2; the init draw is (g, 0, 0, 0) and
-// an island's offset (island, t, 1, 0), so no two uses share a counter).  A
+// so one call serves four steps (stream 2; the initial state of particle g
+// is word g & 3 at (g >> 2, 0, 0, 0), four particles a call, and an
+// island's offset (island, t, 1, 0), so no two uses share a counter).  A
 // launch whose first step is not a multiple of 4, and a one-step launch,
 // makes the call for its own first group, and a group cut by an island
 // check makes it again after the check: the draws do not depend on how a
@@ -80,8 +83,9 @@ constexpr int kPerThread = 16;                     // particles per thread
 constexpr int kThreads = kIsland / kPerThread;
 constexpr int kWarps = kThreads / 32;
 
-// The transition draws' stream (the third counter word); init draws use
-// stream 0 and the islands' offsets stream 1.
+// The streams of the draws (the third counter word): the initial states
+// (four particles a call), the islands' offsets and the transitions.
+constexpr uint32_t kInitStream = 0u;
 constexpr uint32_t kTransitionStream = 2u;
 // The most steps a tile of the chunk kernels runs (a multiple of 4): the
 // emission rows of a tile live in shared memory.  Tiles of 16 and 32 steps
@@ -189,9 +193,72 @@ __device__ __forceinline__ void load_emission_tables(const float* tab,
   }
 }
 
-// One thread per particle in a grid-stride loop: state from the initial
-// CDF on Philox counter (index, 0, 0), the t=0 emission weight, and the
-// CTA's record from an online (max, sums) accumulation.
+// The initial states of particles 4q .. 4q + 3 come from the four words of
+// one Philox call at counter (q, 0, kInitStream, 0), word j for particle
+// 4q + j: a quarter of a call a particle.
+__device__ __forceinline__ void init_uniforms(long long q, uint2 key,
+                                              float (&u)[4]) {
+  const uint4 b =
+      philox4x32_10(make_uint4((uint32_t)q, 0u, kInitStream, 0u), key);
+  u[0] = philox_u01(b.x);
+  u[1] = philox_u01(b.y);
+  u[2] = philox_u01(b.z);
+  u[3] = philox_u01(b.w);
+}
+
+// Stores the states and weights of particles 4q .. 4q + 3 that are below n:
+// one int4 and one float4 when all four are.  Returns how many it stored.
+__device__ __forceinline__ int store_quad(long long q, long long n,
+                                          const int (&s)[4],
+                                          const float (&w)[4],
+                                          int* __restrict__ s_out,
+                                          float* __restrict__ w_out) {
+  const long long g = q << 2;
+  if (g + 4 <= n) {
+    reinterpret_cast<int4*>(s_out)[q] = make_int4(s[0], s[1], s[2], s[3]);
+    reinterpret_cast<float4*>(w_out)[q] = make_float4(w[0], w[1], w[2], w[3]);
+    return 4;
+  }
+  const int m = (int)(n - g);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if (j < m) {
+      s_out[g + j] = s[j];
+      w_out[g + j] = w[j];
+    }
+  }
+  return m;
+}
+
+// The CTA's init record from its state counts hist[0 .. K) (every particle
+// in state k carries the same t = 0 weight emis[k]): (max emis_k over the
+// states present, sum_k c_k x_k, sum_k c_k x_k^2, c_k x_k, 0) with x_k =
+// exp(emis_k - max).  One thread writes it; both init kernels use it.
+__device__ __forceinline__ void init_record(const int* hist, const float* emis,
+                                            int K, float* out) {
+  float m = -INFINITY;
+  for (int k = 0; k < K; ++k)
+    if (hist[k] > 0) m = fmaxf(m, emis[k]);
+  float se = 0.f, se2 = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const float x = hist[k] > 0 ? expf(emis[k] - m) : 0.f;
+    const float c = (float)hist[k];
+    se += c * x;
+    se2 += c * (x * x);
+    out[3 + k] = c * x;
+  }
+  out[0] = m;
+  out[1] = se;
+  out[2] = se2;
+  out[K + 3] = 0.f;
+}
+
+// A grid-stride loop over quads of particles, one Philox call a quad
+// (init_uniforms): states from the initial CDF, the t = 0 emission weight,
+// stored as one int4 and one float4 (store_quad); each thread counts its
+// particles' states in K registers, a warp sums them with redux.sync and
+// the CTA across its warps, and the record comes from the counts
+// (init_record): no exp a particle.
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 hmm_init_kernel(const float* __restrict__ tab, const float* __restrict__ y0,
@@ -199,59 +266,60 @@ hmm_init_kernel(const float* __restrict__ tab, const float* __restrict__ y0,
                 float* __restrict__ w_out, float* __restrict__ rec,
                 long long n) {
   static_assert(K >= 2, "K >= 2");
-  __shared__ float red[kWarps * (K + 2)];
-  __shared__ float bcast[K + 2];
+  __shared__ int counts[kWarps][K];
+  __shared__ int hist[K];
+  __shared__ float emis[K];
   float mu[K], hiv[K], lc[K], e[K], icdf[K - 1];
   load_emission_tables<K>(tab, mu, hiv, lc);
 #pragma unroll
   for (int k = 0; k < K - 1; ++k) icdf[k] = tab[K * (K - 1) + 3 * K + k];
   emission<K>(__ldg(y0), mu, hiv, lc, e);
 
-  float m = -INFINITY, se = 0.f, se2 = 0.f, c[K];
+  int c[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) c[k] = 0.f;
+  for (int k = 0; k < K; ++k) c[k] = 0;
   const uint2 key = make_uint2(k0, k1);
+  const long long nq = (n + 3) >> 2;
   const long long stride = (long long)gridDim.x * kThreads;
-  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x; g < n;
-       g += stride) {
-    const float u =
-        philox_u01(philox4x32_10(make_uint4((uint32_t)g, 0u, 0u, 0u), key).x);
-    int s = 0;
+  for (long long q = (long long)blockIdx.x * kThreads + threadIdx.x; q < nq;
+       q += stride) {
+    float u[4];
+    init_uniforms(q, key, u);
+    int s[4];
+    float w[4];
 #pragma unroll
-    for (int k = 0; k < K - 1; ++k) s += (u >= icdf[k]);
-    const float w = pick<K>(s, e);
-    s_out[g] = s;
-    w_out[g] = w;
-    if (w > m) {
-      const float r = expf(m - w);
-      se *= r;
-      se2 *= r * r;
+    for (int j = 0; j < 4; ++j) {
+      s[j] = 0;
 #pragma unroll
-      for (int k = 0; k < K; ++k) c[k] *= r;
-      m = w;
+      for (int k = 0; k < K - 1; ++k) s[j] += (u[j] >= icdf[k]);
+      w[j] = pick<K>(s[j], e);
     }
-    const float ew = expf(w - m);
-    se += ew;
-    se2 += ew * ew;
+    const int m = store_quad(q, n, s, w, s_out, w_out);
 #pragma unroll
-    for (int k = 0; k < K; ++k) c[k] += (s == k) ? ew : 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < K; ++k) c[k] += (j < m && s[j] == k) ? 1 : 0;
   }
 
-  const float mb = block_max<kThreads>(m, red, bcast);
-  const float sc = (m == -INFINITY) ? 0.f : expf(m - mb);
-  float v[K + 2];
-  v[0] = se * sc;
-  v[1] = se2 * sc * sc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int k = 0; k < K; ++k) v[2 + k] = c[k] * sc;
-  block_sum<kThreads, K + 2>(v, red, bcast);
-  if (threadIdx.x == 0) {
-    float* out = rec + (long long)blockIdx.x * (K + 4);
-    out[0] = mb;
-#pragma unroll
-    for (int i = 0; i < K + 2; ++i) out[1 + i] = v[i];
-    out[K + 3] = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const int v = __reduce_add_sync(0xffffffffu, c[k]);
+    if (lane == 0) counts[warp][k] = v;
   }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) emis[k] = e[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < K) {
+    int h = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) h += counts[w][threadIdx.x];
+    hist[threadIdx.x] = h;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) init_record(hist, emis, K, rec + (long long)blockIdx.x * (K + 4));
 }
 
 // One CTA = one island of kIsland particles, each thread holding
@@ -469,10 +537,9 @@ __device__ __forceinline__ void block_cat_sums(const int (&s)[kPerThread],
   __syncthreads();
 }
 
-// hmm_init_kernel with K at run time.  Each CTA counts its particles'
-// states in a shared histogram; its record is (max e_k over the states
-// present, sum_k c_k x_k, sum_k c_k x_k^2, c_k x_k, 0) with x_k =
-// exp(e_k - max).
+// hmm_init_kernel with K at run time: the same quads and draws, the CDF
+// walk a binary search of the initial CDF in shared memory, and the states
+// counted in a shared histogram (integer atomics: exact and order-free).
 __global__ void __launch_bounds__(kThreads)
 hmm_init_kernel_k(int K, const float* __restrict__ tab,
                   const float* __restrict__ y0, uint32_t k0, uint32_t k1,
@@ -492,35 +559,26 @@ hmm_init_kernel_k(int K, const float* __restrict__ tab,
   }
   __syncthreads();
   const uint2 key = make_uint2(k0, k1);
+  const long long nq = (n + 3) >> 2;
   const long long stride = (long long)gridDim.x * kThreads;
-  for (long long g = (long long)blockIdx.x * kThreads + tid; g < n;
-       g += stride) {
-    const float u =
-        philox_u01(philox4x32_10(make_uint4((uint32_t)g, 0u, 0u, 0u), key).x);
-    const int s = count_le(icdf, km1, u);
-    s_out[g] = s;
-    w_out[g] = emis[s];
-    atomicAdd(&hist[s], 1);
+  for (long long q = (long long)blockIdx.x * kThreads + tid; q < nq;
+       q += stride) {
+    float u[4];
+    init_uniforms(q, key, u);
+    int s[4];
+    float w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] = count_le(icdf, km1, u[j]);
+      w[j] = emis[s[j]];
+    }
+    const int m = store_quad(q, n, s, w, s_out, w_out);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < m) atomicAdd(&hist[s[j]], 1);
   }
   __syncthreads();
-  if (tid == 0) {
-    float m = -INFINITY;
-    for (int k = 0; k < K; ++k)
-      if (hist[k] > 0) m = fmaxf(m, emis[k]);
-    float* out = rec + (long long)blockIdx.x * (K + 4);
-    float se = 0.f, se2 = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float x = hist[k] > 0 ? expf(emis[k] - m) : 0.f;
-      const float c = (float)hist[k];
-      se += c * x;
-      se2 += c * (x * x);
-      out[3 + k] = c * x;
-    }
-    out[0] = m;
-    out[1] = se;
-    out[2] = se2;
-    out[K + 3] = 0.f;
-  }
+  if (tid == 0) init_record(hist, emis, K, rec + (long long)blockIdx.x * (K + 4));
 }
 
 // hmm_chunk_kernel with K at run time: the same tiles, island checks and

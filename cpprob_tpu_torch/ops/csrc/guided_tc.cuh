@@ -17,7 +17,7 @@
 //
 // Per particle-step: the Box-Muller eps of absolute step t (Philox counter
 // (particle, t / 2, 0): its cos half at even t, its sin half at odd t, as in
-// K7 and the Triton K12), the net's (mean, raw), the move nx = mean + std
+// K7 and K12), the net's (mean, raw), the move nx = mean + std
 // eps with std = softplus(raw) + 1e-6, and the weight log_w +=
 // trans(x, nx, t) + obs(nx, y, t) - log q(nx).  Records: one (max, sum e,
 // sum e^2) per CTA.

@@ -5,8 +5,7 @@ twice over: on torch tensors in the plain versions (here each name is the
 torch function), and inside a generated kernel, where each ``elem.<name>``
 call becomes CUDA C++ (:mod:`.render`: precise ``expf``, ``logf``,
 ``sinf``, ``cosf``, ``tanhf``; ``__fsqrt_rn``; ``?:``, ``fminf``,
-``fmaxf``) or, in the Triton K12 (:mod:`.triton_ssm`), the Triton function
-of the same name.  See :mod:`.render` for the whole contract.
+``fmaxf``).  See :mod:`.render` for the whole contract.
 
 A number may stand for either value operand of ``where``, ``minimum``
 and ``maximum``; it is broadcast on the device, never copied from the

@@ -59,15 +59,16 @@ __all__ = [
     "make_fused_hmm_ssm", "fused_hmm_hooks", "MAX_K", "GUIDED_MAX_K",
     "GuidedTables", "guided_tables_plain", "guided_chunk_plain",
     "guided_chunk", "guided_hooks", "GUIDED_MAX_LAYERS", "GUIDED_ACT_BYTES",
-    "guided_max_width", "guided_tables", "INIT_STREAM", "ISLAND_STREAM",
+    "guided_max_width", "guided_tables", "init_uniforms", "INIT_STREAM", "ISLAND_STREAM",
     "TRANSITION_STREAM",
 ]
 
 ISLAND_SIZE = 4096       # 256 threads x 16 particles: one CTA of the chunk kernel
 # the third Philox counter word of each draw (csrc/fused_hmm.cu): the initial
-# state (particle, 0, 0, 0), an island's offset (island, t, 1, 0), and the
-# transition uniforms of four absolute steps (particle, t >> 2, 2, 0), word
-# t & 3 for step t
+# states of four particles (particle >> 2, 0, 0, 0), word particle & 3 for
+# the particle, an island's offset (island, t, 1, 0), and the transition
+# uniforms of four absolute steps (particle, t >> 2, 2, 0), word t & 3 for
+# step t
 INIT_STREAM, ISLAND_STREAM, TRANSITION_STREAM = 0, 1, 2
 _THREADS = 256
 MAX_K = 32               # states the kernels take (csrc/fused_hmm.cu kMaxK)
@@ -219,15 +220,22 @@ def _category_sums(e: torch.Tensor, s2: torch.Tensor, n_cat: int) -> torch.Tenso
     return torch.stack([(e * (s2 == k)).sum(1) for k in range(n_cat)], 1)
 
 
+def init_uniforms(seed: int, n: int, device) -> torch.Tensor:
+    """(n,) float32 initial uniforms as the init kernels draw them: that of
+    particle g is word g & 3 of Philox at counter (g >> 2, 0, INIT_STREAM,
+    0), four particles a call."""
+    quads = torch.arange(-(-n // 4), device=device)
+    return philox_uniforms4(seed, quads, 0, INIT_STREAM).t().reshape(-1)[:n]
+
+
 def hmm_init_plain(seed: int, y0: torch.Tensor, n: int, spec: HMMSpec, *,
                    draws: torch.Tensor | None = None):
     """Plain version of the init kernel.  ``draws``: (n,) float32
-    uniforms in place of Philox counter (index, 0, 0, 0).  Returns (states
+    uniforms in place of Philox (:func:`init_uniforms`).  Returns (states
     int32 (n,), log_w float32 (n,), records (1, K+4))."""
     dev = y0.device
     tab = spec.tables(dev)
-    u = draws if draws is not None else philox_uniform(
-        seed, torch.arange(n, device=dev), 0, INIT_STREAM)
+    u = draws if draws is not None else init_uniforms(seed, n, dev)
     s = (u[:, None] >= tab["init_cdf"][None, :]).sum(1)
     w = _emission(tab, y0)[s]
     rec = _records(w[None], s[None], spec.K, torch.zeros(1, device=dev))
@@ -429,8 +437,10 @@ def _check_k(spec: HMMSpec):
 
 
 def _init_grid(device, n: int) -> int:
+    """CTAs of an init launch: a thread a quad of particles, at most 8 CTAs
+    an SM in a grid-stride loop."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n // _THREADS), 8 * sms))
+    return max(1, min(-(-n // (4 * _THREADS)), 8 * sms))
 
 
 def hmm_init(seed: int, y0: torch.Tensor, n: int, spec: HMMSpec):

@@ -18,8 +18,8 @@ families).
   ``kind="normal"`` proposal net (trained by
   :func:`~cpprob_tpu_torch.inference.smc_csis.train_ssm_proposal`) fused
   into a guided chunk kernel: by default (``mxu=True``) K12's tensor-core
-  twin (:class:`.guided_tc.GuidedTensorCoreKernel`, CUDA), else the Triton
-  K12 (:class:`.triton_ssm.GuidedScalarKernel`).
+  twin (:class:`.guided_tc.GuidedTensorCoreKernel`, CUDA), else K12 on the
+  FMA pipe (:class:`.guided_scalar.GuidedScalarKernel`, CUDA).
 - :func:`attach_fused_guided_discrete_kernels`: a K-state HMM (2 <= K <= 8)
   with a ``kind="discrete"`` proposal net fused into the CUDA chunk kernel
   K13 (:func:`.fused_hmm.guided_chunk`), which builds the proposal's K x K
@@ -47,8 +47,8 @@ import torch
 from ..inference.smc import StateSpaceModel
 from ..inference.smc_csis import proposal_hooks
 from .fused_hmm import GUIDED_MAX_K, fused_hmm_hooks, guided_hooks, stats_from_partials
+from .guided_scalar import GuidedScalarKernel, check_scalar_net
 from .guided_tc import GuidedTensorCoreKernel
-from .triton_ssm import GuidedScalarKernel, check_scalar_net
 from .user_chunk import UserKernel
 
 __all__ = [
@@ -213,22 +213,24 @@ def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
     twin (:class:`.guided_tc.GuidedTensorCoreKernel`: the net's hidden
     layers on ``mma.sync`` in 3xTF32, CUDA built at the first launch) for a
     net with at least one hidden layer; ``mxu=False``, or a linear ``[3,
-    2]`` head, installs the Triton K12 (:class:`.triton_ssm.GuidedScalarKernel`).
-    Both compute the plain version's function, the twin to within
-    float32-level rounding of the net; on CPU tensors both run it.  The
-    hook carries its kernel object as ``fused_chunk_t_batch.kernel``.
+    2]`` head, installs K12 with the net on the FMA pipe
+    (:class:`.guided_scalar.GuidedScalarKernel`: the weights baked into a
+    CUDA source built at the first launch).  Both compute the plain
+    version's function, K12 to within a float64 double rounding of its
+    multiply-adds, the twin to within float32-level rounding of the net;
+    on CPU tensors both run it.  The hook carries its kernel object as
+    ``fused_chunk_t_batch.kernel``.
 
     ``trans_logpdf_elem(x, nx, t)`` and ``obs_logpdf_elem(nx, y, t)`` are the
     model's densities as elementwise functions under the contract of
     :mod:`.render`.  A net of another shape or a density outside the
     contract raises ``ValueError`` here, as does, with ``mxu=True``, a
-    hidden layer wider than :func:`.guided_tc.guided_tc_max_width` or a
-    density the twin does not render to C++ (the message names
-    ``mxu=False``).  The same net serves the engine's unfused guided step
-    (``proposal_sample`` / ``proposal_logpdf``: chunk 1 and runs with
-    history), so the guide is never dropped; the in-kernel weights carry
-    the exact RN correction, so the evidence estimator is that of the
-    unguided kernel."""
+    hidden layer wider than :func:`.guided_tc.guided_tc_max_width` (the
+    message names ``mxu=False``, which takes it).  The same net serves the
+    engine's unfused guided step (``proposal_sample`` / ``proposal_logpdf``:
+    chunk 1 and runs with history), so the guide is never dropped; the
+    in-kernel weights carry the exact RN correction, so the evidence
+    estimator is that of the unguided kernel."""
     if mxu and len(check_scalar_net(params)[0]) >= 2:
         kernel = GuidedTensorCoreKernel(params, trans_logpdf_elem,
                                         obs_logpdf_elem, T)

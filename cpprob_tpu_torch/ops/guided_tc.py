@@ -4,8 +4,8 @@ net's hidden layers on the tensor cores — counterpart of
 the formulation the reference's ``attach_fused_guided_scalar_kernels``
 runs by default (``mxu=True``).
 
-It computes the function of the Triton K12
-(:func:`~.triton_ssm.guided_scalar_chunk_plain`, the float32 net of
+It computes the function of the FMA K12
+(:func:`~.guided_scalar.guided_scalar_chunk_plain`, the float32 net of
 ``_net_plain``): per particle-step the Box-Muller eps of absolute step t,
 the net's ``(mean, raw)``, the move and the exact Radon-Nikodym weight.
 Only the net's products and sums differ: 3xTF32 ``mma.sync`` and another
@@ -27,17 +27,16 @@ buffer in plain torch, so the packing is held to ``_net_plain`` on the
 CPU.
 
 The densities keep the contract of :mod:`.render` and are rendered to
-C++ by it (:func:`render_density`: round-to-nearest intrinsics, CUDA's
-precise transcendentals, so each operation rounds as torch's float32 one
-does).  Anything else raises ``ValueError`` when the kernel object is
-built; the message names ``mxu=False``, which runs the Triton K12 on the
-density.
+C++ by it (:func:`~.guided_scalar.render_density`, shared with K12:
+round-to-nearest intrinsics, CUDA's precise transcendentals, so each
+operation rounds as torch's float32 one does).  Anything else raises
+``ValueError`` when the kernel object is built.
 
-Limits: at least one hidden layer (a linear ``[3, 2]`` head takes the
-Triton K12, as the reference's ``pallas_ssm.py:1135`` does); hidden widths
-up to :func:`guided_tc_max_width` (each padded to a multiple of 8 with zero
+Limits: at least one hidden layer (a linear ``[3, 2]`` head takes K12, as
+the reference's ``pallas_ssm.py:1135`` does); hidden widths up to
+:func:`guided_tc_max_width` (each padded to a multiple of 8 with zero
 weights, which is exact); any depth, unrolled at build time.  On CPU
-tensors the wrapper runs :func:`~.triton_ssm.guided_scalar_chunk_plain`.
+tensors the wrapper runs :func:`~.guided_scalar.guided_scalar_chunk_plain`.
 """
 
 from __future__ import annotations
@@ -47,10 +46,9 @@ import ctypes
 import numpy as np
 import torch
 
+from .guided_scalar import check_scalar_net, guided_scalar_chunk_plain, render_density
 from .philox import split_seed
 from .population import launch_population
-from .render import analyse_elem, render_function
-from .triton_ssm import check_scalar_net, guided_scalar_chunk_plain
 
 __all__ = ["GROUPS", "LAUNCHES", "GuidedTensorCoreKernel",
            "guided_tc_max_width", "pack_weights", "padded_sizes",
@@ -233,19 +231,7 @@ def tc_net_plain(packed: torch.Tensor, sizes, x: torch.Tensor, y, tf):
 
 
 # --------------------------------------------------------------------------
-# the densities in C++
-
-
-def render_density(fn, name: str, args: str, prefix: str) -> str:
-    """The C++ ``__device__`` function ``float name(float, float, float)``
-    of an elementwise density under the contract of :mod:`.render`
-    (``args`` describes its arguments).  Raises ``ValueError`` on anything
-    outside it; the message names ``mxu=False``, which runs the density on
-    the Triton K12."""
-    src, consts = analyse_elem(fn, 3, name, args, prefix=prefix)
-    return render_function(src, consts, prefix, hint=(
-        "build the model with mxu=False to run this density on the Triton "
-        "kernel"))
+# the generated source
 
 
 _SOURCE = """\
@@ -350,7 +336,7 @@ class GuidedTensorCoreKernel:
     def chunk(self, seed: int, states: torch.Tensor, log_w: torch.Tensor,
               ys: torch.Tensor, n_valid=None, *, t0: int = 1, draws=None):
         """The chunk on the device of ``states`` (n,) float32: the kernel on
-        CUDA tensors, :func:`~.triton_ssm.guided_scalar_chunk_plain` on CPU
+        CUDA tensors, :func:`~.guided_scalar.guided_scalar_chunk_plain` on CPU
         tensors (``draws``: eps in place of Philox, CPU only).  Returns
         (states, log_w, records)."""
         from .population import current_stream

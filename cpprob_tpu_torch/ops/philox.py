@@ -7,8 +7,9 @@ products are taken in 16-bit limbs so that no intermediate leaves the
 signed 64-bit range.
 
 Counters used by the chain kernels (``fused_hmm``), keyed on the sweep's
-64-bit seed split into two 32-bit words: ``(particle, 0, 0, 0)`` the
-initial state; ``(island, absolute step t, 1, 0)`` an island's systematic
+64-bit seed split into two 32-bit words: ``(particle >> 2, 0, 0, 0)`` the
+initial states of four particles, word ``particle & 3`` for the particle;
+``(island, absolute step t, 1, 0)`` an island's systematic
 offset; ``(particle, t >> 2, 2, 0)`` the transition uniforms of four
 absolute steps, word ``t & 3`` for step t (:func:`philox_uniforms4`).
 """

@@ -2,7 +2,7 @@
 (``cpprob_tpu/ops/pallas_ssm.py:366-394``).
 
 Every population kernel of the port (the HMM init and chunk kernels, the
-linear-Gaussian chunk kernel, the user-physics Triton kernels) takes
+linear-Gaussian chunk kernel, the user-physics and guided scalar kernels) takes
 (seed, observations, control, states, log_w) and writes (states', log_w',
 one statistics record per CTA).  :func:`launch_population` is the one
 place that checks the inputs, allocates the outputs and the records,
@@ -38,8 +38,7 @@ def check_tensor(t: torch.Tensor, name: str, dtype, device):
 
 
 def raise_on(err, what: str):
-    """Raise if a launch returned a CUDA error (``None``: the launcher
-    raises by itself, as Triton's does)."""
+    """Raise if a launch returned a CUDA error."""
     if err:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
@@ -82,7 +81,7 @@ def launch_population(what: str, launch: Callable, *, device,
     (shape, dtype) of each output, allocated with ``torch.empty``.
     ``records``: the (rows, columns) of the float32 per-CTA records.
     ``launch(*outputs, records)`` launches the kernel on the current stream
-    and returns its CUDA error (0 or ``None`` when launched).  On success
+    and returns its CUDA error (0 when launched).  On success
     ``counts[count_key]`` goes up by one.  Returns ``(*outputs, records)``.
     """
     if device.type != "cuda":

@@ -4,7 +4,7 @@ C++.
 A model hands the port's generated kernels its physics and its densities
 as plain Python functions over elementwise float32 values: a
 ``step_elem`` (K10, K11: :mod:`.user_chunk`) and a guided model's two
-densities (K12 and its tensor-core twin: :mod:`.triton_ssm`,
+densities (K12 and its tensor-core twin: :mod:`.guided_scalar`,
 :mod:`.guided_tc`).  The plain versions call the function on torch
 tensors; the kernels compile its source.
 
@@ -13,24 +13,28 @@ positional arguments only.  Its body is a sequence of assignments (to a
 name, or a tuple of names from a tuple of values), augmented assignments
 (``a += b``) and a final ``return`` of one value, or of a tuple of values
 where the caller asks for one (a ``step_elem``).  Its expressions may use
-``+ - * /``, unary minus and plus, single comparisons (``a < b``), number
+``+ - * /``, ``a ** c`` for a number ``c`` (a constant or a captured
+number), unary minus and plus, single comparisons (``a < b``), number
 constants, local names and arguments, and the functions of
 :mod:`cpprob_tpu_torch.ops.elem` (``exp``, ``log``, ``sqrt``, ``sin``,
 ``cos``, ``tanh``, ``where``, ``minimum``, ``maximum``), named through the
 module (``elem.exp``) or imported from it.  It may capture numbers (int,
 float, bool, numpy scalars), from its closure or its module, and number
 attributes of modules (``math.pi``); each becomes a compile-time constant.
-Nothing else: no tensors, no other functions, no ``if``, loops, ``**``,
-chained comparisons or keyword arguments.  A function outside the contract
-raises ``ValueError`` naming the construct when the model is built.
-(:func:`analyse_elem` checks the names and captures; the Triton K12
-compiles what Triton takes beyond the operators above, ``**`` say.)
+Nothing else: no tensors, no other functions, no ``if``, loops, ``**``
+with an exponent that is not a number, chained comparisons or keyword
+arguments.  A function outside the contract raises ``ValueError`` naming
+the construct when the model is built (:func:`analyse_elem` checks the
+names and captures, :func:`render_function` the rest).
 
 **The rendering** (:func:`render_function`): ``+ - * /`` become the
 round-to-nearest intrinsics ``__fadd_rn __fsub_rn __fmul_rn __fdiv_rn``
 (so nvcc contracts no multiply-add and each operation rounds as torch's
-float32 operation does), ``elem.sqrt`` ``__fsqrt_rn``, ``exp log sin cos
-tanh`` CUDA's precise ``expf logf sinf cosf tanhf``, ``where`` ``?:``,
+float32 operation does), ``a ** c`` as torch's float32 ``pow`` rounds
+it (``c`` = 2: ``a * a``; 3: ``a * a * a``; 0.5: ``__fsqrt_rn``; -1:
+``__frcp_rn``; any other number CUDA's ``powf``), ``elem.sqrt``
+``__fsqrt_rn``, ``exp log sin cos tanh`` CUDA's precise ``expf logf sinf
+cosf tanhf``, ``where`` ``?:``,
 ``minimum``/``maximum`` ``fminf``/``fmaxf``; comparisons, unary minus,
 locals and tuple unpacking as they stand; captured numbers float32
 literals that convert back exactly.  A function returning a tuple becomes
@@ -236,6 +240,8 @@ class _Cpp:
             if node.id in _FUNCS or node.id == "_elem_where":
                 self.fail(node, "an elem function other than called")
             return f"v_{node.id}"
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Pow):
+            return self.power(node)
         if isinstance(node, ast.BinOp):
             fn = _BINOPS.get(type(node.op))
             if fn is None:
@@ -268,6 +274,38 @@ class _Cpp:
                 self.fail(node, f"a call with {len(node.args)} arguments")
             return f"{fn}({', '.join(self.expr(v) for v in node.args)})"
         self.fail(node, f"the expression {type(node).__name__}")
+
+    def number(self, node):
+        """The value of a number constant, a negated one or a captured
+        number; ``None`` for anything else."""
+        if isinstance(node, ast.UnaryOp) and isinstance(node.op, (ast.USub, ast.UAdd)):
+            v = self.number(node.operand)
+            return None if v is None else (-v if isinstance(node.op, ast.USub) else v)
+        if isinstance(node, ast.Constant):
+            v = node.value
+        elif isinstance(node, ast.Name) and node.id.startswith(self.prefix):
+            v = self.consts.get(node.id[len(self.prefix):])
+        else:
+            return None
+        return None if isinstance(v, bool) or not isinstance(v, (int, float)) else v
+
+    def power(self, node) -> str:
+        """``a ** c`` for a number ``c``, rounded as torch's float32 ``pow``
+        rounds it: its special cases (2, 3, 0.5, -1) as torch computes them,
+        CUDA's ``powf`` for any other exponent."""
+        c = self.number(node.right)
+        if c is None:
+            self.fail(node, "the operator Pow with an exponent that is not a number")
+        a = self.expr(node.left)
+        if c == 2:
+            return f"__fmul_rn({a}, {a})"
+        if c == 3:
+            return f"__fmul_rn(__fmul_rn({a}, {a}), {a})"
+        if c == 0.5:
+            return f"__fsqrt_rn({a})"
+        if c == -1:
+            return f"__frcp_rn({a})"
+        return f"powf({a}, {_f32_literal(c)})"
 
     def assign(self, name: str, value: str) -> str:
         if name in self.declared:

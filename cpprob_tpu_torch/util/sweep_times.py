@@ -1,5 +1,6 @@
-"""Whole sweeps of the chain paths timed back to back on the card, for
-comparing two checkouts of the port in one call.
+"""Whole sweeps of the chain and guided paths, and the init kernels,
+timed back to back on the card, for comparing two checkouts of the port in
+one call.
 
     PYTHONPATH=CHECKOUT python3 cpprob_tpu_torch/util/sweep_times.py
 
@@ -10,11 +11,14 @@ HMM main path (2^26 particles, T = 16, chunk 16, island_every 8: K1, K2),
 the HMM per step at 2^20 (chunk 1: K4; ``smc()`` with history: K5), a
 5-state chain at 2^24 (chunk 8: K9, K8) and the same chain guided by a
 random ``[7,16,16,5]`` net at 2^24 (chunk 8: K13) and per step at 2^20
-(K13 one-step), and the linear-Gaussian physics as a user ``step_elem`` at
-2^24 (chunk 8: K10 and the streaming epoch).  The chain is the K-state
-recipe of tests/test_tpu_hw.py at K = 5 with standard normal observations
-from ``default_rng(0)``.
-Prints one JSON line: the card and the ms of each sweep.  It needs the card.
+(K13 one-step), the linear-Gaussian physics as a user ``step_elem`` at
+2^24 (chunk 8: K10 and the streaming epoch), and the guided
+linear-Gaussian model with a random ``[3,16,16,2]`` net at 2^24 (chunk 8,
+``mxu=True``: K12's tensor-core twin; ``mxu=False``: K12 on the FMA pipe).
+The chain is the K-state recipe of tests/test_tpu_hw.py at K = 5 with
+standard normal observations from ``default_rng(0)``.  Launches of the
+init kernel alone: the HMM's (K1, 2^26) and the chain's (K9, K = 5, 2^24).
+Prints one JSON line: the card and the ms of each.  It needs the card.
 """
 
 import json
@@ -32,19 +36,31 @@ def lg_step_elem(x, y, eps):
     return nx, -0.5 * d * d - HALF_LOG_2PI
 
 
+def trans_lp(x, nx, t):
+    d = nx - x
+    return -0.5 * d * d - HALF_LOG_2PI
+
+
+def obs_lp(nx, y, t):
+    d = y - nx
+    return -0.5 * d * d - HALF_LOG_2PI
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("sweep_times times the card: no CUDA device")
     from cpprob_tpu_torch import build_smc_run, smc
     from cpprob_tpu_torch.inference.nn import mlp_init
-    from cpprob_tpu_torch.models import simulate_observations
-    from cpprob_tpu_torch.ops.fused_hmm import make_fused_hmm_ssm
+    from cpprob_tpu_torch.interop import spec_from_numpy
+    from cpprob_tpu_torch.models import HMM_MEANS, HMM_TRANS, simulate_observations
+    from cpprob_tpu_torch.ops.fused_hmm import hmm_init, make_fused_hmm_ssm
     from cpprob_tpu_torch.models.linear_gaussian import linear_gaussian_ssm
     from cpprob_tpu_torch.models.linear_gaussian import (
         simulate_observations as lg_observations,
     )
     from cpprob_tpu_torch.ops.fused_ssm import (
         attach_fused_guided_discrete_kernels,
+        attach_fused_guided_scalar_kernels,
         attach_fused_scalar_kernels,
         make_fused_discrete_ssm,
     )
@@ -63,6 +79,13 @@ def main():
     guided5 = attach_fused_guided_discrete_kernels(
         *chain5, params=mlp_init([7, 16, 16, 5], gen), T=16)
     hmm = make_fused_hmm_ssm()
+    lg_obs = torch.as_tensor(lg_observations(16, 0), device=dev)
+    net = mlp_init([3, 16, 16, 2], gen, device=dev)
+    guided_lg = {mxu: attach_fused_guided_scalar_kernels(
+        linear_gaussian_ssm, net, 16, trans_logpdf_elem=trans_lp,
+        obs_logpdf_elem=obs_lp, mxu=mxu) for mxu in (True, False)}
+    spec3 = spec_from_numpy(HMM_TRANS, HMM_MEANS, np.ones(3), np.full(3, 1 / 3))
+    spec5 = spec_from_numpy(*chain5)
     runs = {
         "hmm_2^26_chunk16_island8": (build_smc_run(
             make_fused_hmm_ssm(island_every=8), 1 << 26, chunk=16), obs, 16),
@@ -73,8 +96,12 @@ def main():
         "guided5_2^24_chunk8": (build_smc_run(guided5, 1 << 24, chunk=8), obs5, 16),
         "guided5_2^20_chunk1": (build_smc_run(guided5, 1 << 20), obs5, 8),
         "user_lg_2^24_chunk8": (build_smc_run(attach_fused_scalar_kernels(
-            linear_gaussian_ssm, lg_step_elem), 1 << 24, chunk=8),
-            torch.as_tensor(lg_observations(16, 0), device=dev), 16),
+            linear_gaussian_ssm, lg_step_elem), 1 << 24, chunk=8), lg_obs, 16),
+        **{f"guided_lg_2^24_chunk8_mxu_{mxu}": (build_smc_run(model, 1 << 24, chunk=8),
+                                               lg_obs, 16)
+           for mxu, model in guided_lg.items()},
+        "hmm_init_2^26": (lambda seed, o: hmm_init(seed, o[0], 1 << 26, spec3), obs, 20),
+        "chain5_init_2^24": (lambda seed, o: hmm_init(seed, o[0], 1 << 24, spec5), obs5, 20),
     }
     ms = {name: time_ms(lambda: run(20_000, o), reps)
           for name, (run, o, reps) in runs.items()}

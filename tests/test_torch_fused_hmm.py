@@ -229,19 +229,105 @@ def test_plain_draw_is_word_t_mod_4_of_the_group_counter(ta):
 
 def test_init_island_and_transition_counters_never_coincide():
     """Over a sweep's range (two islands, absolute steps 1 to 63) the init
-    draws (g, 0, 0), the island offsets (island, t, 1) and the transition
-    groups (g, t >> 2, 2) are disjoint sets of counters, and each (particle,
-    step) takes a (counter, word) of its own."""
+    draws (g >> 2, 0, 0), the island offsets (island, t, 1) and the
+    transition groups (g, t >> 2, 2) are disjoint sets of counters, each
+    particle takes an init (counter, word) of its own, and each (particle,
+    step) a transition (counter, word) of its own."""
     n, T = 2 * ISLAND_SIZE, 64
     gg, tt = np.meshgrid(np.arange(n), np.arange(1, T), indexing="ij")
     gg, tt = gg.ravel().tolist(), tt.ravel().tolist()
-    init = {(g, 0, fused_hmm.INIT_STREAM) for g in range(n)}
+    init = {(g >> 2, 0, fused_hmm.INIT_STREAM) for g in range(n)}
     island = {(i, t, fused_hmm.ISLAND_STREAM)
               for i in range(n // ISLAND_SIZE) for t in range(1, T)}
     trans = {(g, t >> 2, fused_hmm.TRANSITION_STREAM) for g, t in zip(gg, tt)}
     assert not init & island and not init & trans and not island & trans
+    assert len(init) == n // 4 and len({(g >> 2, g & 3) for g in range(n)}) == n
     assert len({(g, t >> 2, t & 3) for g, t in zip(gg, tt)}) == len(gg)
     assert len(trans) == n * 16          # groups 0 .. 15
+
+
+@pytest.mark.parametrize("n", [4096, 4099, 5, 1])
+def test_init_state_is_word_g_mod_4_of_the_quad_counter(n):
+    """The plain init draws particle g's uniform from word g & 3 of Philox
+    at (g >> 2, 0, 0, 0), four particles a call, ragged n included: its
+    states are those uniforms against the initial CDF."""
+    seed = 777
+    spec = _chain_spec(5)
+    s, w, rec = hmm_init_plain(seed, torch.tensor(0.3), n, spec)
+    g = torch.arange(n)
+    words = philox4x32(g >> 2, 0, fused_hmm.INIT_STREAM, 0, *split_seed(seed))
+    u = torch.stack([uniform_from_bits(x) for x in words])[g & 3, g]
+    assert torch.equal(fused_hmm.init_uniforms(seed, n, "cpu"), u)
+    want = (u[:, None] >= torch.as_tensor(spec.init_cdf)[None, :]).sum(1)
+    assert s.dtype == torch.int32 and torch.equal(s.long(), want)
+    assert s.shape == w.shape == (n,) and rec.shape == (1, 5 + 4)
+    # the quads' words, not one call a particle
+    assert not torch.equal(u, philox_uniform(seed, g, 0, fused_hmm.INIT_STREAM)) or n == 1
+
+
+def _host_init_record(tmp_path):
+    """The init kernels' record arithmetic (``init_record`` of
+    ``csrc/fused_hmm.cu``, cut from the source) compiled as host C++."""
+    import ctypes
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    cu = (Path(fused_hmm.__file__).parent / "csrc" / "fused_hmm.cu").read_text()
+    fn = re.search(r"__device__ __forceinline__ void init_record\(.*?\n}\n", cu, re.S)
+    src = ("#include <math.h>\n#define __device__\n#define __forceinline__ inline\n"
+           + fn.group(0)
+           + 'extern "C" void run(const int* h, const float* e, int K, float* out) '
+           "{ init_record(h, e, K, out); }\n")
+    (tmp_path / "r.cpp").write_text(src)
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-o", str(tmp_path / "r.so"), str(tmp_path / "r.cpp")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(tmp_path / "r.so"))
+
+    def record(hist, emis):
+        K = len(hist)
+        out = np.empty(K + 4, np.float32)
+        lib.run(np.ascontiguousarray(hist, np.int32).ctypes.data_as(ctypes.c_void_p),
+                np.ascontiguousarray(emis, np.float32).ctypes.data_as(ctypes.c_void_p),
+                ctypes.c_int(K), out.ctypes.data_as(ctypes.c_void_p))
+        return torch.as_tensor(out)
+
+    return record
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 12])
+def test_init_record_from_counts_matches_records(K, tmp_path):
+    """The init kernels form a CTA's record from its state counts (every
+    particle in state k carries the t = 0 weight e_k): (max e_k over the
+    states present, sum c_k x_k, sum c_k x_k^2, c_k x_k, 0), x_k = exp(e_k -
+    max).  Held to ``_records`` of the plain version (float32 sums over
+    the particles) at ``chip_smoke.py``'s ``_close_stats`` tolerances, on a
+    CTA's share of the main path's init (about 2^16 particles), with a
+    state left absent."""
+    record = _host_init_record(tmp_path)
+    spec = _chain_spec(K) if K > 1 else spec_from_numpy([[1.0]], [0.3], [1.2], [1.0])
+    n = 63_551
+    y0 = torch.tensor(0.8)
+    s, w, rec_p = hmm_init_plain(11, y0, n, spec)
+    if K > 2:      # a state no particle takes: its emission must not set the max
+        keep = s != int(torch.argmax(fused_hmm._emission(spec.tables("cpu"), y0)))
+        s, w = s[keep], w[keep]
+        rec_p = fused_hmm._records(w[None], s[None], K, torch.zeros(1))
+    hist = np.bincount(s.numpy(), minlength=K)
+    emis = fused_hmm._emission(spec.tables("cpu"), y0).numpy()
+    rec_k = record(hist, emis)[None]
+    m = s.shape[0]
+    ess_k, cat_k, lme_k = stats_from_partials(rec_k, m)
+    ess_p, cat_p, lme_p = stats_from_partials(rec_p, m)
+    torch.testing.assert_close(ess_k, ess_p, rtol=1e-4, atol=0)
+    torch.testing.assert_close(lme_k, lme_p, rtol=1e-4, atol=0)
+    torch.testing.assert_close(cat_k, cat_p, rtol=0, atol=1e-4)
+    assert float(rec_k[0, 0]) == float(w.max()) and float(rec_k[0, -1]) == 0.0
 
 
 def _one_step_launches(run, s, w, ys, ctrl, K, t0):

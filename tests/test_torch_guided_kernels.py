@@ -1,5 +1,5 @@
 """The port's guided kernels against the JAX package: K12, the guided
-scalar chunk kernel (``cpprob_tpu_torch.ops.triton_ssm``), and K13, the
+scalar chunk kernel (``cpprob_tpu_torch.ops.guided_scalar``), and K13, the
 guided discrete chunk kernel (``cpprob_tpu_torch.ops.fused_hmm``), with
 the MLP of ``cpprob_tpu_torch.inference.nn`` they evaluate.
 
@@ -46,12 +46,13 @@ from cpprob_tpu_torch.ops.fused_ssm import (
     attach_fused_guided_discrete_kernels,
     attach_fused_guided_scalar_kernels,
 )
-from cpprob_tpu_torch.ops.guided_tc import GuidedTensorCoreKernel
-from cpprob_tpu_torch.ops.triton_ssm import (
+from cpprob_tpu_torch.ops.guided_scalar import (
     GUIDED_BLOCK,
     GuidedScalarKernel,
+    _net_plain,
     guided_scalar_chunk_plain,
 )
+from cpprob_tpu_torch.ops.guided_tc import GuidedTensorCoreKernel
 from test_torch_fused_hmm import CHECKS, _one_step_launches, pinned_step_draws
 
 torch.set_num_threads(2)
@@ -200,18 +201,138 @@ def test_guided_scalar_draws_and_kernel_wrapper():
     assert not torch.equal(zero[0], k.chunk(7, x0, w0, ys, t0=4)[0])
 
 
-def test_guided_scalar_source_renders_the_net():
-    """The generated kernel bakes the weights as float32 constants that
-    convert back exactly, and carries each density under its own name."""
-    params = _net([3, 4, 4, 2], 5)
+_PRELUDE = """
+#include <math.h>
+#define __device__
+#define __forceinline__ inline
+static inline float __fadd_rn(float a, float b) { return a + b; }
+static inline float __fsub_rn(float a, float b) { return a - b; }
+static inline float __fmul_rn(float a, float b) { return a * b; }
+static inline float __fdiv_rn(float a, float b) { return a / b; }
+static inline float __fsqrt_rn(float a) { return sqrtf(a); }
+static inline float __frcp_rn(float a) { return 1.0f / a; }
+static inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+"""
+
+
+@pytest.mark.parametrize("sizes,per", [([3, 2], 4), ([3, 8, 8, 2], 4), ([3, 16, 16, 2], 4),
+                                       ([3, 32, 32, 2], 2), ([3, 64, 64, 2], 1),
+                                       ([3, 300, 2], 1)])
+def test_guided_scalar_particles_a_thread_follow_the_width(sizes, per):
+    """K12 holds four particles a thread up to hidden layers of 16 units and
+    fewer above, so a thread keeps at most 64 activations; the generated
+    source and the wrapper's block agree."""
+    from cpprob_tpu_torch.ops.guided_scalar import per_thread
+
+    k = GuidedScalarKernel(_net(sizes, 1), trans_lp, obs_lp, T)
+    assert per_thread(sizes) == per and k.block() == 256 * per
+    assert f"constexpr int kPerThread = {per};" in k.source()
+
+
+def test_guided_scalar_source_renders_the_net(tmp_path):
+    """The generated CUDA source bakes every weight and bias in as a float32
+    literal that converts back exactly, carries each density under its own
+    name, and includes the kernel's header.  Its model part (the net and
+    the densities) compiles on the host, where ``fmaf`` rounds each
+    multiply-add once as the card's ``__fmaf_rn`` does: the net there gives
+    ``_net_plain``'s (mean, raw) bit for bit."""
+    import ctypes
+    import re
+    import shutil
+    import subprocess
+
+    sizes = [3, 4, 5, 2]
+    params = _net(sizes, 5)
     src = GuidedScalarKernel(params, trans_lp, obs_lp, 16).source()
-    w = float(np.float32(params[1]["w"][2, 3]))
-    assert f"({w!r})" in src
-    assert "def trans_logpdf_elem(x, nx, t):" in src
-    assert "def obs_logpdf_elem(nx, y, t):" in src
-    assert "_kt_half_log_2pi" in src and "_ko_half_log_2pi" in src
-    assert "tl.div_rn(tt, 16.0)" in src
-    compile(src, "<guided>", "exec")
+    literals = {np.float32(v) for v in re.findall(r"(-?\d+\.\d+(?:e-?\d+)?)f\b", src)}
+    for layer in params:
+        for v in np.concatenate([layer["w"].ravel(), layer["b"]]):
+            assert np.float32(float(repr(float(v)))) == v
+            assert v in literals, v
+    assert "float trans_logpdf_elem(float v_x, float v_nx, float v_t)" in src
+    assert "float obs_logpdf_elem(float v_nx, float v_y, float v_t)" in src
+    assert src.count("__fmaf_rn(") == 4 + 4 * 5 + 2 * 5
+    assert src.rstrip().endswith('#include "guided_scalar.cuh"')
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    model = src.split('#include "guided_scalar.cuh"')[0]
+    (tmp_path / "k.cpp").write_text(
+        _PRELUDE + model + 'extern "C" void run(const float* x, float y, float tf, '
+        "float* mean, float* raw, int n) {\n"
+        "  using namespace guided_scalar_model;\n  float c[kFirst];\n"
+        "  first_consts(y, tf, c);\n"
+        "  for (int i = 0; i < n; ++i) net(x[i], c, mean[i], raw[i]);\n}\n")
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-fno-fast-math",
+                    "-shared", "-fPIC", "-o", str(tmp_path / "k.so"),
+                    str(tmp_path / "k.cpp")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(tmp_path / "k.so"))
+    n = 4096
+    x = np.random.default_rng(1).normal(0, 2, n).astype(np.float32)
+    mean, raw = np.empty(n, np.float32), np.empty(n, np.float32)
+    p = ctypes.POINTER(ctypes.c_float)
+    y, tf = np.float32(0.7), np.float32(3.0) / np.float32(16.0)
+    lib.run(x.ctypes.data_as(p), ctypes.c_float(y), ctypes.c_float(tf),
+            mean.ctypes.data_as(p), raw.ctypes.data_as(p), ctypes.c_int(n))
+    net = ([torch.as_tensor(lay["w"]) for lay in params],
+           [torch.as_tensor(lay["b"]) for lay in params])
+    want = _net_plain(net, torch.as_tensor(x), torch.tensor(y), torch.tensor(tf))
+    np.testing.assert_array_equal(mean, want[0].numpy())
+    np.testing.assert_array_equal(raw, want[1].numpy())
+
+
+def _round32(fr):
+    """A rational number correctly rounded to float32 (ties to even)."""
+    from fractions import Fraction
+
+    f = np.float32(float(fr))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - fr),
+                                     int(np.array(c).view(np.int32)) & 1))
+
+
+def test_net_plain_rounds_each_multiply_add_once():
+    """``_net_plain`` takes the kernel's order with each multiply-add
+    rounded once: bit-equal to the same chain taken in exact rational
+    arithmetic and correctly rounded to float32 after each multiply-add,
+    and within float32-level rounding of the net in float64.  One fused
+    multiply-add where rounding the product first loses the answer."""
+    from fractions import Fraction
+
+    from cpprob_tpu_torch.ops.guided_scalar import _fma
+
+    a = torch.tensor([1 + 2.0 ** -13])
+    c = torch.tensor([-(1 + 2.0 ** -12)])
+    assert float(a * a + c) == 0.0 and float(_fma(a, a, c)) == 2.0 ** -26
+
+    sizes = [3, 4, 5, 2]
+    layers = _net(sizes, 11)
+    Ws = [lay["w"] for lay in layers]
+    bs = [lay["b"] for lay in layers]
+    x = np.random.default_rng(12).normal(0, 2, 64).astype(np.float32)
+    y, tf = np.float32(-0.4), np.float32(5.0) / np.float32(16.0)
+    got = _net_plain(([torch.as_tensor(W) for W in Ws], [torch.as_tensor(b) for b in bs]),
+                     torch.as_tensor(x), torch.tensor(y), torch.tensor(tf))
+    F = lambda v: Fraction(float(v))  # noqa: E731
+    c = (Ws[0][1] * y + Ws[0][2] * tf) + bs[0]          # float32, as the kernel
+    for i in range(64):
+        act = [_round32(F(x[i]) * F(Ws[0][0, j]) + F(c[j])) for j in range(sizes[1])]
+        for W, b in zip(Ws[1:], bs[1:]):
+            act = [max(v, np.float32(0)) for v in act]
+            out = []
+            for j in range(W.shape[1]):
+                acc = b[j]
+                for k, v in enumerate(act):
+                    acc = _round32(F(v) * F(W[k, j]) + F(acc))
+                out.append(acc)
+            act = out
+        assert (got[0][i].item(), got[1][i].item()) == (float(act[0]), float(act[1])), i
+    # float64 throughout
+    h = np.maximum(x[:, None].astype(np.float64) * Ws[0][0] + (Ws[0][1].astype(np.float64) * y
+                   + Ws[0][2] * np.float64(tf) + bs[0]), 0)
+    h = np.maximum(h @ Ws[1] + bs[1], 0)
+    ref = h @ Ws[2] + bs[2]
+    np.testing.assert_allclose(torch.stack(got, 1).numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
 # --------------------------------------------------------------------------

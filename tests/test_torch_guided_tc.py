@@ -10,6 +10,7 @@ held to in ``tests/test_torch_guided_kernels.py``.
 
 import ctypes
 import math
+import re
 import shutil
 import subprocess
 
@@ -23,17 +24,17 @@ from cpprob_tpu_torch.ops import calibrate as cal
 from cpprob_tpu_torch.ops import elem, guided_tc
 from cpprob_tpu_torch.ops.elem import exp, where
 from cpprob_tpu_torch.ops.fused_ssm import attach_fused_guided_scalar_kernels
+from cpprob_tpu_torch.ops.guided_scalar import (
+    GuidedScalarKernel,
+    _net_plain,
+    guided_scalar_chunk_plain,
+)
 from cpprob_tpu_torch.ops.guided_tc import (
     GuidedTensorCoreKernel,
     pack_weights,
     render_density,
     tc_net_plain,
     tf32_round,
-)
-from cpprob_tpu_torch.ops.triton_ssm import (
-    GuidedScalarKernel,
-    _net_plain,
-    guided_scalar_chunk_plain,
 )
 from cpprob_tpu_torch.util import roofline as rl
 
@@ -74,6 +75,16 @@ def arithmetic(x, nx, t):
 
 def power(x, nx, t):
     return -(nx - x) ** 2
+
+
+def powers(x, nx, t):
+    """Every rendering of ``**``: 2, 3, 0.5 and -1 as torch computes them,
+    any other exponent (a captured number here) through ``powf``."""
+    d = nx - x
+    return d ** 2 + d ** 3 + (x * x + 1.0) ** 0.5 - (nx * nx + 2.0) ** -1 + 0.0 * (x * x) ** GAIN
+
+
+GAIN = 1.5
 
 
 def chained(x, nx, t):
@@ -225,18 +236,25 @@ def test_renders_every_elem_function():
 @pytest.mark.parametrize("fn,what", [(power, "Pow"), (chained, "chained"),
                                      (branch, "If")])
 def test_renderer_rejects_with_a_pointer_to_the_triton_twin(fn, what):
-    with pytest.raises(ValueError, match=f"(?s){what}.*mxu=False"):
-        render_density(fn, "trans_logpdf_elem", "x, nx, t", "_kt_")
+    """``**`` with a number exponent renders and builds both twins of K12;
+    chained comparisons and ``if`` raise for both, naming the construct and
+    the contract."""
     params = mlp_params_from_numpy(_net([3, 8, 8, 2], 0), device="cpu")
-    with pytest.raises(ValueError, match="mxu=False"):
-        attach_fused_guided_scalar_kernels(linear_gaussian_ssm, params, 8,
-                                           trans_logpdf_elem=fn, obs_logpdf_elem=obs_lp)
-    # the Triton K12 takes the density (its own contract checks pass)
+    kw = dict(trans_logpdf_elem=fn, obs_logpdf_elem=obs_lp)
     if fn is power:
-        model = attach_fused_guided_scalar_kernels(
-            linear_gaussian_ssm, params, 8, trans_logpdf_elem=fn,
-            obs_logpdf_elem=obs_lp, mxu=False)
-        assert isinstance(model.fused_chunk_t_batch.kernel, GuidedScalarKernel)
+        src = render_density(fn, "trans_logpdf_elem", "x, nx, t", "_kt_")
+        assert "(-__fmul_rn(__fsub_rn(v_nx, v_x), __fsub_rn(v_nx, v_x)))" in src
+        for mxu, cls in ((True, GuidedTensorCoreKernel), (False, GuidedScalarKernel)):
+            model = attach_fused_guided_scalar_kernels(linear_gaussian_ssm, params, 8,
+                                                       mxu=mxu, **kw)
+            assert isinstance(model.fused_chunk_t_batch.kernel, cls)
+            assert "__fmul_rn(__fsub_rn(v_nx, v_x)" in model.fused_chunk_t_batch.kernel.source()
+        return
+    with pytest.raises(ValueError, match=f"(?s){what}.*elementwise contract"):
+        render_density(fn, "trans_logpdf_elem", "x, nx, t", "_kt_")
+    for mxu in (True, False):
+        with pytest.raises(ValueError, match="elementwise contract"):
+            attach_fused_guided_scalar_kernels(linear_gaussian_ssm, params, 8, mxu=mxu, **kw)
 
 
 _PRELUDE = """
@@ -248,6 +266,7 @@ static inline float __fsub_rn(float a, float b) { return a - b; }
 static inline float __fmul_rn(float a, float b) { return a * b; }
 static inline float __fdiv_rn(float a, float b) { return a / b; }
 static inline float __fsqrt_rn(float a) { return sqrtf(a); }
+static inline float __frcp_rn(float a) { return 1.0f / a; }
 """
 
 
@@ -311,6 +330,39 @@ def _sqrt_d(x, nx, t):
     return elem.sqrt(nx)
 
 
+def _pow_d(x, nx, t):
+    return x ** 2 + nx ** 3 - (nx * 0.5) ** -1
+
+
+def _half_d(x, nx, t):
+    return nx ** 0.5
+
+
+def test_powers_render_as_torch_rounds_them(tmp_path):
+    """``a ** c`` on the host compiler: for c = 2, 3 and -1 bit-equal to
+    torch's float32 ``pow`` (which computes a * a, a * a * a and 1 / a);
+    for c = 0.5 the rendering is ``__fsqrt_rn``, torch's ``x ** 0.5`` is
+    ``torch.sqrt`` bit for bit, and the host's correctly rounded ``sqrtf``
+    is within an ulp of it (torch's vectorized CPU square root is not
+    always correctly rounded; on the card both sides take CUDA's); any
+    other exponent is ``powf``."""
+    src = render_density(powers, "trans_logpdf_elem", "x, nx, t", "_kt_")
+    for piece in ("__fmul_rn(v_d, v_d)", "__fmul_rn(__fmul_rn(v_d, v_d), v_d)",
+                  "__fsqrt_rn(", "__frcp_rn(", "powf(", "1.5f)"):
+        assert piece in src, piece
+    lib = _host_library(tmp_path, [_pow_d, _half_d])
+    rng = np.random.default_rng(4)
+    n = 20000
+    a = rng.normal(0, 2, n).astype(np.float32)
+    b = np.abs(rng.normal(0, 3, n)).astype(np.float32) + np.float32(1e-3)
+    c = np.zeros(n, np.float32)
+    want = _pow_d(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(c)).numpy()
+    np.testing.assert_array_equal(_run_host(lib, 0, a, b, c), want)
+    tb = torch.as_tensor(b)
+    assert torch.equal(tb ** 0.5, torch.sqrt(tb))
+    assert _ulps(_run_host(lib, 1, a, b, c), (tb ** 0.5).numpy()).max() <= 1
+
+
 def test_rendered_densities_compile_and_agree_on_the_host(tmp_path):
     """Arithmetic bit for bit (the test densities and ``arithmetic``, with
     division, where, a comparison, tuples, captured numbers and math.pi);
@@ -356,7 +408,7 @@ def test_mxu_selects_the_twin_and_both_run_the_plain_version_on_cpu():
         assert torch.equal(a, b)
     want = guided_scalar_chunk_plain(params, trans_lp, obs_lp, 8, 5, x0, w0, ys, nv, t0=3)
     assert torch.equal(out_tc[0], want[0]) and torch.equal(out_tc[1], want[1])
-    # a linear head takes the Triton kernel whatever mxu says
+    # a linear head takes K12 on the FMA pipe whatever mxu says
     head = mlp_params_from_numpy(_net([3, 2], 5), device="cpu")
     lin = attach_fused_guided_scalar_kernels(linear_gaussian_ssm, head, 8, **kw)
     assert isinstance(lin.fused_chunk_t_batch.kernel, GuidedScalarKernel)
@@ -463,6 +515,33 @@ def test_parts_variants_find_their_lines():
     assert "lo = 0u;" in variants["one_tf32"] and "bl0 = 0u, bl1 = 0u;" in variants["one_tf32"]
     with pytest.raises(ValueError, match="is gone"):
         guided_tc_parts.variant_sources(src.replace("0xffffe000u", "0xFFFFE000u"))
+
+
+def test_parts_k12_designs_carry_their_substitutions():
+    """``util/guided_tc_parts.py``'s K12 designs: the kept one is the
+    kernel object's own source; the others change the particles a thread
+    (with the block the wrapper expects) or read every weight from a
+    kernel-parameter struct in place of the literals, the header pasted in
+    with the struct threaded through the kernel and its launch."""
+    from cpprob_tpu_torch.ops import guided_scalar as gs
+    from cpprob_tpu_torch.util import guided_tc_parts
+
+    params = mlp_params_from_numpy(_net([3, 16, 16, 2], 9), device="cpu")
+    kept = gs.GuidedScalarKernel(params, trans_lp, obs_lp, 16)
+    designs = {name: guided_tc_parts.k12_design(name, params, trans_lp, obs_lp, 16)
+               for name in guided_tc_parts.K12_DESIGNS}
+    assert designs["K12"].source() == kept.source() and kept.block() == 1024
+    for p in (1, 2):
+        k = designs[f"K12 {p} a thread"]
+        assert f"constexpr int kPerThread = {p};" in k.source() and k.block() == 256 * p
+    assert "constexpr int kPerThread = 2;" in designs["K12 weights as parameters, 2 a thread"].source()
+    src = designs["K12 weights as parameters"].source()
+    n_weights = sum(lay["w"].size + lay["b"].size for lay in _net([3, 16, 16, 2], 9))
+    assert f"struct Weights {{ float v[{n_weights}]; }};" in src
+    assert f"kw.v[{n_weights - 1}]" in src and '#include "guided_scalar.cuh"' not in src
+    assert "long long n, const Weights kw)" in src and "memcpy(&kw, host_w" in src
+    body = src.split("void first_consts(")[1].split("#include")[0].split("trans_logpdf_elem")[0]
+    assert set(re.findall(r"-?\d+\.\d+(?:e-?\d+)?f", body)) == {"0.0f"}
 
 
 def test_parts_variant_kernel_pastes_its_header():

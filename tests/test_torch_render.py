@@ -107,7 +107,7 @@ def test_renders_every_construct():
 
 
 def _power(x, y, eps):
-    return x ** 2, y
+    return x ** y, y
 
 
 def _chained(x, y, eps):
@@ -196,6 +196,7 @@ static inline float __fsub_rn(float a, float b) { return a - b; }
 static inline float __fmul_rn(float a, float b) { return a * b; }
 static inline float __fdiv_rn(float a, float b) { return a / b; }
 static inline float __fsqrt_rn(float a) { return sqrtf(a); }
+static inline float __frcp_rn(float a) { return 1.0f / a; }
 """
 
 
