@@ -32,7 +32,8 @@ and the script exits non-zero without printing its last line:
    before them, the SASS of the two kernels redesigned last
    (``check_sass``): ``tensor_core_kernel`` is wgmma alone (``HGMMA``, no
    ``HMMA``), ``pass1_scan_kernel``'s double-precision instructions a
-   particle match its bound's count, and each chain kernel instance's
+   particle and ``lse_stats_kernel``'s a weight (in its batch loop) match
+   their bounds' counts, and each chain kernel instance's
    registers and local memory (``check_chain_sass``: none in
    ``hmm_chunk_kernel<K>``, ``hmm_chunk_kernel_k`` and
    ``guided_chunk_kernel<K>``);
@@ -40,7 +41,11 @@ and the script exits non-zero without printing its last line:
    chunk kernel against its plain version (t0 odd, even and 9, n_valid 8
    and 7), the one-step launch (and eight of them against one eight-step
    launch, bit for bit), the epoch's stats, pass-1 and pass-2 kernels
-   (pass 2 against the exact expansion of its own start slots, the flag off
+   (the stats kernel, one launch whose last CTA combines the records: its
+   max bit-equal and wtot within 1e-12, 16 calls bit-equal, at 2^24 - 3,
+   on a view at a one-float offset, with a block of -inf weights, and flag
+   0 then 1, the ticket and records untouched by flag 0;
+   pass 2 against the exact expansion of its own start slots, the flag off
    and one heavy particle; pass 1, the single-pass scan, 64 times back to
    back, at the ragged sizes 1, 4,097 and 2^20 + 3, with one heavy
    particle, with all weights but one at -inf, and flag off then on); ``build_smc_run(make_fused_lg_ssm(), 2^24,
@@ -115,17 +120,24 @@ and the script exits non-zero without printing its last line:
    ``streaming_systematic_resample_values(impl=...)`` for 8 epochs of each
    variant, counted; timings of the three layouts beside
    ``torch.repeat_interleave``;
-9. the card's calibration (``roofline_phases``, K17-K21): each
+9. the distribution layer (``distribution_phases``, slice 4a, plain
+   PyTorch): 2^24 draws of each scalar class, the mixtures, both
+   truncations and the spline flow, and 2^20 of each multivariate normal
+   (D = 8), from a CUDA generator; moments within 6 SE of the analytic
+   ones (by quadrature where there is no closed form), ``log_prob`` and
+   ``cdf`` (``betainc`` for the beta) on the card against the same
+   draws' on the CPU; the times of ``sample`` and ``log_prob``;
+10. the card's calibration (``roofline_phases``, K17-K21): each
    calibration kernel against its plain version at a reduced size (K17,
    K19, K20b exactly; K18, K20a, K21 within the tolerances stated at
    ``CAL_*``), then ``util/roofline.py``'s ``calibrate_peaks`` at the
    reference's sizes, counted; the peaks must be positive and below the
    datasheet's where it has one;
-10. the ``roofline`` JSON line: the peaks, the card, and for every kernel
+11. the ``roofline`` JSON line: the peaks, the card, and for every kernel
    entry its bound against the published peaks and its calibrated bound
    (``analyze_kernels``: the binding resource and the fraction, at most 1);
    the whole analysis in ``chiprun_out/roofline.json``;
-11. one JSON line on the 26 kernel entries (each with ``bound_ms``,
+12. one JSON line on the 26 kernel entries (each with ``bound_ms``,
    ``bound_by``, ``library_ms`` where one PyTorch call computes the same
    function, ``calibrated_bound_ms`` and ``calibrated_by``), the card line,
    and the result line ``{"ok": true, "device": {...}}``.
@@ -176,6 +188,12 @@ PASS1_SLACK = 16           # start slots pass 1 may place differently
 # exp's rarely taken branches are in it), read on an H100 80GB HBM3 at
 # 700.00 W; check_sass reads it again from the build
 PASS1_F64_OPS = 511 / 16
+# double-precision instructions a weight in lse_stats_kernel's batch loop:
+# DFMA 119, DADD 50, DMUL 18, DSETP 17 in its largest loop, over the 16
+# weights of a batch (each weight's exp_nonpos, ten, and its add; the
+# batch's rescale), read on an H100 80GB HBM3 at 700.00 W; check_sass reads
+# it again from the build
+LSE_F64_OPS = 204 / 16
 
 # The kernels' work by resource and their bounds (bound_ms against the
 # published peaks, calibrated_bound_ms against the card's own calibration)
@@ -431,15 +449,8 @@ def check_lg_kernels(n=LG_N, seed=CHECK_SEED):
 
     # the epoch on the weights after the first chunk
     x1, w1, _ = lg_chunk(seed, x0, w0, ys[0], eight, t0=1)
+    errs["lse_stats"] = check_lse_stats(w1)
     stats_k = sr.logsumexp_stats(w1)
-    stats_p = sr.logsumexp_stats_plain(w1)
-    _sync()
-    if float(stats_k[0]) != float(stats_p[0]):
-        raise AssertionError("lse_stats: max differs")
-    torch.testing.assert_close(stats_k[1], stats_p[1], rtol=1e-12, atol=0,
-                               msg="lse_stats: wtot")
-    errs["lse_stats"] = float((stats_k - stats_p).abs().max())
-    print(f"check lse_stats n={n}: max|d|={errs['lse_stats']:.3g}")
     u0 = torch.full((), 0.37, dtype=torch.float64, device=dev)
     errs["pass1"] = check_pass1(w1, n)
     st_k = sr.resample_pass1(u0, w1, stats_k)
@@ -468,6 +479,69 @@ def check_lg_kernels(n=LG_N, seed=CHECK_SEED):
     print("check epoch: flag off copies the population; one heavy particle "
           "fills every slot")
     return errs
+
+
+def _check_lse(lw, what, repeats=1, flag=None):
+    """K14 on ``lw`` against ``logsumexp_stats_plain``: the max bit-equal,
+    wtot within rtol 1e-12, and ``repeats`` more calls bit-equal to the
+    first.  Returns (max |kernel - plain| over (m, wtot), |d wtot| / wtot)."""
+    from cpprob_tpu_torch.ops import stream_resample as sr
+
+    got = sr.logsumexp_stats(lw, flag)
+    want = sr.logsumexp_stats_plain(lw)
+    again = [sr.logsumexp_stats(lw, flag) for _ in range(repeats)]
+    _sync()
+    said = f"lse_stats {what}: kernel {got.tolist()}, plain {want.tolist()}"
+    if float(got[0]) != float(want[0]):
+        raise AssertionError(f"{said}: the max differs")
+    torch.testing.assert_close(got[1], want[1], rtol=1e-12, atol=0,
+                               msg=f"{said}: wtot")
+    unequal = sum(not torch.equal(a, got) for a in again)
+    if unequal:
+        raise AssertionError(f"{said}: {unequal} of {repeats} calls differ "
+                             "from the first")
+    return float((got - want).abs().max()), float((got[1] - want[1]).abs() / want[1])
+
+
+def check_lse_stats(w1, repeats=16):
+    """K14 (one launch, the combine by the last CTA) against its plain
+    version: on the path's weights (and ``repeats`` calls after it, each
+    bit-equal to the first: the records are folded by CTA index), at n =
+    2^24 - 3 (a ragged tail), on a view at a one-float offset (a scalar
+    head before the first 16-byte boundary), on weights with a block of
+    -inf, and with the flag 0 (no CTA writes a record and the ticket stays
+    0) then a flagged call, which must be right.  Returns the largest
+    absolute error of (m, wtot)."""
+    from cpprob_tpu_torch.ops import stream_resample as sr
+    from cpprob_tpu_torch.ops.population import current_stream
+
+    dev = w1.device
+    n = w1.shape[0]
+    errs = [_check_lse(w1, f"n={n}", repeats)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(CHECK_SEED)
+    ragged = 2 * torch.randn(n - 3, generator=gen, device=dev)
+    offset = w1[1:]
+    holes = w1.clone()
+    holes[n // 3: n // 3 + 1_000_003] = -math.inf
+    for what, lw in ((f"n={n - 3}", ragged), ("a view at a one-float offset", offset),
+                     ("a block of -inf", holes)):
+        errs.append(_check_lse(lw, what, 1))
+    rec_m, rec_s, ticket = sr._LSE_SCRATCH[(dev, current_stream(dev).value)]
+    before = (rec_m.clone(), rec_s.clone())
+    off, on = (torch.full((), f, dtype=torch.int32, device=dev) for f in (0, 1))
+    sr.logsumexp_stats(w1, off)
+    _sync()
+    if int(ticket) != 0 or not (torch.equal(rec_m, before[0])
+                                and torch.equal(rec_s, before[1])):
+        raise AssertionError("lse_stats: the flag 0 launch wrote a record or "
+                             "moved the ticket")
+    errs.append(_check_lse(w1, "flag 0 then 1", 0, on))
+    err, rel = (max(e[i] for e in errs) for i in (0, 1))
+    print(f"check lse_stats: n={n} and {repeats} calls bit-equal, n={n - 3}, a "
+          "view at a one-float offset, a block of -inf and flag 0 then 1: max "
+          f"equal, max |d wtot|/wtot={rel:.3g} (rtol 1e-12), max|d|={err:.3g}")
+    return err
 
 
 def _check_slots(st_k, st_p, what):
@@ -530,11 +604,13 @@ def check_pass1(w1, n, repeats=64):
 
 
 def check_sass():
-    """The machine code of the two kernels this round redesigned, from the
+    """The machine code of the kernels this round redesigned, from the
     built libraries: ``tensor_core_kernel`` has ``HGMMA`` (wgmma) and no
     ``HMMA`` (mma.sync); ``pass1_scan_kernel``'s double-precision
     instructions a particle, held to ``PASS1_F64_OPS`` (its bound's count)
-    within 20 %.  Prints each one's registers and spills."""
+    within 20 %, and those of ``lse_stats_kernel``'s batch loop a weight,
+    held to ``LSE_F64_OPS`` likewise.  Prints each one's registers and
+    spills."""
     from cpprob_tpu_torch.ops import stream_resample as sr
     from cpprob_tpu_torch.util.sass import kernel_report
 
@@ -547,19 +623,32 @@ def check_sass():
             raise AssertionError("tensor_core_kernel: not wgmma alone")
     if not tc:
         raise AssertionError("tensor_core_kernel: not in the library")
+    dp_ops = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
     per = sr.PASS1_PER_THREAD
     p1 = kernel_report("stream_resample", "pass1_scan_kernel")
     if len(p1) != 1:
         raise AssertionError(f"pass1_scan_kernel: {len(p1)} functions")
     (f, r), = p1.items()
-    dp = {o: c for o, c in r["opcodes"].items()
-          if o in ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")}
+    dp = {o: c for o, c in r["opcodes"].items() if o in dp_ops}
     f64 = sum(dp.values()) / per
     print(f"SASS {f}: {r['registers']} registers, spills {r['spills']}, "
           f"double-precision instructions {dp}, {f64:.2f} a particle (the "
           f"bound counts {PASS1_F64_OPS})")
     if abs(f64 - PASS1_F64_OPS) > 0.2 * PASS1_F64_OPS:
         raise AssertionError("pass1_scan_kernel: PASS1_F64_OPS is stale")
+    lse = kernel_report("stream_resample", "lse_stats_kernel")
+    if len(lse) != 1:
+        raise AssertionError(f"lse_stats_kernel: {len(lse)} functions")
+    (f, r), = lse.items()
+    dp_all = {o: c for o, c in r["opcodes"].items() if o in dp_ops}
+    dp = {o: c for o, c in r["loop_opcodes"][0].items() if o in dp_ops}
+    f64 = sum(dp.values()) / sr.LSE_PER_BATCH
+    print(f"SASS {f}: {r['registers']} registers, spills {r['spills']}, stack "
+          f"{r['stack']} B, loops {r['loops'][:3]}; double-precision "
+          f"instructions {dp} in its batch loop ({dp_all} in all), {f64:.2f} a "
+          f"weight (the bound counts {LSE_F64_OPS})")
+    if abs(f64 - LSE_F64_OPS) > 0.2 * LSE_F64_OPS:
+        raise AssertionError("lse_stats_kernel: LSE_F64_OPS is stale")
     check_chain_sass()
 
 
@@ -869,14 +958,16 @@ def lg_phases(card, stages):
     bounds = {
         "lg_chunk": normal_chunk_bound(n, int(valid[0])),
         "lg_step": normal_chunk_bound(n, 1),
-        # K14 reads the weights (max, subtract, exp, add: float64); K15
+        # K14 reads the weights, with LSE_F64_OPS double-precision
+        # instructions a weight (the float64 exp and the sum, counted from
+        # its batch loop's SASS by check_sass); K15
         # reads them and writes int32 start slots, with PASS1_F64_OPS
         # double-precision instructions a particle (the float64 exp, the
         # prefix adds and the slot arithmetic, counted from its SASS by
         # check_sass); K16 reads the start slots and the values and writes
         # the values, with the owner scatter, the max-scan and the gather
         # per slot (~3 ops)
-        "lse_stats": bound(4 * n, f64_ops=4 * n, library_ms=library["lse_stats"]),
+        "lse_stats": bound(4 * n, f64_ops=LSE_F64_OPS * n, library_ms=library["lse_stats"]),
         "pass1": bound(8 * n, f64_ops=PASS1_F64_OPS * n, library_ms=library["pass1"]),
         "pass2": bound(12 * n, 3 * n, library_ms=library["pass2"]),
     }
@@ -894,7 +985,7 @@ def lg_phases(card, stages):
         line("lg_chunk_kernel (n_steps=1, lg_step)", "lg_step",
              "cpprob_tpu/ops/pallas_hmm.py:669", "fused_lg.cu",
              step_launches["step"]),
-        line("lse_stats_kernel + lse_combine_kernel", "lse_stats",
+        line("lse_stats_kernel", "lse_stats",
              "cpprob_tpu/ops/pallas_resample.py:727", "stream_resample.cu",
              launches["lse_stats"]),
         line("pass1_scan_kernel", "pass1",
@@ -2559,6 +2650,228 @@ def r1_phases(card, stages):
 
 
 # ---------------------------------------------------------------------------
+# slice 4a: the distribution layer on the card (plain PyTorch, no kernel)
+
+DIST_N = 1 << 24          # draws of each scalar class: the LG path's population
+MVN_N = 1 << 20           # draws of each multivariate normal, D = MVN_D
+MVN_D = 8
+DIST_SE = 6               # moments within DIST_SE standard errors
+DIST_REL = 1e-6           # card against CPU: |d| / max(|CPU value|, 1)
+# Beta's cdf (betainc: 200 float64 steps an element) on the CPU for the
+# first 2^20 draws only: all 2^24 would take about a minute there
+DIST_BETAINC_CPU_N = 1 << 20
+
+
+def _truncnorm_moments(a, b):
+    """Mean and variance of N(0, 1) truncated to [a, b]."""
+    phi = lambda t: math.exp(-0.5 * t * t) / math.sqrt(2 * math.pi)
+    cdf = lambda t: 0.5 * (1 + math.erf(t / math.sqrt(2)))
+    z = cdf(b) - cdf(a)
+    m = (phi(a) - phi(b)) / z
+    return m, 1 + (a * phi(a) - b * phi(b)) / z - m * m
+
+
+def _quadrature_moments(dist_cpu, lo, hi):
+    """Mean and variance of a scalar distribution by the trapezoid rule on
+    its density over [lo, hi] (float64 grid of 2^20 points)."""
+    grid = torch.linspace(lo, hi, 1 << 20, dtype=torch.float64)
+    p = torch.exp(dist_cpu.log_prob(grid.float()).double())
+    z = float(torch.trapezoid(p, grid))
+    m = float(torch.trapezoid(p * grid, grid)) / z
+    return m, float(torch.trapezoid(p * (grid - m) ** 2, grid)) / z
+
+
+def distribution_cases():
+    """(name, make(device) -> the distribution on that device, analytic
+    (mean, variance), "quadrature" or None) for every scalar class of the
+    port's distribution layer, and the compound ones built from them; the
+    spline flow in float32 and in float64."""
+    import numpy as np
+
+    from cpprob_tpu_torch import distributions as D
+
+    flow = _flow_raw()
+    a_mm, b_mm = 0.3 * 4 + 1, 0.7 * 4 + 1
+    ex2 = 0.3 * (0.25 + 1.0) + 0.7 * (2.25 + 4.0)
+    mix = lambda dv: D.Mixture(D.Normal([-1.0, 2.0], [0.5, 1.5], device=dv), [0.3, 0.7])
+    return [
+        ("Normal", lambda dv: D.Normal(2.0, 3.0, device=dv), (2.0, 9.0)),
+        ("Uniform", lambda dv: D.Uniform(2.0, 9.5, device=dv), (5.75, 7.5 ** 2 / 12)),
+        ("Beta", lambda dv: D.Beta(2.0, 3.0, device=dv), (0.4, 0.04)),
+        ("Gamma", lambda dv: D.Gamma(2.0, 1.5, device=dv), (3.0, 4.5)),
+        ("Laplace", lambda dv: D.Laplace(1.0, 2.0, device=dv), (1.0, 8.0)),
+        ("Exponential", lambda dv: D.Exponential(1.7, device=dv), (1 / 1.7, 1 / 1.7 ** 2)),
+        ("LogNormal", lambda dv: D.LogNormal(0.5, 0.8, device=dv),
+         (math.exp(0.5 + 0.32), (math.exp(0.64) - 1) * math.exp(1.0 + 0.64))),
+        ("HalfNormal", lambda dv: D.HalfNormal(2.0, device=dv),
+         (2 * math.sqrt(2 / math.pi), 4 * (1 - 2 / math.pi))),
+        ("StudentT", lambda dv: D.StudentT(5.0, 1.0, 2.0, device=dv), (1.0, 4 * 5 / 3)),
+        ("Cauchy", lambda dv: D.Cauchy(0.5, 1.5, device=dv), None),
+        ("MinMaxContinuous", lambda dv: D.MinMaxContinuous(0.0, 10.0, 3.0, 6.0, device=dv),
+         (10 * a_mm / (a_mm + b_mm),
+          100 * a_mm * b_mm / ((a_mm + b_mm) ** 2 * (a_mm + b_mm + 1)))),
+        ("Categorical", lambda dv: D.Categorical([0.2, 0.3, 0.5], device=dv), (1.3, 0.61)),
+        ("UniformInt", lambda dv: D.UniformInt(2, 7, device=dv), (4.5, 35 / 12)),
+        ("Poisson", lambda dv: D.Poisson(4.2, device=dv), (4.2, 4.2)),
+        ("Bernoulli", lambda dv: D.Bernoulli(0.3, device=dv), (0.3, 0.21)),
+        ("MinMaxDiscrete", lambda dv: D.MinMaxDiscrete(3, [1.0, 2.0, 1.0], device=dv),
+         (4.0, 0.5)),
+        ("Mixture", mix, (1.1, ex2 - 1.1 ** 2)),
+        ("Truncated (inverse CDF)",
+         lambda dv: D.Truncated(D.Normal(0.0, 1.0, device=dv), -1.0, 2.0),
+         _truncnorm_moments(-1.0, 2.0)),
+        ("Truncated (rejection)", lambda dv: D.Truncated(mix(dv), 0.0, 3.0), "quadrature"),
+        ("DefensiveMixture",
+         lambda dv: D.DefensiveMixture(D.Normal(2.0, 0.05, device=dv),
+                                       D.Uniform(0.0, 4.0, device=dv), 0.25),
+         (2.0, 0.75 * 0.05 ** 2 + 0.25 * 16 / 12)),
+        ("SplineFlow1D", lambda dv: _flow(flow, torch.float32, dv), "quadrature"),
+        ("SplineFlow1D (float64)", lambda dv: _flow(flow, torch.float64, dv), "quadrature"),
+    ]
+
+
+def _flow_raw():
+    """Head outputs of the phase's spline flow (K = 8), from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(CHECK_SEED)
+    return [rng.normal(size=8), rng.normal(size=8), 0.5 * rng.normal(size=7)]
+
+
+def _flow(raw, dtype, device):
+    """The phase's spline flow: head outputs ``raw``, loc 0.7, scale 1.3."""
+    from cpprob_tpu_torch import distributions as D
+
+    return D.SplineFlow1D(*(torch.as_tensor(v, dtype=dtype, device=device)
+                            for v in (*raw, 0.7, 1.3)))
+
+
+def _dist_rel(got, want):
+    """|got - want| / max(|want|, 1), 0 where the two are equal (the same
+    infinity)."""
+    got, want = got.double().cpu(), want.double()
+    d = (got - want).abs() / want.abs().clamp(min=1.0)
+    return float(torch.where(got == want, 0.0, d).max())
+
+
+def _dist_moments(x, mean, var, what):
+    """The draws' mean and variance within DIST_SE standard errors of
+    ``mean`` and ``var``."""
+    x = x.double()
+    n = x.shape[0]
+    m = float(x.mean())
+    dev2 = (x - m) ** 2
+    v = float(dev2.mean())
+    se_m, se_v = math.sqrt(var / n), math.sqrt(float(dev2.var()) / n)
+    if abs(m - mean) > DIST_SE * se_m or abs(v - var) > DIST_SE * se_v:
+        raise AssertionError(f"distributions {what}: mean {m} (want {mean}, SE "
+                             f"{se_m:.3g}), variance {v} (want {var}, SE {se_v:.3g})")
+    return (m - mean) / se_m, (v - var) / se_v
+
+
+def distribution_phases(card, stages):
+    """The distribution layer on the card: 2^24 draws of each scalar class
+    (and 2^20 of each multivariate normal, D = 8) from a CUDA generator,
+    their moments within 6 SE of the analytic ones (by quadrature where
+    there is no closed form; the Cauchy's median and quartile mass), and
+    ``log_prob`` and ``cdf`` on the card against the same draws' on the
+    CPU within ``DIST_REL``; the times of ``sample`` and ``log_prob``."""
+    from cpprob_tpu_torch import distributions as D
+
+    dev = torch.device("cuda")
+    rows = []
+    with stages.stage("distributions", sync=True):
+        for i, (name, make, moments) in enumerate(distribution_cases()):
+            dist, dist_cpu = make("cuda"), make("cpu")
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(CHECK_SEED + i)
+            x = dist.sample(gen, (DIST_N,))
+            if x.shape != (DIST_N,) or x.device.type != "cuda" or not bool(
+                    torch.isfinite(x.double()).all()):
+                raise AssertionError(f"distributions {name}: draws {x.shape} on "
+                                     f"{x.device}, or not finite")
+            if moments == "quadrature":
+                lo, hi = (0.0, 3.0) if name.startswith("Truncated") else (-16.0, 16.0)
+                moments = _quadrature_moments(dist_cpu, lo, hi)
+            if moments is None:   # the Cauchy: its median and the mass within a scale
+                xd = x.double()
+                med = float(xd.median())
+                inner = float(((xd - 0.5).abs() <= 1.5).double().mean())
+                z = ((med - 0.5) / (math.pi * 1.5 / (2 * math.sqrt(DIST_N))),
+                     (inner - 0.5) / math.sqrt(0.25 / DIST_N))
+                if max(abs(v) for v in z) > DIST_SE:
+                    raise AssertionError(f"distributions {name}: median {med}, mass "
+                                         f"within a scale {inner}")
+            else:
+                z = _dist_moments(x, *moments, name)
+            x_cpu = x.cpu()
+            lp = dist.log_prob(x)
+            lp_cpu = dist_cpu.log_prob(x_cpu)
+            if name == "SplineFlow1D":
+                # float32 log_prob through the inverse spline's quadratic is
+                # conditioned at ~2e-4 relative: the CPU's own float32 value
+                # is that far from the float64 flow's on the same points.
+                # So the card's float32 value is held to the float64 flow's
+                # on the CPU, no farther than twice the CPU's float32 value
+                # is (the float64 flow, the next case, is held card against
+                # CPU within DIST_REL)
+                exact = _flow(_flow_raw(), torch.float64, "cpu").log_prob(x_cpu.double())
+                err_cpu = _dist_rel(lp_cpu, exact)
+                err = _dist_rel(lp, exact)
+                tol = 2 * err_cpu + DIST_REL
+                print(f"distributions {name}: float32 log_prob from the float64 "
+                      f"flow's: card {err:.3g}, CPU {err_cpu:.3g} (tolerance {tol:.3g})")
+            else:
+                err, tol = _dist_rel(lp, lp_cpu), DIST_REL
+            if hasattr(dist, "cdf") and type(dist).cdf is not D.Distribution.cdf:
+                m_cpu = DIST_BETAINC_CPU_N if isinstance(dist, D.Beta) else DIST_N
+                err = max(err, _dist_rel(dist.cdf(x)[:m_cpu], dist_cpu.cdf(x_cpu[:m_cpu])))
+            if not err <= tol:
+                raise AssertionError(f"distributions {name}: card and CPU differ by "
+                                     f"{err} (tolerance {tol})")
+            sample_ms = time_ms(lambda: dist.sample(gen, (DIST_N,)), 5)
+            lp_ms = time_ms(lambda: dist.log_prob(x), 5)
+            rows.append((name, z, err, sample_ms, lp_ms))
+            del x, x_cpu, lp
+        # the multivariate normals, D = 8
+        rng = torch.Generator().manual_seed(CHECK_SEED)
+        a = torch.randn(MVN_D, MVN_D, generator=rng, dtype=torch.float64)
+        cov = a @ a.T / MVN_D + torch.eye(MVN_D, dtype=torch.float64)
+        loc = torch.randn(MVN_D, generator=rng)
+        scale = torch.rand(MVN_D, generator=rng) + 0.5
+        mvns = [("MultivariateNormalDiag",
+                 lambda dv: D.MultivariateNormalDiag(loc.to(dv), scale.to(dv)),
+                 scale.double() ** 2),
+                ("MultivariateNormalFull",
+                 lambda dv: D.MultivariateNormalFull.from_covariance(loc.to(dv), cov.float()),
+                 torch.diagonal(cov))]
+        for j, (name, make, var) in enumerate(mvns):
+            dist, dist_cpu = make("cuda"), make("cpu")
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(CHECK_SEED + 100 + j)
+            x = dist.sample(gen, (MVN_N,))
+            if x.shape != (MVN_N, MVN_D) or x.device.type != "cuda":
+                raise AssertionError(f"distributions {name}: draws {x.shape} on {x.device}")
+            z = [_dist_moments(x[:, k], float(loc[k]), float(var[k]), f"{name}[{k}]")
+                 for k in range(MVN_D)]
+            z = tuple(max(abs(t[c]) for t in z) for c in (0, 1))
+            lp = dist.log_prob(x)
+            err = _dist_rel(lp, dist_cpu.log_prob(x.cpu()))
+            if not err <= DIST_REL:
+                raise AssertionError(f"distributions {name}: card and CPU differ by {err}")
+            rows.append((name, z, err, time_ms(lambda: dist.sample(gen, (MVN_N,)), 5),
+                         time_ms(lambda: dist.log_prob(x), 5)))
+    for name, z, err, sample_ms, lp_ms in rows:
+        n = MVN_N if name.startswith("Multivariate") else DIST_N
+        print(f"[{card}] distributions {name:24s} n={n}: moments at "
+              f"{z[0]:+.2f} / {z[1]:+.2f} SE, card against CPU {err:.3g}; sample "
+              f"{sample_ms:.4f} ms, log_prob {lp_ms:.4f} ms")
+    print(f"distributions: {len(rows)} classes drawn on the card, moments within "
+          f"{DIST_SE} SE, log_prob and cdf within {DIST_REL} of the CPU's (the "
+          "float32 spline flow within twice the CPU's distance of the float64 flow)")
+
+
+# ---------------------------------------------------------------------------
 # the roofline: K17-K21, the card's calibration
 
 CAL_CHECK_N = 1 << 20      # the calibrations' checks against the plain versions
@@ -2751,6 +3064,7 @@ def main():
     kernels = (hmm_phases(card, stages) + lg_phases(card, stages)
                + spec_phases(card, stages) + user_phases(card, stages)
                + guided_phases(card, stages) + r1_phases(card, stages))
+    distribution_phases(card, stages)
     calibrations, peaks = roofline_phases(card, stages)
     kernels += calibrations
     print(stages.report())

@@ -1,8 +1,8 @@
 // The streaming systematic resample epoch for scalar float32 populations.
 //
-// lse_stats_kernel + lse_combine_kernel replace _logsumexp_stats_kernel /
-// logsumexp_stats (cpprob_tpu/ops/pallas_resample.py:727,743): one sweep
-// gives (m, wtot) = (max lw, sum exp(lw - m)).
+// lse_stats_kernel replaces _logsumexp_stats_kernel / logsumexp_stats
+// (cpprob_tpu/ops/pallas_resample.py:727,743): one launch gives (m, wtot)
+// = (max lw, sum exp(lw - m)), its combine done by the last CTA.
 // pass1_scan_kernel replaces _pass1_kernel / _pass1 (pallas_resample.py:
 // 113,771): the start slot of every particle, st_j = ceil(n * cdf_{j-1} -
 // u0) clipped to [0, n], from the exclusive prefix of the normalised
@@ -39,10 +39,10 @@
 // not have.
 //
 // flag (int32 device scalar, may be null = on): when it is 0 the stats and
-// pass-1 kernels return at once (pass 1 leaves its scratch untouched) and
+// pass-1 kernels return at once (both leave their scratch untouched) and
 // pass 2 copies the values, so a chunk boundary that does not resample
-// costs three near-empty launches and one copy, and the host never reads
-// the flag.
+// costs two near-empty launches and a copy, and the host never reads the
+// flag.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -96,69 +96,170 @@ __device__ __forceinline__ double block_exclusive_scan(double x,
   return ex;
 }
 
-// K14: per-CTA (max, sum exp(lw - max)) over a grid-stride range, one
-// online pass; exp and the sum in float64.
-__global__ void __launch_bounds__(kThreads)
-lse_stats_kernel(const float* __restrict__ lw, long long n,
+// K14: (m, wtot) = (max lw, sum exp(lw - m)) in one launch.
+//
+// What bounds it: bytes, 4 B read per particle (0.022 ms at 2^24 at the
+// card's calibrated 3.05e12 B/s), and the float64 work, which the card
+// issues at half its float32 rate: with the CUDA math library's exp
+// (~21 double-precision instructions a weight) it took longer than the
+// loads (util/lse_parts.py).  So the design keeps enough loads in flight
+// to cover HBM's latency and cuts the float64 work to ~12 instructions a
+// weight (chip_smoke.py counts them from the SASS of the batch loop):
+// - a persistent grid (the CTAs the card holds at once, from the occupancy,
+//   evened out so every CTA takes the same number of batches) whose
+//   threads issue kLseVec 16-byte loads (16 weights, 64 B) for a batch
+//   before they use any of them, neighbouring threads on neighbouring
+//   vectors; a head before the first 16-byte boundary (a view at an
+//   offset) and a tail of n mod 4 are scalar loads, no copy;
+// - the batch's max first, in registers, so the running sum is rescaled
+//   once a batch, and only when the max rises, not once an element;
+// - exp_nonpos below: a float64 exp of arguments <= 0 (every argument here
+//   is a weight less a max), a 64-entry table of 2^(j/64) in shared memory
+//   and a degree-5 polynomial, within a few ulp of exp;
+// - the combine in the same launch: each CTA reduces its range and writes
+//   its record; the last CTA to finish (an atomic ticket, as pass 1's
+//   ctr[1]) folds every record and writes stats, then resets the ticket.
+//   It folds them by CTA index (thread t takes records t, t + kThreads, ...
+//   in order, then a fixed tree), never in the order the CTAs finished, so
+//   two calls on the same weights give bit-equal stats.
+// A weight at -inf adds exp(-inf) = 0; a thread whose weights are all -inf
+// so far skips its exps, and a population all at -inf gives (-inf, 0).
+// flag 0: every CTA returns at once and the ticket is left as it is.
+constexpr int kLseVec = 4;  // 16-byte loads a thread per batch
+
+// exp(d) for d <= 0 in float64: d = (64 k + j) ln2 / 64 + r, |r| <=
+// ln2 / 128 (one fused multiply-add with a rounding constant gives 64 k + j
+// in its low word), exp(r) by its Taylor polynomial of degree 5 (the
+// remainder under 4e-17 relative), times tab[j] = 2^(j/64), times 2^k by
+// an add to the exponent field.  The reduction's one multiply-add errs by
+// |d| * 1e-16 relative at most, so a term's relative error stays under
+// ~2e-15 where it weighs e^d; below -700 (and at -inf) it is 0, a term
+// under 1e-304 of the largest, which is 1.  Ten double-precision
+// instructions, against ~20 for the math library's exp.
+__device__ __forceinline__ double exp_nonpos(double d, const double* tab) {
+  constexpr double kMagic = 6755399441055744.0;       // 1.5 * 2^52
+  constexpr double kInvStep = 92.33248261689366;    // 64 / ln 2
+  constexpr double kStep = 0.010830424696249145;    // ln 2 / 64
+  const double t = __fma_rn(d, kInvStep, kMagic);
+  const int kj = __double2loint(t);
+  const double r = __fma_rn(__dsub_rn(t, kMagic), -kStep, d);
+  double p = 1.0 / 120.0;
+  p = __fma_rn(p, r, 1.0 / 24.0);
+  p = __fma_rn(p, r, 1.0 / 6.0);
+  p = __fma_rn(p, r, 0.5);
+  p = __fma_rn(p, r, 1.0);
+  p = __fma_rn(p, r, 1.0);
+  const double v = __dmul_rn(tab[kj & 63], p);
+  const double e = __hiloint2double(__double2hiint(v) + (kj >> 6) * (1 << 20),
+                                    __double2loint(v));
+  return d < -700.0 ? 0.0 : e;
+}
+
+// Folds a batch into the thread's running (m, s): the batch's max, one
+// rescale of s when it exceeds m, then exp((double)x - m) in float64.
+template <int kN>
+__device__ __forceinline__ void lse_fold(const float (&x)[kN], float& m,
+                                         double& s, const double* tab) {
+  float bm = x[0];
+#pragma unroll
+  for (int k = 1; k < kN; ++k) bm = fmaxf(bm, x[k]);
+  if (bm > m) {
+    if (m != -INFINITY)
+      s = __dmul_rn(s, exp_nonpos((double)m - (double)bm, tab));
+    m = bm;
+  }
+  if (m == -INFINITY) return;
+  const double md = (double)m;
+#pragma unroll
+  for (int k = 0; k < kN; ++k) s = __dadd_rn(s, exp_nonpos((double)x[k] - md, tab));
+}
+
+// (m, sum exp(v - m)) of the block's per-thread pairs, where a thread's sum
+// s is relative to its m; every thread gets m, v[0] the sum.
+__device__ __forceinline__ float lse_block(float m, double s, double (&v)[1],
+                                           const double* tab, float* redf,
+                                           float* bcastf, double* redd,
+                                           double* bcastd) {
+  const float mb = block_max<kThreads>(m, redf, bcastf);
+  v[0] = m == -INFINITY ? 0.0
+                        : __dmul_rn(s, exp_nonpos((double)m - (double)mb, tab));
+  block_sum<kThreads, 1>(v, redd, bcastd);
+  return mb;
+}
+
+// head: the weights before lw's first 16-byte boundary (0-3, at most n);
+// rec_m, rec_s: a record per CTA; ticket: zero before the launch, and left
+// zero by the last CTA.
+__global__ void __launch_bounds__(kThreads, 4)
+lse_stats_kernel(const float* __restrict__ lw, long long n, int head,
                  const int* __restrict__ flag, float* __restrict__ rec_m,
-                 double* __restrict__ rec_s) {
+                 double* __restrict__ rec_s, int* __restrict__ ticket,
+                 double* __restrict__ stats) {
   __shared__ float redf[kThreads / 32];
   __shared__ float bcastf[1];
   __shared__ double redd[kThreads / 32];
   __shared__ double bcastd[1];
-  if (flag_off(flag)) {
-    if (threadIdx.x == 0) {
-      rec_m[blockIdx.x] = 0.f;
-      rec_s[blockIdx.x] = 1.0;
-    }
-    return;
-  }
+  __shared__ double tab[64];
+  __shared__ int last_s;
+  if (flag_off(flag)) return;
+  if (threadIdx.x < 64) tab[threadIdx.x] = exp2((double)threadIdx.x / 64.0);
+  __syncthreads();
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long n4 = (n - head) / 4;
+  const long long tail = n - head - 4 * n4;
   float m = -INFINITY;
   double s = 0.0;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x; g < n;
-       g += stride) {
-    const float x = lw[g];
-    if (x > m) {
-      s = (m == -INFINITY)
-              ? 1.0
-              : __dadd_rn(__dmul_rn(s, exp((double)m - (double)x)), 1.0);
-      m = x;
-    } else if (x != -INFINITY) {
-      s += exp((double)x - (double)m);
-    }
+  {
+    const float x[2] = {g < head ? lw[g] : -INFINITY,
+                        g < tail ? lw[head + 4 * n4 + g] : -INFINITY};
+    lse_fold(x, m, s, tab);
   }
-  const float mb = block_max<kThreads>(m, redf, bcastf);
-  double v[1] = {(m == -INFINITY) ? 0.0 : s * exp((double)m - (double)mb)};
-  block_sum<kThreads, 1>(v, redd, bcastd);
+  const float4* p = reinterpret_cast<const float4*>(lw + head);
+  for (long long q = g; q < n4; q += kLseVec * stride) {
+    float x[4 * kLseVec];
+#pragma unroll
+    for (int k = 0; k < kLseVec; ++k) {
+      const long long i = q + k * stride;
+      const float4 v = i < n4 ? __ldg(p + i)
+                              : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+      x[4 * k] = v.x;
+      x[4 * k + 1] = v.y;
+      x[4 * k + 2] = v.z;
+      x[4 * k + 3] = v.w;
+    }
+    lse_fold(x, m, s, tab);
+  }
+  double v[1];
+  const float mb = lse_block(m, s, v, tab, redf, bcastf, redd, bcastd);
   if (threadIdx.x == 0) {
     rec_m[blockIdx.x] = mb;
     rec_s[blockIdx.x] = v[0];
+    __threadfence();
+    last_s = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
   }
-}
-
-// K14's combine: one CTA folds the records into stats = (m, wtot), float64.
-__global__ void __launch_bounds__(kThreads)
-lse_combine_kernel(const float* __restrict__ rec_m,
-                   const double* __restrict__ rec_s, int n_rec,
-                   const int* __restrict__ flag, double* __restrict__ stats) {
-  __shared__ float redf[kThreads / 32];
-  __shared__ float bcastf[1];
-  __shared__ double redd[kThreads / 32];
-  __shared__ double bcastd[1];
-  if (flag_off(flag)) return;
-  float m = -INFINITY;
-  for (int i = threadIdx.x; i < n_rec; i += kThreads) m = fmaxf(m, rec_m[i]);
-  const float mb = block_max<kThreads>(m, redf, bcastf);
-  double v[1] = {0.0};
-  for (int i = threadIdx.x; i < n_rec; i += kThreads)
-    if (rec_m[i] != -INFINITY)
-      v[0] = __dadd_rn(v[0],
-                       __dmul_rn(rec_s[i], exp((double)rec_m[i] - (double)mb)));
-  block_sum<kThreads, 1>(v, redd, bcastd);
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  // the last CTA: the records by CTA index, read past L1
+  float mr = -INFINITY;
+  double sr = 0.0;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kThreads) {
+    const float mi = __ldcg(rec_m + i);
+    const double si = __ldcg(rec_s + i);
+    if (mi > mr) {
+      if (mr != -INFINITY)
+        sr = __dmul_rn(sr, exp_nonpos((double)mr - (double)mi, tab));
+      mr = mi;
+    }
+    if (mi != -INFINITY)
+      sr = __dadd_rn(sr, __dmul_rn(si, exp_nonpos((double)mi - (double)mr, tab)));
+  }
+  const float mt = lse_block(mr, sr, v, tab, redf, bcastf, redd, bcastd);
   if (threadIdx.x == 0) {
-    stats[0] = (double)mb;
+    stats[0] = (double)mt;
     stats[1] = v[0];
+    *ticket = 0;
   }
 }
 
@@ -557,14 +658,37 @@ int pass1_per_thread() { return kPer; }
 int pass2_out_tile() { return kOutTile; }
 
 // Each returns cudaGetLastError() after its launches (0 = launched).
+int lse_threads() { return kThreads; }
+int lse_per_batch() { return 4 * kLseVec; }
+
+// rec_m, rec_s (cap each) and ticket (one int, zero): the scratch.  The
+// grid is at most the CTAs the card holds at once (and cap), evened out so
+// that every CTA takes the same number of batches.
 int lse_stats_launch(const float* lw, long long n, const int* flag,
-                     float* rec_m, double* rec_s, int grid, double* stats,
-                     void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  lse_stats_kernel<<<grid, kThreads, 0, s>>>(lw, n, flag, rec_m, rec_s);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  lse_combine_kernel<<<1, kThreads, 0, s>>>(rec_m, rec_s, grid, flag, stats);
+                     float* rec_m, double* rec_s, int* ticket, int cap,
+                     double* stats, void* stream) {
+  static int resident = 0;  // once: the occupancy
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    int err = (int)cudaGetDevice(&dev);
+    if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!err)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, lse_stats_kernel, kThreads, 0);
+    if (err) return err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident = sms * per_sm;
+  }
+  const long long head = ((16 - (long long)((uintptr_t)lw & 15)) & 15) / 4;
+  const int h = (int)(head < n ? head : n);
+  const long long n4 = (n - h) / 4;
+  const long long per_batch = (long long)kLseVec * kThreads;
+  const long long batches = n4 > per_batch ? (n4 + per_batch - 1) / per_batch : 1;
+  const long long most = resident < cap ? resident : cap;
+  const long long rounds = (batches + most - 1) / most;
+  const int grid = (int)((batches + rounds - 1) / rounds);
+  lse_stats_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      lw, n, h, flag, rec_m, rec_s, ticket, stats);
   return (int)cudaGetLastError();
 }
 

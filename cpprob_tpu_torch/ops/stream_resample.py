@@ -7,7 +7,10 @@ kernel or raises):
 
 - :func:`logsumexp_stats` (K14, <- ``logsumexp_stats``): ``stats = (m,
   wtot)``, ``m = max(log_w)``, ``wtot = sum(exp(log_w - m))``, a float64
-  (2,) tensor on the population's device.
+  (2,) tensor on the population's device: one launch of
+  ``lse_stats_kernel``, whose last CTA combines the CTAs' records.  Its
+  records and ticket are scratch kept per stream, zeroed once; two calls
+  on the same weights give bit-equal stats.
 - :func:`resample_pass1` (K15, <- ``_pass1``): the start slots
   ``st_j = ceil(n * cdf_{j-1} - u0)`` clipped to [0, n], int32, from the
   exclusive prefix of the normalised weights: one single-pass scan
@@ -44,12 +47,13 @@ from .population import current_stream as _stream
 from .population import raise_on as _raise_on
 
 __all__ = [
-    "IMPLS", "LAUNCHES", "OUT_TILE", "PASS1_PER_THREAD", "logsumexp_stats", "logsumexp_stats_plain", "resample_pass1",
+    "IMPLS", "LAUNCHES", "LSE_PER_BATCH", "OUT_TILE", "PASS1_PER_THREAD", "logsumexp_stats", "logsumexp_stats_plain", "resample_pass1",
     "resample_pass1_plain", "resample_pass2", "resample_pass2_plain",
     "streaming_available", "streaming_systematic_resample_values",
 ]
 
-_THREADS = 256
+_THREADS = 256          # threads per CTA of the stats kernel (csrc kThreads)
+LSE_PER_BATCH = 16      # weights a thread of the stats kernel loads per batch (4 kLseVec)
 _P1_THREADS = 256       # threads per CTA of pass 1 (csrc kP1Threads)
 PASS1_PER_THREAD = 16   # particles per thread of pass 1 (csrc kPer)
 OUT_TILE = 128 * 128    # slots per pass-2 tile
@@ -112,10 +116,11 @@ def _lib():
     lib = load_library("stream_resample")
     if lib.pass1_launch.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name in ("pass1_threads", "pass1_per_thread"):
+        for name in ("lse_threads", "lse_per_batch", "pass1_threads",
+                     "pass1_per_thread"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
-        lib.lse_stats_launch.argtypes = [p, ll, p, p, p, i, p, p]
+        lib.lse_stats_launch.argtypes = [p, ll, p, p, p, p, i, p, p]
         lib.lse_stats_launch.restype = i
         lib.pass1_launch.argtypes = [p, ll, p, p, p, p, p, p, p, p]
         lib.pass1_launch.restype = i
@@ -123,11 +128,12 @@ def _lib():
         lib.pass2_tile_launch.restype = i
         lib.pass2_out_tile.argtypes = []
         lib.pass2_out_tile.restype = i
-        if (lib.pass1_threads(), lib.pass1_per_thread(), lib.pass2_out_tile()) != (
-                _P1_THREADS, PASS1_PER_THREAD, OUT_TILE):
+        if (lib.lse_threads(), lib.lse_per_batch(), lib.pass1_threads(),
+                lib.pass1_per_thread(), lib.pass2_out_tile()) != (
+                _THREADS, LSE_PER_BATCH, _P1_THREADS, PASS1_PER_THREAD, OUT_TILE):
             raise RuntimeError("csrc/stream_resample.cu tiles differ from "
-                               f"{_P1_THREADS} x {PASS1_PER_THREAD}, "
-                               f"OUT_TILE={OUT_TILE}")
+                               f"{_THREADS} x {LSE_PER_BATCH}, {_P1_THREADS} x "
+                               f"{PASS1_PER_THREAD}, OUT_TILE={OUT_TILE}")
     return lib
 
 
@@ -150,11 +156,6 @@ def _flag_ptr(flag, dev):
     return flag.data_ptr()
 
 
-def _grid(dev, n: int) -> int:
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-n // _THREADS), 8 * sms))
-
-
 def _check_n(n: int):
     if not streaming_available(n):
         raise ValueError(f"the streaming epoch takes 0 < n < 2^31, got {n}")
@@ -170,16 +171,35 @@ def logsumexp_stats(log_w: torch.Tensor, flag=None) -> torch.Tensor:
     n = log_w.shape[0]
     _check_n(n)
     lib = _lib()
-    grid = _grid(dev, n)
-    rec_m = torch.empty(grid, dtype=torch.float32, device=dev)
-    rec_s = torch.empty(grid, dtype=torch.float64, device=dev)
+    stream = _stream(dev)
+    rec_m, rec_s, ticket = _lse_scratch(dev, stream.value)
     stats = torch.empty(2, dtype=torch.float64, device=dev)
     err = lib.lse_stats_launch(log_w.data_ptr(), n, _flag_ptr(flag, dev),
-                               rec_m.data_ptr(), rec_s.data_ptr(), grid,
-                               stats.data_ptr(), _stream(dev))
+                               rec_m.data_ptr(), rec_s.data_ptr(),
+                               ticket.data_ptr(), rec_m.shape[0],
+                               stats.data_ptr(), stream)
     _raise_on(err, "lse_stats_kernel")
     LAUNCHES["lse_stats"] += 1
     return stats
+
+
+# the stats kernel's scratch by (device, stream): (rec_m (cap,), rec_s
+# (cap,), ticket (1,)), cap the most CTAs of 256 threads the card holds at
+# once (2,048 threads an SM); all zeroed once here, and the ticket zero
+# again after every flagged launch (the kernel's last CTA clears it)
+_LSE_SCRATCH: dict = {}
+
+
+def _lse_scratch(dev, stream: int):
+    key = (dev, stream)
+    sc = _LSE_SCRATCH.get(key)
+    if sc is None:
+        cap = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+        sc = (torch.zeros(cap, dtype=torch.float32, device=dev),
+              torch.zeros(cap, dtype=torch.float64, device=dev),
+              torch.zeros(1, dtype=torch.int32, device=dev))
+        _LSE_SCRATCH[key] = sc
+    return sc
 
 
 # pass 1's scratch by (device, stream): (ctr (2,), status (cap,), vals

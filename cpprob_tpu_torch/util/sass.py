@@ -31,7 +31,7 @@ from pathlib import Path
 
 from ..ops._build import NVCC_FLAGS, _nvcc
 
-__all__ = ["compare", "cubin_report", "kernel_report", "parse_loops",
+__all__ = ["compare", "cubin_report", "kernel_report", "parse_loop_opcodes", "parse_loops",
            "parse_registers", "parse_sass", "parse_spills", "parse_stack"]
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
@@ -67,12 +67,13 @@ def parse_sass(text: str) -> dict:
     return out
 
 
-def parse_loops(text: str) -> dict:
-    """Function name -> the instruction count of each loop (a backward
-    branch to a label or an address, counted from its target to the
-    branch), from ``cuobjdump -sass`` output, largest first."""
+def parse_loop_opcodes(text: str) -> dict:
+    """Function name -> ``(instruction count, {opcode: count})`` of each
+    loop (a backward branch to a label or an address, counted from its
+    target to the branch; opcodes counted as :func:`kernel_report` counts
+    a function's), from ``cuobjdump -sass`` output, largest first."""
     out, cur = {}, None
-    labels, addrs, branches, n = {}, {}, [], 0
+    labels, addrs, branches, insns = {}, {}, [], []
 
     def close():
         if cur is not None:
@@ -80,30 +81,37 @@ def parse_loops(text: str) -> dict:
             for i, lab, addr in branches:
                 j = labels.get(lab) if lab else addrs.get(addr)
                 if j is not None and j <= i:
-                    found.append(i - j + 1)
-            out[cur] = sorted(found, reverse=True)
+                    found.append((i - j + 1, _opcodes(insns[j:i + 1])[0]))
+            out[cur] = sorted(found, key=lambda f: f[0], reverse=True)
 
     for line in text.splitlines():
         m = _FUNC.match(line)
         if m:
             close()
-            cur, labels, addrs, branches, n = _name(m.group(1)), {}, {}, [], 0
+            cur, labels, addrs, branches, insns = _name(m.group(1)), {}, {}, [], []
             continue
         m = _LABEL.match(line)
         if m:
-            labels[m.group(1)] = n
+            labels[m.group(1)] = len(insns)
             continue
         m = _INSN.search(line)
         if m and cur is not None:
             a = _ADDR.search(line)
             if a:
-                addrs[int(a.group(1), 16)] = n
+                addrs[int(a.group(1), 16)] = len(insns)
             b = _BRA.search(m.group(1))
             if b:
-                branches.append((n, b.group(1), int(b.group(2), 16) if b.group(2) else None))
-            n += 1
+                branches.append((len(insns), b.group(1),
+                                 int(b.group(2), 16) if b.group(2) else None))
+            insns.append(" ".join(m.group(1).split()))
     close()
     return out
+
+
+def parse_loops(text: str) -> dict:
+    """Function name -> the instruction count of each loop, largest first
+    (:func:`parse_loop_opcodes` without the opcodes)."""
+    return {f: [c for c, _ in loops] for f, loops in parse_loop_opcodes(text).items()}
 
 
 def _opcodes(insns) -> tuple:
@@ -199,15 +207,17 @@ def kernel_report(lib: str, kernel: str, out: Path | None = None) -> dict:
     "<name>-<hash>") whose mangled names contain ``kernel``: for each, its
     registers, spill bytes, stack frame bytes, the count of each opcode in its SASS (the
     mnemonic before the first dot, predicates dropped), of each opcode
-    with its modifiers (``full``, e.g. ``HMMA.1688.F32.TF32``) and the
-    instruction count of each loop (``loops``, :func:`parse_loops`).
+    with its modifiers (``full``, e.g. ``HMMA.1688.F32.TF32``), the
+    instruction count of each loop (``loops``, :func:`parse_loops`) and the
+    count of each opcode in each loop (``loop_opcodes``, in that order;
+    :func:`parse_loop_opcodes`).
     ``out``: a file for the library's whole SASS."""
     from ..ops import _build
 
     text = _dump(_build.library_path(lib), out)
     log = _build.BUILD_LOGS.get(lib, "")
     regs, spills, stack = parse_registers(log), parse_spills(log), parse_stack(log)
-    loops = parse_loops(text)
+    loops = parse_loop_opcodes(text)
     found = {}
     for f, insns in parse_sass(text).items():
         if kernel not in f:
@@ -215,7 +225,8 @@ def kernel_report(lib: str, kernel: str, out: Path | None = None) -> dict:
         ops, full = _opcodes(insns)
         found[f] = {"registers": regs.get(f), "spills": spills.get(f),
                     "stack": stack.get(f), "instructions": len(insns), "opcodes": ops,
-                    "full": full, "loops": loops.get(f, [])}
+                    "full": full, "loops": [c for c, _ in loops.get(f, [])],
+                    "loop_opcodes": [o for _, o in loops.get(f, [])]}
     return found
 
 

@@ -11,13 +11,17 @@ HMM main path (2^26 particles, T = 16, chunk 16, island_every 8: K1, K2),
 the HMM per step at 2^20 (chunk 1: K4; ``smc()`` with history: K5), a
 5-state chain at 2^24 (chunk 8: K9, K8) and the same chain guided by a
 random ``[7,16,16,5]`` net at 2^24 (chunk 8: K13) and per step at 2^20
-(K13 one-step), the linear-Gaussian physics as a user ``step_elem`` at
+(K13 one-step), the linear-Gaussian model at 2^24 (chunk 8: K7 and the
+streaming epoch) and per step at 2^20 (K6 and an epoch a step), the
+linear-Gaussian physics as a user ``step_elem`` at
 2^24 (chunk 8: K10 and the streaming epoch), and the guided
 linear-Gaussian model with a random ``[3,16,16,2]`` net at 2^24 (chunk 8,
 ``mxu=True``: K12's tensor-core twin; ``mxu=False``: K12 on the FMA pipe).
 The chain is the K-state recipe of tests/test_tpu_hw.py at K = 5 with
 standard normal observations from ``default_rng(0)``.  Launches of the
-init kernel alone: the HMM's (K1, 2^26) and the chain's (K9, K = 5, 2^24).
+init kernel alone: the HMM's (K1, 2^26) and the chain's (K9, K = 5, 2^24);
+the streaming epoch alone at 2^24 (K14, K15, K16, on ``2 randn``
+weights) and its stats alone (K14).
 Prints one JSON line: the card and the ms of each.  It needs the card.
 """
 
@@ -53,7 +57,9 @@ def main():
     from cpprob_tpu_torch.inference.nn import mlp_init
     from cpprob_tpu_torch.interop import spec_from_numpy
     from cpprob_tpu_torch.models import HMM_MEANS, HMM_TRANS, simulate_observations
+    from cpprob_tpu_torch.ops import stream_resample as sr
     from cpprob_tpu_torch.ops.fused_hmm import hmm_init, make_fused_hmm_ssm
+    from cpprob_tpu_torch.ops.fused_lg import make_fused_lg_ssm
     from cpprob_tpu_torch.models.linear_gaussian import linear_gaussian_ssm
     from cpprob_tpu_torch.models.linear_gaussian import (
         simulate_observations as lg_observations,
@@ -86,6 +92,10 @@ def main():
         obs_logpdf_elem=obs_lp, mxu=mxu) for mxu in (True, False)}
     spec3 = spec_from_numpy(HMM_TRANS, HMM_MEANS, np.ones(3), np.full(3, 1 / 3))
     spec5 = spec_from_numpy(*chain5)
+    gen_d = torch.Generator(device=dev)
+    gen_d.manual_seed(5)
+    lw = 2 * torch.randn(1 << 24, generator=gen_d, device=dev)
+    vals = torch.randn(1 << 24, generator=gen_d, device=dev)
     runs = {
         "hmm_2^26_chunk16_island8": (build_smc_run(
             make_fused_hmm_ssm(island_every=8), 1 << 26, chunk=16), obs, 16),
@@ -95,6 +105,10 @@ def main():
             make_fused_discrete_ssm(*chain5), 1 << 24, chunk=8), obs5, 16),
         "guided5_2^24_chunk8": (build_smc_run(guided5, 1 << 24, chunk=8), obs5, 16),
         "guided5_2^20_chunk1": (build_smc_run(guided5, 1 << 20), obs5, 8),
+        "lg_2^24_chunk8": (build_smc_run(make_fused_lg_ssm(), 1 << 24, chunk=8),
+                           lg_obs, 16),
+        "lg_2^20_chunk1": (build_smc_run(make_fused_lg_ssm(), 1 << 20, chunk=1),
+                           lg_obs, 8),
         "user_lg_2^24_chunk8": (build_smc_run(attach_fused_scalar_kernels(
             linear_gaussian_ssm, lg_step_elem), 1 << 24, chunk=8), lg_obs, 16),
         **{f"guided_lg_2^24_chunk8_mxu_{mxu}": (build_smc_run(model, 1 << 24, chunk=8),
@@ -102,6 +116,9 @@ def main():
            for mxu, model in guided_lg.items()},
         "hmm_init_2^26": (lambda seed, o: hmm_init(seed, o[0], 1 << 26, spec3), obs, 20),
         "chain5_init_2^24": (lambda seed, o: hmm_init(seed, o[0], 1 << 24, spec5), obs5, 20),
+        "epoch_2^24": (lambda seed, o: sr.streaming_systematic_resample_values(
+            gen_d, lw, vals), obs, 20),
+        "lse_stats_2^24": (lambda seed, o: sr.logsumexp_stats(lw), obs, 20),
     }
     ms = {name: time_ms(lambda: run(20_000, o), reps)
           for name, (run, o, reps) in runs.items()}

@@ -423,3 +423,23 @@ def test_sass_loops_are_counted_from_label_to_backward_branch():
         "        /*0000*/                   EXIT ;\n")
     assert sass.parse_loops(dump) == {"_Z1kPf": [5, 2], "_Z1gv": []}
     assert len(sass.parse_sass(dump)["_Z1kPf"]) == 8
+
+
+def test_sass_loop_opcodes_are_counted_per_loop():
+    """``parse_loop_opcodes`` counts each loop's opcodes, as
+    ``chip_smoke.py`` reads K14's float64 instructions a weight from its
+    batch loop."""
+    from cpprob_tpu_torch.util import sass
+
+    dump = (
+        "        Function : _Z1kPf\n"
+        "        /*0000*/                   DADD R4, R4, R6 ;\n"
+        ".L_x_0:\n"
+        "        /*0010*/                   DFMA R2, R2, R4, R6 ;\n"
+        "        /*0020*/              @P0 DADD R2, R2, R8 ;\n"
+        "        /*0030*/                   DFMA R2, R2, R4, R6 ;\n"
+        "        /*0040*/             @!P1 BRA `(.L_x_0) ;\n"
+        "        /*0050*/                   EXIT ;\n")
+    assert sass.parse_loop_opcodes(dump) == {
+        "_Z1kPf": [(4, {"DFMA": 2, "DADD": 1, "BRA": 1})]}
+    assert sass.parse_loops(dump) == {"_Z1kPf": [4]}

@@ -425,6 +425,66 @@ def test_pass1_scan_kernel_on_the_card(n):
     assert torch.equal(sr.resample_pass1(0.37, lw, sr.logsumexp_stats(lw)), first)
 
 
+def _lse_card_case(lw, flag=None):
+    """K14 against its plain version: the max bit-equal, wtot within rtol
+    1e-12 (chip_smoke.py's check), and a second call bit-equal."""
+    got = sr.logsumexp_stats(lw, flag)
+    want = sr.logsumexp_stats_plain(lw)
+    assert float(got[0]) == float(want[0]), (got, want)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-12, atol=0)
+    assert torch.equal(sr.logsumexp_stats(lw, flag), got)
+    return got
+
+
+@pytest.mark.cuda
+def test_lse_stats_kernel_on_the_card():
+    """K14 (one launch, the combine by the last CTA) at 2^24, at 2^24 - 3
+    (a ragged tail), on a view at a one-float offset (a scalar head), with
+    a block of -inf weights, and with the flag 0 (no record written, the
+    ticket left at 0) and then 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: lse_stats_kernel runs only on the card")
+    from cpprob_tpu_torch.ops.population import current_stream
+
+    n = 1 << 24
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lw = 2 * torch.randn(n, generator=gen, device="cuda")
+    first = _lse_card_case(lw)
+    for _ in range(16):
+        assert torch.equal(sr.logsumexp_stats(lw), first)
+    _lse_card_case(2 * torch.randn(n - 3, generator=gen, device="cuda"))
+    _lse_card_case(lw[1:])
+    holes = lw.clone()
+    holes[n // 3: n // 3 + 1_000_003] = -float("inf")
+    _lse_card_case(holes)
+    dev = lw.device
+    rec_m, rec_s, ticket = sr._LSE_SCRATCH[(dev, current_stream(dev).value)]
+    before = (rec_m.clone(), rec_s.clone())
+    off, on = (torch.tensor(f, dtype=torch.int32, device="cuda") for f in (0, 1))
+    sr.logsumexp_stats(lw, off)
+    assert int(ticket) == 0
+    assert torch.equal(rec_m, before[0]) and torch.equal(rec_s, before[1])
+    assert torch.equal(_lse_card_case(lw, on), first)
+
+
+def test_lse_parts_variants_find_their_lines():
+    """``util/lse_parts.py`` (the card's breakdown of K14's time) builds
+    its variants by substituting lines of the kernel source: each still
+    finds its line, only ``kept`` is the source unchanged, and the design
+    it replaced is carried whole."""
+    from pathlib import Path
+
+    from cpprob_tpu_torch.util import lse_parts
+
+    src = (Path(sr.__file__).parent / "csrc" / "stream_resample.cu").read_text()
+    variants = lse_parts.variant_sources(src)
+    assert set(variants) == set(lse_parts.VARIANTS) | {"two_launch"}
+    assert [k for k, v in variants.items() if v == src] == ["kept"]
+    assert "lse_stats_launch" in variants["two_launch"]
+    with pytest.raises(ValueError, match="is gone"):
+        lse_parts.variant_sources(src.replace("if (!last_s) return;", "if (!last) return;"))
+
+
 @pytest.mark.cuda
 def test_pass1_scan_kernel_back_to_back_and_degenerate_weights():
     if not torch.cuda.is_available():
