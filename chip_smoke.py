@@ -127,23 +127,36 @@ and the script exits non-zero without printing its last line:
    ones (by quadrature where there is no closed form), ``log_prob`` and
    ``cdf`` (``betainc`` for the beta) on the card against the same
    draws' on the CPU; the times of ``sample`` and ``log_prob``;
-10. the card's calibration (``roofline_phases``, K17-K21): each
+10. the trace substrate and SIS (``sis_phases``, slice 4b, plain PyTorch
+   under ``torch.func.vmap``, no kernel of its own): ``sis`` at 2^20
+   particles (the JAX README's headline call) on the README Gaussian
+   (mean, variance and log-evidence against 2.32353 / 1.05882 and the
+   analytic marginal), the 2-D Gaussian, ``hmm`` and ``hmm_scan`` on the
+   headline observations (log-evidence against -26.44222, smoothed
+   marginals within 0.03 of forward-backward, one draw order in both) and
+   both rejection models (their host reads counted); ``sis_streaming`` at
+   2^24 in chunks of 2^20 on the LG model and ``smc`` through the LG
+   model's per-particle hooks at 2^20, both against Kalman; 4 SE + 0.02
+   over 4 seeds (8 for the streaming call); each model's ms a call,
+   launches, busy share (``chiprun_out/sis_*_trace.json``) and peak memory;
+11. the card's calibration (``roofline_phases``, K17-K21): each
    calibration kernel against its plain version at a reduced size (K17,
    K19, K20b exactly; K18, K20a, K21 within the tolerances stated at
    ``CAL_*``), then ``util/roofline.py``'s ``calibrate_peaks`` at the
    reference's sizes, counted; the peaks must be positive and below the
    datasheet's where it has one;
-11. the ``roofline`` JSON line: the peaks, the card, and for every kernel
+12. the ``roofline`` JSON line: the peaks, the card, and for every kernel
    entry its bound against the published peaks and its calibrated bound
    (``analyze_kernels``: the binding resource and the fraction, at most 1);
    the whole analysis in ``chiprun_out/roofline.json``;
-12. one JSON line on the 26 kernel entries (each with ``bound_ms``,
+13. one JSON line on the 26 kernel entries (each with ``bound_ms``,
    ``bound_by``, ``library_ms`` where one PyTorch call computes the same
    function, ``calibrated_bound_ms`` and ``calibrated_by``), the card line,
    and the result line ``{"ok": true, "device": {...}}``.
 
-Every timed sweep runs under ``torch.cuda.set_sync_debug_mode("error")``:
-a sweep never waits on the host.  Launch counts are set to 0 just before
+Every timed sweep, and every SIS call, runs under
+``torch.cuda.set_sync_debug_mode("error")``: a sweep never waits on the
+host (a rejection round's one host read is the counted exception).  Launch counts are set to 0 just before
 each path's sweeps and read just after; launches made to compare a kernel
 with its plain version are not counted on the ``kernels`` line.
 It needs a CUDA device and never falls back to the CPU.
@@ -698,13 +711,7 @@ def profile_sweeps(run, obs, card, sweeps=8, trace="sweep_trace.json"):
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
     if not dev:
         raise AssertionError("the profiler recorded no device activity")
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
-    busy, reach = 0.0, spans[0][0]
-    for a, b in spans:
-        if b > reach:
-            busy += b - max(a, reach)
-            reach = b
-    span = reach - spans[0][0]
+    busy_share, span = _busy_share(dev)
     by_name = {}
     for e in dev:
         n, us = by_name.get(e["name"], (0, 0.0))
@@ -712,7 +719,7 @@ def profile_sweeps(run, obs, card, sweeps=8, trace="sweep_trace.json"):
     total = sum(us for _, us in by_name.values())
     print(f"[{card}] profile of {sweeps} back-to-back sweeps: span "
           f"{span / 1e3 / sweeps:.4f} ms per sweep, device busy share "
-          f"{busy / span:.4f}, {len(dev) / sweeps:.1f} device operations per "
+          f"{busy_share:.4f}, {len(dev) / sweeps:.1f} device operations per "
           f"sweep; trace in {os.path.relpath(out, REPO)}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  {us / total:7.2%}  {us / 1e3 / sweeps:8.4f} ms/sweep  "
@@ -2872,6 +2879,249 @@ def distribution_phases(card, stages):
 
 
 # ---------------------------------------------------------------------------
+# SIS: the trace substrate on the card (slice 4b; plain PyTorch under
+# torch.func.vmap, no kernel of its own)
+
+SIS_N = 1 << 20            # the JAX README's headline call: 1,000,000 particles, rounded up
+SIS_STREAM_N = 1 << 24     # streaming LG: 16 chunks of SIS_N
+SIS_SEEDS = 4              # the rule of __graft_entry__.py:57-63: 4 SE + 0.02 over seeds
+SIS_STREAM_SEEDS = 8       # prior SIS on the LG model (T = 16) keeps an ESS of
+                           # ~100 at 2^24: eight seeds for its SE
+SIS_FLOOR = 0.02
+SIS_MARGINAL_TOL = 0.03    # the HMM's smoothed marginals against forward-backward
+SIS_TIMED = 8              # synced calls a model, after one warm-up
+README_MEAN, README_VAR = 2.32353, 1.05882
+
+
+def _seed_gate(vals, want, what, floor=SIS_FLOOR):
+    """Mean over seeds within 4 SE + floor of ``want`` (elementwise for
+    vectors); returns (mean, SE) as lists."""
+    cols = list(zip(*[v if isinstance(v, (list, tuple)) else [v] for v in vals]))
+    wants = want if isinstance(want, (list, tuple)) else [want]
+    out = []
+    for col, w in zip(cols, wants):
+        mean, se = statistics.mean(col), statistics.stdev(col) / math.sqrt(len(col))
+        if not abs(mean - w) <= 4 * se + floor:
+            raise AssertionError(f"sis {what}: {mean} (SE {se}) against {w}")
+        out.append((mean, se))
+    return out
+
+
+def _no_sync(fn):
+    """``fn()`` under sync-debug "error" (the rejection rounds' host reads
+    alone are allowed, ``distributions.base.host_any``), then synced."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _sync()
+    return out
+
+
+def _busy_share(events):
+    """(device busy share of the span the events cover, span in µs)."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events)
+    busy, reach = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    span = reach - spans[0][0]
+    return busy / span, span
+
+
+def _profile_calls(fn, calls, trace):
+    """torch.profiler over ``calls`` back-to-back calls of ``fn``: device
+    operations a call and the device's busy share; the trace goes to
+    chiprun_out/``trace``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        _sync()
+    out = os.path.join(REPO, "chiprun_out", trace)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    prof.export_chrome_trace(out)
+    with open(out) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not dev:
+        raise AssertionError(f"{trace}: the profiler recorded no device activity")
+    busy, _ = _busy_share(dev)
+    return len([e for e in dev if e.get("cat") == "kernel"]) / calls, busy
+
+
+def _time_calls(fn, calls=SIS_TIMED):
+    """Median ms of ``calls`` synced calls after one warm-up, each under
+    sync-debug "error", and the memory one call allocates at its peak
+    beyond what was allocated before it, in MB."""
+    _no_sync(fn)
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        _no_sync(fn)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _no_sync(fn)
+    return statistics.median(times), (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def sis_phases(card, stages):
+    """Slice 4b on the card (plain PyTorch under ``torch.func.vmap``, every
+    draw from one CUDA generator): ``sis`` at 2^20 on the README Gaussian
+    (mean, variance and log-evidence against the conjugate posterior and
+    the analytic marginal), the 2-D Gaussian, ``hmm`` and ``hmm_scan``
+    (log-evidence against the forward recursion, smoothed marginals
+    against forward-backward), both rejection models; ``sis_streaming`` at
+    2^24 in chunks of 2^20 on the LG model against Kalman; ``smc`` on the
+    LG model with only its per-particle hooks at 2^20 against Kalman.
+    Every call runs under sync-debug "error"; the rejection rounds' host
+    reads are counted.  Each model's ms a call (median of 8 synced calls
+    after a warm-up), launches a call and the device's busy share
+    (``torch.profiler``), and the memory a call allocates at its peak."""
+    import dataclasses
+
+    import cpprob_tpu_torch as ct
+    from cpprob_tpu_torch import models as M
+    from cpprob_tpu_torch.distributions.base import HOST_READS
+    from cpprob_tpu_torch.inference.sis import sis_streaming
+
+    dev = torch.device("cuda")
+    seeds = [CHECK_SEED + i for i in range(SIS_SEEDS)]
+    obs = _observations(dev)
+    lg_obs = _lg_obs(dev)
+    lg_exact = M.kalman_filter_1d(lg_obs.cpu().numpy())[2]
+    hmm_exact = M.hmm_exact_posterior(obs.cpu().numpy())
+    y2 = torch.tensor([3.0, 4.0], device=dev)
+    # the README model's marginal: (y1, y2) ~ N((1, 1), [[6.25, 2.25], [2.25, 6.25]])
+    det = 6.25 ** 2 - 2.25 ** 2
+    d = (2.0, 3.0)
+    quad = (6.25 * (d[0] ** 2 + d[1] ** 2) - 2 * 2.25 * d[0] * d[1]) / det
+    readme_logz = -0.5 * quad - 0.5 * math.log(det) - math.log(2 * math.pi)
+    mu0, var0 = M.gaussian_posterior_analytic([3.0, 4.0])
+    v2 = [1.0 / (1.0 / 5.0 + 0.5), 1.0 / (1.0 / 3.0 + 0.5)]
+    m2 = [v2[0] * (1.0 / 5.0 + 1.5), v2[1] * (2.0 / 3.0 + 2.0)]
+    rows = []
+
+    def sis_case(name, model, args, name_pred, check):
+        calls = {}
+        for s in seeds:
+            before = HOST_READS["rejection_sample"]
+            res = _no_sync(lambda: ct.sis(model, args, SIS_N, s, device=dev))
+            calls[s] = (res, HOST_READS["rejection_sample"] - before)
+        check({s: r for s, (r, _) in calls.items()})
+        reads = [n for _, n in calls.values()]
+        fn = lambda: ct.sis(model, args, SIS_N, seeds[0], device=dev)
+        ms, mb = _time_calls(fn)
+        launches, busy = _profile_calls(fn, 2, f"sis_{name}_trace.json")
+        rows.append((name, ms, launches, busy, mb, max(reads)))
+        res = calls[seeds[0]][0]
+        if res.log_weights.shape != (SIS_N,) or res.log_weights.device.type != dev.type:
+            raise AssertionError(f"sis {name}: log-weights {res.log_weights.shape} "
+                                 f"on {res.log_weights.device}")
+        return calls
+
+    def moments(pred, mean, var, floor_var=0.03):
+        def check(res):
+            m = [float(r.mean(pred)) for r in res.values()]
+            v = [float(r.variance(pred)) for r in res.values()]
+            got = _seed_gate(m, mean, f"{pred} mean") + _seed_gate(v, var, f"{pred} variance",
+                                                                   floor_var)
+            print(f"sis {pred}: mean {got[0][0]:.5f} (SE {got[0][1]:.5f}, want {mean:.5f}), "
+                  f"variance {got[1][0]:.5f} (SE {got[1][1]:.5f}, want {var:.5f})")
+        return check
+
+    with stages.stage("sis", sync=True):
+        def readme_check(res):
+            moments("Mean", README_MEAN, README_VAR)(res)
+            lz = _seed_gate([float(r.log_evidence) for r in res.values()], readme_logz,
+                            "README log-evidence")
+            print(f"sis README log-evidence {lz[0][0]:.6f} (SE {lz[0][1]:.6f}, analytic "
+                  f"{readme_logz:.6f})")
+
+        sis_case("gaussian_readme", M.gaussian_unknown_mean_readme, (3.0, 4.0), "Mean",
+                 readme_check)
+
+        def check_2d(res):
+            m = [r.mean("Mu").tolist() for r in res.values()]
+            v = [r.variance("Mu").tolist() for r in res.values()]
+            got = _seed_gate(m, m2, "2-D mean") + _seed_gate(v, v2, "2-D variance", 0.03)
+            print(f"sis 2-D: mean {[round(g[0], 5) for g in got[:2]]} (want "
+                  f"{[round(x, 5) for x in m2]}), variance {[round(g[0], 5) for g in got[2:]]} "
+                  f"(want {[round(x, 5) for x in v2]})")
+
+        sis_case("gaussian_2d", M.gaussian_2d_unknown_mean, (y2,), "Mu", check_2d)
+
+        hmm_res = {}
+        for name, model in (("hmm", M.hmm), ("hmm_scan", M.hmm_scan)):
+            def hmm_check(res, name=name):
+                lz = _seed_gate([float(r.log_evidence) for r in res.values()], EXACT_LOGZ,
+                                f"{name} log-evidence")
+                marg = sum(torch.stack([(r.normalized_weights[:, None]
+                                         * (r.predicts["State"] == k)).sum(0)
+                                        for k in range(3)], 1).double().cpu()
+                           for r in res.values()) / len(res)
+                err = float((marg - torch.as_tensor(hmm_exact)).abs().max())
+                if not err <= SIS_MARGINAL_TOL:
+                    raise AssertionError(f"sis {name}: smoothed marginals {err} from "
+                                         "forward-backward")
+                ess = statistics.mean(float(r.ess) for r in res.values())
+                print(f"sis {name}: log-evidence {lz[0][0]:.6f} (SE {lz[0][1]:.6f}, exact "
+                      f"{EXACT_LOGZ}), marginals within {err:.4f}, ESS {ess:.1f}")
+            hmm_res[name] = sis_case(name, model, (obs,), "State", hmm_check)
+        a, b = hmm_res["hmm"][seeds[0]][0], hmm_res["hmm_scan"][seeds[0]][0]
+        if not torch.equal(a.predicts["State"], b.predicts["State"]):
+            raise AssertionError("sis: hmm_scan's fast path drew other states than hmm")
+
+        for name, model in (("rejection", M.normal_rejection_sampling),
+                            ("rejection_guard", M.normal_rejection_sampling_guard)):
+            calls = sis_case(name, model, (3.0, 4.0), "Mu", moments("Mu", mu0, var0))
+            print(f"sis {name}: host reads (rejection rounds) a call "
+                  f"{[n for _, n in calls.values()]}")
+
+        # streaming LG at 2^24 in chunks of 2^20
+        stream = lambda s: sis_streaming(M.linear_gaussian_1d, (lg_obs,), SIS_STREAM_N, s,
+                                         batch_size=SIS_N, device=dev)
+        vals, times = [], []
+        for i in range(SIS_STREAM_SEEDS):
+            t0 = time.perf_counter()
+            res = _no_sync(lambda: stream(CHECK_SEED + i))
+            times.append((time.perf_counter() - t0) * 1e3)
+            vals.append(float(res.log_evidence))
+        lz = _seed_gate(vals, lg_exact, "streaming LG log-evidence")
+        stream_ms = statistics.median(times[1:])
+        print(f"sis streaming LG n={SIS_STREAM_N}: log-evidence {lz[0][0]:.6f} (SE {lz[0][1]:.6f}, "
+              f"Kalman {lg_exact:.6f}), ESS {float(res.ess):.1f}")
+
+        # SMC through the per-particle hooks (vmap), with history
+        pp = dataclasses.replace(M.linear_gaussian_ssm, init_sample_batch=None,
+                                 step_sample_batch=None, obs_logpdf_batch=None)
+        vals = [float(_no_sync(lambda: ct.smc(pp, lg_obs, SIS_N, s)).log_evidence)
+                for s in seeds]
+        lz = _seed_gate(vals, lg_exact, "per-particle SMC log-evidence")
+        smc_fn = lambda: ct.smc(pp, lg_obs, SIS_N, seeds[0])
+        smc_ms, smc_mb = _time_calls(smc_fn, 4)
+        smc_launches, smc_busy = _profile_calls(smc_fn, 1, "sis_pp_smc_trace.json")
+        print(f"per-particle SMC (LG, vmapped hooks) n={SIS_N}: log-evidence {lz[0][0]:.6f} "
+              f"(SE {lz[0][1]:.6f}, Kalman {lg_exact:.6f})")
+    for name, ms, launches, busy, mb, reads in rows:
+        print(f"[{card}] sis {name:16s} n={SIS_N}: {ms:9.4f} ms a call (median of "
+              f"{SIS_TIMED} synced), {launches:7.1f} launches a call, device busy share "
+              f"{busy:.4f}, {mb:.0f} MB at its peak, host reads {reads}")
+    print(f"[{card}] sis_streaming LG n={SIS_STREAM_N} (chunks of {SIS_N}): {stream_ms:.4f} ms a "
+          f"call (median of {SIS_STREAM_SEEDS - 1} synced)")
+    print(f"[{card}] smc LG per-particle hooks n={SIS_N}, T={LG_T}: {smc_ms:.4f} ms a sweep "
+          f"(median of 4 synced), {smc_launches:.1f} launches, busy share "
+          f"{smc_busy:.4f}, {smc_mb:.0f} MB at its peak")
+    print(f"sis: {len(rows)} models at {SIS_N}, streaming at {SIS_STREAM_N} and per-particle SMC "
+          "on the card under sync-debug \"error\", every gate held")
+
+
+# ---------------------------------------------------------------------------
 # the roofline: K17-K21, the card's calibration
 
 CAL_CHECK_N = 1 << 20      # the calibrations' checks against the plain versions
@@ -3065,6 +3315,7 @@ def main():
                + spec_phases(card, stages) + user_phases(card, stages)
                + guided_phases(card, stages) + r1_phases(card, stages))
     distribution_phases(card, stages)
+    sis_phases(card, stages)
     calibrations, peaks = roofline_phases(card, stages)
     kernels += calibrations
     print(stages.report())

@@ -2,15 +2,54 @@
 
 It keeps the JAX package's sub-package layout and public names; its hot
 loops are CUDA kernels written for Hopper (``ops/csrc``), each with a plain
-PyTorch version that runs on the CPU.  It never imports JAX.  Importing
-it makes PyTorch's first multi-threaded CPU ``exp`` of the process
-(``util/cpu_math.py``), which can be wrong where every later one is exact.
+PyTorch version that runs on the CPU.  Models are written for one particle
+with ``sample`` / ``observe`` / ``predict`` and run over a population
+under ``torch.func.vmap`` (``core/handlers.py``).  It never imports JAX.
+Importing it makes PyTorch's first multi-threaded CPU ``exp`` of the
+process (``util/cpu_math.py``), which can be wrong where every later one
+is exact.
 """
 
-from . import models
+from . import distributions, models, postprocess
+from .core import (
+    factor,
+    guarded_rejection,
+    handlers,
+    metaobserve,
+    observe,
+    predict,
+    rejection_sample,
+    rejection_sampling,
+    sample,
+    scan_sites,
+)
+from .inference.sis import ImportanceResult, sis
 from .inference.smc import SMCResult, StateSpaceModel, build_smc_run, smc
+from .postprocess import EmpiricalDistribution, StatsPrinter
 from .util.cpu_math import warm_vector_math
 
 warm_vector_math()
 
-__all__ = ["StateSpaceModel", "SMCResult", "smc", "build_smc_run", "models"]
+__all__ = [
+    "sample",
+    "observe",
+    "predict",
+    "factor",
+    "metaobserve",
+    "rejection_sampling",
+    "guarded_rejection",
+    "rejection_sample",
+    "scan_sites",
+    "handlers",
+    "distributions",
+    "models",
+    "postprocess",
+    "sis",
+    "smc",
+    "build_smc_run",
+    "ImportanceResult",
+    "SMCResult",
+    "StateSpaceModel",
+    "EmpiricalDistribution",
+    "StatsPrinter",
+]

@@ -14,11 +14,15 @@ parameters) or nested distributions, with methods:
   run under ``torch.func.vmap``.
 
 A distribution lives where its tensor parameters are.  Python numbers,
-lists and numpy arrays among its parameters become tensors on ``device=`` (default
-``"cuda"``, as the interop helpers'), or on the device of its tensor
-parameters and nested distributions where it has any; parameters on two
-devices raise.  Nothing moves to the CPU when no card is found.  Discrete
-draws are int64, torch's index type (the reference's are int32).
+lists and numpy arrays among its parameters become tensors on ``device=``,
+or on the device of its tensor parameters and nested distributions where
+it has any; parameters on two devices raise.  ``device=`` defaults to
+:func:`default_device`: the device of the innermost
+:class:`~cpprob_tpu_torch.core.handlers.Seed`'s generator while a handled
+model runs, ``"cuda"`` otherwise (as the interop helpers').  Nothing moves
+to the CPU when no card is found.  Host values reach the card without a
+synchronisation (:func:`to_device`).  Discrete draws are int64, torch's
+index type (the reference's are int32).
 """
 
 from __future__ import annotations
@@ -33,7 +37,61 @@ __all__ = [
     "Distribution",
     "dist_dataclass",
     "promote_to_result_dtype",
+    "default_device",
+    "to_device",
+    "host_any",
 ]
+
+# host reads of a flag by :func:`host_any`, by caller: each is one
+# synchronisation with the card
+HOST_READS = {"rejection_sample": 0, "truncated": 0}
+
+
+def default_device() -> torch.device:
+    """The device that numbers and host arrays go to: the innermost
+    ``Seed``'s generator's while a handled model runs, else ``"cuda"``."""
+    from ..core.handlers import current_device   # core imports this module
+
+    dev = current_device()
+    return torch.device("cuda") if dev is None else dev
+
+
+def to_device(v, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(v, dtype, device)`` that never waits on the card:
+    a Python number is filled in place on the device, and host data is
+    copied from pinned memory without blocking (``torch.as_tensor`` of host
+    data onto the card synchronises with it)."""
+    device = torch.device(device)
+    if isinstance(v, torch.Tensor) and v.device == device:
+        return v if dtype is None else v.to(dtype)
+    if isinstance(v, (bool, int, float)) and not isinstance(v, np.generic):
+        return torch.full((), v, dtype=dtype, device=device)
+    host = torch.as_tensor(v, dtype=dtype)
+    if device.type == "cuda" and host.device.type == "cpu":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
+def host_any(flag: torch.Tensor, caller: str) -> bool:
+    """Whether any element of ``flag`` is true, over every particle of an
+    enclosing ``torch.func.vmap`` too: the batched tensor is unwrapped, so
+    this is one reduction over the whole population and one host read.  It
+    is the one synchronisation a rejection round makes; it is counted in
+    ``HOST_READS[caller]`` and allowed under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from torch._C import _functorch
+
+    while _functorch.is_batchedtensor(flag):
+        flag = _functorch.get_unwrapped(flag)
+    HOST_READS[caller] += 1
+    if flag.device.type != "cuda":
+        return bool(flag.any())
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return bool(flag.any())
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 def _is_static(f: dataclasses.Field) -> bool:
@@ -57,13 +115,17 @@ def _place(self):
     if len(devices) > 1:
         raise ValueError(f"{type(self).__name__}: parameters on several devices "
                          f"{sorted(map(str, devices))}")
-    dev = devices.pop() if devices else torch.empty(0, device=self.device).device
+    if devices:
+        dev = devices.pop()
+    else:
+        dev = default_device() if self.device is None else self.device
+        dev = torch.empty(0, device=dev).device
     object.__setattr__(self, "device", dev)
     for f in _param_fields(self):
         v = getattr(self, f.name)
         if not isinstance(v, (torch.Tensor, Distribution)):
             if isinstance(v, (np.ndarray, list, tuple)) or np.isscalar(v):
-                object.__setattr__(self, f.name, torch.as_tensor(v, device=dev))
+                object.__setattr__(self, f.name, to_device(v, dev))
 
 
 def dist_dataclass(cls):
@@ -72,7 +134,7 @@ def dist_dataclass(cls):
     field.  Mark fields that are not parameters with
     ``dataclasses.field(metadata=dict(static=True))``."""
     cls.__annotations__ = {**cls.__dict__.get("__annotations__", {}), "device": Any}
-    cls.device = dataclasses.field(default="cuda", kw_only=True,
+    cls.device = dataclasses.field(default=None, kw_only=True,
                                    metadata=dict(static=True))
     cls.__post_init__ = _place
     return dataclasses.dataclass(frozen=True)(cls)
@@ -141,7 +203,7 @@ class Distribution:
     def _as(self, x, dtype=None) -> torch.Tensor:
         """``x`` as a tensor on this distribution's device (``dtype`` if
         given)."""
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+        return to_device(x, self.device, dtype)
 
 
 def _leaves(dist):

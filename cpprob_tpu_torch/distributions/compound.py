@@ -17,7 +17,13 @@ from typing import Any, Callable
 
 import torch
 
-from .base import Distribution, dist_dataclass, map_params, promote_to_result_dtype
+from .base import (
+    Distribution,
+    dist_dataclass,
+    host_any,
+    map_params,
+    promote_to_result_dtype,
+)
 from .discrete import _gumbel_max
 
 __all__ = ["Mixture", "Truncated", "Dirac", "ABC", "DefensiveMixture", "make_abc"]
@@ -125,14 +131,16 @@ class Truncated(Distribution):
         all of them at once a round, for at most ``_MAX_REJECTION_TRIES``
         rounds, then clipped.  Each round reads one flag (whether any draw
         is still outside) back to the host: a synchronisation with the
-        card a round, which ``sample`` by the inverse CDF does not have."""
+        card a round (:func:`.base.host_any`), which ``sample`` by the
+        inverse CDF does not have.  Under ``torch.func.vmap`` the flag is
+        the whole population's, so a vmapped model samples it too."""
         self._device_of(generator)
         low, high = self.low, self.high
         x = self.base.sample(generator, sample_shape)
         tries = 0
         while tries < self._MAX_REJECTION_TRIES:
             bad = (x < low) | (x > high)
-            if not bool(bad.any()):
+            if not host_any(bad, "truncated"):
                 break
             x = torch.where(bad, self.base.sample(generator, sample_shape), x)
             tries += 1

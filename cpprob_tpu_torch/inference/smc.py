@@ -21,8 +21,11 @@ through its proposal hooks (the guided step of :func:`make_smc_step`, and
 an initial proposal).  The port's proposal hooks are population-batched:
 ``proposal_sample(key, states, t, y)``, ``proposal_logpdf(new, states, t,
 y)``, ``init_proposal_sample(key, y0, n)``, ``init_proposal_logpdf(states,
-y0)``.  Models with only per-particle hooks raise ``NotImplementedError``,
-naming the slice that brings them.
+y0)``.  A model without the batched hooks runs its per-particle hooks
+``init_sample(key)``, ``step_sample(key, s, t)`` and ``obs_logpdf(s, y,
+t)`` under ``torch.func.vmap(..., randomness="different")`` over the
+population, every particle drawing from the sweep's one generator (the
+reference's ``jax.vmap`` over split keys).
 """
 
 from __future__ import annotations
@@ -108,8 +111,11 @@ class SMCResult(NamedTuple):
     final_log_weights: torch.Tensor         # (N,)
 
     def filtered_mean(self, fn=lambda s: s):
-        """E[fn(z_t) | y_{1:t}] per timestep from the stored history."""
-        vals = fn(self.states).to(self.log_weights.dtype)   # (T, N, ...)
+        """E[fn(z_t) | y_{1:t}] per timestep from the stored history;
+        ``fn`` maps one particle's state, as in the reference (it is
+        vmapped over time and particles)."""
+        vals = torch.func.vmap(torch.func.vmap(fn))(self.states)   # (T, N, ...)
+        vals = vals.to(self.log_weights.dtype)
         w = torch.softmax(self.log_weights, dim=1)
         w = w.reshape(w.shape + (1,) * (vals.dim() - 2))
         return torch.sum(w * vals, dim=1)
@@ -119,8 +125,18 @@ def _log_mean_exp(lw: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(lw, 0) - math.log(lw.shape[0])
 
 
-def _unported(what: str, slice_: str):
-    return NotImplementedError(f"{what} is not ported yet: it comes with {slice_}")
+def _per_particle(fn, gen: torch.Generator, states: torch.Tensor):
+    """``fn(gen, one particle's state)`` over the population under
+    ``torch.func.vmap``, each particle drawing its own values from ``gen``."""
+    return torch.func.vmap(lambda s: fn(gen, s), randomness="different")(states)
+
+
+def _obs_logpdf(model, states, y, t):
+    """Every particle's emission log-density: the model's batched hook, or
+    its per-particle hook under vmap."""
+    if model.obs_logpdf_batch is not None:
+        return model.obs_logpdf_batch(states, y, t)
+    return torch.func.vmap(lambda s: model.obs_logpdf(s, y, t))(states)
 
 
 def _no_time_hook(hook: str, t_hook: str):
@@ -158,10 +174,6 @@ def make_smc_step(
     guided = model.proposal_sample is not None
     fused = not guided and (model.fused_step_ess_batch is not None
                             or model.fused_step_batch is not None)
-    if not fused and (model.obs_logpdf_batch is None or (
-            not guided and model.step_sample_batch is None)):
-        raise _unported("per-particle model hooks (vmap)",
-                        "slice 4 (trace substrate)")
 
     def step(carry, y_t_and_t):
         y_t, t = y_t_and_t
@@ -201,11 +213,14 @@ def make_smc_step(
                 new_states = model.proposal_sample(gen, states_r, t, y_t)
                 rn = (model.step_logpdf(new_states, states_r, t)
                       - model.proposal_logpdf(new_states, states_r, t, y_t))
-                new_log_w = (log_w_r + rn
-                             + model.obs_logpdf_batch(new_states, y_t, t))
+                new_log_w = log_w_r + rn + _obs_logpdf(model, new_states, y_t, t)
             else:
-                new_states = model.step_sample_batch(gen, states_r, t)
-                new_log_w = log_w_r + model.obs_logpdf_batch(new_states, y_t, t)
+                if model.step_sample_batch is not None:
+                    new_states = model.step_sample_batch(gen, states_r, t)
+                else:
+                    new_states = _per_particle(
+                        lambda g, s: model.step_sample(g, s, t), gen, states_r)
+                new_log_w = log_w_r + _obs_logpdf(model, new_states, y_t, t)
             new_ess = _ess(new_log_w)
         if store_history:
             ys = (new_states, new_log_w, anc, do_resample)
@@ -417,17 +432,18 @@ def build_smc_run(
         if chunk_exchange and model.fused_init_batch is not None:
             states0, log_w0, ess0, cat_w0, lme0 = model.fused_init_batch(
                 seed, n, observations[0])
-        elif model.init_proposal_sample is not None:
-            states0 = model.init_proposal_sample(gen, observations[0], n)
-            log_w0 = (model.init_logpdf(states0)
-                      - model.init_proposal_logpdf(states0, observations[0])
-                      + model.obs_logpdf_batch(states0, observations[0], 0))
         else:
-            if model.init_sample_batch is None:
-                raise _unported("per-particle model hooks (vmap)",
-                                "slice 4 (trace substrate)")
-            states0 = model.init_sample_batch(gen, n)
-            log_w0 = model.obs_logpdf_batch(states0, observations[0], 0)
+            if model.init_proposal_sample is not None:
+                states0 = model.init_proposal_sample(gen, observations[0], n)
+                rn0 = (model.init_logpdf(states0)
+                       - model.init_proposal_logpdf(states0, observations[0]))
+            elif model.init_sample_batch is not None:
+                states0, rn0 = model.init_sample_batch(gen, n), 0.0
+            else:
+                dummy = torch.empty(n, device=device)
+                states0 = _per_particle(lambda g, _: model.init_sample(g), gen, dummy)
+                rn0 = 0.0
+            log_w0 = rn0 + _obs_logpdf(model, states0, observations[0], 0)
         log_z = torch.zeros((), dtype=torch.float64, device=device)
         no_resample = torch.zeros(1, dtype=torch.bool, device=device)
 

@@ -2,10 +2,15 @@
 ``cpprob_tpu/models/hmm.py`` (reference ``include/models/models.hpp:114-141``:
 means (-1, 0, 1), fixed transition matrix, uniform initial state).
 
-Only the :class:`~cpprob_tpu_torch.inference.smc.StateSpaceModel` form is
-here; the trace forms ``hmm`` / ``hmm_scan`` need the trace substrate.
-The model's ``key`` arguments are ``torch.Generator`` objects on the
-device the population lives on.
+Two formulations of the *same* generative model, as in the reference:
+
+- :func:`hmm` / :func:`hmm_scan` — trace forms (``sample`` / ``observe`` /
+  ``predict``, written for one particle), run by SIS under
+  ``torch.func.vmap``; ``hmm_scan`` loops with
+  :func:`~cpprob_tpu_torch.core.scanner.scan_sites`.
+- :data:`hmm_ssm` — the :class:`~cpprob_tpu_torch.inference.smc.StateSpaceModel`
+  form.  Its ``key`` arguments are ``torch.Generator`` objects on the
+  device the population lives on.
 """
 
 from __future__ import annotations
@@ -16,10 +21,14 @@ import math
 import numpy as np
 import torch
 
+from ..core import as_tensor, observe, predict, sample
+from ..core.scanner import scan_sites
+from ..distributions import Categorical, Normal, UniformInt
+from ..distributions.base import to_device
 from ..inference.smc import StateSpaceModel
 
 __all__ = [
-    "HMM_MEANS", "HMM_TRANS", "hmm_ssm", "hmm_exact_posterior",
+    "HMM_MEANS", "HMM_TRANS", "hmm", "hmm_scan", "hmm_ssm", "hmm_exact_posterior",
     "hmm_log_evidence", "simulate_observations",
 ]
 
@@ -42,10 +51,57 @@ def _tables(device: torch.device):
     host."""
     cdf = np.cumsum(HMM_TRANS.astype(np.float64), axis=1)[:, :-1]
     return (
-        torch.as_tensor(HMM_MEANS, device=device),
-        torch.as_tensor(np.log(HMM_TRANS), device=device),
-        torch.as_tensor(cdf.astype(np.float32), device=device),
+        to_device(HMM_MEANS, device),
+        to_device(np.log(HMM_TRANS), device),
+        to_device(cdf.astype(np.float32), device),
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _trace_tables(device: torch.device):
+    """(means (3,), transition matrix (3, 3)) on ``device``, for the trace
+    forms."""
+    return to_device(HMM_MEANS, device), to_device(HMM_TRANS, device)
+
+
+def hmm(observations):
+    """Trace-form HMM: the time loop unrolls (static length), addresses are
+    per-step (``z[t]``) — the structured replacement of the reference's
+    backtrace-distinct per-step addresses (``models.hpp:126-140``)."""
+    observations = as_tensor(observations)
+    T = observations.shape[0]
+    means, trans = _trace_tables(observations.device)
+    state = sample(UniformInt(0, 2), addr="z[0]")
+    predict(state, "State")
+    observe(Normal(means[state], 1.0), observations[0], addr="y[0]")
+    for t in range(1, T):
+        state = sample(Categorical(trans[state]), addr=f"z[{t}]")
+        predict(state, "State")
+        observe(Normal(means[state], 1.0), observations[t], addr=f"y[{t}]")
+    return state
+
+
+def hmm_scan(observations):
+    """Scan-form HMM: the same generative model as :func:`hmm`, the time
+    loop a :func:`~cpprob_tpu_torch.core.scanner.scan_sites`: under plain
+    handler stacks (trace generation) it unrolls to the same addresses
+    ``z[t]``/``y[t]`` as :func:`hmm`; under the SIS stack its sites are
+    tied (``z[*]``) and a guided messenger threads its state through the
+    loop."""
+    observations = as_tensor(observations)
+    means, trans = _trace_tables(observations.device)
+    state = sample(UniformInt(0, 2), addr="z[0]")
+    predict(state, "State")
+    observe(Normal(means[state], 1.0), observations[0], addr="y[0]")
+
+    def body(state, y_t, idx):
+        state = sample(Categorical(trans[state]), addr=f"z[{idx}]")
+        predict(state, "State")
+        observe(Normal(means[state], 1.0), y_t, addr=f"y[{idx}]")
+        return state, None
+
+    state, _ = scan_sites(body, state, observations[1:], index_offset=1)
+    return state
 
 
 def _hmm_init(key):

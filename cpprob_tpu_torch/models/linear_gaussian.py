@@ -3,10 +3,10 @@
 ``include/models/models.hpp:67-80``, ``linear_gaussian_1d``):
 x_0 ~ N(0, 1), x_t ~ N(x_{t-1}, 1), y_t ~ N(x_t, 1).
 
-Only the :class:`~cpprob_tpu_torch.inference.smc.StateSpaceModel` form is
-here; the trace form ``linear_gaussian_1d`` needs the trace substrate.
-The model's ``key`` arguments are ``torch.Generator`` objects on the
-device the population lives on.  ``kalman_filter_1d`` is the exact
+Both the trace form :func:`linear_gaussian_1d` (for SIS) and the
+:class:`~cpprob_tpu_torch.inference.smc.StateSpaceModel` form, whose
+``key`` arguments are ``torch.Generator`` objects on the device the
+population lives on.  ``kalman_filter_1d`` is the exact
 oracle, in numpy float64 (the port never imports JAX).
 """
 
@@ -17,9 +17,12 @@ import math
 import numpy as np
 import torch
 
+from ..core import as_tensor, observe, predict, sample
+from ..distributions import Normal
 from ..inference.smc import StateSpaceModel
 
-__all__ = ["linear_gaussian_ssm", "kalman_filter_1d", "simulate_observations"]
+__all__ = ["linear_gaussian_1d", "linear_gaussian_ssm", "kalman_filter_1d",
+           "simulate_observations"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -31,6 +34,17 @@ def _normal_logpdf(x, mean):
 
 def _randn(key, shape):
     return torch.randn(shape, generator=key, device=key.device)
+
+
+def linear_gaussian_1d(observations):
+    """x_t ~ N(x_{t-1}, 1), y_t ~ N(x_t, 1), x_0 = 0 (``models.hpp:67-80``)."""
+    observations = as_tensor(observations)
+    state = as_tensor(0.0)
+    for t in range(observations.shape[0]):
+        state = sample(Normal(state, 1.0), addr=f"x[{t}]")
+        observe(Normal(state, 1.0), observations[t], addr=f"y[{t}]")
+        predict(state, "State")
+    return state
 
 
 linear_gaussian_ssm = StateSpaceModel(

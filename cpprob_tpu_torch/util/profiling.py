@@ -1,6 +1,8 @@
 """Profiling helpers — counterpart of ``cpprob_tpu/util/profiling.py``.
 
-``StageTimer`` gives wall-clock per-stage timing, fenced with
+``profile_trace`` wraps ``torch.profiler`` (the reference's
+``jax.profiler`` wrapper); ``StageTimer`` gives wall-clock per-stage
+timing, fenced with
 ``torch.cuda.synchronize()`` so that queued device work lands in the stage
 that queued it; ``env_versions`` stamps a measurement with the software
 stack and the card.
@@ -9,6 +11,7 @@ stack and the card.
 from __future__ import annotations
 
 import contextlib
+import os
 import platform
 import subprocess
 import time
@@ -16,7 +19,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["StageTimer", "env_versions", "gpu_name_and_power"]
+__all__ = ["profile_trace", "StageTimer", "env_versions", "gpu_name_and_power"]
 
 
 def gpu_name_and_power() -> str:
@@ -51,6 +54,23 @@ def env_versions() -> Dict[str, str]:
         "device_count": str(torch.cuda.device_count() if cuda else 0),
         "nvidia_smi_name_power_limit": name_power,
     }
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the enclosed block (the CPU,
+    and the card where there is one) and write it to ``log_dir`` as a
+    Chrome trace (``trace.json``).  Yields the profiler, whose
+    ``key_averages()`` sums the time by operator and kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class StageTimer:

@@ -26,7 +26,6 @@ from cpprob_tpu_torch import build_smc_run, smc
 from cpprob_tpu_torch.inference import resampling as rs
 from cpprob_tpu_torch.inference.smc import make_smc_step_exchange_fused_chunked
 from cpprob_tpu_torch.interop import carry_from_numpy
-from cpprob_tpu_torch.models import hmm as port_hmm
 from cpprob_tpu_torch.ops.fused_hmm import (
     ISLAND_SIZE,
     hmm_chunk_plain,
@@ -37,6 +36,7 @@ from cpprob_tpu_torch.ops.fused_hmm import (
 # the packages' ``hmm`` and ``smc`` attributes are functions, not the modules
 ref_hmm = importlib.import_module("cpprob_tpu.models.hmm")
 ref_smc = importlib.import_module("cpprob_tpu.inference.smc")
+port_hmm = importlib.import_module("cpprob_tpu_torch.models.hmm")
 port_smc = importlib.import_module("cpprob_tpu_torch.inference.smc")
 
 torch.set_num_threads(2)
@@ -354,15 +354,71 @@ def test_unported_combinations_raise():
     # no chunk kernel on the model: an error in the reference too
     with pytest.raises(ValueError, match="fused_chunk"):
         build_smc_run(port_hmm.hmm_ssm, N, chunk=16)
-    # a model with per-particle hooks only (vmap) comes with slice 4
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        build_smc_run(dataclasses.replace(port_hmm.hmm_ssm, state_categories=None,
-                                          step_sample_batch=None), N)
-    # guided SMC is ported; a guided model without a batched emission hook
-    # still needs the per-particle hooks of slice 4
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        build_smc_run(dataclasses.replace(port_hmm.hmm_ssm, obs_logpdf_batch=None,
-                                          proposal_sample=lambda *a: None), N)
+    # per-particle hooks (slice 4b) run under vmap: nothing left to raise
+    obs = torch.as_tensor(OBS[:4])
+    run = build_smc_run(dataclasses.replace(port_hmm.hmm_ssm, state_categories=None,
+                                            step_sample_batch=None), 256)
+    assert run(0, obs).final_states.shape == (256,)
+    guided = dataclasses.replace(
+        port_hmm.hmm_ssm, obs_logpdf_batch=None,
+        proposal_sample=lambda g, s, t, y: port_hmm.hmm_ssm.step_sample_batch(g, s, t),
+        proposal_logpdf=lambda ns, s, t, y: port_hmm.hmm_ssm.step_logpdf(ns, s, t))
+    assert math.isfinite(float(build_smc_run(guided, 256)(0, obs).log_evidence))
+
+
+def _per_particle_only(model):
+    return dataclasses.replace(model, init_sample_batch=None, step_sample_batch=None,
+                               obs_logpdf_batch=None)
+
+
+@pytest.mark.parametrize("model", ["lg", "hmm"])
+def test_per_particle_hooks_match_exact(model):
+    """A model with only per-particle hooks (``init_sample``,
+    ``step_sample``, ``obs_logpdf``) runs them under vmap, with and
+    without history, against Kalman or the forward recursion."""
+    from cpprob_tpu_torch.models import linear_gaussian as port_lg
+
+    if model == "lg":
+        ys = port_lg.simulate_observations(16, 0)
+        ssm, exact = port_lg.linear_gaussian_ssm, port_lg.kalman_filter_1d(ys)[2]
+    else:
+        ys, ssm, exact = OBS, port_hmm.hmm_ssm, EXACT
+    pp = _per_particle_only(ssm)
+    obs = torch.as_tensor(ys)
+    unfused = build_smc_run(pp, N)
+    for run in (lambda seed: smc(pp, obs, N, seed), lambda seed: unfused(seed, obs)):
+        mean, se = _mean_se([float(run(100 + s).log_evidence) for s in range(SEEDS)])
+        assert abs(mean - exact) < 4 * se + FLOOR, (model, mean, se, exact)
+    res = smc(pp, obs, 1 << 10, 0)
+    assert res.states.shape == (len(ys), 1 << 10)
+
+
+def test_filtered_mean_matches_reference():
+    """``fn`` maps one particle's state, as in the reference: on (T, N, 2)
+    states ``s[0]`` and ``s.sum()`` are per-particle functions."""
+    rng = np.random.RandomState(6)
+    T, n = 4, 8
+    lw = rng.normal(size=(T, n)).astype(np.float32)
+    fns = {"identity": (lambda s: s, lambda s: s),
+           "square": (lambda s: s ** 2, lambda s: s ** 2),
+           "first": (lambda s: s[0], lambda s: s[0]),
+           "sum": (lambda s: s.sum(), lambda s: s.sum())}
+    for shape in ((T, n), (T, n, 2)):
+        states = rng.normal(size=shape).astype(np.float32)
+        ones = np.ones((n,) + shape[2:], np.float32)
+
+        def result(mod, arr):
+            return mod.SMCResult(arr(states), arr(lw), None, arr(np.zeros(T, bool)),
+                                 arr(np.float32(0.0)), arr(ones), arr(lw[-1]))
+
+        port = result(port_smc, torch.as_tensor)
+        ref = result(ref_smc, jnp.asarray)
+        for name, (pf, jf) in fns.items():
+            if len(shape) == 2 and name == "first":
+                continue
+            np.testing.assert_allclose(port.filtered_mean(pf).numpy(),
+                                       np.asarray(ref.filtered_mean(jf)),
+                                       rtol=1e-6, atol=1e-6, err_msg=f"{name} {shape}")
 
 
 def test_chunk_hook_without_absolute_time_raises():
@@ -404,6 +460,11 @@ def test_port_imports_without_jax():
         "    importlib.import_module(name)\n"
         "assert 'cpprob_tpu_torch.util.roofline' in names, names\n"
         "assert 'cpprob_tpu_torch.ops.calibrate' in names, names\n"
+        "for m in ('core.handlers', 'core.primitives', 'core.scanner', 'inference.sis',\n"
+        "          'postprocess.empirical', 'postprocess.stats', 'postprocess.diagnostics',\n"
+        "          'util.numerics', 'models.gaussian', 'models.all_distr',\n"
+        "          'models.rejection', 'models.poly'):\n"
+        "    assert 'cpprob_tpu_torch.' + m in names, (m, names)\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and (\n"
         "    m.startswith('jax') or m == 'cpprob_tpu'\n"
         "    or m.startswith('cpprob_tpu.') or m.split('.')[0] == 'triton')]\n"
