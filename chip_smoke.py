@@ -139,24 +139,38 @@ and the script exits non-zero without printing its last line:
    model's per-particle hooks at 2^20, both against Kalman; 4 SE + 0.02
    over 4 seeds (8 for the streaming call); each model's ms a call,
    launches, busy share (``chiprun_out/sis_*_trace.json``) and peak memory;
-11. the card's calibration (``roofline_phases``, K17-K21): each
+11. inference compilation (``csis_phases``, slice 5, plain PyTorch, no
+   kernel of its own) at the reference's widths (embedding 128, a 2-layer
+   LSTM of 128): ``CSIS`` trained on the card on the README Gaussian (300
+   Adam steps at batch 256), ``hmm`` and the tied ``hmm_scan`` at T = 16
+   (400 steps each), ``infer`` at 2^20 against the conjugate posterior, the
+   exact log-evidence and the forward-backward marginals over 4 seeds, the
+   ESS against the prior ``sis``'s, ``defensive=0.1``, ``infer_many``
+   against the single calls; offline training from 2^14 dumped traces
+   through the native ``TraceLoader``, a checkpoint reload equal bit for
+   bit; ``DynamicCSIS`` on ``tests/test_csis_dynamic.py``'s model; the
+   entry twin; training ms a step and traces/s, ms an ``infer`` call,
+   launches, busy share (``chiprun_out/csis_*_trace.json``), peak memory;
+12. the card's calibration (``roofline_phases``, K17-K21): each
    calibration kernel against its plain version at a reduced size (K17,
    K19, K20b exactly; K18, K20a, K21 within the tolerances stated at
    ``CAL_*``), then ``util/roofline.py``'s ``calibrate_peaks`` at the
    reference's sizes, counted; the peaks must be positive and below the
    datasheet's where it has one;
-12. the ``roofline`` JSON line: the peaks, the card, and for every kernel
+13. the ``roofline`` JSON line: the peaks, the card, and for every kernel
    entry its bound against the published peaks and its calibrated bound
    (``analyze_kernels``: the binding resource and the fraction, at most 1);
    the whole analysis in ``chiprun_out/roofline.json``;
-13. one JSON line on the 26 kernel entries (each with ``bound_ms``,
+14. one JSON line on the 26 kernel entries (each with ``bound_ms``,
    ``bound_by``, ``library_ms`` where one PyTorch call computes the same
    function, ``calibrated_bound_ms`` and ``calibrated_by``), the card line,
    and the result line ``{"ok": true, "device": {...}}``.
 
-Every timed sweep, and every SIS call, runs under
-``torch.cuda.set_sync_debug_mode("error")``: a sweep never waits on the
-host (a rejection round's one host read is the counted exception).  Launch counts are set to 0 just before
+Every timed sweep, every SIS call, and every CSIS training step and
+``infer`` call runs under ``torch.cuda.set_sync_debug_mode("error")``: none
+waits on the host (a rejection round's one host read is the counted
+exception; the dynamic-structure path reads sampled values by design and
+runs outside it).  Launch counts are set to 0 just before
 each path's sweeps and read just after; launches made to compare a kernel
 with its plain version are not counted on the ``kernels`` line.
 It needs a CUDA device and never falls back to the CPU.
@@ -3122,6 +3136,282 @@ def sis_phases(card, stages):
 
 
 # ---------------------------------------------------------------------------
+# CSIS: slice 5, inference compilation (plain PyTorch, no kernel of its own)
+
+CSIS_N = 1 << 20           # particles a guided call: SIS_N, the JAX README's headline call
+CSIS_E = 128               # the reference's widths: embedding 128, 2-layer LSTM of 128
+CSIS_BATCH = 256           # tests/test_csis.py:53-58
+CSIS_README_STEPS = 300    # tests/test_csis.py:55-57
+CSIS_HMM_STEPS = 400       # cut from 600 to keep the phase near two minutes (PERF.md §4)
+CSIS_WARM = 20             # training steps left out of the step-time median
+CSIS_OFFLINE_TRACES = 1 << 14
+CSIS_SHARD = 4096
+CSIS_OFFLINE_STEPS = 100
+CSIS_DEFENSIVE = 0.1
+DYN_P_MORE, DYN_K_MAX, DYN_OBS_STD = 0.4, 6, 0.5   # tests/test_csis_dynamic.py:20-22
+DYN_TRACES = 6000
+DYN_E = 32
+DYN_BATCH = 64
+DYN_N = 2000
+DYN_Y = 2.0
+
+
+def dyn_model(y):
+    """tests/test_csis_dynamic.py's model: a geometric number of latent
+    sites (a Python ``while`` on sampled values), then mu ~ N(k, 1)."""
+    from cpprob_tpu_torch import observe, predict, sample
+    from cpprob_tpu_torch.distributions import Bernoulli, Normal
+
+    k = 0
+    while k < DYN_K_MAX and int(sample(Bernoulli(DYN_P_MORE), addr=f"more[{k}]")) == 1:
+        k += 1
+    mu = sample(Normal(float(k), 1.0), addr="mu")
+    observe(Normal(mu, DYN_OBS_STD), y, addr="y")
+    predict(mu, "Mu")
+    return mu
+
+
+def dyn_exact_mean(y):
+    """E[mu | y] of ``dyn_model`` by enumeration of k."""
+    v = 1.0 + DYN_OBS_STD ** 2
+    post = []
+    for k in range(DYN_K_MAX + 1):
+        pk = DYN_P_MORE ** k * ((1 - DYN_P_MORE) if k < DYN_K_MAX else 1.0)
+        post.append(pk * math.exp(-0.5 * (y - k) ** 2 / v))
+    prec = 1.0 + 1.0 / DYN_OBS_STD ** 2
+    return sum(p * (k + y / DYN_OBS_STD ** 2) / prec for k, p in enumerate(post)) / sum(post)
+
+
+def _step_times(events):
+    """ms between consecutive CUDA events (read after a sync)."""
+    return [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+
+
+def _train_timed(what, train, batch, hook_owner, hook_name):
+    """``train()`` under sync-debug "error", with a CUDA event recorded as
+    each batch is fetched (``hook_owner.hook_name`` wrapped) and one at the
+    end: no sync but at the ends.  Returns (params, losses, median ms a
+    step over the steps after CSIS_WARM, traces/s)."""
+    events = []
+    inner = getattr(hook_owner, hook_name)
+
+    def fetch(*a):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return inner(*a)
+
+    def run():
+        out = train()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return out
+
+    setattr(hook_owner, hook_name, fetch)
+    try:
+        params, losses = _no_sync(run)
+    finally:
+        setattr(hook_owner, hook_name, inner)
+    ms = statistics.median(_step_times(events)[CSIS_WARM:])
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"csis {what}: a training loss is not finite")
+    return params, losses, ms, batch / ms * 1e3
+
+
+def csis_phases(card, stages):
+    """Slice 5 on the card (plain PyTorch, every draw from a CUDA
+    generator, the reference's widths: embedding 128, 2-layer LSTM of 128,
+    the ``fc`` observation net [obs_dim, 128, 128, 128], heads [128, 128,
+    n_out]): ``CSIS`` trained on the README Gaussian (300 Adam steps at
+    batch 256) and ``infer`` at 2^20 on (3, 4) and (-1, 0.5) against the
+    conjugate posterior, ESS against the prior ``sis``'s; the HMM on the
+    headline observations (400 steps), ``infer`` at 2^20 against
+    -26.44222 and the forward-backward marginals, with ``defensive=0.1``
+    too, and ``infer_many`` over 4 seeds equal to the 4 single calls; the
+    tied HMM (``hmm_scan``, ``tie_addresses=True``: guided inference
+    through ``scan_sites``' adapter); offline training (2^14 traces dumped
+    in shards of 4,096 under ``chiprun_out/csis_traces/``, the native
+    ``TraceLoader``, 100 steps of ``compile_offline``, a checkpoint whose
+    reload gives the same log-weights bit for bit); ``DynamicCSIS``
+    (``compile_vectorized`` and 2,000 serial particles, the gates of
+    ``tests/test_csis_dynamic.py``); the entry twin.  Every training step
+    and ``infer`` call runs under sync-debug "error" but the dynamic path,
+    whose model reads sampled values back (``int(...)``) by design.  Each
+    model's training ms a step and traces/s, ms an ``infer`` call at 2^20,
+    launches a call, busy share (``chiprun_out/csis_*_trace.json``), peak
+    memory and ESS."""
+    import numpy as np
+
+    import cpprob_tpu_torch as ct
+    from cpprob_tpu_torch import models as M
+    from cpprob_tpu_torch.entry import entry
+    from cpprob_tpu_torch.io.tracefile import TraceLoader
+    from cpprob_tpu_torch.util import load_pytree, save_pytree
+    from cpprob_tpu_torch.util.pytree import tree_leaves
+
+    dev = torch.device("cuda")
+    seeds = [CHECK_SEED + i for i in range(SIS_SEEDS)]
+    obs = _observations(dev)
+    hmm_exact = torch.as_tensor(M.hmm_exact_posterior(obs.cpu().numpy()))
+    rows = []
+
+    def train(name, eng, steps):
+        params, losses, ms, rate = _train_timed(
+            name, lambda: eng.compile(CHECK_SEED, steps=steps, batch_size=CSIS_BATCH),
+            CSIS_BATCH, eng, "_gen")
+        first, last = float(losses[0]), float(losses[-10:].mean())
+        if not last < first:
+            raise AssertionError(f"csis {name}: the loss did not fall ({first} -> {last})")
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"[{card}] csis {name} train: {ms:.4f} ms a step (median of steps "
+              f"{CSIS_WARM + 1}-{steps}, batch {CSIS_BATCH}), {rate:.1f} traces/s, loss "
+              f"{first:.4f} -> {float(losses[-1]):.4f} (last 10: {last:.4f}), "
+              f"{n_params} parameters")
+        return params, n_params
+
+    def measure(name, fn, guided, prior):
+        ms, mb = _time_calls(fn)
+        # one call: an HMM call's trace is ~6 MB
+        launches, busy = _profile_calls(fn, 1, f"csis_{name}_trace.json")
+        g, p = float(guided.ess), float(prior.ess)
+        rows.append((name, ms, launches, busy, mb, g, p))
+        return g, p
+
+    def gated_calls(eng, params, args, **kw):
+        return {s: _no_sync(lambda s=s: eng.infer(params, args, CSIS_N, s, **kw))
+                for s in seeds}
+
+    with stages.stage("csis", sync=True):
+        # README Gaussian
+        readme = ct.CSIS(M.gaussian_unknown_mean_readme, (0.0, 0.0), embedding_dim=CSIS_E)
+        rp, _ = train("gaussian_readme", readme, CSIS_README_STEPS)
+        res = gated_calls(readme, rp, (3.0, 4.0))
+        m = _seed_gate([float(r.mean("Mean")) for r in res.values()], README_MEAN,
+                       "csis README mean")
+        v = _seed_gate([float(r.variance("Mean")) for r in res.values()], README_VAR,
+                       "csis README variance")
+        prior = ct.sis(M.gaussian_unknown_mean_readme, (3.0, 4.0), CSIS_N, seeds[0], device=dev)
+        g, p = measure("gaussian_readme", lambda: readme.infer(rp, (3.0, 4.0), CSIS_N, seeds[0]),
+                       res[seeds[0]], prior)
+        if not g > 1.5 * p:
+            raise AssertionError(f"csis README: guided ESS {g} not above 1.5x the prior's {p}")
+        want, _ = M.gaussian_posterior_analytic([-1.0, 0.5], mu0=1.0, sigma0=1.5, sigma=2.0)
+        other = gated_calls(readme, rp, (-1.0, 0.5))
+        o = _seed_gate([float(r.mean("Mean")) for r in other.values()], float(want),
+                       "csis README mean at (-1, 0.5)")
+        print(f"csis README: mean {m[0][0]:.5f} (SE {m[0][1]:.6f}), variance {v[0][0]:.5f} "
+              f"(SE {v[0][1]:.6f}); at (-1, 0.5) {o[0][0]:.5f} (want {float(want):.5f}); "
+              f"ESS guided {g:.1f} against the prior's {p:.1f}")
+
+        # HMM (the entry's engine at T = 16), untied and tied
+        def hmm_gates(name, eng, params, **kw):
+            res = gated_calls(eng, params, (obs,), **kw)
+            lz = _seed_gate([float(r.log_evidence) for r in res.values()], EXACT_LOGZ,
+                            f"csis {name} log-evidence")
+            marg = sum(torch.stack([(r.normalized_weights[:, None]
+                                     * (r.predicts["State"] == k)).sum(0) for k in range(3)],
+                                   1).double().cpu() for r in res.values()) / len(res)
+            err = float((marg - hmm_exact).abs().max())
+            if not err <= SIS_MARGINAL_TOL:
+                raise AssertionError(f"csis {name}: smoothed marginals {err} from "
+                                     "forward-backward")
+            prior = ct.sis(eng.model, (obs,), CSIS_N, seeds[0], device=dev)
+            g, p = float(res[seeds[0]].ess), float(prior.ess)
+            if not g > 2.0 * p:
+                raise AssertionError(f"csis {name}: guided ESS {g} not above 2x the prior's {p}")
+            print(f"csis {name}: log-evidence {lz[0][0]:.6f} (SE {lz[0][1]:.6f}, exact "
+                  f"{EXACT_LOGZ}), marginals within {err:.4f}, ESS guided {g:.1f} against "
+                  f"the prior's {p:.1f}")
+            return res, prior
+
+        untied = ct.CSIS(M.hmm, (obs,), embedding_dim=CSIS_E)
+        hp, n_untied = train("hmm", untied, CSIS_HMM_STEPS)
+        res, prior = hmm_gates("hmm", untied, hp)
+        measure("hmm", lambda: untied.infer(hp, (obs,), CSIS_N, seeds[0]), res[seeds[0]], prior)
+        res_d, prior = hmm_gates("hmm_defensive", untied, hp, defensive=CSIS_DEFENSIVE)
+        measure("hmm_defensive", lambda: untied.infer(hp, (obs,), CSIS_N, seeds[0],
+                                                      defensive=CSIS_DEFENSIVE),
+                res_d[seeds[0]], prior)
+        many = _no_sync(lambda: untied.infer_many(hp, (obs,), CSIS_N, seeds))
+        for i, s in enumerate(seeds):
+            if not (torch.equal(many.log_weights[i], res[s].log_weights)
+                    and torch.equal(many.predicts["State"][i], res[s].predicts["State"])):
+                raise AssertionError(f"csis infer_many: query {i} differs from infer(seed {s})")
+        print(f"csis infer_many over {len(seeds)} seeds: equal to the single calls, bit for bit")
+
+        tied = ct.CSIS(M.hmm_scan, (obs,), embedding_dim=CSIS_E, tie_addresses=True)
+        tp, n_tied = train("hmm_tied", tied, CSIS_HMM_STEPS)
+        res_t, prior = hmm_gates("hmm_tied", tied, tp)
+        measure("hmm_tied", lambda: tied.infer(tp, (obs,), CSIS_N, seeds[0]), res_t[seeds[0]],
+                prior)
+        print(f"csis tied HMM: {n_tied} parameters against the untied engine's {n_untied}")
+
+        # offline: shards, the native loader, compile_offline, a checkpoint
+        out_dir = os.path.join(REPO, "chiprun_out", "csis_traces")
+        for f in os.listdir(out_dir) if os.path.isdir(out_dir) else []:
+            os.unlink(os.path.join(out_dir, f))
+        paths = untied.dump_traces(out_dir, CHECK_SEED, CSIS_OFFLINE_TRACES, CSIS_SHARD)
+        loader = TraceLoader(paths, CSIS_BATCH, seed=1)
+        if not loader.native:
+            raise AssertionError("csis: the TraceLoader is not native")
+        op, losses, ms, rate = _train_timed(
+            "offline", lambda: untied.compile_offline(loader, CHECK_SEED,
+                                                      steps=CSIS_OFFLINE_STEPS),
+            CSIS_BATCH, loader, "next_batch")
+        loader.close()
+        head, tail = float(losses[:10].mean()), float(losses[-10:].mean())
+        if not tail < head:
+            raise AssertionError(f"csis offline: the loss did not fall ({head} -> {tail})")
+        ck = save_pytree(os.path.join(REPO, "chiprun_out", "csis_ckpt"), op)
+        back = load_pytree(ck, untied.init(0))
+        a = _no_sync(lambda: untied.infer(op, (obs,), CSIS_N, seeds[0]))
+        b = _no_sync(lambda: untied.infer(back, (obs,), CSIS_N, seeds[0]))
+        if not torch.equal(a.log_weights, b.log_weights):
+            raise AssertionError("csis: the reloaded checkpoint gives other log-weights")
+        print(f"[{card}] csis offline: {len(paths)} shards of {CSIS_SHARD}, native loader, "
+              f"{ms:.4f} ms a step, {rate:.1f} traces/s, loss (first 10 / last 10) "
+              f"{head:.4f} -> {tail:.4f}; checkpoint reload: log-weights equal bit for bit")
+
+        # dynamic structure (its model reads sampled values: not under "error")
+        t0 = time.perf_counter()
+        dyn = ct.DynamicCSIS(dyn_model, (0.0,), embedding_dim=DYN_E, bucket_batch=DYN_BATCH)
+        dp, stats = dyn.compile_vectorized(CHECK_SEED, n_traces=DYN_TRACES, batch_size=DYN_BATCH)
+        _sync()
+        t_train = time.perf_counter() - t0
+        if not stats["vectorized"] or not np.isfinite(stats["losses"]).all():
+            raise AssertionError(f"csis dynamic: {stats['vectorized']}, losses finite "
+                                 f"{np.isfinite(stats['losses']).all()}")
+        t0 = time.perf_counter()
+        guided = dyn.infer(dp, (DYN_Y,), DYN_N, seeds[0])
+        t_infer = time.perf_counter() - t0
+        prior = ct.sis_host(dyn_model, (DYN_Y,), DYN_N, seeds[1])
+        got, want = float(guided.mean("Mu")), dyn_exact_mean(DYN_Y)
+        g, p = float(guided.ess), float(prior.ess)
+        if not (g > 1.3 * p and abs(got - want) < 0.25):
+            raise AssertionError(f"csis dynamic: ESS {g} against the prior's {p}, mean {got} "
+                                 f"against {want}")
+        print(f"[{card}] csis dynamic: compile_vectorized {DYN_TRACES} traces in "
+              f"{t_train:.2f} s ({stats['n_buckets']} buckets), infer {DYN_N} serial particles "
+              f"in {t_infer:.2f} s; mean {got:.4f} (enumeration {want:.4f}), ESS {g:.1f} "
+              f"against the prior's {p:.1f}")
+
+        fn, args = entry()
+        log_w, states = fn(*args)
+        if log_w.shape != (128,) or states.shape != (128, 8) or not bool(
+                torch.isfinite(log_w).all()):
+            raise AssertionError(f"entry twin: {log_w.shape}, {states.shape}")
+        print("csis entry twin: log_w (128,), State (128, 8), finite")
+    for name, ms, launches, busy, mb, g, p in rows:
+        print(f"[{card}] csis infer {name:16s} n={CSIS_N}: {ms:9.4f} ms a call (median of "
+              f"{SIS_TIMED} synced), {launches:7.1f} launches a call, device busy share "
+              f"{busy:.4f}, {mb:.0f} MB at its peak, ESS {g:.1f} (prior {p:.1f})")
+    print("csis: README, HMM, tied HMM, offline, dynamic and the entry twin on the card, "
+          "training and infer under sync-debug \"error\" (the dynamic path aside), every "
+          "gate held")
+
+
+# ---------------------------------------------------------------------------
 # the roofline: K17-K21, the card's calibration
 
 CAL_CHECK_N = 1 << 20      # the calibrations' checks against the plain versions
@@ -3316,6 +3606,7 @@ def main():
                + guided_phases(card, stages) + r1_phases(card, stages))
     distribution_phases(card, stages)
     sis_phases(card, stages)
+    csis_phases(card, stages)
     calibrations, peaks = roofline_phases(card, stages)
     kernels += calibrations
     print(stages.report())

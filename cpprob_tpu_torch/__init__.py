@@ -23,6 +23,8 @@ from .core import (
     sample,
     scan_sites,
 )
+from .inference.csis import CSIS
+from .inference.csis_dynamic import DynamicCSIS, sis_host
 from .inference.sis import ImportanceResult, sis
 from .inference.smc import SMCResult, StateSpaceModel, build_smc_run, smc
 from .postprocess import EmpiricalDistribution, StatsPrinter
@@ -47,6 +49,9 @@ __all__ = [
     "sis",
     "smc",
     "build_smc_run",
+    "CSIS",
+    "DynamicCSIS",
+    "sis_host",
     "ImportanceResult",
     "SMCResult",
     "StateSpaceModel",

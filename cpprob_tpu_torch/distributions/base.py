@@ -39,6 +39,7 @@ __all__ = [
     "promote_to_result_dtype",
     "default_device",
     "to_device",
+    "to_host",
     "host_any",
 ]
 
@@ -70,6 +71,14 @@ def to_device(v, device, dtype=None) -> torch.Tensor:
     if device.type == "cuda" and host.device.type == "cpu":
         return host.pin_memory().to(device, non_blocking=True)
     return host.to(device)
+
+
+def to_host(x) -> np.ndarray:
+    """``x`` (a tensor, or anything ``np.asarray`` takes) as a host array; a
+    card's tensor is copied back, a sync."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def host_any(flag: torch.Tensor, caller: str) -> bool:

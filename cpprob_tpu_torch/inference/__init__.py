@@ -1,5 +1,8 @@
-"""Inference engines (so far: SIS, SMC, its resamplers, and guided SMC)."""
+"""Inference engines (so far: SIS, SMC, its resamplers, guided SMC, and
+CSIS with its dynamic-structure twin)."""
 
+from .csis import CSIS
+from .csis_dynamic import DynamicCSIS, sis_host
 from .resampling import ess, get_resampler, systematic_resample
 from .sis import (
     ImportanceResult,
@@ -13,7 +16,7 @@ from .sis import (
 from .smc import SMCResult, StateSpaceModel, build_smc_run, smc
 from .smc_csis import guide_ssm, train_ssm_proposal
 
-__all__ = ["sis", "sis_streaming", "sis_streaming_checkpointed",
+__all__ = ["CSIS", "DynamicCSIS", "sis_host", "sis", "sis_streaming", "sis_streaming_checkpointed",
            "make_particle_fn", "make_prior_fn", "ImportanceResult", "StreamingResult",
            "StateSpaceModel", "SMCResult", "smc", "build_smc_run", "ess",
            "get_resampler", "systematic_resample", "train_ssm_proposal",

@@ -4,7 +4,8 @@ Tests hand both packages the same inputs through these functions: HMM
 tables become the fused kernels' :class:`~cpprob_tpu_torch.ops.fused_hmm.HMMSpec`,
 a population or a chunk-glue carry taken from ``cpprob_tpu`` (converted
 with ``np.asarray``) becomes the port's tensors, and a proposal net of
-``cpprob_tpu.inference.nn`` becomes the port's (same layer layout).
+``cpprob_tpu.inference.nn`` or a CSIS parameter tree becomes the port's
+(same layout).
 Tensors go to the card unless the caller passes ``device="cpu"``.
 """
 
@@ -16,9 +17,10 @@ import numpy as np
 import torch
 
 from .ops.fused_hmm import MAX_K, HMMSpec
+from .util.pytree import tree_map
 
 __all__ = ["spec_from_numpy", "population_from_numpy", "carry_from_numpy",
-           "mlp_params_from_numpy"]
+           "mlp_params_from_numpy", "csis_params_from_numpy"]
 
 
 def spec_from_numpy(trans, means, stds, init_probs) -> HMMSpec:
@@ -82,3 +84,13 @@ def mlp_params_from_numpy(params, device="cuda"):
     :func:`cpprob_tpu_torch.inference.nn.mlp_init`."""
     return [{k: torch.as_tensor(np.array(layer[k], np.float32), device=device)
              for k in ("w", "b")} for layer in params]
+
+
+def csis_params_from_numpy(params, device="cuda"):
+    """The JAX package's CSIS parameter tree (dicts and lists of leaves
+    anything ``np.asarray`` takes: ``obs_net``, ``lstm``, ``value_emb``,
+    ``heads``) as the port's: the same tree of float32 tensors on
+    ``device``, which :class:`cpprob_tpu_torch.inference.csis.CSIS` takes as
+    its ``params``.  The weights carry across as they are (the LSTM's gate
+    layout and +1 forget bias are the reference's)."""
+    return tree_map(lambda a: torch.as_tensor(np.array(a, np.float32), device=device), params)

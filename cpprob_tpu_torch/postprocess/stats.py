@@ -26,11 +26,18 @@ class StatsPrinter:
 
     @classmethod
     def from_dump(cls, path: str, native: Optional[bool] = None):
-        """Build from a reference-format posterior dump on disk.  It needs
-        ``io/serialization.load_posterior``, which comes with slice 5."""
-        raise NotImplementedError(
-            "StatsPrinter.from_dump (io/serialization.load_posterior) is not "
-            "ported yet: it comes with slice 5 (CSIS)")
+        """Build from a reference-format posterior dump on disk — the
+        ``StatsPrinter{outfile}`` path (``stats_printer.hpp:25-40``): parse
+        ``<path>.ids`` + ``.int``/``.real`` (the native C++ parser when its
+        build loads, :func:`cpprob_tpu_torch.io.serialization.load_posterior`),
+        then summarize; the tensors stay on the CPU, where the file was
+        read and where the summary goes."""
+        from ..inference.sis import ImportanceResult
+        from ..io.serialization import load_posterior
+
+        predicts, log_w = load_posterior(path, native=native)
+        predicts = {k: torch.as_tensor(np.asarray(v)) for k, v in predicts.items() if len(v)}
+        return cls(ImportanceResult(torch.as_tensor(np.asarray(log_w)), predicts))
 
     def summary(self) -> Dict[str, dict]:
         out = {}

@@ -240,13 +240,21 @@ def test_batched_sis_draws_the_batches_in_turn():
         pt.sis(pm.gaussian_unknown_mean, (3.0, 4.0), n, 5, device="cpu", batch_size=300)
 
 
-def test_ess_and_stats_printer():
+def test_ess_and_stats_printer(tmp_path):
+    from cpprob_tpu_torch.io import dump_posterior
+
     res = pt.sis(pm.gaussian_unknown_mean_readme, (3.0, 4.0), 10_000, 0, device="cpu")
     assert 0 < float(res.ess) <= 10_000
     text = pt.StatsPrinter(res).print()
     assert "Mean" in text
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        pt.StatsPrinter.from_dump("posterior")
+    # from_dump (slice 5): a dump of the result summarizes as the result does
+    path = str(tmp_path / "posterior")
+    dump_posterior(path, res)
+    got = pt.StatsPrinter.from_dump(path).summary()["Mean"]
+    want = pt.StatsPrinter(res).summary()["Mean"]
+    assert got["kind"] == "real" and got["count"] == 10_000
+    np.testing.assert_allclose(got["mean"], want["mean"], rtol=1e-5)
+    np.testing.assert_allclose(got["variance"], want["variance"], rtol=1e-4)
 
 
 # --- streaming and checkpoints -------------------------------------------------

@@ -463,7 +463,10 @@ def test_port_imports_without_jax():
         "for m in ('core.handlers', 'core.primitives', 'core.scanner', 'inference.sis',\n"
         "          'postprocess.empirical', 'postprocess.stats', 'postprocess.diagnostics',\n"
         "          'util.numerics', 'models.gaussian', 'models.all_distr',\n"
-        "          'models.rejection', 'models.poly'):\n"
+        "          'models.rejection', 'models.poly', 'inference.nn', 'inference.csis',\n"
+        "          'inference.csis_dynamic', 'inference.regularize', 'io.serialization',\n"
+        "          'io.tracefile', 'util.checkpoint', 'util.logging', 'util.ndarray',\n"
+        "          'util.pytree', 'entry'):\n"
         "    assert 'cpprob_tpu_torch.' + m in names, (m, names)\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and (\n"
         "    m.startswith('jax') or m == 'cpprob_tpu'\n"
