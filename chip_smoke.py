@@ -151,26 +151,43 @@ and the script exits non-zero without printing its last line:
    bit; ``DynamicCSIS`` on ``tests/test_csis_dynamic.py``'s model; the
    entry twin; training ms a step and traces/s, ms an ``infer`` call,
    launches, busy share (``chiprun_out/csis_*_trace.json``), peak memory;
-12. the card's calibration (``roofline_phases``, K17-K21): each
+12. the gradient-based and second-level engines (``engine_phases``, slice
+   6, plain PyTorch under ``torch.func.vmap`` and ``torch.func.grad``, no
+   kernel of its own): the log-joint and its gradient at 4,096 positions
+   against the CPU's; ``hmc`` (4,096 chains) on the README Gaussian and
+   beta-Bernoulli, ``chees_hmc`` (4,096 chains, up to 64 leapfrogs),
+   ``nuts`` (1,024 chains, depth 6) on the README and the anisotropic
+   Gaussian, ``svi`` mean-field over 4 seeds and full-rank, the
+   posterior predictive over the HMC draws and the prior predictive at
+   2^20, ``smc_sampler`` at 2^20 (3 moves, waste-free, beta-Bernoulli),
+   ``particle_gibbs`` on the HMM (1,024 particles, 600 iterations) and
+   ``smc2`` at 1,024 x 1,024, each against its JAX test's oracle and
+   tolerance (4 SE + 0.02 over 4 seeds where an evidence is exact); each
+   engine's ms a call, ms a gradient, launches a transition, stage or
+   iteration, busy share (``chiprun_out/engine_*_trace.json``), peak
+   memory and host reads;
+13. the card's calibration (``roofline_phases``, K17-K21): each
    calibration kernel against its plain version at a reduced size (K17,
    K19, K20b exactly; K18, K20a, K21 within the tolerances stated at
    ``CAL_*``), then ``util/roofline.py``'s ``calibrate_peaks`` at the
    reference's sizes, counted; the peaks must be positive and below the
    datasheet's where it has one;
-13. the ``roofline`` JSON line: the peaks, the card, and for every kernel
+14. the ``roofline`` JSON line: the peaks, the card, and for every kernel
    entry its bound against the published peaks and its calibrated bound
    (``analyze_kernels``: the binding resource and the fraction, at most 1);
    the whole analysis in ``chiprun_out/roofline.json``;
-14. one JSON line on the 26 kernel entries (each with ``bound_ms``,
+15. one JSON line on the 26 kernel entries (each with ``bound_ms``,
    ``bound_by``, ``library_ms`` where one PyTorch call computes the same
    function, ``calibrated_bound_ms`` and ``calibrated_by``), the card line,
    and the result line ``{"ok": true, "device": {...}}``.
 
-Every timed sweep, every SIS call, and every CSIS training step and
-``infer`` call runs under ``torch.cuda.set_sync_debug_mode("error")``: none
-waits on the host (a rejection round's one host read is the counted
-exception; the dynamic-structure path reads sampled values by design and
-runs outside it).  Launch counts are set to 0 just before
+Every timed sweep, every SIS call, every CSIS training step and
+``infer`` call, and every engine call runs under
+``torch.cuda.set_sync_debug_mode("error")``: none waits on the host (a
+rejection round's one host read, and NUTS's, the tempered sampler's and
+SMC²'s reads of a loop's flag, are the counted exceptions; the
+dynamic-structure path reads sampled values by design and runs outside
+it).  Launch counts are set to 0 just before
 each path's sweeps and read just after; launches made to compare a kernel
 with its plain version are not counted on the ``kernels`` line.
 It needs a CUDA device and never falls back to the CPU.
@@ -3412,6 +3429,492 @@ def csis_phases(card, stages):
 
 
 # ---------------------------------------------------------------------------
+# the gradient-based and second-level engines: slice 6 (plain PyTorch, no
+# kernel of its own)
+
+# Chains are the cheap axis on a GPU and transitions the dear one (a
+# gradient is ~4 ms of host work whatever the chain count): the
+# transitions below are cut from 200 + 100 (HMC), 150 + 50 (ChEES) and
+# 150 + 100 (the anisotropic NUTS) to keep the phase near 150 s (PERF.md
+# §4)
+ENG_CHAINS = 4096          # HMC and ChEES chains
+ENG_HMC_WARMUP, ENG_HMC_SAMPLES, ENG_HMC_L = 100, 50, 16   # beta-Bernoulli: 25 samples
+ENG_CHEES_WARMUP, ENG_CHEES_SAMPLES, ENG_CHEES_L = 60, 20, 64
+ENG_NUTS_CHAINS, ENG_NUTS_DEPTH = 1024, 6      # the quickstart's max_depth
+ENG_NUTS_WARMUP, ENG_NUTS_SAMPLES = 150, 100   # the README Gaussian
+ENG_NUTS_ANISO_WARMUP, ENG_NUTS_ANISO_SAMPLES = 100, 50
+ENG_SVI_STEPS = 1500       # the quickstart's
+ENG_SVI_FR_STEPS = 3000    # tests/test_hmc_svi.py's full-rank run
+ENG_DRAWS = 1 << 20        # SVIResult.sample and the prior predictive
+ENG_SMC_N = 1 << 20        # the tempered sampler's particles
+ENG_PG_N, ENG_PG_ITERS, ENG_PG_BURN = 1024, 600, 100
+ENG_SMC2_N = 1024          # N_theta = N_x
+ENG_POSITIONS = 4096       # flatten_model: the card against the CPU
+ENG_FLAT_TOL = 1e-5        # relative, on the log-joint and its gradient
+ENG_SEEDS = 4              # 4 SE + 0.02 over seeds where an evidence is exact
+ENG_PROFILED = 2           # transitions, SVI steps / 4 or sweeps profiled
+ENG_GRAD_TIMED = 16        # back-to-back gradients timed
+BB_DATA = (1, 1, 1, 0, 1, 1, 0, 1, 1, 1)       # tests/test_hmc_svi.py:95-107
+REG_PTS = ((1, 2.1), (2, 3.9), (3, 5.3), (4, 7.7), (5, 10.2), (6, 12.9))
+FR_Y = (1.5, -0.5)         # tests/test_hmc_svi.py's correlated model
+
+
+def engine_models():
+    """The models of the engine phase, from the JAX package's tests:
+    beta-Bernoulli and the two-latent regression (``tests/test_hmc_svi.py``),
+    the anisotropic Gaussian (``tests/test_nuts.py:25-42``), the correlated
+    Gaussian of the full-rank guide, and ``tests/test_smc2.py``'s
+    random walk with an unknown observation scale."""
+    import cpprob_tpu_torch as ct
+    from cpprob_tpu_torch.distributions import (
+        Bernoulli,
+        Beta,
+        MultivariateNormalDiag,
+        Normal,
+    )
+    from cpprob_tpu_torch.inference.smc2 import ParamSSM
+
+    def beta_bernoulli(y):
+        p = ct.sample(Beta(2.0, 2.0), addr="p")
+        for i in range(len(y)):
+            ct.observe(Bernoulli(p), y[i], addr=f"y[{i}]")
+
+    def regression(points):
+        a = ct.sample(Normal(0.0, 10.0), addr="a")
+        b = ct.sample(Normal(0.0, 10.0), addr="b")
+        for i, (x, y) in enumerate(points):
+            ct.observe(Normal(a * x + b, 1.0), y, addr=f"y[{i}]")
+
+    def anisotropic():
+        ct.sample(MultivariateNormalDiag([1.0, -2.0], [10.0, 0.1]), addr="x")
+
+    def correlated(y):
+        x0 = ct.sample(Normal(0.0, 1.0), addr="x0")
+        x1 = ct.sample(Normal(0.0, 1.0), addr="x1")
+        ct.observe(Normal(x0 + x1, 0.5), y[0], addr="y0")
+        ct.observe(Normal(x1, 0.5), y[1], addr="y1")
+
+    def randn(g):
+        return torch.randn((), generator=g, device=g.device)
+
+    smc2_model = ParamSSM(
+        prior_sample=lambda g: {"log_sigma": 0.5 * randn(g)},
+        prior_logpdf=lambda th: Normal(0.0, 0.5, device=th["log_sigma"].device).log_prob(
+            th["log_sigma"]),
+        init_sample=lambda g, th: randn(g),
+        step_sample=lambda g, x, t, th: x + randn(g),
+        obs_logpdf=lambda x, y, t, th: Normal(x, torch.exp(th["log_sigma"])).log_prob(y),
+    )
+    return beta_bernoulli, regression, anisotropic, correlated, smc2_model
+
+
+def smc2_data():
+    """``tests/test_smc2.py``'s observations (T = 25, true sigma 1.5) and
+    the quadrature over log sigma of the Kalman evidence."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    x, ys = 0.0, []
+    for _ in range(25):
+        x = rng.normal(x, 1.0)
+        ys.append(rng.normal(x, 1.5))
+    ys = np.asarray(ys, np.float32)
+
+    def kalman_ll(r):
+        m, p, ll = 0.0, 1.0, 0.0
+        for y in ys.astype(np.float64):
+            s = p + r
+            ll += -0.5 * (y - m) ** 2 / s - 0.5 * math.log(2 * math.pi * s)
+            k = p / s
+            m, p = m + k * (y - m), (1.0 - k) * p + 1.0
+        return ll
+
+    grid = np.linspace(-1.6, 1.6, 81)
+    lp = np.array([kalman_ll(math.exp(2 * g)) - 0.5 * (g / 0.5) ** 2
+                   - math.log(0.5 * math.sqrt(2 * math.pi)) for g in grid])
+    w = np.exp(lp - lp.max())
+    log_z = math.log(float(((w[1:] + w[:-1]) / 2).sum() * (grid[1] - grid[0]))) + lp.max()
+    return ys, log_z
+
+
+def _engine_call(fn):
+    """``fn()`` under sync-debug "error", synced: (result, ms, the memory
+    it allocates at its peak beyond what was allocated before, in MB, host
+    reads counted in ``HOST_READS``)."""
+    from cpprob_tpu_torch.distributions.base import HOST_READS
+
+    before = dict(HOST_READS)
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = _no_sync(fn)
+    ms = (time.perf_counter() - t0) * 1e3
+    mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return out, ms, mb, sum(HOST_READS[k] - before[k] for k in HOST_READS)
+
+
+def _grad_ms(fn, z):
+    """ms a gradient evaluation of ``fn`` over the population ``z``,
+    back to back under sync-debug "error" (one sync at the end)."""
+    from cpprob_tpu_torch.inference.potential import batched_grad
+
+    vgrad = batched_grad(fn)
+    _no_sync(lambda: vgrad(z))
+    t0 = time.perf_counter()
+    _no_sync(lambda: [vgrad(z) for _ in range(ENG_GRAD_TIMED)])
+    return (time.perf_counter() - t0) * 1e3 / ENG_GRAD_TIMED
+
+
+def _device_profile(fn, trace, attempts=3):
+    """torch.profiler's device activity (no host operators: a trace of an
+    engine's host-bound call would hold hundreds of thousands) over one
+    call of ``fn``: kernel launches (the host's launch calls) and the
+    device's busy share.  Now and then the profiler delivers none or only
+    part of a window's device events while its launch calls are all there
+    (seen 128 s into a process, with no clock drift before or after), so a
+    window whose kernels fall short of its launches by more than 10 % is
+    taken again (up to 1 % of the launches have no kernel event in every
+    window: 1 of 8,658 in HMC's, 10 of 984 in SVI's).  The trace,
+    device events alone with names cut to 96 characters, goes to
+    chiprun_out/``trace``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = os.path.join(REPO, "chiprun_out", trace)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    for _ in range(attempts):
+        _sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            _sync()
+        prof.export_chrome_trace(out)
+        with open(out) as f:
+            events = json.load(f)["traceEvents"]
+        dev = [e for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+        kernels = sum(e.get("cat") == "kernel" for e in dev)
+        launches = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "LaunchKernel" in e.get("name", "") for e in events)
+        if dev and kernels >= 0.9 * launches:
+            break
+    else:
+        raise AssertionError(f"{trace}: {kernels} kernels recorded of {launches} launched")
+    with open(out, "w") as f:
+        json.dump({"traceEvents": [{k: (v[:96] if k == "name" else v) for k, v in e.items()
+                                    if k != "args"} for e in dev]}, f)
+    busy, _ = _busy_share(dev)
+    return launches, busy
+
+
+def _within(got, want, tol, what):
+    if not abs(got - want) <= tol:
+        raise AssertionError(f"engines {what}: {got} against {want} (tolerance {tol})")
+
+
+def engine_phases(card, stages):
+    """Slice 6 on the card (plain PyTorch under ``torch.func.vmap`` and
+    ``torch.func.grad``, every draw from one CUDA generator): the
+    log-joint and its gradient of three models at 4,096 positions against
+    the CPU's; ``hmc`` (4,096 chains, warmup 100, samples 50 or 25, 16
+    leapfrogs) on the README Gaussian and beta-Bernoulli, ``chees_hmc``
+    (4,096 chains, warmup 60, samples 20, up to 64 leapfrogs) and
+    ``nuts`` (1,024 chains, depth 6; warmup 150 and samples 100 on the
+    README Gaussian, 100 and 50 on the anisotropic Gaussian); ``svi`` mean-field (1,500
+    steps) and full-rank (3,000), ``SVIResult.sample`` at 2^20; the
+    posterior predictive over the HMC draws and the prior predictive at
+    2^20; ``smc_sampler`` at 2^20 (3 moves; waste-free, chains of 8;
+    beta-Bernoulli); ``particle_gibbs`` on the HMM (1,024 particles, 600
+    iterations, burn-in 100) against forward-backward; ``smc2`` at 1,024 x
+    1,024 against the Kalman quadrature.  The gates are the JAX tests'
+    tolerances, or 4 SE + 0.02 over 4 seeds where an evidence is exact.
+    Every call runs under sync-debug "error"; the counted host reads of
+    NUTS, the tempered sampler and SMC² are the only syncs.  Each engine's
+    ms a call, ms a gradient evaluation, launches a transition, stage,
+    step or iteration, busy share (``chiprun_out/engine_*_trace.json``),
+    peak memory and host reads."""
+    import numpy as np
+
+    import cpprob_tpu_torch as ct
+    from cpprob_tpu_torch import models as M
+    from cpprob_tpu_torch.inference.chees import chees_hmc, make_chees_kernel
+    from cpprob_tpu_torch.inference.hmc import make_hmc_kernel
+    from cpprob_tpu_torch.inference.nuts import make_nuts_kernel
+    from cpprob_tpu_torch.inference.potential import batched_grad, flatten_model
+    from cpprob_tpu_torch.inference.predictive import posterior_predictive, prior_predictive
+    from cpprob_tpu_torch.inference.smc2 import smc2
+    from cpprob_tpu_torch.inference.smc_sampler import _split_log_joint
+
+    dev = torch.device("cuda")
+    seeds = [CHECK_SEED + i for i in range(ENG_SEEDS)]
+    readme = (M.gaussian_unknown_mean_readme, (3.0, 4.0))
+    beta_bernoulli, regression, anisotropic, correlated, smc2_model = engine_models()
+    bb = (beta_bernoulli, (BB_DATA,))
+    rows = []
+
+    t_phase = time.perf_counter()
+
+    def row(name, ms, grad_ms, unit, prof, mb, reads):
+        launches, busy = prof
+        rows.append((name, ms, grad_ms, unit, launches, busy, mb, reads))
+        print(f"engines {name}: row recorded at {time.perf_counter() - t_phase:.1f} s of the "
+              "phase")
+
+    def profile(name, fn, units):
+        launches, busy = _device_profile(fn, f"engine_{name}_trace.json")
+        return launches / units, busy
+
+    def moments(res, addr):
+        x = res.samples[addr].reshape(-1).double()
+        return float(x.mean()), float(x.var())
+
+    with stages.stage("engines", sync=True):
+        # the log-joint and its gradient: the card against the CPU
+        for name, (model, args) in (("readme", readme), ("beta_bernoulli", bb),
+                                    ("regression", (regression, (REG_PTS,)))):
+            fc, fh = flatten_model(model, args, dev), flatten_model(model, args, "cpu")
+            g = torch.Generator().manual_seed(CHECK_SEED)
+            z = 1.5 * torch.randn((ENG_POSITIONS, fh.dim), generator=g)
+            zc = z.to(dev)
+            gc, uc = _no_sync(lambda: batched_grad(fc.potential)(zc))
+            lc = _no_sync(lambda: torch.func.vmap(fc.log_joint)(zc))
+            gh, uh = batched_grad(fh.potential)(z)
+            lh = torch.func.vmap(fh.log_joint)(z)
+            for what, a, b in (("log-joint", lc, lh), ("potential", uc, uh), ("gradient", gc, gh)):
+                err = float(((a.cpu() - b).abs() / (b.abs() + 1.0)).max())
+                if not err <= ENG_FLAT_TOL:
+                    raise AssertionError(f"engines flatten_model {name}: {what} {err} from the CPU")
+            print(f"engines flatten_model {name} (dim {fh.dim}) at {ENG_POSITIONS} positions: "
+                  f"log-joint and gradient on the card within {ENG_FLAT_TOL} (relative) of the CPU")
+
+        # HMC
+        flat = flatten_model(*readme, dev)
+        gen = torch.Generator(device=dev).manual_seed(CHECK_SEED)    # profiled transitions
+        for name, (model, args), n_samples in (("hmc_readme", readme, ENG_HMC_SAMPLES),
+                                               ("hmc_beta_bernoulli", bb, ENG_HMC_SAMPLES // 2)):
+            res, ms, mb, reads = _engine_call(lambda: ct.hmc(
+                model, args, seeds[0], n_samples=n_samples, n_warmup=ENG_HMC_WARMUP,
+                n_chains=ENG_CHAINS, max_leapfrog=ENG_HMC_L, device=dev))
+            if name == "hmc_readme":
+                hmc_readme = res
+                m, v = moments(res, "mu")
+                _within(m, README_MEAN, 0.05, "hmc README mean")
+                _within(v, README_VAR, 0.12, "hmc README variance")
+                _within(float(res.accept_rate.mean()), 1.0, 0.4, "hmc accept rate")
+                f = flat
+            else:
+                m, v = moments(res, "p")
+                _within(m, 10.0 / 14.0, 0.03, "hmc beta-Bernoulli mean")
+                if not 0.0 < float(res.samples["p"].min()) <= float(res.samples["p"].max()) < 1.0:
+                    raise AssertionError("hmc beta-Bernoulli: a draw off (0, 1)")
+                f = flatten_model(model, args, dev)
+            print(f"engines {name}: mean {m:.5f}, variance {v:.5f}, accept "
+                  f"{float(res.accept_rate.mean()):.4f}, step {float(res.step_size):.4f}")
+            z, eps, im = res.positions[:, -1].contiguous(), res.step_size, res.inv_mass
+            kernel = make_hmc_kernel(f.potential, ENG_HMC_L)
+            row(name, ms, _grad_ms(f.potential, z), "transition",
+                profile(name, lambda: [kernel(gen, z, eps, im) for _ in range(ENG_PROFILED)],
+                        ENG_PROFILED), mb, reads)
+
+        # ChEES
+        res, ms, mb, reads = _engine_call(lambda: chees_hmc(
+            *readme, seeds[0], n_samples=ENG_CHEES_SAMPLES, n_warmup=ENG_CHEES_WARMUP,
+            n_chains=ENG_CHAINS, max_leapfrog=ENG_CHEES_L, device=dev))
+        m, v = moments(res, "mu")
+        _within(m, README_MEAN, 0.05, "chees README mean")
+        _within(v, README_VAR, 0.12, "chees README variance")
+        _within(float(res.accept_rate.mean()), 1.0, 0.5, "chees accept rate")
+        print(f"engines chees_readme: mean {m:.5f}, variance {v:.5f}, accept "
+              f"{float(res.accept_rate.mean()):.4f}, step {float(res.step_size):.4f}")
+        z, eps, im = res.positions[:, -1].contiguous(), res.step_size, res.inv_mass
+        kernel = make_chees_kernel(flat.potential, ENG_CHEES_L)
+        n_sel = torch.ones((), dtype=torch.int32, device=dev)
+        row("chees_readme", ms, _grad_ms(flat.potential, z), "transition",
+            profile("chees_readme", lambda: kernel(gen, z, eps, im, n_sel), 1),
+            mb, reads)
+
+        # NUTS
+        for name, (model, args) in (("nuts_readme", readme), ("nuts_anisotropic", (anisotropic, ()))):
+            n_warmup, n_samples = ((ENG_NUTS_WARMUP, ENG_NUTS_SAMPLES) if name == "nuts_readme"
+                                   else (ENG_NUTS_ANISO_WARMUP, ENG_NUTS_ANISO_SAMPLES))
+            res, ms, mb, reads = _engine_call(lambda: ct.nuts(
+                model, args, seeds[0], n_samples=n_samples, n_warmup=n_warmup,
+                n_chains=ENG_NUTS_CHAINS, max_depth=ENG_NUTS_DEPTH, device=dev))
+            if name == "nuts_readme":
+                m, v = moments(res, "mu")
+                _within(m, README_MEAN, 0.05, "nuts README mean")
+                _within(v, README_VAR, 0.12, "nuts README variance")
+                _within(float(res.accept_rate.mean()), 1.0, 0.4, "nuts accept rate")
+                f, what = flat, f"mean {m:.5f}, variance {v:.5f}"
+            else:
+                x = res.samples["x"].reshape(-1, 2).double()
+                mx, sx = x.mean(0).tolist(), x.std(0).tolist()
+                _within(mx[0], 1.0, 0.6, "nuts anisotropic mean x0")
+                _within(mx[1], -2.0, 0.02, "nuts anisotropic mean x1")
+                _within(sx[0], 10.0, 1.5, "nuts anisotropic std x0")
+                _within(sx[1], 0.1, 0.02, "nuts anisotropic std x1")
+                f = flatten_model(model, args, dev)
+                what = f"means {mx[0]:.4f}, {mx[1]:.5f}, stds {sx[0]:.4f}, {sx[1]:.5f}"
+            print(f"engines {name}: {what}, accept {float(res.accept_rate.mean()):.4f}, step "
+                  f"{float(res.step_size):.4f}, host reads {reads} "
+                  f"({reads / (n_warmup + n_samples):.2f} a transition)")
+            z, eps, im = res.positions[:, -1].contiguous(), res.step_size, res.inv_mass
+            kernel = make_nuts_kernel(f.potential, ENG_NUTS_DEPTH)
+            row(name, ms, _grad_ms(f.potential, z), "transition",
+                profile(name, lambda: [kernel(gen, z, eps, im) for _ in range(ENG_PROFILED)],
+                        ENG_PROFILED), mb, reads)
+
+        # SVI: mean-field over seeds, full-rank on the correlated model
+        means, variances, times = [], [], []
+        for s in seeds:
+            res, ms, mb, reads = _engine_call(lambda: ct.svi(
+                *readme, s, steps=ENG_SVI_STEPS, device=dev))
+            draws, d_ms, d_mb, _ = _engine_call(lambda: res.sample(s, ENG_DRAWS))
+            x = draws["mu"].double()
+            means.append(float(x.mean()))
+            variances.append(float(x.var()))
+            times.append(ms)
+            if not float(res.losses[-50:].mean()) < float(res.losses[:50].mean()):
+                raise AssertionError("svi: the loss did not fall")
+        m, v = statistics.mean(means), statistics.mean(variances)
+        _within(m, README_MEAN, 0.06, f"svi mean-field mean over {ENG_SEEDS} seeds")
+        _within(v, README_VAR, 0.15, f"svi mean-field variance over {ENG_SEEDS} seeds")
+        print(f"engines svi mean-field ({ENG_SVI_STEPS} steps, {ENG_SEEDS} seeds): mean {m:.5f} "
+              f"(SE {statistics.stdev(means) / 2:.5f}), variance {v:.5f} (SE "
+              f"{statistics.stdev(variances) / 2:.5f}); sample at {ENG_DRAWS}: {d_ms:.4f} ms, "
+              f"{d_mb:.0f} MB")
+        steps_prof = ENG_PROFILED * 4
+        row("svi_meanfield", statistics.median(times), statistics.median(times) / ENG_SVI_STEPS,
+            "step",
+            profile("svi_meanfield", lambda: ct.svi(*readme, seeds[0], steps=steps_prof,
+                                                    device=dev), steps_prof), mb, reads)
+        fr = (correlated, (FR_Y,))
+        res, ms, mb, reads = _engine_call(lambda: ct.svi(
+            *fr, seeds[0], guide="fullrank", steps=ENG_SVI_FR_STEPS, n_mc=16,
+            learning_rate=0.02, device=dev))
+        a = np.array([[1.0, 1.0], [0.0, 1.0]])
+        cov = np.linalg.inv(np.eye(2) + a.T @ a / 0.25)
+        mu = cov @ a.T @ np.array(FR_Y) / 0.25
+        q_cov = res.covariance_unconstrained().double().cpu().numpy()
+        q_mu = res.loc.double().cpu().numpy()
+        if not (np.abs(q_mu - mu).max() <= 0.08 and np.abs(q_cov - cov).max() <= 0.05):
+            raise AssertionError(f"svi full-rank: loc {q_mu} against {mu}, covariance {q_cov} "
+                                 f"against {cov}")
+        corr = q_cov[0, 1] / math.sqrt(q_cov[0, 0] * q_cov[1, 1])
+        corr_true = cov[0, 1] / math.sqrt(cov[0, 0] * cov[1, 1])
+        _within(corr, corr_true, 0.15, "svi full-rank correlation")
+        draws = _no_sync(lambda: res.sample(seeds[0], ENG_DRAWS))
+        emp = torch.stack([draws["x0"], draws["x1"]], 1).double().cpu().numpy()
+        if not np.abs(np.cov(emp.T) - q_cov).max() <= 0.01:
+            raise AssertionError("svi full-rank: the draws' covariance is not q's")
+        print(f"engines svi full-rank ({ENG_SVI_FR_STEPS} steps): loc {q_mu.round(5).tolist()} "
+              f"(exact {mu.round(5).tolist()}), correlation {corr:.4f} (exact {corr_true:.4f})")
+        row("svi_fullrank", ms, ms / ENG_SVI_FR_STEPS, "step",
+            profile("svi_fullrank", lambda: ct.svi(*fr, seeds[0], guide="fullrank",
+                                                   steps=steps_prof, n_mc=16, device=dev),
+                    steps_prof), mb, reads)
+
+        # predictive: over the HMC draws, and from the prior
+        post = {"mu": hmc_readme.samples["mu"].reshape(-1)}
+        (obs_rep, preds), ms, mb, reads = _engine_call(
+            lambda: posterior_predictive(*readme, post, seeds[0]))
+        y1 = obs_rep["y1"].double()
+        _within(float(y1.mean()), README_MEAN, 0.2, "posterior predictive mean")
+        _within(float(y1.var()), README_VAR + 4.0, 0.5, "posterior predictive variance")
+        row("posterior_predictive", ms, None, "call",
+            profile("posterior_predictive", lambda: posterior_predictive(*readme, post, 1), 1),
+            mb, reads)
+        (lat, obs), ms2, mb2, _ = _engine_call(
+            lambda: prior_predictive(readme[0], (0.0, 0.0), ENG_DRAWS, seeds[0], device=dev))
+        _within(float(lat["mu"].double().mean()), 1.0, 0.1, "prior predictive mean")
+        _within(float(lat["mu"].double().std()), 1.5, 0.1, "prior predictive std")
+        _within(float(obs["y1"].double().var()), 1.5 ** 2 + 4.0, 0.4, "prior predictive y var")
+        print(f"engines predictive: posterior over {post['mu'].shape[0]} HMC draws, y1 mean "
+              f"{float(y1.mean()):.5f}, variance {float(y1.var()):.5f}; prior at {ENG_DRAWS}: "
+              f"mu mean {float(lat['mu'].mean()):.5f}, std {float(lat['mu'].std()):.5f}")
+        row("prior_predictive", ms2, None, "call",
+            profile("prior_predictive", lambda: prior_predictive(
+                readme[0], (0.0, 0.0), ENG_DRAWS, 1, device=dev), 1), mb2, 0)
+
+        # the tempered SMC sampler
+        det = 6.25 ** 2 - 2.25 ** 2
+        quad = (6.25 * (2.0 ** 2 + 3.0 ** 2) - 2 * 2.25 * 2.0 * 3.0) / det
+        readme_logz = -0.5 * quad - 0.5 * math.log(det) - math.log(2 * math.pi)
+        bb_logz = (math.lgamma(10) + math.lgamma(4) - math.lgamma(14)
+                   - (2 * math.lgamma(2) - math.lgamma(4)))
+        for name, (model, args), kw, addr, want, tols in (
+                ("smc_sampler_readme", readme, dict(n_hmc_moves=3, hmc_step_size=0.5), "mu",
+                 (README_MEAN, README_VAR, readme_logz), (0.08, 0.25)),
+                ("smc_sampler_waste_free", readme, dict(waste_free=True, chain_length=8,
+                                                        hmc_step_size=0.5), "mu",
+                 (README_MEAN, README_VAR, readme_logz), (0.08, 0.25)),
+                ("smc_sampler_beta_bernoulli", bb, dict(hmc_step_size=0.3), "p",
+                 (10.0 / 14.0, None, bb_logz), (0.03, None))):
+            calls = [_engine_call(lambda: ct.smc_sampler(model, args, ENG_SMC_N, s, device=dev,
+                                                         **kw)) for s in seeds]
+            lz = [float(c[0].log_evidence) for c in calls]
+            mean_lz, se = statistics.mean(lz), statistics.stdev(lz) / math.sqrt(len(lz))
+            _within(mean_lz, want[2], 4 * se + SIS_FLOOR, f"{name} log-evidence")
+            m = statistics.mean(float(c[0].samples[addr].double().mean()) for c in calls)
+            _within(m, want[0], tols[0], f"{name} mean")
+            if want[1] is not None:
+                v = statistics.mean(float(c[0].samples[addr].double().var()) for c in calls)
+                _within(v, want[1], tols[1], f"{name} variance")
+            res, ms, mb, reads = calls[0]
+            stages_n = int(res.n_stages)
+            print(f"engines {name} n={ENG_SMC_N}: log-evidence {mean_lz:.6f} (SE {se:.6f}, "
+                  f"exact {want[2]:.6f}), mean {m:.5f}, {stages_n} stages, accept "
+                  f"{float(res.accept_rate):.4f}")
+            lik_prior = _split_log_joint(model, args, flatten_model(model, args, dev))
+            z = res.positions
+            row(name, statistics.median(c[1] for c in calls),
+                _grad_ms(lambda q: -(lik_prior[0](q) + lik_prior[1](q)), z), "stage",
+                profile(name, lambda: ct.smc_sampler(model, args, ENG_SMC_N, seeds[1],
+                                                     device=dev, **kw), stages_n), mb, reads)
+
+        # particle Gibbs on the HMM, the headline observations
+        obs = _observations(dev)
+        hmm_exact = M.hmm_exact_posterior(obs.cpu().numpy())
+        (trajs, log_zs), ms, mb, reads = _engine_call(lambda: ct.particle_gibbs(
+            M.hmm_ssm, obs, ENG_PG_N, ENG_PG_ITERS, seeds[0], burn_in=ENG_PG_BURN, device=dev))
+        emp = torch.stack([(trajs == k).double().mean(0) for k in range(3)], 1).cpu().numpy()
+        err = float(np.abs(emp - hmm_exact).max())
+        if not (err <= 0.08 and bool(torch.isfinite(log_zs).all())):
+            raise AssertionError(f"particle_gibbs: marginals {err} from forward-backward")
+        print(f"engines particle_gibbs N={ENG_PG_N}, {ENG_PG_ITERS} iterations: marginals within "
+              f"{err:.4f} of forward-backward, mean log Z {float(log_zs.mean()):.5f}")
+        row("particle_gibbs", ms, None, "sweep",
+            profile("particle_gibbs", lambda: ct.particle_gibbs(
+                M.hmm_ssm, obs, ENG_PG_N, ENG_PROFILED, seeds[1], device=dev), ENG_PROFILED),
+            mb, reads)
+
+        # SMC²
+        ys, smc2_logz = smc2_data()
+        calls = [_engine_call(lambda: smc2(smc2_model, ys, ENG_SMC2_N, ENG_SMC2_N, s, device=dev))
+                 for s in seeds]
+        lz = [float(c[0].log_evidence) for c in calls]
+        mean_lz, se = statistics.mean(lz), statistics.stdev(lz) / math.sqrt(len(lz))
+        _within(mean_lz, smc2_logz, 4 * se + SIS_FLOOR, "smc2 log-evidence")
+        sig = statistics.mean(float(c[0].mean(lambda th: torch.exp(th["log_sigma"])))
+                              for c in calls)
+        _within(sig, 1.5, 0.45, "smc2 sigma")
+        res, ms, mb, reads = calls[0]
+        print(f"engines smc2 {ENG_SMC2_N} x {ENG_SMC2_N}, T={len(ys)}: log-evidence "
+              f"{mean_lz:.6f} (SE {se:.6f}, quadrature {smc2_logz:.6f}), sigma {sig:.4f}, "
+              f"{int(res.rejuvenations.sum())} rejuvenations, accept {float(res.accept_rate):.4f}")
+        row("smc2", statistics.median(c[1] for c in calls), None, "step",
+            profile("smc2", lambda: smc2(smc2_model, ys, ENG_SMC2_N, ENG_SMC2_N, seeds[1],
+                                         device=dev), len(ys) - 1), mb, reads)
+    for name, ms, grad_ms, unit, launches, busy, mb, reads in rows:
+        g = "no gradient" if grad_ms is None else f"{grad_ms:.4f} ms a gradient"
+        print(f"[{card}] engine {name:27s}: {ms:10.2f} ms a call (synced), {g}, "
+              f"{launches:8.1f} launches a {unit}, device busy share {busy:.4f}, "
+              f"{mb:.0f} MB at its peak, host reads {reads}")
+    print("engines: flatten_model, hmc, chees_hmc, nuts, svi, predictive, smc_sampler, "
+          "particle_gibbs and smc2 on the card under sync-debug \"error\" (the counted reads "
+          "aside), every gate held")
+
+
+# ---------------------------------------------------------------------------
 # the roofline: K17-K21, the card's calibration
 
 CAL_CHECK_N = 1 << 20      # the calibrations' checks against the plain versions
@@ -3607,6 +4110,7 @@ def main():
     distribution_phases(card, stages)
     sis_phases(card, stages)
     csis_phases(card, stages)
+    engine_phases(card, stages)
     calibrations, peaks = roofline_phases(card, stages)
     kernels += calibrations
     print(stages.report())

@@ -25,8 +25,13 @@ from .core import (
 )
 from .inference.csis import CSIS
 from .inference.csis_dynamic import DynamicCSIS, sis_host
+from .inference.hmc import hmc
+from .inference.nuts import nuts
+from .inference.particle_gibbs import particle_gibbs
 from .inference.sis import ImportanceResult, sis
 from .inference.smc import SMCResult, StateSpaceModel, build_smc_run, smc
+from .inference.smc_sampler import smc_sampler
+from .inference.svi import svi
 from .postprocess import EmpiricalDistribution, StatsPrinter
 from .util.cpu_math import warm_vector_math
 
@@ -49,9 +54,14 @@ __all__ = [
     "sis",
     "smc",
     "build_smc_run",
+    "smc_sampler",
+    "particle_gibbs",
     "CSIS",
     "DynamicCSIS",
     "sis_host",
+    "hmc",
+    "nuts",
+    "svi",
     "ImportanceResult",
     "SMCResult",
     "StateSpaceModel",

@@ -44,8 +44,10 @@ __all__ = [
 ]
 
 # host reads of a flag by :func:`host_any`, by caller: each is one
-# synchronisation with the card
-HOST_READS = {"rejection_sample": 0, "truncated": 0}
+# synchronisation with the card (the rejection rounds; NUTS's doublings and
+# leapfrog steps; the tempered sampler's stages; SMC²'s rejuvenation test)
+HOST_READS = {"rejection_sample": 0, "truncated": 0, "nuts": 0, "smc_sampler": 0,
+              "smc2": 0}
 
 
 def default_device() -> torch.device:

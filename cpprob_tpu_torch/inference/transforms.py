@@ -28,6 +28,7 @@ from ..distributions import (
     Truncated,
     Uniform,
 )
+from ..distributions.base import to_device
 
 __all__ = ["Transform", "IDENTITY", "biject_for"]
 
@@ -58,8 +59,9 @@ def _positive() -> Transform:
 
 
 def _interval(low, high, device) -> Transform:
-    low = torch.as_tensor(low, dtype=torch.float32, device=device)
-    high = torch.as_tensor(high, dtype=torch.float32, device=device)
+    # placed without a sync (``torch.as_tensor`` onto the card waits on it)
+    low = to_device(low, device, torch.float32)
+    high = to_device(high, device, torch.float32)
     width = high - low
 
     def fwd(z):

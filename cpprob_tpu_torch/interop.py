@@ -5,7 +5,8 @@ tables become the fused kernels' :class:`~cpprob_tpu_torch.ops.fused_hmm.HMMSpec
 a population or a chunk-glue carry taken from ``cpprob_tpu`` (converted
 with ``np.asarray``) becomes the port's tensors, and a proposal net of
 ``cpprob_tpu.inference.nn`` or a CSIS parameter tree becomes the port's
-(same layout).
+(same layout), and an ``SVIResult``'s parameters or an ``smc2`` θ
+population the port's result types.
 Tensors go to the card unless the caller passes ``device="cpu"``.
 """
 
@@ -20,7 +21,12 @@ from .ops.fused_hmm import MAX_K, HMMSpec
 from .util.pytree import tree_map
 
 __all__ = ["spec_from_numpy", "population_from_numpy", "carry_from_numpy",
-           "mlp_params_from_numpy", "csis_params_from_numpy"]
+           "mlp_params_from_numpy", "csis_params_from_numpy", "svi_result_from_numpy",
+           "theta_from_numpy"]
+
+
+def _f32(a, device):
+    return torch.as_tensor(np.array(a, np.float32), device=device)
 
 
 def spec_from_numpy(trans, means, stds, init_probs) -> HMMSpec:
@@ -93,4 +99,23 @@ def csis_params_from_numpy(params, device="cuda"):
     ``device``, which :class:`cpprob_tpu_torch.inference.csis.CSIS` takes as
     its ``params``.  The weights carry across as they are (the LSTM's gate
     layout and +1 forget bias are the reference's)."""
-    return tree_map(lambda a: torch.as_tensor(np.array(a, np.float32), device=device), params)
+    return tree_map(lambda a: _f32(a, device), params)
+
+
+def svi_result_from_numpy(loc, log_scale, flat, scale_tril=None, device="cuda"):
+    """An ``SVIResult`` of the port on the JAX package's variational
+    parameters (``loc``, ``log_scale`` and, for the full-rank guide,
+    ``scale_tril``: anything ``np.asarray`` takes) and the port's
+    ``FlatModel`` of the same model; no losses."""
+    from .inference.svi import SVIResult
+
+    return SVIResult(_f32(loc, device), _f32(log_scale, device),
+                     torch.zeros((0,), device=device), flat,
+                     None if scale_tril is None else _f32(scale_tril, device))
+
+
+def theta_from_numpy(tree, device="cuda"):
+    """A θ pytree (dicts and lists of leaves anything ``np.asarray`` takes,
+    e.g. an ``smc2`` population's ``thetas``) as float32 tensors on
+    ``device``, in the same tree."""
+    return tree_map(lambda a: _f32(a, device), tree)

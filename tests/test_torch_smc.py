@@ -466,7 +466,10 @@ def test_port_imports_without_jax():
         "          'models.rejection', 'models.poly', 'inference.nn', 'inference.csis',\n"
         "          'inference.csis_dynamic', 'inference.regularize', 'io.serialization',\n"
         "          'io.tracefile', 'util.checkpoint', 'util.logging', 'util.ndarray',\n"
-        "          'util.pytree', 'entry'):\n"
+        "          'util.pytree', 'entry', 'inference.potential', 'inference.hmc',\n"
+        "          'inference.chees', 'inference.nuts', 'inference.svi',\n"
+        "          'inference.predictive', 'inference.smc_sampler',\n"
+        "          'inference.particle_gibbs', 'inference.smc2'):\n"
         "    assert 'cpprob_tpu_torch.' + m in names, (m, names)\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and (\n"
         "    m.startswith('jax') or m == 'cpprob_tpu'\n"
