@@ -166,17 +166,34 @@ and the script exits non-zero without printing its last line:
    engine's ms a call, ms a gradient, launches a transition, stage or
    iteration, busy share (``chiprun_out/engine_*_trace.json``), peak
    memory and host reads;
-13. the card's calibration (``roofline_phases``, K17-K21): each
+13. multi-device execution (``parallel_phases``, slice 7, no kernel of
+   its own; the chunked sharded path runs the model's chunk kernel on each
+   rank): at world size 1 over NCCL in this process, ``smc_sharded(
+   make_fused_lg_ssm(), ..., 2^24, chunk=8)`` under ``balanced``,
+   ``collective`` and ``island`` (4 seeds each against Kalman; balanced
+   equal to collective bit for bit), path 7's guided LG model on K12's
+   tensor-core twin under ``balanced``, the HMM per step at 2^20 under
+   ``exchange`` and ``island`` (the HMM's chunked sharded sweep refused, as
+   the reference's), ``sis_sharded`` on the README Gaussian at 2^20,
+   ``CSIS.compile(mesh=)`` and ``infer(mesh=)``, each under sync-debug
+   "error" (the counted reads of ``HOST_READS["smc_sharded"]`` allowed),
+   timed beside its single-device call; then two gloo worker processes
+   sharing the card (``--parallel-worker``: ``dryrun_multichip(2)``, the LG
+   sweep at 2^24 in total under ``balanced`` and ``collective``, equal bit
+   for bit across the processes, each rank's K7 chunk against its plain
+   version with the rank's own seed, the bytes an epoch sends), each with
+   its own timeout;
+14. the card's calibration (``roofline_phases``, K17-K21): each
    calibration kernel against its plain version at a reduced size (K17,
    K19, K20b exactly; K18, K20a, K21 within the tolerances stated at
    ``CAL_*``), then ``util/roofline.py``'s ``calibrate_peaks`` at the
    reference's sizes, counted; the peaks must be positive and below the
    datasheet's where it has one;
-14. the ``roofline`` JSON line: the peaks, the card, and for every kernel
+15. the ``roofline`` JSON line: the peaks, the card, and for every kernel
    entry its bound against the published peaks and its calibrated bound
    (``analyze_kernels``: the binding resource and the fraction, at most 1);
    the whole analysis in ``chiprun_out/roofline.json``;
-15. one JSON line on the 26 kernel entries (each with ``bound_ms``,
+16. one JSON line on the 26 kernel entries (each with ``bound_ms``,
    ``bound_by``, ``library_ms`` where one PyTorch call computes the same
    function, ``calibrated_bound_ms`` and ``calibrated_by``), the card line,
    and the result line ``{"ok": true, "device": {...}}``.
@@ -245,6 +262,9 @@ LSE_F64_OPS = 204 / 16
 # Entries read on the roofline line only (a kernel's other configuration,
 # not a kernel of its own: K3 is K2's kernel without the island check).
 ROOFLINE_EXTRA = []
+# the proposal nets train_guides trained, by name ("lg", "chain"), for the
+# phases after the guided one
+TRAINED_NETS = {}
 
 
 def _sync():
@@ -1898,6 +1918,7 @@ def train_guides(card, stages):
         if not last < first:
             raise AssertionError(f"the {name} net's loss did not fall")
         nets[name] = params
+    TRAINED_NETS.update(nets)
     return nets["lg"], nets["chain"]
 
 
@@ -2962,29 +2983,6 @@ def _busy_share(events):
     return busy / span, span
 
 
-def _profile_calls(fn, calls, trace):
-    """torch.profiler over ``calls`` back-to-back calls of ``fn``: device
-    operations a call and the device's busy share; the trace goes to
-    chiprun_out/``trace``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        _sync()
-    out = os.path.join(REPO, "chiprun_out", trace)
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    prof.export_chrome_trace(out)
-    with open(out) as f:
-        events = json.load(f)["traceEvents"]
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    if not dev:
-        raise AssertionError(f"{trace}: the profiler recorded no device activity")
-    busy, _ = _busy_share(dev)
-    return len([e for e in dev if e.get("cat") == "kernel"]) / calls, busy
-
-
 def _time_calls(fn, calls=SIS_TIMED):
     """Median ms of ``calls`` synced calls after one warm-up, each under
     sync-debug "error", and the memory one call allocates at its peak
@@ -3048,7 +3046,7 @@ def sis_phases(card, stages):
         reads = [n for _, n in calls.values()]
         fn = lambda: ct.sis(model, args, SIS_N, seeds[0], device=dev)
         ms, mb = _time_calls(fn)
-        launches, busy = _profile_calls(fn, 2, f"sis_{name}_trace.json")
+        launches, busy = _device_profile(fn, f"sis_{name}_trace.json", calls=2)
         rows.append((name, ms, launches, busy, mb, max(reads)))
         res = calls[seeds[0]][0]
         if res.log_weights.shape != (SIS_N,) or res.log_weights.device.type != dev.type:
@@ -3136,7 +3134,7 @@ def sis_phases(card, stages):
         lz = _seed_gate(vals, lg_exact, "per-particle SMC log-evidence")
         smc_fn = lambda: ct.smc(pp, lg_obs, SIS_N, seeds[0])
         smc_ms, smc_mb = _time_calls(smc_fn, 4)
-        smc_launches, smc_busy = _profile_calls(smc_fn, 1, "sis_pp_smc_trace.json")
+        smc_launches, smc_busy = _device_profile(smc_fn, "sis_pp_smc_trace.json")
         print(f"per-particle SMC (LG, vmapped hooks) n={SIS_N}: log-evidence {lz[0][0]:.6f} "
               f"(SE {lz[0][1]:.6f}, Kalman {lg_exact:.6f})")
     for name, ms, launches, busy, mb, reads in rows:
@@ -3290,7 +3288,7 @@ def csis_phases(card, stages):
     def measure(name, fn, guided, prior):
         ms, mb = _time_calls(fn)
         # one call: an HMM call's trace is ~6 MB
-        launches, busy = _profile_calls(fn, 1, f"csis_{name}_trace.json")
+        launches, busy = _device_profile(fn, f"csis_{name}_trace.json")
         g, p = float(guided.ess), float(prior.ess)
         rows.append((name, ms, launches, busy, mb, g, p))
         return g, p
@@ -3566,35 +3564,41 @@ def _grad_ms(fn, z):
     return (time.perf_counter() - t0) * 1e3 / ENG_GRAD_TIMED
 
 
-def _device_profile(fn, trace, attempts=3):
+def _device_profile(fn, trace, calls=1, attempts=3):
     """torch.profiler's device activity (no host operators: a trace of an
-    engine's host-bound call would hold hundreds of thousands) over one
-    call of ``fn``: kernel launches (the host's launch calls) and the
-    device's busy share.  Now and then the profiler delivers none or only
-    part of a window's device events while its launch calls are all there
-    (seen 128 s into a process, with no clock drift before or after), so a
+    engine's host-bound call would hold hundreds of thousands) over
+    ``calls`` back-to-back calls of ``fn``: kernel launches a call (the
+    host's launch calls) and the device's busy share.
+
+    The profiler records no kernel for the launches of the first ~1.3 ms
+    of its window (11 of a README SIS window's 86, all before the first
+    kernel event), so the window opens with 32 warm-up launches, a
+    device sync and 20 ms of sleep, and only what follows that sync is
+    counted.  Now and then it also delivers none or only part of a
+    window's device events while its launch calls are all there (seen
+    128 s into a process, with no clock drift before or after), so a
     window whose kernels fall short of its launches by more than 10 % is
-    taken again (up to 1 % of the launches have no kernel event in every
-    window: 1 of 8,658 in HMC's, 10 of 984 in SVI's).  The trace,
+    taken again, up to ``attempts`` windows.  The trace, the counted
     device events alone with names cut to 96 characters, goes to
     chiprun_out/``trace``."""
     from torch.profiler import ProfilerActivity, profile
 
     out = os.path.join(REPO, "chiprun_out", trace)
     os.makedirs(os.path.dirname(out), exist_ok=True)
+    warm = torch.zeros(1, device="cuda")
     for _ in range(attempts):
         _sync()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(32):
+                warm.add_(1)
+            _sync()
+            time.sleep(0.02)
+            for _ in range(calls):
+                fn()
             _sync()
         prof.export_chrome_trace(out)
         with open(out) as f:
-            events = json.load(f)["traceEvents"]
-        dev = [e for e in events
-               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-        kernels = sum(e.get("cat") == "kernel" for e in dev)
-        launches = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
-                       and "LaunchKernel" in e.get("name", "") for e in events)
+            dev, kernels, launches = _counted_window(json.load(f)["traceEvents"])
         if dev and kernels >= 0.9 * launches:
             break
     else:
@@ -3603,7 +3607,25 @@ def _device_profile(fn, trace, attempts=3):
         json.dump({"traceEvents": [{k: (v[:96] if k == "name" else v) for k, v in e.items()
                                     if k != "args"} for e in dev]}, f)
     busy, _ = _busy_share(dev)
-    return launches, busy
+    return launches / calls, busy
+
+
+def _counted_window(events):
+    """The part of a profiler window after its first device sync (the
+    warm-up's): its device events, the kernels among them whose launch
+    falls after the sync, and those launches."""
+    syncs = [e for e in events
+             if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaDeviceSynchronize"]
+    after = min(e["ts"] + e.get("dur", 0) for e in syncs) if syncs else float("-inf")
+    launched = {e.get("args", {}).get("correlation") for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "LaunchKernel" in e.get("name", "") and e["ts"] >= after}
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
+           and e["ts"] >= after]
+    kernels = sum(e.get("cat") == "kernel"
+                  and e.get("args", {}).get("correlation") in launched for e in dev)
+    return dev, kernels, len(launched)
 
 
 def _within(got, want, tol, what):
@@ -3914,6 +3936,335 @@ def engine_phases(card, stages):
           "aside), every gate held")
 
 
+# --------------------------------------------------------------------------
+# slice 7: multi-device execution (parallel_phases)
+
+PAR_SEEDS = 4              # 4 SE + 0.02 over seeds, __graft_entry__.py:57-63
+PAR_TIMED = 8              # sweeps timed back to back by CUDA events
+PAR_HMM_N = 1 << 20        # the HMM per step, path 4's population
+PAR_CSIS_STEPS = 100       # data-parallel training steps on the README Gaussian
+PAR_WORLD2_SEEDS = 4       # the gloo pair's LG sweeps a scheme
+PAR_WORKER_TIMEOUT = 420   # seconds, each gloo worker
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sharded_sweeps(card, run, seeds, counters, what, exact):
+    """``seeds`` sweeps of ``run(seed)`` under sync-debug "error" (the
+    counted host reads alone are allowed), the launch counters set to 0
+    just before and read just after; logZ against ``exact`` within 4 SE +
+    0.02.  Returns (results, launches, host reads a sweep)."""
+    from cpprob_tpu_torch.distributions.base import HOST_READS
+
+    run(40_000)
+    _sync()
+    for c in counters:
+        for name in c:
+            c[name] = 0
+    reads0 = HOST_READS["smc_sharded"]
+    results = [_no_sync(lambda s=s: run(s)) for s in range(seeds)]
+    launches = {name: v for c in counters for name, v in c.items() if v}
+    reads = (HOST_READS["smc_sharded"] - reads0) / seeds
+    zs = [float(r.log_evidence) for r in results]
+    (mean, se), = _seed_gate(zs, exact, what)
+    epochs = [int(r.resampled.sum()) for r in results]
+    print(f"[{card}]   {what}: mean logZ={mean:.6f} SE={se:.3g} exact={exact:.6f}; epochs "
+          f"{epochs}; launches {launches}; host reads a sweep {reads:.2f}")
+    return results, launches, reads
+
+
+def parallel_phases(card, stages):
+    """Slice 7 at world size 1 over NCCL in this process, then at world
+    size 2 over gloo, two worker processes sharing the card
+    (:func:`parallel_worker`).  Fails on any gate."""
+    import subprocess
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from cpprob_tpu_torch import CSIS, build_smc_run, sis
+    from cpprob_tpu_torch.models import (
+        gaussian_unknown_mean_readme,
+        hmm_ssm,
+    )
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        kalman_filter_1d,
+        linear_gaussian_ssm,
+        simulate_observations,
+    )
+    from cpprob_tpu_torch.ops import fused_lg, guided_tc
+    from cpprob_tpu_torch.ops.fused_hmm import make_fused_hmm_ssm
+    from cpprob_tpu_torch.ops.fused_lg import make_fused_lg_ssm
+    from cpprob_tpu_torch.ops.fused_ssm import attach_fused_guided_scalar_kernels
+    from cpprob_tpu_torch.parallel import (
+        initialize_multihost,
+        particle_mesh,
+        sis_sharded,
+        smc_sharded,
+    )
+    from cpprob_tpu_torch.parallel import _collectives as coll
+    from cpprob_tpu_torch.util.profiling import env_versions
+
+    print(f"[{card}] parallel: versions {json.dumps(env_versions())}; all-gather call "
+          f"torch.distributed.{coll.ALL_GATHER_CALL}")
+    dev = torch.device("cuda", 0)
+    rows = {}
+
+    def timed(what, sharded, plain, reps=PAR_TIMED):
+        ms = time_ms(sharded, reps)
+        base = time_ms(plain, reps) if plain is not None else None
+        rows[what] = {"ms": ms, "plain_ms": base}
+        print(f"[{card}]   {what}: {ms:.4f} ms a sweep by CUDA events"
+              + (f", beside {base:.4f} ms single-device (overhead {ms - base:+.4f})"
+                 if base is not None else ""))
+
+    with stages.stage("parallel_world1_nccl", sync=True):
+        initialize_multihost(f"localhost:{_free_port()}", 1, 0, device="cuda:0")
+        try:
+            mesh = particle_mesh()
+            print(f"[{card}]   mesh {mesh}, backend {dist.get_backend()}")
+            one = torch.ones(1, device=dev)        # the communicator's first calls
+            coll.psum(one, mesh), coll.pmax(one, mesh), coll.all_gather(one, mesh)
+            _sync()
+
+            obs = _lg_obs(dev)
+            exact_lg = kalman_filter_1d(simulate_observations(LG_T, 0))[2]
+            lg = make_fused_lg_ssm()
+            finals = {}
+            for scheme in ("balanced", "collective", "island"):
+                run = lambda s, scheme=scheme: smc_sharded(
+                    lg, obs, LG_N, s, mesh=mesh, chunk=LG_CHUNK, scheme=scheme)
+                res, launches, reads = _sharded_sweeps(
+                    card, run, PAR_SEEDS, (fused_lg.LAUNCHES,),
+                    f"world 1 lg-2^24 chunk {LG_CHUNK} {scheme}", exact_lg)
+                _expect(launches, {"chunk": PAR_SEEDS * -(-(LG_T - 1) // LG_CHUNK)},
+                        f"world 1 lg {scheme}")
+                finals[scheme] = res[0]
+                single = build_smc_run(lg, LG_N, chunk=LG_CHUNK)
+                timed(f"lg-2^24 {scheme}", lambda run=run: run(7),
+                      lambda: single(7, obs))
+                rows[f"lg-2^24 {scheme}"].update(reads=reads, launches=launches)
+            b, c = finals["balanced"], finals["collective"]
+            if not (float(b.log_evidence) == float(c.log_evidence)
+                    and torch.equal(b.final_states, c.final_states)):
+                raise AssertionError("world 1: balanced differs from collective")
+            print(f"[{card}]   balanced == collective bit for bit (seed 0: logZ "
+                  f"{float(b.log_evidence)!r}, {LG_N} final states)")
+            for scheme in ("balanced", "collective"):
+                ops, busy = _device_profile(
+                    lambda scheme=scheme: smc_sharded(lg, obs, LG_N, 8, mesh=mesh,
+                                                      chunk=LG_CHUNK, scheme=scheme),
+                    f"parallel_lg_{scheme}_trace.json", calls=2)
+                print(f"[{card}]   lg-2^24 {scheme}: {ops:.1f} device launches a sweep, "
+                      f"busy {busy:.4f}")
+                rows[f"lg-2^24 {scheme}"].update(device_launches=ops, busy=busy)
+
+            # the guided LG model of path 7 on K12's tensor-core twin
+            params = TRAINED_NETS.get("lg") or train_guides(card, stages)[0]
+            glg = attach_fused_guided_scalar_kernels(
+                linear_gaussian_ssm, params, LG_T, trans_logpdf_elem=guided_trans_lp,
+                obs_logpdf_elem=guided_obs_lp)
+            run = lambda s: smc_sharded(glg, obs, LG_N, s, mesh=mesh, chunk=LG_CHUNK,
+                                        scheme="balanced")
+            _, launches, reads = _sharded_sweeps(
+                card, run, PAR_SEEDS, (guided_tc.LAUNCHES,),
+                f"world 1 guided lg-2^24 chunk {LG_CHUNK} balanced (twin)", exact_lg)
+            if not launches.get("guided_tc"):
+                raise AssertionError(f"guided sharded sweep: no twin launch {launches}")
+            single = build_smc_run(glg, LG_N, chunk=LG_CHUNK)
+            timed("guided-lg-2^24 balanced", lambda: run(7), lambda: single(7, obs))
+            rows["guided-lg-2^24 balanced"].update(reads=reads, launches=launches)
+
+            # the HMM per step: its model installs only the exchange chunk
+            # hooks, which smc_sharded does not take (as the reference)
+            try:
+                smc_sharded(make_fused_hmm_ssm(), _observations(dev), PAR_HMM_N, 0,
+                            mesh=mesh, chunk=CHUNK, scheme="island")
+            except ValueError as e:
+                print(f"[{card}]   the HMM's chunked sharded sweep refused, as the "
+                      f"reference's: {e}")
+            else:
+                raise AssertionError("smc_sharded took the HMM's exchange chunk hooks")
+            hobs = _observations(dev)
+            single = build_smc_run(hmm_ssm, PAR_HMM_N)
+            for scheme in ("exchange", "island"):
+                run = lambda s, scheme=scheme: smc_sharded(hmm_ssm, hobs, PAR_HMM_N, s,
+                                                           mesh=mesh, scheme=scheme)
+                _, launches, reads = _sharded_sweeps(
+                    card, run, PAR_SEEDS, (), f"world 1 hmm-2^20 per step {scheme}",
+                    EXACT_LOGZ)
+                timed(f"hmm-2^20 per step {scheme}", lambda run=run: run(7),
+                      lambda: single(7, hobs))
+                rows[f"hmm-2^20 per step {scheme}"].update(reads=reads)
+
+            # sis_sharded on the README Gaussian
+            m = gaussian_unknown_mean_readme
+            got = [_no_sync(lambda s=s: sis_sharded(m, (3.0, 4.0), SIS_N, s, mesh=mesh))
+                   for s in range(PAR_SEEDS)]
+            (mu, se_mu), (var, _) = _seed_gate(
+                [[float(r.mean("Mean")), float(r.variance("Mean"))] for r in got],
+                [2.32353, 1.05882], "sis_sharded README")
+            print(f"[{card}]   sis_sharded README 2^20: mean {mu:.5f} (SE {se_mu:.2g}) variance "
+                  f"{var:.5f}, against 2.32353 / 1.05882")
+            timed("sis README 2^20", lambda: sis_sharded(m, (3.0, 4.0), SIS_N, 7, mesh=mesh),
+                  lambda: sis(m, (3.0, 4.0), SIS_N, 7))
+
+            # CSIS: data-parallel training, guided inference over the mesh
+            eng = CSIS(m, (0.0, 0.0), embedding_dim=CSIS_E)
+            t0 = time.perf_counter()
+            params, losses = _no_sync(lambda: eng.compile(
+                CHECK_SEED, steps=PAR_CSIS_STEPS, batch_size=CSIS_BATCH, mesh=mesh))
+            train_ms = (time.perf_counter() - t0) * 1e3 / PAR_CSIS_STEPS
+            losses = losses.cpu()
+            first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+            if not (np.isfinite(losses.numpy()).all() and last < first):
+                raise AssertionError(f"CSIS.compile(mesh=): loss {first} -> {last}")
+            t0 = time.perf_counter()
+            _no_sync(lambda: eng.compile(CHECK_SEED, steps=PAR_CSIS_STEPS,
+                                         batch_size=CSIS_BATCH))
+            plain_train_ms = (time.perf_counter() - t0) * 1e3 / PAR_CSIS_STEPS
+            print(f"[{card}]   CSIS.compile(mesh=) {PAR_CSIS_STEPS} steps at batch {CSIS_BATCH}: "
+                  f"loss {first:.4f} -> {last:.4f}; {train_ms:.3f} ms a step (host "
+                  f"clock, synced), single-device {plain_train_ms:.3f}")
+            rows["csis compile README"] = {"ms": train_ms, "plain_ms": plain_train_ms}
+            got = [_no_sync(lambda s=s: eng.infer(params, (3.0, 4.0), CSIS_N, s, mesh=mesh))
+                   for s in range(PAR_SEEDS)]
+            (mu, se_mu), = _seed_gate([float(r.mean("Mean")) for r in got], 2.32353,
+                                      "CSIS.infer(mesh=) README", floor=0.05)
+            ess = float(got[0].ess)
+            print(f"[{card}]   CSIS.infer(mesh=) README 2^20: mean {mu:.5f} (SE {se_mu:.2g}), "
+                  f"ESS {ess:.0f}")
+            timed("csis infer README 2^20",
+                  lambda: eng.infer(params, (3.0, 4.0), CSIS_N, 7, mesh=mesh),
+                  lambda: eng.infer(params, (3.0, 4.0), CSIS_N, 7))
+        finally:
+            dist.destroy_process_group()
+
+    # world size 2 over gloo: two processes share the card
+    torch.cuda.empty_cache()
+    with stages.stage("parallel_world2_gloo", sync=True):
+        init = f"tcp://localhost:{_free_port()}"
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker", str(r), "2",
+             init], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=PAR_WORKER_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.splitlines():
+                if line.startswith(f"[{r}]") or line.startswith("dryrun_multichip"):
+                    print(f"[{card}]   {line}")
+            if p.returncode != 0 or f"[{r}] OK" not in out:
+                raise AssertionError(f"gloo worker {r} failed (rc {p.returncode}):\n"
+                                     f"{out[-4000:]}")
+    print(f"[{card}] parallel: world 1 {stages.totals['parallel_world1_nccl']:.1f} s, "
+          f"world 2 {stages.totals['parallel_world2_gloo']:.1f} s")
+    print(json.dumps({"parallel": {"card": card, "rows": rows}}))
+
+
+def parallel_worker(rank, world, init):
+    """One rank of the gloo pair sharing the card: ``dryrun_multichip``,
+    then the LG sweep at 2^24 in total under balanced and collective, the
+    rank's own K7 chunk against its plain version, distinct Philox streams
+    across ranks, and the bytes an epoch sends."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from cpprob_tpu_torch.entry import dryrun_multichip
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        kalman_filter_1d,
+        simulate_observations,
+    )
+    from cpprob_tpu_torch.ops import fused_lg
+    from cpprob_tpu_torch.ops.fused_lg import lg_chunk, lg_chunk_plain, make_fused_lg_ssm
+    from cpprob_tpu_torch.parallel import initialize_multihost, particle_mesh, smc_sharded
+    from cpprob_tpu_torch.parallel import _collectives as coll
+    from cpprob_tpu_torch.parallel.mesh import derive_seed
+    from cpprob_tpu_torch.parallel.resampling import (
+        balanced_systematic_resample,
+        ring_systematic_resample,
+    )
+    from cpprob_tpu_torch.parallel.smc import _MOVE_TAG
+
+    initialize_multihost(init, world, rank, device="cuda:0", backend="gloo",
+                         timeout=PAR_WORKER_TIMEOUT / 2)
+    try:
+        mesh = particle_mesh(world)
+        dev = torch.device("cuda", 0)
+        print(f"[{rank}] backend {dist.get_backend()} on {torch.cuda.get_device_name(0)}")
+        t0 = time.perf_counter()
+        dryrun_multichip(world)
+        print(f"[{rank}] dryrun_multichip({world}) passed in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        obs = _lg_obs(dev)
+        exact = kalman_filter_1d(simulate_observations(LG_T, 0))[2]
+        lg = make_fused_lg_ssm()
+        n_local = LG_N // world
+        finals = {}
+        for scheme in ("balanced", "collective"):
+            fused_lg.LAUNCHES["chunk"] = 0
+            res = [smc_sharded(lg, obs, LG_N, s, mesh=mesh, chunk=LG_CHUNK, scheme=scheme)
+                   for s in range(PAR_WORLD2_SEEDS)]
+            zs = [float(r.log_evidence) for r in res]
+            (mean, se), = _seed_gate(zs, exact, f"gloo world {world} {scheme}")
+            finals[scheme] = res[0]
+            launches = fused_lg.LAUNCHES["chunk"]
+            ms = time_ms(lambda scheme=scheme: smc_sharded(
+                lg, obs, LG_N, 7, mesh=mesh, chunk=LG_CHUNK, scheme=scheme), 4)
+            print(f"[{rank}] lg-2^24 world {world} {scheme}: mean logZ {mean:.6f} SE "
+                  f"{se:.3g} (Kalman {exact:.6f}); epochs "
+                  f"{[int(r.resampled.sum()) for r in res]}; K7 launches {launches}; "
+                  f"{ms:.3f} ms a sweep by CUDA events")
+        b, c = finals["balanced"], finals["collective"]
+        same = int(float(b.log_evidence) == float(c.log_evidence)
+                   and torch.equal(b.final_states, c.final_states))
+        if int(coll.psum(torch.tensor([float(same)], device=dev), mesh)) != world:
+            raise AssertionError("balanced differs from collective across the ranks")
+        print(f"[{rank}] balanced == collective bit for bit on every rank (logZ "
+              f"{float(b.log_evidence)!r}, {n_local} states here)")
+
+        # this rank's K7 chunk against its plain version, with its own seed
+        seed = derive_seed(0, _MOVE_TAG, rank)
+        x0, w0 = _lg_population(n_local, CHECK_SEED, obs)    # the same on both ranks
+        ys, valid = _lg_chunks(obs)
+        xk, wk, _ = lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1)
+        xp, wp, _ = lg_chunk_plain(seed, x0, w0, ys[0], valid[0], t0=1)
+        torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-5)
+        err = float((wk - wp).abs().max())
+        firsts = coll.all_gather(xk[:4096], mesh)
+        if torch.equal(firsts[0], firsts[1]):
+            raise AssertionError("two ranks drew the same first chunk")
+        print(f"[{rank}] K7 with this rank's seed {seed} against its plain version: "
+              f"max |dlog_w| {err:.3g}; the ranks' first chunks differ")
+
+        # the bytes an epoch sends, at the sweep's shapes
+        lw = wk.clone()
+        for name, fn in (("balanced", balanced_systematic_resample),
+                         ("ring", ring_systematic_resample)):
+            before = dict(coll.BYTES_SENT)
+            fn(0.37, lw, xk, mesh)
+            sent = {k: coll.BYTES_SENT[k] - before[k] for k in before}
+            print(f"[{rank}] {name} epoch at n_local={n_local}: sends {sent} bytes")
+        print(f"[{rank}] OK")
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # the roofline: K17-K21, the card's calibration
 
@@ -4111,6 +4462,7 @@ def main():
     sis_phases(card, stages)
     csis_phases(card, stages)
     engine_phases(card, stages)
+    parallel_phases(card, stages)
     calibrations, peaks = roofline_phases(card, stages)
     kernels += calibrations
     print(stages.report())
@@ -4129,4 +4481,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device for the parallel worker")
+        parallel_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

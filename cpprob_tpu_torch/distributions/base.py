@@ -41,13 +41,16 @@ __all__ = [
     "to_device",
     "to_host",
     "host_any",
+    "host_item",
 ]
 
 # host reads of a flag by :func:`host_any`, by caller: each is one
 # synchronisation with the card (the rejection rounds; NUTS's doublings and
-# leapfrog steps; the tempered sampler's stages; SMC²'s rejuvenation test)
+# leapfrog steps; the tempered sampler's stages; SMC²'s rejuvenation test;
+# the sharded SMC's resample flag at a step or chunk boundary and the
+# balanced scheme's fit check in an epoch that fires)
 HOST_READS = {"rejection_sample": 0, "truncated": 0, "nuts": 0, "smc_sampler": 0,
-              "smc2": 0}
+              "smc2": 0, "smc_sharded": 0}
 
 
 def default_device() -> torch.device:
@@ -94,13 +97,20 @@ def host_any(flag: torch.Tensor, caller: str) -> bool:
 
     while _functorch.is_batchedtensor(flag):
         flag = _functorch.get_unwrapped(flag)
+    return bool(host_item(flag.any(), caller))
+
+
+def host_item(x: torch.Tensor, caller: str):
+    """``x.item()`` of a one-element tensor: one host read, counted in
+    ``HOST_READS[caller]`` and allowed under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
     HOST_READS[caller] += 1
-    if flag.device.type != "cuda":
-        return bool(flag.any())
+    if x.device.type != "cuda":
+        return x.item()
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode(0)
     try:
-        return bool(flag.any())
+        return x.item()
     finally:
         torch.cuda.set_sync_debug_mode(mode)
 

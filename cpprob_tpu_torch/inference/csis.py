@@ -41,7 +41,12 @@ The port's conventions:
   on the host; the exceptions are a rejection round's one flag
   (:func:`~cpprob_tpu_torch.distributions.base.host_any`) and a loader's
   pinned, non-blocking host-to-device copy.
-- ``mesh=`` raises: the multi-device slice is not ported yet.
+- ``mesh=`` (a :func:`~cpprob_tpu_torch.parallel.particle_mesh`, every
+  rank calling with the same arguments): ``compile`` is data-parallel (each
+  rank draws its share of the batch from a generator seeded from (seed,
+  rank), and the gradients are averaged by one all-reduce a step, so the
+  parameters stay the same on every rank); ``infer`` runs
+  :func:`~cpprob_tpu_torch.parallel.sis_sharded`.
 """
 
 from __future__ import annotations
@@ -80,10 +85,7 @@ from .sis import ImportanceResult, _generator, _nested, _vmapped, sis
 __all__ = ["CSIS", "SiteSpec", "ModelStructure", "discover_structure", "tie_structure"]
 
 _N_MIX = 8  # reference: truncated mixture of 8 normals (prior_distributions.py:59-65)
-
-_NO_MESH = ("CSIS over a device mesh is the multi-device slice (ROADMAP A5, slice 7), "
-            "not ported yet")
-
+_COMPILE_TAG = 4_000_000   # the data-parallel trace generators' seeds: (seed, tag, rank)
 
 @dataclasses.dataclass(frozen=True)
 class SiteSpec:
@@ -777,10 +779,20 @@ class CSIS:
                                 self.embedding_dim, self.obs_embedding, self.obs_shape,
                                 device=self.device)
 
-    def _train(self, params, learning_rate, batches, log_fn, saver, unroll, dro_rho=None):
+    def _train(self, params, learning_rate, batches, log_fn, saver, unroll, dro_rho=None,
+               mesh=None):
         """The Adam loop over ``batches`` (an iterator of (values, obs));
-        Ctrl-C returns what has been trained."""
+        Ctrl-C returns what has been trained.  With ``mesh``, each rank's
+        batch is its shard: the gradients and the loss are averaged over
+        the ranks by one all-reduce before Adam steps, and ``saver`` runs
+        on rank 0 only."""
         params, leaves = _trainable(params)
+        if mesh is not None:
+            from ..parallel._collectives import axis_index, axis_size, psum
+
+            k = axis_size(mesh)
+            if axis_index(mesh) != 0:
+                saver = None
         opt = torch.optim.Adam(leaves, lr=learning_rate)
         structure = self.structure
         losses: List[torch.Tensor] = []
@@ -791,6 +803,13 @@ class CSIS:
                                  self.obs_shape, dro_rho)
                 opt.zero_grad(set_to_none=False)
                 loss.backward()
+                if mesh is not None:
+                    flat = psum(torch.cat([p.grad.reshape(-1) for p in leaves]
+                                          + [loss.detach().reshape(1)]), mesh) / k
+                    grads = torch.split(flat[:-1], [p.numel() for p in leaves])
+                    for p, g in zip(leaves, grads):
+                        p.grad.copy_(g.reshape(p.shape))
+                    loss = flat[-1]
                 opt.step()
                 losses.append(loss.detach())
                 pending.append((losses[-1], obs.shape[0]))
@@ -847,20 +866,43 @@ class CSIS:
         Ctrl-C returns the partially trained parameters
         (``infcomp/train.py:47-53``).
 
+        ``mesh``: data-parallel training over a particle mesh (every rank
+        calls ``compile`` with the same arguments): ``batch_size`` must
+        divide by the mesh size k, rank r draws ``batch_size / k`` traces a
+        step from a generator seeded from (seed, r), and the gradients are
+        averaged over the ranks before each Adam step, so the parameters
+        and the losses are the same on every rank.  ``dro_rho`` weighs
+        the whole batch at once and is not taken with ``mesh``.
+
         Returns ``(params, losses)``: detached parameters and the (steps,)
         losses, on the device."""
-        if mesh is not None:
-            raise ValueError(_NO_MESH)
         if params is None:
             params = self.init(_seed_of(key))
-        gen = _generator(key, self.device)
+        if mesh is None:
+            gen, per_rank = _generator(key, self.device), batch_size
+        else:
+            from ..parallel._collectives import axis_index, axis_size
+            from ..parallel.mesh import derive_seed
+
+            k = axis_size(mesh)
+            if batch_size % k != 0:
+                raise ValueError(f"batch_size={batch_size} must divide by mesh size {k}")
+            if dro_rho is not None:
+                raise ValueError("dro_rho weighs the whole batch at once: it is not "
+                                 "taken with mesh=")
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"mesh ranks on {mesh.device_type}, engine on "
+                                 f"{self.device}")
+            gen = _generator(derive_seed(_seed_of(key), _COMPILE_TAG, axis_index(mesh)),
+                             self.device)
+            per_rank = batch_size // k
 
         def batches():
             for _ in range(steps):
-                yield self._gen(gen, batch_size)
+                yield self._gen(gen, per_rank)
 
         return self._train(params, learning_rate, batches(), log_fn, saver, max(unroll, 1),
-                           dro_rho)
+                           dro_rho, mesh)
 
     def dump_traces(self, directory: str, key, n_traces: int, shard_size: int = 4096):
         """Offline compile mode: dump prior-trace shards to disk
@@ -963,9 +1005,24 @@ class CSIS:
 
         One eager code path: the model may branch on its Python arguments.
         It queues its work without waiting on the host (the rejection
-        rounds' flags aside).  ``mesh=`` raises (ROADMAP A5)."""
+        rounds' flags aside).  ``mesh``: the particles are sharded over a
+        particle mesh by :func:`~cpprob_tpu_torch.parallel.sis_sharded` (the
+        network replicated on every rank; the result's statistics reduced
+        over the mesh); it takes no other ``sis`` option and raises
+        ``TypeError`` when given one (the reference drops them)."""
         if mesh is not None:
-            raise ValueError(_NO_MESH)
+            if sis_kwargs:
+                raise TypeError(f"infer(mesh=) takes no sis options, got "
+                                f"{sorted(sis_kwargs)}")
+            from ..parallel.sis import sis_sharded
+
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"mesh ranks on {mesh.device_type}, engine on "
+                                 f"{self.device}")
+            factory = self.proposal_factory(params, args, defensive=defensive)
+            with torch.no_grad():
+                return sis_sharded(self.model, args, n_particles, key, mesh=mesh,
+                                   proposal_messenger=factory)
         factory = self.proposal_factory(params, args, defensive=defensive)
         with torch.no_grad():
             return sis(self.model, args, n_particles, key, device=self.device,

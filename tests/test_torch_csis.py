@@ -432,8 +432,8 @@ def test_gaussian_guided_posterior_and_ess(gaussian_engine):
     mean, _ = pm.gaussian_posterior_analytic([-1.0, 0.5], mu0=1.0, sigma0=1.5, sigma=2.0)
     other = eng.infer(params, (-1.0, 0.5), n, 2)
     assert abs(float(other.mean("Mean")) - float(mean)) < 0.04
-    with pytest.raises(ValueError, match="A5"):
-        eng.infer(params, (3.0, 4.0), 64, 1, mesh=object())
+    with pytest.raises(TypeError, match="sis options"):        # the reference drops them
+        eng.infer(params, (3.0, 4.0), 64, 1, mesh=object(), batch_size=16)
 
 
 def test_gaussian_defensive_and_infer_many(gaussian_engine):
@@ -572,8 +572,19 @@ def test_no_card_raises_without_cpu_request():
         pcsis.CSIS(pm.gaussian_unknown_mean_readme, (0.0, 0.0))
     eng = pcsis.CSIS(pm.gaussian_unknown_mean_readme, (0.0, 0.0), embedding_dim=8,
                      device="cpu")
-    with pytest.raises(ValueError, match="A5"):
-        eng.compile(0, steps=1, mesh=object())
+    class FakeMesh:                  # the mesh checks come before any collective
+        device_type = "cuda"
+
+        def size(self):
+            return 4
+
+        def get_local_rank(self):
+            return 0
+
+    with pytest.raises(ValueError, match="divide by mesh size 4"):
+        eng.compile(0, steps=1, batch_size=6, mesh=FakeMesh())
+    with pytest.raises(ValueError, match="mesh ranks on cuda"):
+        eng.compile(0, steps=1, batch_size=8, mesh=FakeMesh())
 
 
 def test_entry_twin_shapes():

@@ -469,7 +469,10 @@ def test_port_imports_without_jax():
         "          'util.pytree', 'entry', 'inference.potential', 'inference.hmc',\n"
         "          'inference.chees', 'inference.nuts', 'inference.svi',\n"
         "          'inference.predictive', 'inference.smc_sampler',\n"
-        "          'inference.particle_gibbs', 'inference.smc2'):\n"
+        "          'inference.particle_gibbs', 'inference.smc2', 'parallel',\n"
+        "          'parallel.mesh', 'parallel.distributed', 'parallel._collectives',\n"
+        "          'parallel.resampling', 'parallel.sis', 'parallel.smc',\n"
+        "          'util.sharded_parts'):\n"
         "    assert 'cpprob_tpu_torch.' + m in names, (m, names)\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and (\n"
         "    m.startswith('jax') or m == 'cpprob_tpu'\n"
