@@ -183,17 +183,35 @@ and the script exits non-zero without printing its last line:
    for bit across the processes, each rank's K7 chunk against its plain
    version with the rank's own seed, the bytes an epoch sends), each with
    its own timeout;
-14. the card's calibration (``roofline_phases``, K17-K21): each
+14. the drivers (``driver_phases``, slice 8, no kernel of its own; the
+   kernel_bench twin's paths run nine of the kernels above): ``cli.main``
+   on the card (``sis`` on the README Gaussian at 2^20 against 2.32353 /
+   1.05882, twice, ``smc`` on the HMM at 2^20 over 4 seeds against the
+   forward recursion, ``compile`` then ``csis`` (2^18) on the HMM with
+   the checkpoint and the posterior dump in a fresh temporary directory,
+   the dump's smoothed marginals within 0.03 of forward-backward,
+   ``estimate`` on the dump);
+   the ``sherpa_fullscale`` twin at the full 35x35x20 volume with 4,096
+   deposits (CNN3D-embedded CSIS, 300 steps at batch 32, then prior SIS
+   and guided ``infer`` at 512 particles for four channels, five tempers
+   and four defensive weights) with the reference's gate, traces/s, ms an
+   ``infer``, launches, busy share (``chiprun_out/
+   driver_sherpa_infer_trace.json``) and peak memory; the
+   ``external_simulator`` twin in full mode with its gates, the exchanges
+   and host reads of a guided call; the ``kernel_bench`` twin at 2^20,
+   each path's logZ within 4 SE + 0.02 of its exact value and its
+   kernels' launches counted on its own sweeps (``chiprun_out/driver.json``);
+15. the card's calibration (``roofline_phases``, K17-K21): each
    calibration kernel against its plain version at a reduced size (K17,
    K19, K20b exactly; K18, K20a, K21 within the tolerances stated at
    ``CAL_*``), then ``util/roofline.py``'s ``calibrate_peaks`` at the
    reference's sizes, counted; the peaks must be positive and below the
    datasheet's where it has one;
-15. the ``roofline`` JSON line: the peaks, the card, and for every kernel
+16. the ``roofline`` JSON line: the peaks, the card, and for every kernel
    entry its bound against the published peaks and its calibrated bound
    (``analyze_kernels``: the binding resource and the fraction, at most 1);
    the whole analysis in ``chiprun_out/roofline.json``;
-16. one JSON line on the 26 kernel entries (each with ``bound_ms``,
+17. one JSON line on the 26 kernel entries (each with ``bound_ms``,
    ``bound_by``, ``library_ms`` where one PyTorch call computes the same
    function, ``calibrated_bound_ms`` and ``calibrated_by``), the card line,
    and the result line ``{"ok": true, "device": {...}}``.
@@ -204,7 +222,8 @@ Every timed sweep, every SIS call, every CSIS training step and
 rejection round's one host read, and NUTS's, the tempered sampler's and
 SMC²'s reads of a loop's flag, are the counted exceptions; the
 dynamic-structure path reads sampled values by design and runs outside
-it).  Launch counts are set to 0 just before
+it; so do the drivers of phase 14, which run as a user runs them and read
+their results back).  Launch counts are set to 0 just before
 each path's sweeps and read just after; launches made to compare a kernel
 with its plain version are not counted on the ``kernels`` line.
 It needs a CUDA device and never falls back to the CPU.
@@ -4192,7 +4211,7 @@ def parallel_worker(rank, world, init):
     from cpprob_tpu_torch.ops.fused_lg import lg_chunk, lg_chunk_plain, make_fused_lg_ssm
     from cpprob_tpu_torch.parallel import initialize_multihost, particle_mesh, smc_sharded
     from cpprob_tpu_torch.parallel import _collectives as coll
-    from cpprob_tpu_torch.parallel.mesh import derive_seed
+    from cpprob_tpu_torch.util.seeds import derive_seed
     from cpprob_tpu_torch.parallel.resampling import (
         balanced_systematic_resample,
         ring_systematic_resample,
@@ -4263,6 +4282,234 @@ def parallel_worker(rank, world, init):
         print(f"[{rank}] OK")
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# slice 8: the CLI, the SHERPA models, the external-simulator bridge and the
+# example drivers on the card
+
+DRV_SIS_N = 1 << 20        # the JAX README's headline call, rounded up
+DRV_SMC_N = 1 << 20
+DRV_SEEDS = 4              # 4 SE + 0.02 over seeds, __graft_entry__.py:57-63
+DRV_CSIS_STEPS = 100
+DRV_CSIS_BATCH = 256
+DRV_CSIS_N = 1 << 18       # its text dump is written and parsed on the host
+DRV_HMM_OBS = "[0.9 0.8 0.7 0.0 -0.025 -5.0 -2.0 -0.1 0.0 0.13]"   # README.md's
+DRV_SHERPA_STEPS = 300     # the example's; cut here first if the phase outgrows ~150 s
+DRV_SHERPA_TIMED = 8       # infer calls timed back to back by CUDA events
+DRV_KB_N = 20              # the kernel_bench twin's --n
+DRV_ESTIMATE_TOL = 1e-4    # estimate's printed means against the dump's (float32 sums)
+
+
+def _cli(argv):
+    """``cli.main(argv + --device cuda)``: (exit code, stdout, host ms)."""
+    import contextlib
+    import io
+
+    from cpprob_tpu_torch import cli
+
+    buf = io.StringIO()
+    _sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv) + ["--device", "cuda"])
+    _sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit {rc}\n{out[-2000:]}")
+    return out, ms
+
+
+def _after(out, label):
+    return float(out.split(label)[-1].split()[0])
+
+
+def _state_means(out):
+    """The ``Mean: [...]`` vector that ``StatsPrinter`` prints under
+    ``State:``."""
+    import numpy as np
+
+    block = out.split("State:")[1].split("Mean:")[1]
+    return np.array(block.split("[", 1)[1].split("]", 1)[0].split(), np.float64)
+
+
+def driver_phases(card, stages):
+    """Slice 8 on the card: ``cli.main`` (``sis`` on the README Gaussian at
+    2^20, ``smc`` on the HMM at 2^20 over 4 seeds, ``compile`` then ``csis``
+    on the HMM with its checkpoint and posterior dump in a fresh
+    directory, ``estimate`` on the dump), the ``sherpa_fullscale`` twin at
+    the full 35x35x20 volume with 4,096 deposits and its gate, the
+    ``external_simulator`` twin in full mode with its gates, and the
+    ``kernel_bench`` twin at 2^20 with its paths' launches counted.  Every
+    value is gated against its exact value; nothing is caught."""
+    import argparse
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cpprob_tpu_torch.distributions.base import HOST_READS
+    from cpprob_tpu_torch.examples import external_simulator, kernel_bench, sherpa_fullscale
+    from cpprob_tpu_torch.io import load_posterior
+    from cpprob_tpu_torch.models import hmm_exact_posterior, hmm_log_evidence
+
+    rows = {}
+    hmm_obs = np.array([float(x) for x in DRV_HMM_OBS.strip("[]").split()], np.float32)
+
+    # the CLI, in this process, on the card
+    with stages.stage("driver_cli", sync=True):
+        times = []
+        for _ in range(2):          # the process's first vmapped call, then a warm one
+            out, ms = _cli(["--model", "gaussian", "-m", "sis", "-n", str(DRV_SIS_N),
+                            "-o", "3.0 4.0", "--seed", "1"])
+            times.append(ms)
+        mean, var, ess = _after(out, "Mean:"), _after(out, "Variance:"), _after(out, "ESS:")
+        tol = 4 * math.sqrt(var / ess) + 0.002
+        print(f"[{card}] driver cli sis gaussian {DRV_SIS_N}: mean {mean:.5f} variance "
+              f"{var:.5f} ESS {ess:.0f}; {times[0]:.1f} ms the first call of the process, "
+              f"{times[1]:.1f} ms the next (host clock, with the CLI's set-up); against "
+              f"2.32353 / 1.05882, tol {tol:.4f}")
+        _within(mean, 2.32353, tol, "cli sis mean")
+        _within(var, 1.05882, 0.02, "cli sis variance")
+        rows["cli_sis"] = {"first_ms": times[0], "ms": times[1], "mean": mean, "ess": ess}
+
+        zs, times = [], []
+        for s in range(DRV_SEEDS):
+            out, ms = _cli(["--model", "hmm", "-m", "smc", "-n", str(DRV_SMC_N),
+                            "-o", DRV_HMM_OBS, "--seed", str(s)])
+            zs.append(_after(out, "log_evidence:"))
+            times.append(ms)
+        exact = hmm_log_evidence(hmm_obs)
+        ((z, se),) = _seed_gate(zs, exact, "cli smc hmm")
+        print(f"[{card}] driver cli smc hmm {DRV_SMC_N}: logZ {z:.5f} (SE {se:.2g}) against "
+              f"{exact:.5f}; {statistics.median(times):.1f} ms a call (host clock)")
+        rows["cli_smc"] = {"ms": statistics.median(times), "log_evidence": z, "se": se}
+
+        d = tempfile.mkdtemp(prefix="cpprob_cli_")
+        try:
+            ckpt, post = os.path.join(d, "nn"), os.path.join(d, "post")
+            _, ms_compile = _cli(["--model", "hmm", "-m", "compile", "--steps",
+                                  str(DRV_CSIS_STEPS), "--batch-size", str(DRV_CSIS_BATCH),
+                                  "--ckpt-dir", ckpt])
+            out, ms_csis = _cli(["--model", "hmm", "-m", "csis", "-n", str(DRV_CSIS_N),
+                                 "-o", DRV_HMM_OBS, "--ckpt-dir", ckpt, "--dump-path", post])
+            out_est, ms_est = _cli(["--model", "hmm", "-m", "estimate", "--dump-path", post])
+            predicts, lw = load_posterior(post)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        states = np.asarray(predicts["State"])
+        lw = np.asarray(lw, np.float64)
+        w = np.exp(lw - lw.max())
+        w /= w.sum()
+        est = np.stack([(w[:, None] * (states == k)).sum(0) for k in range(3)], 1)
+        exact_post = hmm_exact_posterior(hmm_obs)
+        err = float(np.abs(est - exact_post).max())
+        # what `estimate` printed: State's weighted mean a step, held to the
+        # dump's own weighted mean (the parse, weighting and reduction) and
+        # to forward-backward's
+        printed = _state_means(out_est)
+        exact_means = np.asarray(exact_post) @ np.arange(3.0)
+        parse_err = float(np.abs(printed - est @ np.arange(3.0)).max())
+        mean_err = float(np.abs(printed - exact_means).max())
+        print(f"[{card}] driver cli estimate: State means {np.round(printed, 4).tolist()}, "
+              f"within {parse_err:.2g} of the dump's weighted means and {mean_err:.4f} of "
+              f"forward-backward's")
+        if not parse_err <= DRV_ESTIMATE_TOL:
+            raise AssertionError(f"cli estimate: State means {printed} are {parse_err} from "
+                                 f"the dump's")
+        if not mean_err <= SIS_MARGINAL_TOL:
+            raise AssertionError(f"cli estimate: State means {printed} are {mean_err} from "
+                                 f"forward-backward's {exact_means}")
+        print(f"[{card}] driver cli compile hmm {DRV_CSIS_STEPS} steps at batch "
+              f"{DRV_CSIS_BATCH}: {ms_compile:.1f} ms; csis {DRV_CSIS_N}: {ms_csis:.1f} ms, ESS "
+              f"{1 / float(np.sum(w * w)):.0f}, marginals within {err:.4f} of "
+              f"forward-backward; estimate on the dump {ms_est:.1f} ms (host clock)")
+        if not err <= SIS_MARGINAL_TOL:
+            raise AssertionError(f"cli csis marginals {err} from forward-backward")
+        rows["cli_csis"] = {"compile_ms": ms_compile, "csis_ms": ms_csis,
+                            "estimate_ms": ms_est, "marginal_err": err,
+                            "estimate_mean_err": mean_err}
+
+    # the slice's full-width path: CNN3D-guided CSIS on the full calorimeter
+    with stages.stage("driver_sherpa", sync=True):
+        args = sherpa_fullscale.build_parser().parse_args(
+            ["--steps", str(DRV_SHERPA_STEPS), "--device", "cuda"])
+        payload, eng, params, observed_for = sherpa_fullscale.run(args)
+        if payload["volume"] != [35, 35, 20] or payload["max_deposits"] != 4096:
+            raise AssertionError(f"sherpa: volume {payload['volume']}")
+        obs = observed_for(2)
+        call = lambda: eng.infer(params, (obs, 10.0), args.particles, 5, defensive=0.3)
+        infer_ms = time_ms(call, DRV_SHERPA_TIMED)
+        launches, busy = _device_profile(call, "driver_sherpa_infer_trace.json")
+        tr = payload["train"]
+        print(f"[{card}] driver sherpa_fullscale 35x35x20, 4,096 deposits: "
+              f"{tr['steps']} steps at batch {tr['batch_size']} in {tr['wall_s']:.2f} s = "
+              f"{tr['traces_per_sec']:.1f} traces/s, loss {tr['loss_first']:.1f} -> "
+              f"{tr['loss_last']:.1f}; infer at {args.particles}: {infer_ms:.4f} ms by CUDA "
+              f"events ({payload['infer_ms']['median']:.2f} ms host clock with its reads), "
+              f"{launches:.0f} launches a call, busy {busy:.4f}; peak memory "
+              f"{payload['peak_memory_bytes'] / 2**20:.0f} MB; operating point "
+              f"{json.dumps(payload['operating_point'])}")
+        rows["sherpa"] = {"traces_per_sec": tr["traces_per_sec"], "infer_ms": infer_ms,
+                          "infer_host_ms": payload["infer_ms"]["median"],
+                          "launches": launches, "busy": busy,
+                          "peak_memory_mb": payload["peak_memory_bytes"] / 2**20,
+                          "operating_point": payload["operating_point"]}
+        del eng, params
+
+    # the external simulator in the loop, full mode (its gates assert)
+    with stages.stage("driver_external", sync=True):
+        reads0 = HOST_READS["observe_external"]
+        rec = external_simulator.main(["--device", "cuda"])
+        if not rec["gates_enforced"]:
+            raise AssertionError("external_simulator: gates not enforced")
+        call = rec["guided_call"]
+        print(f"[{card}] driver external_simulator full mode: ESS ratio "
+              f"{rec['ess_ratio_guided_over_prior']:.2f}, energy error vs the large prior "
+              f"SIS {rec['energy_abs_err_guided_vs_reference_posterior']:.2f}, vs truth "
+              f"{rec['energy_abs_err_guided_vs_truth']:.2f}; a guided call at "
+              f"{rec['n_particles']}: {call['exchanges']} exchanges, {call['host_reads']} "
+              f"host reads, {call['ms_median']:.1f} ms (host clock); "
+              f"{HOST_READS['observe_external'] - reads0} reads in the run; particles/s "
+              f"{json.dumps(rec['throughput_particles_per_s'])}")
+        if call["exchanges"] != 2 or call["host_reads"] != 2:
+            raise AssertionError(f"external: a guided call made {call}")
+        rows["external"] = {**call, "ess_ratio": rec["ess_ratio_guided_over_prior"],
+                            "throughput": rec["throughput_particles_per_s"]}
+
+    # the kernel_bench twin: its five paths' kernels, counted on their sweeps
+    with stages.stage("driver_kernel_bench", sync=True):
+        rec = kernel_bench.main(["--n", str(DRV_KB_N), "--device", "cuda"])
+        want = {"discrete_5state_spec_kernel": ("init", "chunk"),
+                "linear_gaussian_live_resampling": ("scalar", "lse_stats", "pass1", "pass2"),
+                "linear_gaussian_guided_fused": ("guided_tc", "lse_stats", "pass1", "pass2"),
+                "discrete_5state_guided_fused": ("init", "guided_chunk", "guided_tables")}
+        for path, names in want.items():
+            r = rec[path]
+            exact = r.get("exact_log_evidence", r.get("kalman_log_evidence"))
+            se = r["log_evidence_std"] / math.sqrt(r["sweeps"] - 1)
+            print(f"[{card}] driver kernel_bench 2^{DRV_KB_N} {path}: "
+                  f"{r['sweep_s'] * 1e3:.4f} ms a sweep (host clock), logZ "
+                  f"{r['log_evidence_mean']:.5f} (SE {se:.2g}) against {exact:.5f}; "
+                  f"launches {r['launches']}")
+            _within(r["log_evidence_mean"], exact, 4 * se + 0.02, f"kernel_bench {path}")
+            missing = [k for k in names if not r["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"kernel_bench {path}: no launch of {missing}")
+        ep = rec["resample_epoch"]
+        print(f"[{card}] driver kernel_bench epoch at 2^{DRV_KB_N}: streaming "
+              f"{ep['streaming_pallas_s'] * 1e3:.4f} ms, sorted fill "
+              f"{ep['xla_sorted_fill_s'] * 1e3:.4f} ms (host clock, synced)")
+        rows["kernel_bench"] = {k: {"sweep_ms": rec[k]["sweep_s"] * 1e3,
+                                    "launches": rec[k]["launches"]} for k in want}
+        rows["kernel_bench"]["epoch_ms"] = {"streaming": ep["streaming_pallas_s"] * 1e3,
+                                            "sorted_fill": ep["xla_sorted_fill_s"] * 1e3}
+    path = os.path.join(REPO, "chiprun_out", "driver.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"card": card, **rows}, f, indent=1, default=str)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4463,6 +4710,7 @@ def main():
     csis_phases(card, stages)
     engine_phases(card, stages)
     parallel_phases(card, stages)
+    driver_phases(card, stages)
     calibrations, peaks = roofline_phases(card, stages)
     kernels += calibrations
     print(stages.report())

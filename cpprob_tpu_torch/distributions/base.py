@@ -45,12 +45,13 @@ __all__ = [
 ]
 
 # host reads of a flag by :func:`host_any`, by caller: each is one
-# synchronisation with the card (the rejection rounds; NUTS's doublings and
-# leapfrog steps; the tempered sampler's stages; SMC²'s rejuvenation test;
-# the sharded SMC's resample flag at a step or chunk boundary and the
-# balanced scheme's fit check in an epoch that fires)
-HOST_READS = {"rejection_sample": 0, "truncated": 0, "nuts": 0, "smc_sampler": 0,
-              "smc2": 0, "smc_sharded": 0}
+# synchronisation with the card (an external simulator's exchange, which
+# copies the population's inputs to the host; the rejection rounds; NUTS's
+# doublings and leapfrog steps; the tempered sampler's stages; SMC²'s
+# rejuvenation test; the sharded SMC's resample flag at a step or chunk
+# boundary and the balanced scheme's fit check in an epoch that fires)
+HOST_READS = {"observe_external": 0, "rejection_sample": 0, "truncated": 0, "nuts": 0,
+              "smc_sampler": 0, "smc2": 0, "smc_sharded": 0}
 
 
 def default_device() -> torch.device:

@@ -11,7 +11,14 @@ from .nuts import nuts
 from .particle_gibbs import CSMCResult, csmc_sweep, particle_gibbs
 from .potential import FlatModel, flatten_model
 from .predictive import posterior_predictive, prior_predictive
-from .resampling import ess, get_resampler, systematic_resample
+from .resampling import (
+    ess,
+    get_resampler,
+    multinomial_resample,
+    residual_resample,
+    stratified_resample,
+    systematic_resample,
+)
 from .sis import (
     ImportanceResult,
     StreamingResult,
@@ -30,7 +37,8 @@ from .svi import SVIResult, svi
 __all__ = ["CSIS", "DynamicCSIS", "sis_host", "sis", "sis_streaming", "sis_streaming_checkpointed",
            "make_particle_fn", "make_prior_fn", "ImportanceResult", "StreamingResult",
            "StateSpaceModel", "SMCResult", "smc", "build_smc_run", "ess",
-           "get_resampler", "systematic_resample", "train_ssm_proposal",
+           "get_resampler", "systematic_resample", "stratified_resample",
+           "multinomial_resample", "residual_resample", "train_ssm_proposal",
            "guide_ssm", "smc_sampler", "smc2", "ParamSSM", "SMC2Result",
            "TemperedSMCResult", "csmc_sweep", "particle_gibbs", "CSMCResult",
            "hmc", "chees_hmc", "nuts", "HMCResult", "svi", "SVIResult",

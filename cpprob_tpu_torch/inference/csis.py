@@ -481,13 +481,19 @@ def make_trace_batch_fn(model: Callable, args: Tuple, structure: ModelStructure)
 
 def csis_loss(
     params, structure: ModelStructure, values, obs,
-    obs_embedding: str = "fc", obs_shape=None, dro_rho=None,
+    obs_embedding: str = "fc", obs_shape=None, dro_rho=None, mesh=None,
 ):
     """Mean over traces of Σ_sites −log q(x | proposal) (``nn.py:150-170``),
     batched over the traces (plain autograd, no vmap).  A tied segment is
     the same loop over its sites with the shared head.  ``dro_rho``:
     chi-square-ball distributionally-robust reweighting of the per-trace
-    losses (cf. ``infcomp/nn/regularize.py``)."""
+    losses (cf. ``infcomp/nn/regularize.py``).
+
+    ``mesh`` (with ``dro_rho``): the traces are this rank's shard of the
+    batch.  The detached per-trace losses are all-gathered, so every rank
+    forms the same weights over the whole batch, and the rank's objective
+    is k · Σ_local w_i ℓ_i: the step's average of the k ranks' gradients is
+    then the single process's robust gradient (Danskin's estimator)."""
     E = params["lstm"][0]["wh"].shape[0]
     n = obs.shape[0]
     masks = values.get("__masks__", {})
@@ -511,9 +517,15 @@ def csis_loss(
             total = total + nll
             prev_emb = _embed_value(params, spec, v)
     if dro_rho is not None:
-        from .regularize import dro_loss
+        from .regularize import chi_square_weights, dro_loss
 
-        return dro_loss(total, dro_rho)
+        if mesh is None:
+            return dro_loss(total, dro_rho)
+        from ..parallel._collectives import all_gather, axis_index, axis_size
+
+        k, my = axis_size(mesh), axis_index(mesh)
+        w = chi_square_weights(all_gather(total.detach(), mesh).reshape(-1), dro_rho)
+        return k * torch.sum(w[my * n:(my + 1) * n] * total)
     return torch.mean(total)
 
 
@@ -800,7 +812,7 @@ class CSIS:
         try:
             for values, obs in batches:
                 loss = csis_loss(params, structure, values, obs, self.obs_embedding,
-                                 self.obs_shape, dro_rho)
+                                 self.obs_shape, dro_rho, mesh)
                 opt.zero_grad(set_to_none=False)
                 loss.backward()
                 if mesh is not None:
@@ -871,8 +883,9 @@ class CSIS:
         divide by the mesh size k, rank r draws ``batch_size / k`` traces a
         step from a generator seeded from (seed, r), and the gradients are
         averaged over the ranks before each Adam step, so the parameters
-        and the losses are the same on every rank.  ``dro_rho`` weighs
-        the whole batch at once and is not taken with ``mesh``.
+        and the losses are the same on every rank.  With ``dro_rho`` the
+        robust weights are formed over the whole batch on every rank
+        (:func:`csis_loss`), so a step equals the single process's.
 
         Returns ``(params, losses)``: detached parameters and the (steps,)
         losses, on the device."""
@@ -882,14 +895,11 @@ class CSIS:
             gen, per_rank = _generator(key, self.device), batch_size
         else:
             from ..parallel._collectives import axis_index, axis_size
-            from ..parallel.mesh import derive_seed
+            from ..util.seeds import derive_seed
 
             k = axis_size(mesh)
             if batch_size % k != 0:
                 raise ValueError(f"batch_size={batch_size} must divide by mesh size {k}")
-            if dro_rho is not None:
-                raise ValueError("dro_rho weighs the whole batch at once: it is not "
-                                 "taken with mesh=")
             if mesh.device_type != self.device.type:
                 raise ValueError(f"mesh ranks on {mesh.device_type}, engine on "
                                  f"{self.device}")

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..util.seeds import derive_seed
 from .resampling import _category_ticks
 from .resampling import ess as _ess
 from .resampling import (
@@ -80,13 +81,13 @@ class StateSpaceModel:
     # (key, states, log_w, y, t, flag, ticks) -> (s', w', ess', cat_w', lme')
     fused_step_exchange_batch: Optional[Callable] = None
     # (key, states, log_w, ys, n_valid, flag, ticks) ->
-    #     (s', w', ess', cat_w'(K,), lme'); kept for the protocol, not
-    #     driven yet: the port's chunk kernels take the time-aware hook
+    #     (s', w', ess', cat_w'(K,), lme'), ``key`` a seed a chunk
+    #     (``chunk_seed``); the time-aware hook below takes precedence
     fused_chunk_exchange_batch: Optional[Callable] = None
     # same plus a trailing t0 (absolute time of the chunk's first update)
     fused_chunk_exchange_t_batch: Optional[Callable] = None
-    # (key, states, log_w, ys, n_valid) -> (s', w', ess'); kept for the
-    # protocol, not driven: the port's chunk kernels take the time-aware hook
+    # (key, states, log_w, ys, n_valid) -> (s', w', ess'), ``key`` a seed a
+    # chunk (``chunk_seed``); the time-aware hook below takes precedence
     fused_chunk_batch: Optional[Callable] = None
     # same plus a trailing t0 (absolute time of the chunk's first update)
     fused_chunk_t_batch: Optional[Callable] = None
@@ -139,11 +140,35 @@ def _obs_logpdf(model, states, y, t):
     return torch.func.vmap(lambda s: model.obs_logpdf(s, y, t))(states)
 
 
-def _no_time_hook(hook: str, t_hook: str):
-    return NotImplementedError(
-        f"a chunk kernel without absolute time ({hook}) is not driven by the "
-        f"port: its kernels (slice 2, the SMC kernel family) install the "
-        f"time-aware {t_hook}")
+_CHUNK_TAG = 5_000_011
+
+
+def chunk_seed(seed: int, t0: int) -> int:
+    """The seed of the chunk that starts at absolute step ``t0`` of the
+    sweep seeded ``seed``, for a chunk hook that takes no time: a fixed
+    function of the pair (``util.seeds.derive_seed``), so every chunk
+    draws an unrelated Philox stream (the counterpart of the reference's
+    ``k_prop``, split from the carried key at each chunk)."""
+    return derive_seed(seed, _CHUNK_TAG, t0)
+
+
+def chunk_hook(model: StateSpaceModel, exchange: bool) -> Callable:
+    """The model's chunk kernel as a time-aware call ``(seed, states,
+    log_w, ys, n_valid, [flag, ticks,] t0)``: its ``_t_`` hook as it is
+    (it keeps precedence, as in the reference), else its hook without
+    absolute time called with :func:`chunk_seed` ``(seed, t0)``."""
+    t_hook, hook = ((model.fused_chunk_exchange_t_batch, model.fused_chunk_exchange_batch)
+                    if exchange else (model.fused_chunk_t_batch, model.fused_chunk_batch))
+    if t_hook is not None:
+        return t_hook
+    if hook is None:
+        raise ValueError("the model has no fused chunk kernel hook")
+
+    def call(seed, *args):
+        *rest, t0 = args
+        return hook(chunk_seed(seed, t0), *rest)
+
+    return call
 
 
 def make_smc_step(
@@ -282,10 +307,10 @@ def make_smc_step_exchange_fused_chunked(
     computed in float64 (exact at any population size a card holds).
     ``u0`` pins the boundary offset (tests); by default it is drawn from
     the carry's generator.  The model's chunk kernel is its time-aware
-    ``fused_chunk_exchange_t_batch`` hook."""
-    if model.fused_chunk_exchange_t_batch is None:
-        raise _no_time_hook("fused_chunk_exchange_batch",
-                            "fused_chunk_exchange_t_batch")
+    ``fused_chunk_exchange_t_batch`` hook, or its
+    ``fused_chunk_exchange_batch`` called with a seed a chunk
+    (:func:`chunk_hook`)."""
+    kernel = chunk_hook(model, exchange=True)
 
     def step(carry, xs, u0=None):
         ys, n_valid, t0 = xs
@@ -298,8 +323,7 @@ def make_smc_step_exchange_fused_chunked(
         ticks = _category_ticks(u0, cat_w, n_particles)[:-1].to(torch.int32)
         log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
         flag = do_resample.to(torch.int32)
-        out = model.fused_chunk_exchange_t_batch(
-            seed, states, log_w, ys, n_valid, flag, ticks, t0)
+        out = kernel(seed, states, log_w, ys, n_valid, flag, ticks, t0)
         new_states, new_log_w, new_ess, new_cat_w, new_lme = out
         return (
             (key, new_states, new_log_w, log_z_r, new_ess, new_cat_w, new_lme),
@@ -324,9 +348,9 @@ def make_smc_step_chunked(
     (with the flag off they do no work and return the population as it
     was), and the weights and the evidence are selected with
     ``torch.where``.  The model's chunk kernel is its time-aware
-    ``fused_chunk_t_batch`` hook."""
-    if model.fused_chunk_t_batch is None:
-        raise _no_time_hook("fused_chunk_batch", "fused_chunk_t_batch")
+    ``fused_chunk_t_batch`` hook, or its ``fused_chunk_batch`` called with a
+    seed a chunk (:func:`chunk_hook`)."""
+    kernel = chunk_hook(model, exchange=False)
 
     def step(carry, xs):
         ys, n_valid, t0 = xs
@@ -337,7 +361,7 @@ def make_smc_step_chunked(
             gen, log_w, states, flag=do_resample.to(torch.int32))
         log_w_r = torch.where(do_resample, torch.zeros_like(log_w), log_w)
         log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
-        new_states, new_log_w, new_ess = model.fused_chunk_t_batch(
+        new_states, new_log_w, new_ess = kernel(
             seed, states_r, log_w_r, ys, n_valid, t0)
         return (key, new_states, new_log_w, log_z_r, new_ess), (do_resample,)
 
@@ -369,12 +393,13 @@ def build_smc_run(
     ``key`` is an integer seed; ``observations`` a (T,) float32 tensor on
     the device the sweep runs on.
 
-    ``chunk`` > 1 (a model with a time-aware fused chunk kernel, no
-    history, systematic resampling): that many timesteps per kernel
-    launch, the ESS trigger evaluated at chunk boundaries (blocked adaptive
+    ``chunk`` > 1 (a model with a fused chunk kernel, time-aware or not,
+    :func:`chunk_hook`; no history, systematic resampling): that many
+    timesteps per kernel launch, the ESS trigger evaluated at chunk
+    boundaries (blocked adaptive
     resampling, an unbiased evidence estimator).  A discrete-state model
-    resamples by exchange (``fused_chunk_exchange_t_batch``), a continuous
-    one by value (``fused_chunk_t_batch``; the streaming epoch for scalar
+    resamples by exchange (``fused_chunk_exchange_[t_]batch``), a continuous
+    one by value (``fused_chunk_[t_]batch``; the streaming epoch for scalar
     states, the sorted-key epoch for vector states).  ``chunk`` = 1 with a
     discrete model's ``fused_step_exchange_batch`` (no history, systematic
     resampling) launches it once per step, its population started from

@@ -1,7 +1,7 @@
 """Model zoo — counterpart of ``cpprob_tpu/models`` (the reference's
 ``include/models`` / ``src/models``): the trace-form models, run by SIS,
-and the state-space models, run by SMC, each with its exact numpy oracle.
-``models/sherpa.py`` comes with slice 8."""
+and the state-space models, run by SMC, each with its exact numpy oracle,
+and the SHERPA-family physics models (``models/sherpa.py``)."""
 
 from .all_distr import all_distr
 from .gaussian import (
@@ -37,6 +37,13 @@ from .rejection import (
     normal_rejection_sampling,
     normal_rejection_sampling_guard,
 )
+from .sherpa import (
+    CHANNEL_MOMENTA,
+    calo_simulation,
+    sherpa_calorimeter_wrapper,
+    sherpa_mini,
+    sherpa_mini_wrapper,
+)
 
 __all__ = [
     "all_distr",
@@ -63,4 +70,9 @@ __all__ = [
     "poly_adjustment_prior_gen",
     "normal_rejection_sampling",
     "normal_rejection_sampling_guard",
+    "sherpa_mini",
+    "sherpa_mini_wrapper",
+    "calo_simulation",
+    "sherpa_calorimeter_wrapper",
+    "CHANNEL_MOMENTA",
 ]

@@ -31,6 +31,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from .mesh import in_mesh
+
 __all__ = ["psum", "pmax", "all_gather", "ppermute", "axis_index", "axis_size",
            "ALL_GATHER_CALL", "BYTES_SENT"]
 
@@ -47,7 +49,11 @@ BYTES_SENT = {"all_reduce": 0, "all_gather": 0, "ppermute": 0}
 
 
 def axis_index(mesh) -> int:
-    """This rank's index on the mesh's particle axis."""
+    """This rank's index on the mesh's particle axis; a rank outside a
+    sub-mesh has none and raises."""
+    if not in_mesh(mesh):
+        raise ValueError(f"rank {dist.get_rank()} is not on the mesh "
+                         f"{mesh.mesh.reshape(-1).tolist()}")
     return mesh.get_local_rank()
 
 

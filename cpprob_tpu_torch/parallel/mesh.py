@@ -1,19 +1,19 @@
 """The particle mesh — counterpart of ``cpprob_tpu/parallel/mesh.py``.
 
 The reference's mesh is a 1-D ``jax.sharding.Mesh`` over devices of one
-program; here it is a 1-D ``torch.distributed`` ``DeviceMesh`` over the
-ranks of the default process group, one process per device.  Each rank
-holds its ``N / k`` particles as ordinary tensors on its own device
-(``cuda:{LOCAL_RANK}``, or the CPU when asked), and the engines call the
-collectives of :mod:`._collectives` on the mesh's group where the
-reference's ``shard_map`` bodies call ``psum``/``all_gather``/``ppermute``.
+program; here it is a 1-D ``torch.distributed`` ``DeviceMesh`` over
+ranks of the default process group (all of them, or a sub-mesh), one
+process per device.  Each rank holds its ``N / k`` particles as
+ordinary tensors on its own device (``cuda:{LOCAL_RANK}``, or the CPU
+when asked), and the engines call the collectives of :mod:`._collectives`
+on the mesh's group where the reference's ``shard_map`` bodies call
+``psum``/``all_gather``/``ppermute``.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -30,15 +30,19 @@ __all__ = [
 def particle_mesh(n_devices: Optional[int] = None,
                   devices: Optional[Sequence[int]] = None, *, device="cuda"):
     """The 1-D mesh over the particle axis, a ``DeviceMesh`` with
-    ``mesh_dim_names=(PARTICLE_AXIS,)`` built on the default process group
-    (:func:`~cpprob_tpu_torch.parallel.initialize_multihost` first).
+    ``mesh_dim_names=(PARTICLE_AXIS,)`` over ranks of the default process
+    group (:func:`~cpprob_tpu_torch.parallel.initialize_multihost` first).
 
-    ``devices`` are the group's ranks in mesh order and ``n_devices`` their
-    count: a mesh spans every rank of the group in rank order (one process
-    a device; the reference's sub-meshes of one program's devices have no
-    counterpart), so either must name the whole group.  ``device``: where
-    each rank's particles live, ``"cuda"`` (the rank's current card; with
-    no card it raises) or ``"cpu"``."""
+    ``devices`` are the group's ranks in mesh order (default: all of them)
+    and ``n_devices`` keeps the first that many: the counterpart of the
+    reference's sub-meshes of one program's devices.  A mesh over fewer
+    ranks than the group runs its collectives on a group of its own, which
+    PyTorch builds with ``dist.new_group``: so every rank of the default
+    group calls ``particle_mesh`` with the same arguments, and a rank
+    outside the mesh takes no part in its collectives (it must not run an
+    engine on it: :func:`in_mesh`).  ``device``: where each rank's
+    particles live, ``"cuda"`` (the rank's current card; with no card it
+    raises) or ``"cpu"``."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("particle_mesh(device='cuda') needs a CUDA card; pass "
@@ -52,13 +56,17 @@ def particle_mesh(n_devices: Optional[int] = None,
     ranks = list(range(world)) if devices is None else [int(r) for r in devices]
     if n_devices is not None:
         ranks = ranks[:n_devices]
-    if ranks != list(range(world)):
-        raise ValueError(
-            f"a particle mesh spans every rank of the process group in rank "
-            f"order: the group has {world} ranks, asked for {ranks}")
+    if not ranks or len(set(ranks)) != len(ranks) or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"a particle mesh needs distinct ranks of the {world}-rank "
+                         f"process group, asked for {ranks}")
     from torch.distributed.device_mesh import DeviceMesh
 
     return DeviceMesh(dev.type, torch.tensor(ranks), mesh_dim_names=(PARTICLE_AXIS,))
+
+
+def in_mesh(mesh) -> bool:
+    """Whether this process is one of the mesh's ranks."""
+    return mesh.get_coordinate() is not None
 
 
 def rank_device(mesh) -> torch.device:
@@ -67,15 +75,6 @@ def rank_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
-
-
-def derive_seed(*words: int) -> int:
-    """A 63-bit seed that is a fixed function of ``words`` (the sweep's
-    seed, a tag, a rank, ...): the counterpart of the reference's chained
-    ``fold_in``.  Distinct words give unrelated seeds, so two ranks never
-    share a generator's or a kernel's Philox stream."""
-    state = np.random.SeedSequence([int(w) for w in words]).generate_state(1, np.uint64)
-    return int(state[0] >> np.uint64(1))
 
 
 def _placements():

@@ -16,8 +16,9 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from ..inference.sis import ImportanceResult, _generator, _vmapped, make_particle_fn
-from ._collectives import axis_index, axis_size, psum
-from .mesh import derive_seed, particle_mesh, rank_device
+from ..util.seeds import derive_seed
+from ._collectives import all_gather, axis_index, axis_size, psum
+from .mesh import particle_mesh, rank_device
 from .resampling import _weighted_mean, global_ess, global_log_mean_exp
 
 __all__ = ["sis_sharded", "ShardedImportanceResult"]
@@ -31,8 +32,13 @@ class ShardedImportanceResult(ImportanceResult):
     the statistics of the whole population: ``num_particles``,
     ``log_evidence`` (float64), ``ess`` (float64), ``mean``, ``variance``
     and ``normalized_weights`` (this shard's slice of the global ones) are
-    reduced over the mesh and the same on every rank.  Each statistic is a
-    collective: every rank asks for the same ones in the same order."""
+    reduced over the mesh and the same on every rank, and ``empirical``
+    gathers the whole population.  Each statistic is a collective: every
+    rank asks for the same ones in the same order.
+
+    Deviation: the reference returns the global (N,) arrays in
+    ``log_weights`` and ``predicts``; here they hold this rank's (N/k,)
+    shard, so that no statistic moves the population unless asked."""
 
     mesh: Any = dataclasses.field(default=None, compare=False)
 
@@ -65,9 +71,16 @@ class ShardedImportanceResult(ImportanceResult):
         return self._moments(name)[1]
 
     def empirical(self, name: str):
-        raise NotImplementedError(
-            "a rank holds one shard of a sharded result: use mean / variance / "
-            "ess / log_evidence (reduced over the mesh), or gather the shards")
+        """The whole population's weighted draws of ``name``, what the
+        reference's global ``empirical(name)`` returns: every rank's shard
+        of the predicts and the log-weights, all-gathered in mesh order (a
+        collective; the same on every rank)."""
+        from ..postprocess import EmpiricalDistribution
+
+        vals = self.predicts[name]
+        return EmpiricalDistribution(
+            all_gather(vals, self.mesh).reshape((-1,) + tuple(vals.shape[1:])),
+            all_gather(self.log_weights, self.mesh).reshape(-1))
 
 
 def sis_sharded(

@@ -20,7 +20,8 @@ Draws.  Rank r's initial draws and per-step moves come from generators on
 its device seeded from (seed, tag, r); a chunk kernel's seed is derived
 from (seed, tag, r) and the kernel keeps taking the absolute ``t0``, so the
 time stays in the Philox counter as on one device (the reference's
-``fold_in(fold_in(fold_in(key, 2_000_000), t0), my)``).  The resample
+``fold_in(fold_in(fold_in(key, 2_000_000), t0), my)``); a chunk hook
+without time takes ``chunk_seed`` of that seed and ``t0``.  The resample
 uniform ``u0`` comes from a generator seeded alike on every rank and stays
 on the device.
 """
@@ -36,13 +37,14 @@ from ..distributions.base import host_any
 from ..inference.smc import (
     StateSpaceModel,
     _chunk_observations,
-    _no_time_hook,
+    chunk_hook,
     _obs_logpdf,
     _per_particle,
 )
 from ..util.pytree import tree_flatten, tree_unflatten
+from ..util.seeds import derive_seed
 from ._collectives import all_gather, axis_index, axis_size
-from .mesh import derive_seed, particle_mesh
+from .mesh import particle_mesh
 from .resampling import (
     _weighted_mean,
     balanced_systematic_resample,
@@ -109,10 +111,10 @@ def smc_sharded(
     ``model.state_categories``: a ``psum`` of K category weights, and
     each rank fills its slice of the sorted global population).
 
-    ``chunk`` > 1 (a model with the time-aware ``fused_chunk_t_batch``
-    kernel hook, ``track_fn=None``): each rank runs ``chunk`` timesteps a
-    kernel launch, and the global ESS check and the resample move to chunk
-    boundaries.  ``scheme="exchange"`` with ``chunk`` > 1 raises: the
+    ``chunk`` > 1 (a model with a ``fused_chunk_t_batch`` or
+    ``fused_chunk_batch`` kernel hook, ``track_fn=None``): each rank runs
+    ``chunk`` timesteps a kernel launch, and the global ESS check and the
+    resample move to chunk boundaries.  ``scheme="exchange"`` with ``chunk`` > 1 raises: the
     reference quietly runs island resampling there (fault F11)."""
     if mesh is None:
         mesh = particle_mesh(device=observations.device.type)
@@ -136,8 +138,6 @@ def smc_sharded(
         if scheme == "exchange":
             raise ValueError("scheme='exchange' runs per step (chunk=1): the chunk "
                              "kernels resample continuous states at chunk boundaries")
-        if model.fused_chunk_t_batch is None:
-            raise _no_time_hook("fused_chunk_batch", "fused_chunk_t_batch")
     return _Sweep(model, observations, n_particles, int(key), mesh, ess_threshold,
                   scheme, balance_bound).run(chunk, track_fn)
 
@@ -227,10 +227,11 @@ class _Sweep:
         log_z = torch.zeros((), dtype=torch.float64, device=self.device)
         ess_h, res_h, tracked_h = [], [], []
         if chunk > 1:
+            kernel = chunk_hook(model, exchange=False)
             ys_chunks, valid = _chunk_observations(self.obs, chunk)
             for c in range(ys_chunks.shape[0]):
                 states, log_w, log_z, ess, flag = self._resample(states, log_w, log_z)
-                states, log_w, _ = model.fused_chunk_t_batch(
+                states, log_w, _ = kernel(
                     self.hook_seed, states, log_w, ys_chunks[c], valid[c], 1 + chunk * c)
                 ess_h.append(ess)
                 res_h.append(flag)

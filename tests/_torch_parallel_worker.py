@@ -51,6 +51,30 @@ def spread_weights(spread, k):
         0.0, spread, size=N_LOCAL * k).astype(np.float32)
 
 
+def lg_chunk_observations():
+    return np.random.RandomState(12).normal(0.0, 1.2, size=25).astype(np.float32)
+
+
+HALF_LOG_2PI = 0.9189385332046727
+
+
+def torch_chunk(seed, states, log_w, ys, n_valid):
+    """A chunk hook without absolute time in plain PyTorch, the port's twin
+    of the reference test's ``xla_chunk``: unit random-walk moves and unit
+    Gaussian emissions for ``n_valid`` steps, drawn from a generator
+    seeded with the chunk's seed."""
+    g = torch.Generator(device=states.device).manual_seed(int(seed))
+    x, w = states, log_w
+    for i in range(ys.shape[0]):
+        nx = x + torch.randn(x.shape, generator=g, device=x.device)
+        d = ys[i] - nx
+        valid = i < n_valid
+        x = torch.where(valid, nx, x)
+        w = torch.where(valid, w + (-0.5 * d * d - HALF_LOG_2PI), w)
+    p = torch.softmax(w, 0)
+    return x, w, 1.0 / torch.sum(p * p)
+
+
 def _error(fn):
     """The message of the ValueError/TypeError ``fn`` raises ('' if none)."""
     try:
@@ -156,6 +180,14 @@ def job_engines(mesh, rank, k):
         out[f"{name}_ess0"] = res[0].ess_history.numpy()
         if res[0].tracked is not None:
             out[f"{name}_tracked"] = np.stack([r.tracked.numpy() for r in res])
+    # a model that brings its own chunk hook without absolute time
+    own = dataclasses.replace(linear_gaussian_ssm, fused_chunk_batch=torch_chunk)
+    cy = torch.as_tensor(lg_chunk_observations())
+    for scheme in ("balanced", "collective"):
+        r = smc_sharded(own, cy, 16384, 0, mesh=mesh, scheme=scheme, chunk=4,
+                        balance_bound=512 if scheme == "balanced" else None)
+        out[f"own_{scheme}"] = np.array([float(r.log_evidence), int(r.resampled.sum())])
+        out[f"own_{scheme}_states"] = r.final_states.numpy()
     disc = dataclasses.replace(fused, state_categories=3)
     errors = {
         "scheme": lambda: smc_sharded(linear_gaussian_ssm, ys, N_SMC, 0, mesh=mesh,
@@ -181,7 +213,10 @@ def job_engines(mesh, rank, k):
     out["sis_local_lw"] = res.log_weights.numpy()
     out["sis_local_mu"] = res.predicts["Mu"].numpy()
     out["sis_nw"] = res.normalized_weights.numpy()
-    out["sis_empirical"] = np.array(_error(lambda: res.empirical("Mu")))
+    emp = res.empirical("Mu")
+    out["sis_emp_values"] = emp.values.numpy()
+    out["sis_emp_lw"] = emp.log_weights.numpy()
+    out["sis_emp_mean"] = np.array(float(emp.mean))
 
     # one data-parallel step on a pinned batch: this rank's rows of it
     eng = CSIS(gaussian_unknown_mean_readme, (0.0, 0.0), embedding_dim=8, device="cpu")
@@ -208,12 +243,56 @@ def job_engines(mesh, rank, k):
     out["err_compile_divide"] = np.array(_error(lambda: eng.compile(
         0, steps=1, batch_size=130, mesh=mesh)))
     out["err_compile_dro"] = np.array(_error(lambda: eng.compile(
-        0, steps=1, batch_size=128, mesh=mesh, dro_rho=0.1)))
+        0, steps=1, batch_size=130, mesh=mesh, dro_rho=0.1)))
 
     got = dryrun_multichip(k, device="cpu")
     out["dryrun"] = np.array([got[n] for n in sorted(got)])
     out["dryrun_keys"] = np.array(sorted(got))
     return out
+
+
+def job_pair(mesh, rank, k):
+    """A world of 2: one data-parallel step with ``dro_rho`` on pinned
+    traces, 16 a rank, and a one-rank sub-mesh running ``smc_sharded`` on
+    rank 0 while rank 1 stays out of its collectives."""
+    from cpprob_tpu_torch.inference.csis import CSIS
+    from cpprob_tpu_torch.models import gaussian_unknown_mean_readme, linear_gaussian_ssm
+    from cpprob_tpu_torch.parallel import particle_mesh, sis_sharded, smc_sharded
+    from cpprob_tpu_torch.parallel.mesh import in_mesh
+    from cpprob_tpu_torch.util.pytree import tree_leaves, tree_map
+
+    out = {}
+    eng = CSIS(gaussian_unknown_mean_readme, (0.0, 0.0), embedding_dim=8, device="cpu")
+    values, obs = eng._gen(torch.Generator().manual_seed(5), 16 * k)
+    rows = slice(rank * 16, (rank + 1) * 16)
+    mine = tree_map(lambda v: v[rows], values)
+    params, losses = eng._train(eng.init(0), 1e-3, iter([(mine, obs[rows])]), None, None,
+                                1, dro_rho=DRO_RHO, mesh=mesh)
+    out["dro_params"] = np.concatenate([t.reshape(-1).numpy() for t in tree_leaves(params)])
+    out["dro_loss"] = losses.numpy()
+    _, losses = eng.compile(0, steps=3, batch_size=32, mesh=mesh, dro_rho=DRO_RHO)
+    out["dro_compile_losses"] = losses.numpy()
+
+    ys = torch.as_tensor(lg_observations())
+    sub = particle_mesh(devices=[0], device="cpu")      # every rank calls it
+    out["in_sub"] = np.array(in_mesh(sub))
+    if in_mesh(sub):
+        out["sub_lz"] = np.array([float(smc_sharded(
+            linear_gaussian_ssm, ys, N_SMC, s, mesh=sub, scheme="collective").log_evidence)
+            for s in range(SEEDS)])
+        out["sub_sis_n"] = np.array(sis_sharded(
+            gaussian_unknown_mean_readme, (3.0, 4.0), 64, 0, mesh=sub).num_particles)
+    else:
+        out["sub_outside"] = np.array(_error(lambda: smc_sharded(
+            linear_gaussian_ssm, ys, N_SMC, 0, mesh=sub)))
+    out["full_lz"] = np.array([float(smc_sharded(
+        linear_gaussian_ssm, ys, N_SMC, s, mesh=mesh, scheme="collective").log_evidence)
+        for s in range(SEEDS)])
+    out["bad_ranks"] = np.array(_error(lambda: particle_mesh(devices=[0, 0], device="cpu")))
+    return out
+
+
+DRO_RHO = 0.5
 
 
 def main():
@@ -226,7 +305,8 @@ def main():
     initialize_multihost(f"file://{init}", world, rank, device="cpu", timeout=120)
     try:
         mesh = particle_mesh(device="cpu")
-        out = {"resample": job_resample, "engines": job_engines}[job](mesh, rank, world)
+        out = {"resample": job_resample, "engines": job_engines,
+               "pair": job_pair}[job](mesh, rank, world)
         np.savez(os.path.join(out_dir, f"{job}_{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

@@ -55,13 +55,13 @@ TIMEOUT = 240      # seconds, each worker
 HALF_LOG_2PI = 0.9189385332046727
 
 
-def _launch(job, tmp):
+def _launch(job, tmp, world=K):
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
     return [subprocess.Popen(
-        [sys.executable, WORKER, str(r), str(K), str(tmp / f"store_{job}"), str(tmp), job],
+        [sys.executable, WORKER, str(r), str(world), str(tmp / f"store_{job}"), str(tmp), job],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(K)]
+        for r in range(world)]
 
 
 def _collect(procs, tmp, job):
@@ -76,13 +76,15 @@ def _collect(procs, tmp, job):
                 p.communicate()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"[{r}] OK" in out, f"rank {r}:\n{out[-4000:]}"
-    return [dict(np.load(tmp / f"{job}_{r}.npz")) for r in range(K)]
+    return [dict(np.load(tmp / f"{job}_{r}.npz")) for r in range(len(procs))]
 
 
 @pytest.fixture(scope="module")
 def launches(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("parallel")
-    return tmp, {job: _launch(job, tmp) for job in ("resample", "engines")}
+    procs = {job: _launch(job, tmp) for job in ("resample", "engines")}
+    procs["pair"] = _launch("pair", tmp, world=2)
+    return tmp, procs
 
 
 @pytest.fixture(scope="module")
@@ -95,6 +97,12 @@ def resample(launches):
 def engines(launches):
     tmp, procs = launches
     return _collect(procs["engines"], tmp, "engines")
+
+
+@pytest.fixture(scope="module")
+def pair(launches):
+    tmp, procs = launches
+    return _collect(procs["pair"], tmp, "pair")
 
 
 @pytest.fixture(scope="module")
@@ -385,7 +393,23 @@ def test_sis_sharded_against_analytic(engines):
     np.testing.assert_allclose(mu, np.sum(w * _cat(engines, "sis_local_mu")) / w.sum(),
                                rtol=1e-5)
     np.testing.assert_allclose(_cat(engines, "sis_nw").sum(), 1.0, rtol=1e-9)
-    assert all(str(r["sis_empirical"]).startswith("NotImplementedError") for r in engines)
+    # the gathered empirical is the concatenation of the shards, on every rank
+    np.testing.assert_array_equal(_same_on_all_ranks(engines, "sis_emp_values"),
+                                  _cat(engines, "sis_local_mu"))
+    np.testing.assert_array_equal(_same_on_all_ranks(engines, "sis_emp_lw"),
+                                  _cat(engines, "sis_local_lw"))
+    emp_mean = float(_same_on_all_ranks(engines, "sis_emp_mean"))
+    np.testing.assert_allclose(emp_mean, mu, rtol=1e-5)
+    # and its mean agrees with the reference's global empirical within 4 SE
+    from cpprob_tpu.models import gaussian_unknown_mean as ref_gum
+    from cpprob_tpu.parallel import particle_mesh as ref_particle_mesh
+    from cpprob_tpu.parallel import sis_sharded as ref_sis_sharded
+
+    ref = ref_sis_sharded(ref_gum, (3.0, 4.0), 4096 * K, jax.random.key(2),
+                          mesh=ref_particle_mesh(K))
+    ref_emp = ref.empirical("Mu")
+    se = np.sqrt(var_t / ess) + np.sqrt(var_t / float(ref.ess))
+    assert abs(emp_mean - float(ref_emp.mean)) < 4 * se, (emp_mean, float(ref_emp.mean))
 
 
 def test_csis_data_parallel_step_equals_single_process(engines):
@@ -400,6 +424,68 @@ def test_csis_data_parallel_step_equals_single_process(engines):
     np.testing.assert_allclose(got, flat, rtol=0, atol=1e-6)
     np.testing.assert_allclose(_same_on_all_ranks(engines, "dp_loss"), losses.numpy(),
                                rtol=1e-6)
+
+
+def test_sharded_smc_chunked_balanced(engines):
+    """The reference's ``test_sharded_smc_chunked_balanced``: a model that
+    brings its own chunk hook without absolute time (plain PyTorch, the
+    twin of the reference's ``xla_chunk``) at chunk 4 and 16,384
+    particles; balanced equals collective bit for bit, an epoch resampled,
+    and the evidence is within 0.2 of the Kalman filter's."""
+    lz_b, n_b = _same_on_all_ranks(engines, "own_balanced")
+    lz_c, n_c = _same_on_all_ranks(engines, "own_collective")
+    assert lz_b == lz_c and n_b == n_c
+    for r in engines:
+        np.testing.assert_array_equal(r["own_balanced_states"], r["own_collective_states"])
+    assert n_b >= 1
+    assert abs(lz_b - float(kalman_filter_1d(W.lg_chunk_observations())[2])) < 0.2
+
+
+def test_csis_dro_step_over_mesh_equals_single_process(pair):
+    """One step with ``dro_rho`` on pinned traces, 16 a rank over a world of
+    2: the robust weights are formed over all 32 traces on both ranks, and
+    the Adam step equals the single process's on the whole batch."""
+    eng = CSIS(gaussian_unknown_mean_readme, (0.0, 0.0), embedding_dim=8, device="cpu")
+    values, obs = eng._gen(torch.Generator().manual_seed(5), 32)
+    params, losses = eng._train(eng.init(0), 1e-3, iter([(values, obs)]), None, None, 1,
+                                dro_rho=W.DRO_RHO)
+    flat = np.concatenate([t.reshape(-1).numpy() for t in tree_leaves(params)])
+    np.testing.assert_allclose(_same_on_all_ranks(pair, "dro_params"), flat, rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(_same_on_all_ranks(pair, "dro_loss"), losses.numpy(),
+                               rtol=1e-6)
+    # the robust loss is not the plain mean: the weights were not uniform
+    _, plain = eng._train(eng.init(0), 1e-3, iter([(values, obs)]), None, None, 1)
+    assert float(losses[0]) > float(plain[0])
+    assert np.isfinite(_same_on_all_ranks(pair, "dro_compile_losses")).all()
+
+
+def test_sub_mesh_runs_smc_on_its_ranks(pair):
+    """``particle_mesh(devices=[0])`` in a world of 2: rank 0 runs
+    ``smc_sharded`` alone on it, rank 1 takes no part (and raises if it
+    tries); the one-rank sweep, the two-rank sweep and the single-device
+    ``build_smc_run`` agree within 4 combined SE + 0.02 and with Kalman
+    (the counterpart of the reference's one-device mesh beside its
+    eight-device one)."""
+    from cpprob_tpu_torch import build_smc_run
+    from cpprob_tpu_torch.models import linear_gaussian_ssm
+
+    r0, r1 = pair
+    assert bool(r0["in_sub"]) and not bool(r1["in_sub"])
+    assert str(r1["sub_outside"]).startswith("ValueError"), str(r1["sub_outside"])
+    assert int(r0["sub_sis_n"]) == 64
+    for r in pair:
+        assert str(r["bad_ranks"]).startswith("ValueError")
+    ys = torch.as_tensor(W.lg_observations())
+    run = build_smc_run(linear_gaussian_ssm, W.N_SMC)
+    single = [float(run(s, ys).log_evidence) for s in range(W.SEEDS)]
+    exact = _exact("lg")
+    sub, full = _stats(r0["sub_lz"]), _stats(_same_on_all_ranks(pair, "full_lz"))
+    one = _stats(single)
+    for mean, se in (sub, full, one):
+        assert abs(mean - exact) < 4 * se + 0.02, (mean, se, exact)
+    assert abs(sub[0] - one[0]) < 4 * (sub[1] + one[1]) + 0.02
+    assert abs(sub[0] - full[0]) < 4 * (sub[1] + full[1]) + 0.02
 
 
 def test_csis_compile_and_infer_over_mesh(engines):

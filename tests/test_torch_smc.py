@@ -422,12 +422,79 @@ def test_filtered_mean_matches_reference():
 
 
 def test_chunk_hook_without_absolute_time_raises():
-    model = dataclasses.replace(port_hmm.hmm_ssm,
-                                fused_chunk_exchange_batch=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        build_smc_run(model, N, chunk=16)
-    with pytest.raises(NotImplementedError, match="fused_chunk_exchange_batch"):
-        make_smc_step_exchange_fused_chunked(model, N, 0.5)
+    """A model's own chunk hooks without absolute time
+    (``fused_chunk_exchange_batch``, ``fused_chunk_batch``) are driven, no
+    longer refused: each chunk's hook gets ``chunk_seed(seed, t0)``, the
+    counterpart of the reference's per-chunk key.  The exchange path (the
+    HMM chunk kernel's plain version behind a hook without time) equals
+    the hand-driven chunks bit for bit and holds the exact evidence; the
+    continuous path (a plain-PyTorch chunk on the LG model) holds Kalman
+    and the reference's ``build_smc_run`` on its ``xla_chunk`` twin, within
+    4 SE + 0.02.  The time-aware hook keeps precedence."""
+    from _torch_parallel_worker import torch_chunk
+
+    fused = make_fused_hmm_ssm()
+    seeds_seen = []
+
+    def own(seed, *a):
+        seeds_seen.append(seed)
+        return fused.fused_chunk_exchange_t_batch(seed, *a, 1)
+
+    model = dataclasses.replace(fused, fused_chunk_exchange_t_batch=None,
+                                fused_chunk_exchange_batch=own)
+    obs = torch.as_tensor(OBS)
+    run = build_smc_run(model, N, chunk=4)
+    zs = [float(run(s, obs).log_evidence) for s in range(SEEDS)]
+    assert seeds_seen[:4] == [port_smc.chunk_seed(0, 1 + 4 * c) for c in range(4)]
+    assert len(set(seeds_seen)) == len(seeds_seen)
+    mean, se = _mean_se(zs)
+    assert abs(mean - EXACT) < 4 * se + FLOOR, (mean, se)
+    # the same sweep with the hook wrapped by hand into a time-aware one
+    by_hand = dataclasses.replace(
+        fused, fused_chunk_exchange_t_batch=lambda seed, *a: fused.fused_chunk_exchange_t_batch(
+            port_smc.chunk_seed(seed, a[-1]), *a[:-1], 1))
+    a, b = run(3, obs), build_smc_run(by_hand, N, chunk=4)(3, obs)
+    assert torch.equal(a.final_states, b.final_states)
+    assert float(a.log_evidence) == float(b.log_evidence)
+    step = make_smc_step_exchange_fused_chunked(model, N, 0.5)
+    assert callable(step)
+    # precedence: with both hooks the time-aware one runs
+    both = dataclasses.replace(fused, fused_chunk_exchange_batch=lambda *a: 1 / 0)
+    build_smc_run(both, N, chunk=4)(0, obs)
+
+    from cpprob_tpu_torch.models import kalman_filter_1d, linear_gaussian_ssm
+
+    ys = np.random.RandomState(12).normal(0.0, 1.2, size=25).astype(np.float32)
+    lg = dataclasses.replace(linear_gaussian_ssm, fused_chunk_batch=torch_chunk)
+    run = build_smc_run(lg, N, chunk=4)
+    zs = [float(run(s, torch.as_tensor(ys)).log_evidence) for s in range(SEEDS)]
+    mean, se = _mean_se(zs)
+    kalman = float(kalman_filter_1d(ys)[2])
+    assert abs(mean - kalman) < 4 * se + FLOOR, (mean, se, kalman)
+    half_log_2pi = 0.9189385332046727
+
+    def xla_chunk(key_, states, log_w, ys_, n_valid):
+        def body(carry, inp):
+            x, w = carry
+            y, i = inp
+            nx = x + jax.random.normal(jax.random.fold_in(key_, i), x.shape)
+            d = y - nx
+            valid = i < n_valid
+            return (jnp.where(valid, nx, x),
+                    jnp.where(valid, w + (-0.5 * d * d - half_log_2pi), w)), None
+
+        (x, w), _ = jax.lax.scan(body, (states, log_w),
+                                 (ys_, jnp.arange(ys_.shape[0], dtype=jnp.int32)))
+        p = jax.nn.softmax(w)
+        return x, w, 1.0 / jnp.sum(p * p)
+
+    ref_lg = importlib.import_module("cpprob_tpu.models.linear_gaussian").linear_gaussian_ssm
+    ref_run = jax.jit(ref_smc.build_smc_run(
+        dataclasses.replace(ref_lg, fused_chunk_batch=xla_chunk), N, chunk=4))
+    ref = [float(ref_run(jax.random.key(s), jnp.asarray(ys)).log_evidence)
+           for s in range(SEEDS)]
+    rmean, rse = _mean_se(ref)
+    assert abs(mean - rmean) < 4 * (se + rse) + FLOOR, (mean, se, rmean, rse)
 
 
 def test_stage_timer_and_env_versions():
@@ -472,7 +539,12 @@ def test_port_imports_without_jax():
         "          'inference.particle_gibbs', 'inference.smc2', 'parallel',\n"
         "          'parallel.mesh', 'parallel.distributed', 'parallel._collectives',\n"
         "          'parallel.resampling', 'parallel.sis', 'parallel.smc',\n"
-        "          'util.sharded_parts'):\n"
+        "          'util.sharded_parts', 'cli', 'external', 'models.sherpa',\n"
+        "          'examples', 'examples.sherpa_gen', 'examples.calo_variance',\n"
+        "          'examples.sherpa_fullscale', 'examples.external_simulator',\n"
+        "          'examples.quickstart', 'examples.thesis_hmm_comparison',\n"
+        "          'examples.posterior_parse_bench', 'examples.csis_bench',\n"
+        "          'examples.kernel_bench', 'util.device', 'util.seeds'):\n"
         "    assert 'cpprob_tpu_torch.' + m in names, (m, names)\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and (\n"
         "    m.startswith('jax') or m == 'cpprob_tpu'\n"
