@@ -4481,10 +4481,13 @@ def driver_phases(card, stages):
     # the kernel_bench twin: its five paths' kernels, counted on their sweeps
     with stages.stage("driver_kernel_bench", sync=True):
         rec = kernel_bench.main(["--n", str(DRV_KB_N), "--device", "cuda"])
-        want = {"discrete_5state_spec_kernel": ("init", "chunk"),
-                "linear_gaussian_live_resampling": ("scalar", "lse_stats", "pass1", "pass2"),
-                "linear_gaussian_guided_fused": ("guided_tc", "lse_stats", "pass1", "pass2"),
-                "discrete_5state_guided_fused": ("init", "guided_chunk", "guided_tables")}
+        epoch = ("stream_resample.lse_stats", "stream_resample.pass1",
+                 "stream_resample.pass2")
+        want = {"discrete_5state_spec_kernel": ("fused_hmm.init", "fused_hmm.chunk"),
+                "linear_gaussian_live_resampling": ("user_chunk.scalar",) + epoch,
+                "linear_gaussian_guided_fused": ("guided_tc.guided_tc",) + epoch,
+                "discrete_5state_guided_fused": ("fused_hmm.init", "fused_hmm.guided_chunk",
+                                                 "fused_hmm.guided_tables")}
         for path, names in want.items():
             r = rec[path]
             exact = r.get("exact_log_evidence", r.get("kalman_log_evidence"))

@@ -33,6 +33,9 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from ..util.ndarray import to_host
+from ..util.profiling import counter_group
+
 __all__ = [
     "Distribution",
     "dist_dataclass",
@@ -50,8 +53,9 @@ __all__ = [
 # doublings and leapfrog steps; the tempered sampler's stages; SMC²'s
 # rejuvenation test; the sharded SMC's resample flag at a step or chunk
 # boundary and the balanced scheme's fit check in an epoch that fires)
-HOST_READS = {"observe_external": 0, "rejection_sample": 0, "truncated": 0, "nuts": 0,
-              "smc_sampler": 0, "smc2": 0, "smc_sharded": 0}
+HOST_READS = counter_group("host_reads", (
+    "observe_external", "rejection_sample", "truncated", "nuts", "smc_sampler", "smc2",
+    "smc_sharded"))
 
 
 def default_device() -> torch.device:
@@ -77,14 +81,6 @@ def to_device(v, device, dtype=None) -> torch.Tensor:
     if device.type == "cuda" and host.device.type == "cpu":
         return host.pin_memory().to(device, non_blocking=True)
     return host.to(device)
-
-
-def to_host(x) -> np.ndarray:
-    """``x`` (a tensor, or anything ``np.asarray`` takes) as a host array; a
-    card's tensor is copied back, a sync."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 def host_any(flag: torch.Tensor, caller: str) -> bool:

@@ -86,7 +86,7 @@ def main(argv=None):
     from cpprob_tpu_torch.inference.resampling import sorted_systematic_resample_values
     from cpprob_tpu_torch.inference.smc_csis import train_ssm_proposal
     from cpprob_tpu_torch.models.linear_gaussian import kalman_filter_1d, linear_gaussian_ssm
-    from cpprob_tpu_torch.ops import fused_hmm, guided_tc, stream_resample, user_chunk
+    from cpprob_tpu_torch.ops import stream_resample
     from cpprob_tpu_torch.ops.fused_ssm import (
         attach_fused_guided_discrete_kernels,
         attach_fused_guided_scalar_kernels,
@@ -94,7 +94,7 @@ def main(argv=None):
         discrete_hmm_log_evidence,
         make_fused_discrete_ssm,
     )
-    from cpprob_tpu_torch.util.profiling import StageTimer, env_versions
+    from cpprob_tpu_torch.util.profiling import StageTimer, counters, env_versions
 
     from ..util.device import resolve_device
     from ._common import sync, to_np
@@ -102,22 +102,19 @@ def main(argv=None):
     dev = resolve_device(args.device)
     N, T = 1 << args.n, args.T
     iters, train = ITERS, TRAIN_FRACTION
-    counters = (fused_hmm.LAUNCHES, user_chunk.LAUNCHES, guided_tc.LAUNCHES,
-                stream_resample.LAUNCHES)
     st = StageTimer()
     out = {"artifact": "generated-kernel + streaming-resample benchmarks",
            "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
            "n_particles": N, "T": T}
 
     def timed_sweeps(run, obs, label, seed0):
-        """One warm sweep, then ``iters`` timed iterations of SWEEPS sweeps
-        with the launch counters from 0; returns (median sweep s, logZs,
-        resamples a sweep, launches)."""
+        """One warm sweep, then ``iters`` timed iterations of SWEEPS sweeps;
+        returns (median sweep s, logZs, resamples a sweep, the launch
+        counters that moved over the timed iterations, ``"group.key": n``
+        as ``counters()`` names them)."""
         run(seed0, obs)
         sync(dev)
-        for c in counters:
-            for k in c:
-                c[k] = 0
+        before = counters()
         per_iter, results = [], []
         for i in range(iters):
             with st.stage(f"{label}:timed_iters", sync=True):
@@ -125,7 +122,8 @@ def main(argv=None):
                 results += [run(seed0 + 1 + i * SWEEPS + s, obs) for s in range(SWEEPS)]
                 sync(dev)
                 per_iter.append((time.perf_counter() - t0) / SWEEPS)
-        launches = {k: v for c in counters for k, v in c.items() if v}
+        launches = {k: v - before.get(k, 0) for k, v in counters().items()
+                    if v != before.get(k, 0) and not k.startswith("host_reads.")}
         lz = to_np(torch.stack([r.log_evidence for r in results]))
         epochs = to_np(torch.stack([r.resampled.sum() for r in results]))
         return float(np.median(per_iter)), lz, epochs, launches

@@ -14,6 +14,7 @@ import math
 import torch
 
 from ..ops import stream_resample as sr
+from ..util.profiling import span
 
 __all__ = [
     "systematic_resample",
@@ -265,22 +266,24 @@ def continuous_resample_values_lme(key: torch.Generator,
     """Like :func:`continuous_resample_values`, and also the log-mean-exp
     of the weights (the evidence increment, float64).  On the streaming
     path one :func:`~cpprob_tpu_torch.ops.stream_resample.logsumexp_stats`
-    sweep serves both pass 1 and the increment."""
+    sweep serves both pass 1 and the increment.  Both branches lie in the
+    span ``resample.epoch`` of a recording profiler."""
     n = log_weights.shape[0]
-    if states.dim() == 1 and states.dtype == torch.float32 \
-            and sr.streaming_available(n):
-        stats = sr.logsumexp_stats(log_weights, flag)
-        new_states = sr.streaming_systematic_resample_values(
-            key, log_weights, states, stats=stats, flag=flag)
-        return new_states, stats[0] + torch.log(stats[1]) - math.log(n)
-    lme = torch.logsumexp(log_weights.double(), 0) - math.log(n)
-    if states.dim() == 2:
-        new_states = sorted_systematic_resample_values_nd(key, log_weights, states)
-    else:
-        new_states = sorted_systematic_resample_values(key, log_weights, states)
-    if flag is not None:
-        new_states = torch.where(flag.reshape(()) != 0, new_states, states)
-    return new_states, lme
+    with span("resample.epoch"):
+        if states.dim() == 1 and states.dtype == torch.float32 \
+                and sr.streaming_available(n):
+            stats = sr.logsumexp_stats(log_weights, flag)
+            new_states = sr.streaming_systematic_resample_values(
+                key, log_weights, states, stats=stats, flag=flag)
+            return new_states, stats[0] + torch.log(stats[1]) - math.log(n)
+        lme = torch.logsumexp(log_weights.double(), 0) - math.log(n)
+        if states.dim() == 2:
+            new_states = sorted_systematic_resample_values_nd(key, log_weights, states)
+        else:
+            new_states = sorted_systematic_resample_values(key, log_weights, states)
+        if flag is not None:
+            new_states = torch.where(flag.reshape(()) != 0, new_states, states)
+        return new_states, lme
 
 
 _RESAMPLERS = {

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..util.profiling import span
 from ..util.seeds import derive_seed
 from .resampling import _category_ticks
 from .resampling import ess as _ess
@@ -201,57 +202,58 @@ def make_smc_step(
                             or model.fused_step_batch is not None)
 
     def step(carry, y_t_and_t):
-        y_t, t = y_t_and_t
-        key, states, log_w, log_z, ess = carry
-        seed, gen = key
-        do_resample = ess < ess_threshold * n_particles
-        ident = torch.arange(n_particles, dtype=torch.int32, device=states.device)
+        with span("smc.step"):
+            y_t, t = y_t_and_t
+            key, states, log_w, log_z, ess = carry
+            seed, gen = key
+            do_resample = ess < ess_threshold * n_particles
+            ident = torch.arange(n_particles, dtype=torch.int32, device=states.device)
 
-        if sorted_fill:
-            res_states, lme = continuous_resample_values_lme(
-                gen, log_w, states, flag=do_resample.to(torch.int32))
-            res_anc = ident
-        elif exchange:
-            u0 = torch.rand((), generator=gen, device=states.device,
-                            dtype=torch.float64)
-            cat_w = category_weights(log_w, states, model.state_categories)
-            counts = category_counts_systematic(u0, cat_w, n_particles)
-            res_states = states_from_counts(counts, n_particles, dtype=states.dtype)
-            res_anc, lme = ident, _log_mean_exp(log_w)
-        else:
-            res_anc = resampler(gen, log_w)
-            res_states = states[res_anc.long()]
-            lme = _log_mean_exp(log_w)
-        states_r = torch.where(do_resample, res_states, states)
-        log_w_r = torch.where(do_resample, torch.zeros_like(log_w), log_w)
-        log_z_r = torch.where(do_resample, log_z + lme, log_z)
-        anc = torch.where(do_resample, res_anc, ident)
-
-        if fused and model.fused_step_ess_batch is not None:
-            new_states, new_log_w, new_ess = model.fused_step_ess_batch(
-                seed, states_r, log_w_r, y_t, t)
-        else:
-            if fused:
-                new_states, new_log_w = model.fused_step_batch(
-                    seed, states_r, log_w_r, y_t, t)
-            elif guided:
-                new_states = model.proposal_sample(gen, states_r, t, y_t)
-                rn = (model.step_logpdf(new_states, states_r, t)
-                      - model.proposal_logpdf(new_states, states_r, t, y_t))
-                new_log_w = log_w_r + rn + _obs_logpdf(model, new_states, y_t, t)
+            if sorted_fill:
+                res_states, lme = continuous_resample_values_lme(
+                    gen, log_w, states, flag=do_resample.to(torch.int32))
+                res_anc = ident
+            elif exchange:
+                u0 = torch.rand((), generator=gen, device=states.device,
+                                dtype=torch.float64)
+                cat_w = category_weights(log_w, states, model.state_categories)
+                counts = category_counts_systematic(u0, cat_w, n_particles)
+                res_states = states_from_counts(counts, n_particles, dtype=states.dtype)
+                res_anc, lme = ident, _log_mean_exp(log_w)
             else:
-                if model.step_sample_batch is not None:
-                    new_states = model.step_sample_batch(gen, states_r, t)
+                res_anc = resampler(gen, log_w)
+                res_states = states[res_anc.long()]
+                lme = _log_mean_exp(log_w)
+            states_r = torch.where(do_resample, res_states, states)
+            log_w_r = torch.where(do_resample, torch.zeros_like(log_w), log_w)
+            log_z_r = torch.where(do_resample, log_z + lme, log_z)
+            anc = torch.where(do_resample, res_anc, ident)
+
+            if fused and model.fused_step_ess_batch is not None:
+                new_states, new_log_w, new_ess = model.fused_step_ess_batch(
+                    seed, states_r, log_w_r, y_t, t)
+            else:
+                if fused:
+                    new_states, new_log_w = model.fused_step_batch(
+                        seed, states_r, log_w_r, y_t, t)
+                elif guided:
+                    new_states = model.proposal_sample(gen, states_r, t, y_t)
+                    rn = (model.step_logpdf(new_states, states_r, t)
+                          - model.proposal_logpdf(new_states, states_r, t, y_t))
+                    new_log_w = log_w_r + rn + _obs_logpdf(model, new_states, y_t, t)
                 else:
-                    new_states = _per_particle(
-                        lambda g, s: model.step_sample(g, s, t), gen, states_r)
-                new_log_w = log_w_r + _obs_logpdf(model, new_states, y_t, t)
-            new_ess = _ess(new_log_w)
-        if store_history:
-            ys = (new_states, new_log_w, anc, do_resample)
-        else:
-            ys = (do_resample,)
-        return (key, new_states, new_log_w, log_z_r, new_ess), ys
+                    if model.step_sample_batch is not None:
+                        new_states = model.step_sample_batch(gen, states_r, t)
+                    else:
+                        new_states = _per_particle(
+                            lambda g, s: model.step_sample(g, s, t), gen, states_r)
+                    new_log_w = log_w_r + _obs_logpdf(model, new_states, y_t, t)
+                new_ess = _ess(new_log_w)
+            if store_history:
+                ys = (new_states, new_log_w, anc, do_resample)
+            else:
+                ys = (do_resample,)
+            return (key, new_states, new_log_w, log_z_r, new_ess), ys
 
     return step
 
@@ -272,22 +274,23 @@ def make_smc_step_exchange_fused(
     (tests); by default it is drawn from the carry's generator."""
 
     def step(carry, y_t_and_t, u0=None):
-        y_t, t = y_t_and_t
-        key, states, log_w, log_z, ess, cat_w, lme = carry
-        seed, gen = key
-        do_resample = ess < ess_threshold * n_particles
-        if u0 is None:
-            u0 = torch.rand((), generator=gen, device=states.device,
-                            dtype=torch.float64)
-        ticks = _category_ticks(u0, cat_w, n_particles)[:-1].to(torch.int32)
-        log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
-        out = model.fused_step_exchange_batch(
-            seed, states, log_w, y_t, t, do_resample.to(torch.int32), ticks)
-        new_states, new_log_w, new_ess, new_cat_w, new_lme = out
-        return (
-            (key, new_states, new_log_w, log_z_r, new_ess, new_cat_w, new_lme),
-            (do_resample,),
-        )
+        with span("smc.step"):
+            y_t, t = y_t_and_t
+            key, states, log_w, log_z, ess, cat_w, lme = carry
+            seed, gen = key
+            do_resample = ess < ess_threshold * n_particles
+            if u0 is None:
+                u0 = torch.rand((), generator=gen, device=states.device,
+                                dtype=torch.float64)
+            ticks = _category_ticks(u0, cat_w, n_particles)[:-1].to(torch.int32)
+            log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
+            out = model.fused_step_exchange_batch(
+                seed, states, log_w, y_t, t, do_resample.to(torch.int32), ticks)
+            new_states, new_log_w, new_ess, new_cat_w, new_lme = out
+            return (
+                (key, new_states, new_log_w, log_z_r, new_ess, new_cat_w, new_lme),
+                (do_resample,),
+            )
 
     return step
 
@@ -313,22 +316,23 @@ def make_smc_step_exchange_fused_chunked(
     kernel = chunk_hook(model, exchange=True)
 
     def step(carry, xs, u0=None):
-        ys, n_valid, t0 = xs
-        key, states, log_w, log_z, ess, cat_w, lme = carry
-        seed, gen = key
-        do_resample = ess < ess_threshold * n_particles
-        if u0 is None:
-            u0 = torch.rand((), generator=gen, device=states.device,
-                            dtype=torch.float64)
-        ticks = _category_ticks(u0, cat_w, n_particles)[:-1].to(torch.int32)
-        log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
-        flag = do_resample.to(torch.int32)
-        out = kernel(seed, states, log_w, ys, n_valid, flag, ticks, t0)
-        new_states, new_log_w, new_ess, new_cat_w, new_lme = out
-        return (
-            (key, new_states, new_log_w, log_z_r, new_ess, new_cat_w, new_lme),
-            (do_resample,),
-        )
+        with span("smc.chunk"):
+            ys, n_valid, t0 = xs
+            key, states, log_w, log_z, ess, cat_w, lme = carry
+            seed, gen = key
+            do_resample = ess < ess_threshold * n_particles
+            if u0 is None:
+                u0 = torch.rand((), generator=gen, device=states.device,
+                                dtype=torch.float64)
+            ticks = _category_ticks(u0, cat_w, n_particles)[:-1].to(torch.int32)
+            log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
+            flag = do_resample.to(torch.int32)
+            out = kernel(seed, states, log_w, ys, n_valid, flag, ticks, t0)
+            new_states, new_log_w, new_ess, new_cat_w, new_lme = out
+            return (
+                (key, new_states, new_log_w, log_z_r, new_ess, new_cat_w, new_lme),
+                (do_resample,),
+            )
 
     return step
 
@@ -353,17 +357,18 @@ def make_smc_step_chunked(
     kernel = chunk_hook(model, exchange=False)
 
     def step(carry, xs):
-        ys, n_valid, t0 = xs
-        key, states, log_w, log_z, ess = carry
-        seed, gen = key
-        do_resample = ess < ess_threshold * n_particles
-        states_r, lme = continuous_resample_values_lme(
-            gen, log_w, states, flag=do_resample.to(torch.int32))
-        log_w_r = torch.where(do_resample, torch.zeros_like(log_w), log_w)
-        log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
-        new_states, new_log_w, new_ess = kernel(
-            seed, states_r, log_w_r, ys, n_valid, t0)
-        return (key, new_states, new_log_w, log_z_r, new_ess), (do_resample,)
+        with span("smc.chunk"):
+            ys, n_valid, t0 = xs
+            key, states, log_w, log_z, ess = carry
+            seed, gen = key
+            do_resample = ess < ess_threshold * n_particles
+            states_r, lme = continuous_resample_values_lme(
+                gen, log_w, states, flag=do_resample.to(torch.int32))
+            log_w_r = torch.where(do_resample, torch.zeros_like(log_w), log_w)
+            log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
+            new_states, new_log_w, new_ess = kernel(
+                seed, states_r, log_w_r, ys, n_valid, t0)
+            return (key, new_states, new_log_w, log_z_r, new_ess), (do_resample,)
 
     return step
 
@@ -403,7 +408,11 @@ def build_smc_run(
     states, the sorted-key epoch for vector states).  ``chunk`` = 1 with a
     discrete model's ``fused_step_exchange_batch`` (no history, systematic
     resampling) launches it once per step, its population started from
-    ``init_sample_batch`` as the reference does."""
+    ``init_sample_batch`` as the reference does.
+
+    While a profiler records, a call lies in the span ``smc.run``, its
+    start in ``smc.init`` and each loop body in ``smc.chunk`` or
+    ``smc.step`` (:func:`~cpprob_tpu_torch.util.profiling.span`)."""
     resampler = get_resampler(resampling)
     # a guided model takes the fused paths only through its guided kernels
     guided = model.proposal_sample is not None
@@ -448,27 +457,29 @@ def build_smc_run(
             exchange=exchange_ok, sorted_fill=sorted_ok,
         )
 
-    def run(key: int, observations: torch.Tensor) -> SMCResult:
+    def sweep(key: int, observations: torch.Tensor) -> SMCResult:
         seed = int(key)
         device = observations.device
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         n = n_particles
-        if chunk_exchange and model.fused_init_batch is not None:
-            states0, log_w0, ess0, cat_w0, lme0 = model.fused_init_batch(
-                seed, n, observations[0])
-        else:
-            if model.init_proposal_sample is not None:
-                states0 = model.init_proposal_sample(gen, observations[0], n)
-                rn0 = (model.init_logpdf(states0)
-                       - model.init_proposal_logpdf(states0, observations[0]))
-            elif model.init_sample_batch is not None:
-                states0, rn0 = model.init_sample_batch(gen, n), 0.0
+        with span("smc.init"):
+            if chunk_exchange and model.fused_init_batch is not None:
+                states0, log_w0, ess0, cat_w0, lme0 = model.fused_init_batch(
+                    seed, n, observations[0])
             else:
-                dummy = torch.empty(n, device=device)
-                states0 = _per_particle(lambda g, _: model.init_sample(g), gen, dummy)
-                rn0 = 0.0
-            log_w0 = rn0 + _obs_logpdf(model, states0, observations[0], 0)
+                if model.init_proposal_sample is not None:
+                    states0 = model.init_proposal_sample(gen, observations[0], n)
+                    rn0 = (model.init_logpdf(states0)
+                           - model.init_proposal_logpdf(states0, observations[0]))
+                elif model.init_sample_batch is not None:
+                    states0, rn0 = model.init_sample_batch(gen, n), 0.0
+                else:
+                    dummy = torch.empty(n, device=device)
+                    states0 = _per_particle(lambda g, _: model.init_sample(g), gen,
+                                            dummy)
+                    rn0 = 0.0
+                log_w0 = rn0 + _obs_logpdf(model, states0, observations[0], 0)
         log_z = torch.zeros((), dtype=torch.float64, device=device)
         no_resample = torch.zeros(1, dtype=torch.bool, device=device)
 
@@ -514,6 +525,10 @@ def build_smc_run(
             return SMCResult(states, log_ws, anc, resampled, log_z,
                              states_f, log_w_f)
         return SMCResult(None, None, None, resampled, log_z, states_f, log_w_f)
+
+    def run(key: int, observations: torch.Tensor) -> SMCResult:
+        with span("smc.run"):
+            return sweep(key, observations)
 
     return run
 

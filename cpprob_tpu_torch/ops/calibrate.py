@@ -35,6 +35,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..util.profiling import counter_group
 from .fused_lg import _normal_pair
 from .philox import philox_uniform, split_seed
 from .population import check_tensor
@@ -65,8 +66,8 @@ TRANS_N = (1 << 14) * 128
 TRANS_CHAIN = 1024
 
 # kernel launches by wrapper, counted where each wrapper launches its kernel
-LAUNCHES = {"fp32": 0, "tensor_cores": 0, "hbm": 0, "normals": 0,
-            "philox": 0, "transcendental": 0}
+LAUNCHES = counter_group("calibrate", (
+    "fp32", "tensor_cores", "hbm", "normals", "philox", "transcendental"))
 
 _FMA_MUL = float(np.float32(1.0000001))
 _FMA_ADD = float(np.float32(1e-7))

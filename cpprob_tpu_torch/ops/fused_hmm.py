@@ -49,6 +49,7 @@ import math
 import numpy as np
 import torch
 
+from ..util.profiling import counter_group, span
 from .philox import philox_uniform, philox_uniforms4, split_seed
 from .population import (check_tensor, current_stream, launch_population,
                          mlp_layers, raise_on)
@@ -84,9 +85,9 @@ GUIDED_ACT_BYTES = 232448 - 3072
 # "step_exchange", "step_ess" or "step" instead of "chunk", and those of
 # the guided kernel under "guided_step_exchange" or "guided_step_ess"; every
 # guided launch is preceded by one of the tables kernel ("guided_tables")
-LAUNCHES = {"init": 0, "chunk": 0, "step_exchange": 0, "step_ess": 0, "step": 0,
-            "guided_chunk": 0, "guided_step_exchange": 0, "guided_step_ess": 0,
-            "guided_tables": 0}
+LAUNCHES = counter_group("fused_hmm", (
+    "init", "chunk", "step_exchange", "step_ess", "step", "guided_chunk",
+    "guided_step_exchange", "guided_step_ess", "guided_tables"))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -465,7 +466,7 @@ def hmm_init(seed: int, y0: torch.Tensor, n: int, spec: HMMSpec):
             log_w.data_ptr(), rec.data_ptr(), n, grid, current_stream(dev))
 
     return launch_population(
-        "hmm_init_kernel", launch, device=dev,
+        "hmm_init_kernel", launch, span_name="launch.hmm_init_kernel", device=dev,
         inputs=[(y0, "y0", torch.float32)],
         outputs=[(n, torch.int32), (n, torch.float32)],
         records=(grid, spec.K + 4), counts=LAUNCHES, count_key="init")
@@ -509,7 +510,7 @@ def hmm_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
             rec.data_ptr(), n, current_stream(dev))
 
     return launch_population(
-        "hmm_chunk_kernel", launch, device=dev,
+        "hmm_chunk_kernel", launch, span_name="launch.hmm_chunk_kernel", device=dev,
         inputs=[(states, "states", torch.int32), (log_w, "log_w", torch.float32),
                 (ys, "ys", torch.float32), (ctrl, "ctrl", torch.int32)],
         outputs=[(n, torch.int32), (n, torch.float32)],
@@ -547,12 +548,13 @@ def guided_tables(ys: torch.Tensor, ctrl: torch.Tensor, spec: HMMSpec,
         raise ValueError(f"guided_tables runs on cpu or cuda tensors, not {dev}")
     if not 2 <= K <= GUIDED_MAX_K:
         raise ValueError(f"the guided tables kernel takes 2 <= K <= {GUIDED_MAX_K}")
-    for t, name, dtype in ((ys, "ys", torch.float32), (ctrl, "ctrl", torch.int32)):
-        check_tensor(t, name, dtype, dev)
-    tabs = torch.empty((n_steps, 2 * K * K + K), device=dev)
-    raise_on(_lib().guided_tables_launch(
-        *_net_args(spec, gt, dev), ys.data_ptr(), n_steps, ctrl.data_ptr(), t0,
-        tabs.data_ptr(), current_stream(dev)), "guided_tables_kernel")
+    with span("launch.guided_tables_kernel"):
+        for t, name, dtype in ((ys, "ys", torch.float32), (ctrl, "ctrl", torch.int32)):
+            check_tensor(t, name, dtype, dev)
+        tabs = torch.empty((n_steps, 2 * K * K + K), device=dev)
+        raise_on(_lib().guided_tables_launch(
+            *_net_args(spec, gt, dev), ys.data_ptr(), n_steps, ctrl.data_ptr(), t0,
+            tabs.data_ptr(), current_stream(dev)), "guided_tables_kernel")
     LAUNCHES["guided_tables"] += 1
     return tabs
 
@@ -606,7 +608,8 @@ def guided_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
             current_stream(dev))
 
     return launch_population(
-        "guided_chunk_kernel", launch, device=dev,
+        "guided_chunk_kernel", launch, span_name="launch.guided_chunk_kernel",
+        device=dev,
         inputs=[(states, "states", torch.int32), (log_w, "log_w", torch.float32),
                 (ys, "ys", torch.float32), (ctrl, "ctrl", torch.int32)],
         outputs=[(n, torch.int32), (n, torch.float32)],

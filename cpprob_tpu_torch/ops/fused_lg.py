@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from ..util.profiling import counter_group
 from .fused_hmm import stats_from_partials
 from .philox import philox4x32, split_seed, uniform_from_bits
 from .population import check_tensor, current_stream, launch_population
@@ -40,7 +41,7 @@ _TWO_PI = 2.0 * math.pi
 
 # kernel launches by wrapper: "chunk" (K7) and "step" (K6, the one-step
 # launch), counted where the kernel is launched
-LAUNCHES = {"chunk": 0, "step": 0}
+LAUNCHES = counter_group("fused_lg", ("chunk", "step"))
 
 
 # --------------------------------------------------------------------------
@@ -163,7 +164,7 @@ def _launch(seed, states, log_w, ys, n_valid, t0, what, count_key):
             w_out.data_ptr(), rec.data_ptr(), n, current_stream(dev))
 
     return launch_population(
-        what, launch, device=dev,
+        what, launch, span_name="launch.lg_chunk_kernel", device=dev,
         inputs=[(states, "states", torch.float32), (log_w, "log_w", torch.float32),
                 (ys, "ys", torch.float32)],
         outputs=[(n, torch.float32), (n, torch.float32)],

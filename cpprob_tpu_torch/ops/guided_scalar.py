@@ -49,6 +49,7 @@ import math
 
 import torch
 
+from ..util.profiling import counter_group
 from .fused_lg import normal_steps
 from .philox import split_seed
 from .population import current_stream, launch_population, mlp_layers
@@ -68,7 +69,7 @@ _THREADS = 256            # csrc/guided_scalar.cuh kThreads
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 # kernel launches, counted where the kernel is launched
-LAUNCHES = {"guided": 0}
+LAUNCHES = counter_group("guided_scalar", ("guided",))
 
 _HINT = ("a guided density keeps the elementwise contract of "
          "cpprob_tpu_torch/ops/render.py")
@@ -350,7 +351,8 @@ class GuidedScalarKernel:
                 current_stream(dev))
 
         return launch_population(
-            "guided_scalar_kernel", launch, device=dev,
+            "guided_scalar_kernel", launch, span_name="launch.guided_scalar_kernel",
+            device=dev,
             inputs=[(states, "states", torch.float32),
                     (log_w, "log_w", torch.float32),
                     (ys, "ys", torch.float32),

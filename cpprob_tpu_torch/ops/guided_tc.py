@@ -46,6 +46,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..util.profiling import counter_group
 from .guided_scalar import check_scalar_net, guided_scalar_chunk_plain, render_density
 from .philox import split_seed
 from .population import launch_population
@@ -59,7 +60,7 @@ GROUPS = 2                # csrc/guided_tc.cuh kGroups: particles a thread
 MAX_WIDTH = 32
 
 # kernel launches, counted where the kernel is launched
-LAUNCHES = {"guided_tc": 0}
+LAUNCHES = counter_group("guided_tc", ("guided_tc",))
 
 _PERM = (0, 2, 4, 6, 1, 3, 5, 7)   # A fragment k position -> C column
 
@@ -374,7 +375,7 @@ class GuidedTensorCoreKernel:
                 current_stream(dev))
 
         return launch_population(
-            "guided_tc_kernel", launch, device=dev,
+            "guided_tc_kernel", launch, span_name="launch.guided_tc_kernel", device=dev,
             inputs=[(states, "states", torch.float32),
                     (log_w, "log_w", torch.float32),
                     (ys, "ys", torch.float32),

@@ -6,8 +6,9 @@ linear-Gaussian chunk kernel, the user-physics and guided scalar kernels) takes
 (seed, observations, control, states, log_w) and writes (states', log_w',
 one statistics record per CTA).  :func:`launch_population` is the one
 place that checks the inputs, allocates the outputs and the records,
-launches, raises on a refused launch and counts it; the kernels' outputs
-do not depend on it.
+launches, raises on a refused launch and counts it, inside the span
+``launch.<kernel>`` of a recording profiler; the kernels' outputs do not
+depend on it.
 
 The helpers below it (:func:`check_tensor`, :func:`raise_on`,
 :func:`current_stream`, :func:`mlp_layers`) serve the other kernel
@@ -21,6 +22,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from ..util.profiling import span
 
 __all__ = ["launch_population", "check_tensor", "raise_on", "current_stream",
            "mlp_layers"]
@@ -72,7 +75,7 @@ def mlp_layers(params):
     return Ws, bs
 
 
-def launch_population(what: str, launch: Callable, *, device,
+def launch_population(what: str, launch: Callable, *, span_name: str, device,
                       inputs: Sequence = (), outputs: Sequence = (),
                       records: tuple, counts: dict, count_key: str):
     """Launch one population kernel on ``device`` (a CUDA device).
@@ -83,14 +86,18 @@ def launch_population(what: str, launch: Callable, *, device,
     ``launch(*outputs, records)`` launches the kernel on the current stream
     and returns its CUDA error (0 when launched).  On success
     ``counts[count_key]`` goes up by one.  Returns ``(*outputs, records)``.
+    The checks, the allocations and the launch lie in the span
+    ``span_name``, a fixed ``"launch.<kernel>"`` (``util.profiling.span``);
+    ``what`` names the kernel in errors.
     """
-    if device.type != "cuda":
-        raise ValueError(f"{what} runs on cpu or cuda tensors, not {device}")
-    for t, name, dtype in inputs:
-        check_tensor(t, name, dtype, device)
-    outs = [torch.empty(shape, dtype=dtype, device=device)
-            for shape, dtype in outputs]
-    rec = torch.empty(records, dtype=torch.float32, device=device)
-    raise_on(launch(*outs, rec), what)
+    with span(span_name):
+        if device.type != "cuda":
+            raise ValueError(f"{what} runs on cpu or cuda tensors, not {device}")
+        for t, name, dtype in inputs:
+            check_tensor(t, name, dtype, device)
+        outs = [torch.empty(shape, dtype=dtype, device=device)
+                for shape, dtype in outputs]
+        rec = torch.empty(records, dtype=torch.float32, device=device)
+        raise_on(launch(*outs, rec), what)
     counts[count_key] += 1
     return (*outs, rec)

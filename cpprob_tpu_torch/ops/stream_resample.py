@@ -42,6 +42,7 @@ import ctypes
 
 import torch
 
+from ..util.profiling import counter_group, span
 from .population import check_tensor as _check
 from .population import current_stream as _stream
 from .population import raise_on as _raise_on
@@ -61,8 +62,8 @@ IMPLS = ("scatter", "fast", "merge")
 
 # kernel launches by wrapper, counted where each wrapper launches its
 # kernels; pass 2 by variant
-LAUNCHES = {"lse_stats": 0, "pass1": 0, "pass2": 0, "pass2_fast": 0,
-            "pass2_merge": 0}
+LAUNCHES = counter_group("stream_resample", (
+    "lse_stats", "pass1", "pass2", "pass2_fast", "pass2_merge"))
 
 
 # --------------------------------------------------------------------------
@@ -167,18 +168,19 @@ def logsumexp_stats(log_w: torch.Tensor, flag=None) -> torch.Tensor:
     version on a CPU tensor."""
     if log_w.device.type == "cpu":
         return logsumexp_stats_plain(log_w)
-    dev = _cuda_inputs("logsumexp_stats", (log_w, "log_w", torch.float32))
-    n = log_w.shape[0]
-    _check_n(n)
-    lib = _lib()
-    stream = _stream(dev)
-    rec_m, rec_s, ticket = _lse_scratch(dev, stream.value)
-    stats = torch.empty(2, dtype=torch.float64, device=dev)
-    err = lib.lse_stats_launch(log_w.data_ptr(), n, _flag_ptr(flag, dev),
-                               rec_m.data_ptr(), rec_s.data_ptr(),
-                               ticket.data_ptr(), rec_m.shape[0],
-                               stats.data_ptr(), stream)
-    _raise_on(err, "lse_stats_kernel")
+    with span("launch.lse_stats_kernel"):
+        dev = _cuda_inputs("logsumexp_stats", (log_w, "log_w", torch.float32))
+        n = log_w.shape[0]
+        _check_n(n)
+        lib = _lib()
+        stream = _stream(dev)
+        rec_m, rec_s, ticket = _lse_scratch(dev, stream.value)
+        stats = torch.empty(2, dtype=torch.float64, device=dev)
+        err = lib.lse_stats_launch(log_w.data_ptr(), n, _flag_ptr(flag, dev),
+                                   rec_m.data_ptr(), rec_s.data_ptr(),
+                                   ticket.data_ptr(), rec_m.shape[0],
+                                   stats.data_ptr(), stream)
+        _raise_on(err, "lse_stats_kernel")
     LAUNCHES["lse_stats"] += 1
     return stats
 
@@ -232,22 +234,23 @@ def resample_pass1(u0, log_w: torch.Tensor, stats: torch.Tensor,
     u0 = torch.as_tensor(u0, dtype=torch.float64, device=dev)
     if dev.type == "cpu":
         return resample_pass1_plain(u0, log_w, stats)
-    _cuda_inputs("resample_pass1", (log_w, "log_w", torch.float32),
-                 (stats, "stats", torch.float64), (u0, "u0", torch.float64))
-    n = log_w.shape[0]
-    _check_n(n)
-    if stats.shape != (2,) or u0.numel() != 1:
-        raise ValueError("stats must be (m, wtot) and u0 one element")
-    lib = _lib()
-    stream = _stream(dev)
-    ctr, status, vals = _pass1_scratch(dev, stream.value,
-                                       -(-n // (_P1_THREADS * PASS1_PER_THREAD)))
-    st = torch.empty(n, dtype=torch.int32, device=dev)
-    err = lib.pass1_launch(log_w.data_ptr(), n, stats.data_ptr(),
-                           u0.data_ptr(), _flag_ptr(flag, dev), ctr.data_ptr(),
-                           status.data_ptr(), vals.data_ptr(), st.data_ptr(),
-                           stream)
-    _raise_on(err, "pass1_scan_kernel")
+    with span("launch.pass1_scan_kernel"):
+        _cuda_inputs("resample_pass1", (log_w, "log_w", torch.float32),
+                     (stats, "stats", torch.float64), (u0, "u0", torch.float64))
+        n = log_w.shape[0]
+        _check_n(n)
+        if stats.shape != (2,) or u0.numel() != 1:
+            raise ValueError("stats must be (m, wtot) and u0 one element")
+        lib = _lib()
+        stream = _stream(dev)
+        ctr, status, vals = _pass1_scratch(dev, stream.value,
+                                           -(-n // (_P1_THREADS * PASS1_PER_THREAD)))
+        st = torch.empty(n, dtype=torch.int32, device=dev)
+        err = lib.pass1_launch(log_w.data_ptr(), n, stats.data_ptr(),
+                               u0.data_ptr(), _flag_ptr(flag, dev), ctr.data_ptr(),
+                               status.data_ptr(), vals.data_ptr(), st.data_ptr(),
+                               stream)
+        _raise_on(err, "pass1_scan_kernel")
     LAUNCHES["pass1"] += 1
     return st
 
@@ -261,18 +264,19 @@ def resample_pass2(st: torch.Tensor, states: torch.Tensor,
     _check_impl(impl, states.shape[0])
     if dev.type == "cpu":
         return resample_pass2_plain(st, states, flag, impl)
-    _cuda_inputs("resample_pass2", (states, "states", torch.float32),
-                 (st, "st", torch.int32))
-    n = states.shape[0]
-    _check_n(n)
-    if st.shape != states.shape:
-        raise ValueError("st must have the shape of states")
-    lib = _lib()
-    out = torch.empty_like(states)
-    err = lib.pass2_tile_launch(st.data_ptr(), states.data_ptr(), n,
-                                _flag_ptr(flag, dev), int(impl == "merge"),
-                                out.data_ptr(), _stream(dev))
-    _raise_on(err, "pass2_tile_kernel")
+    with span("launch.pass2_tile_kernel"):
+        _cuda_inputs("resample_pass2", (states, "states", torch.float32),
+                     (st, "st", torch.int32))
+        n = states.shape[0]
+        _check_n(n)
+        if st.shape != states.shape:
+            raise ValueError("st must have the shape of states")
+        lib = _lib()
+        out = torch.empty_like(states)
+        err = lib.pass2_tile_launch(st.data_ptr(), states.data_ptr(), n,
+                                    _flag_ptr(flag, dev), int(impl == "merge"),
+                                    out.data_ptr(), _stream(dev))
+        _raise_on(err, "pass2_tile_kernel")
     LAUNCHES["pass2" if impl == "scatter" else f"pass2_{impl}"] += 1
     return out
 

@@ -41,6 +41,7 @@ import math
 
 import torch
 
+from ..util.profiling import counter_group
 from .fused_lg import normal_steps
 from .philox import split_seed
 from .population import current_stream, launch_population
@@ -55,7 +56,7 @@ KERNEL_BLOCK = 1024      # particles per CTA and record of the kernel
 
 # kernel launches, counted where the kernel is launched: "scalar" (K10,
 # D = 1), "scalar_step" (its one-step launch), "vector" (K11, D > 1)
-LAUNCHES = {"scalar": 0, "scalar_step": 0, "vector": 0}
+LAUNCHES = counter_group("user_chunk", ("scalar", "scalar_step", "vector"))
 
 _HINT = ("a step_elem keeps the elementwise contract of "
          "cpprob_tpu_torch/ops/render.py")
@@ -217,7 +218,8 @@ class UserKernel:
                 w_out.data_ptr(), rec.data_ptr(), n, current_stream(dev))
 
         return launch_population(
-            f"user_chunk_kernel (D={D})", launch, device=dev,
+            f"user_chunk_kernel (D={D})", launch, span_name="launch.user_chunk_kernel",
+            device=dev,
             inputs=[(states, "states", torch.float32),
                     (log_w, "log_w", torch.float32),
                     (ys, "ys", torch.float32),

@@ -20,7 +20,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..distributions.base import to_host
+from .ndarray import to_host
 from .pytree import tree_flatten, tree_unflatten, treedef_str
 
 __all__ = [

@@ -4,7 +4,8 @@ JAX package).  Counterpart of the reference's ``NDArray``
 (``include/cpprob/ndarray.hpp``): dense tensor from arbitrarily nested
 containers/tuples with ragged-shape zero padding (``ndarray.hpp:361-467``),
 and of ``StateInfer``'s observation flattening ``detail::to_vec``
-(``state.hpp:112-182``).
+(``state.hpp:112-182``); and the port's :func:`to_host`, a tensor copied
+back to a host array.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Any, List, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["to_ndarray", "flatten_nested"]
+__all__ = ["to_ndarray", "flatten_nested", "to_host"]
 
 
 def _max_shape(values: List[np.ndarray]) -> Tuple[int, ...]:
@@ -56,3 +57,11 @@ def flatten_nested(value: Any) -> np.ndarray:
     """Flatten any nested structure to a 1-D float vector (``detail::to_vec``,
     ``state.hpp:112-182``) — the observation-vector builder."""
     return np.ravel(to_ndarray(value))
+
+
+def to_host(x) -> np.ndarray:
+    """``x`` (a tensor, or anything ``np.asarray`` takes) as a host array; a
+    card's tensor is copied back, a sync."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

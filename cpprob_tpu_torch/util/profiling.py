@@ -1,11 +1,27 @@
 """Profiling helpers — counterpart of ``cpprob_tpu/util/profiling.py``.
 
 ``profile_trace`` wraps ``torch.profiler`` (the reference's
-``jax.profiler`` wrapper); ``StageTimer`` gives wall-clock per-stage
-timing, fenced with
+``jax.profiler`` wrapper); ``span`` marks the program's
+layers in the profiler's trace while one records and cost one check
+otherwise; ``counter_group`` and ``counters`` are the one registry of the
+program's launch and host-read counters; ``StageTimer`` gives wall-clock
+per-stage timing, fenced with
 ``torch.cuda.synchronize()`` so that queued device work lands in the stage
 that queued it; ``env_versions`` stamps a measurement with the software
 stack and the card.
+
+The spans, each a ``user_annotation`` event of the trace on the clock of
+the device's events (one query's spans lie inside its ``smc.run``):
+
+- ``smc.run``: a whole query, ``run`` of ``inference.smc.build_smc_run``;
+- ``smc.init``: the population's start (the fused init kernel, or the
+  initial draws and first reweight);
+- ``smc.chunk`` / ``smc.step``: one call of a chunked or a per-step loop
+  body (boundary flag, ticks, evidence, the epoch, the kernel or the move);
+- ``resample.epoch``: one continuous resample epoch
+  (``inference.resampling.continuous_resample_values_lme``);
+- ``launch.<kernel>``: one ctypes launch of a port kernel, its argument
+  checks and output allocations included.
 """
 
 from __future__ import annotations
@@ -15,11 +31,51 @@ import os
 import platform
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Iterable
 
 import torch
+from torch._C._autograd import _profiler_enabled
 
-__all__ = ["profile_trace", "StageTimer", "env_versions", "gpu_name_and_power"]
+__all__ = ["profile_trace", "span", "counter_group", "counters",
+           "StageTimer", "env_versions", "gpu_name_and_power"]
+
+
+class _NoSpan:
+    """The span while no profiler records: enters and leaves, nothing else."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """A context that marks ``name`` (a fixed string) in the trace of a
+    recording ``torch.profiler`` (``torch.profiler.record_function``), and
+    the one shared no-op while none records."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+_COUNTERS: Dict[str, Dict[str, int]] = {}
+
+
+def counter_group(name: str, keys: Iterable[str]) -> Dict[str, int]:
+    """The registered dict of counters ``name``, each of ``keys`` from 0
+    when first registered; callers increment its entries in place."""
+    return _COUNTERS.setdefault(name, dict.fromkeys(keys, 0))
+
+
+def counters() -> Dict[str, int]:
+    """A flat snapshot of every registered counter, ``"group.key": n``."""
+    return {f"{g}.{k}": v for g, group in _COUNTERS.items() for k, v in group.items()}
 
 
 def gpu_name_and_power() -> str:

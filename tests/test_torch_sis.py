@@ -554,14 +554,24 @@ def test_sis_on_the_card():
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
     """``util/profiling.profile_trace``, the reference's ``jax.profiler``
-    wrapper, over a CPU SIS call: a Chrome trace with the call's operators."""
+    wrapper, over a CPU SIS call and an SMC query: a Chrome trace with the
+    calls' operators and the query's spans."""
     import json
 
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        linear_gaussian_ssm,
+        simulate_observations,
+    )
     from cpprob_tpu_torch.util.profiling import profile_trace
 
+    obs = torch.as_tensor(simulate_observations(4, 0))
     with profile_trace(str(tmp_path)) as prof:
         pt.sis(pm.gaussian_unknown_mean_readme, (3.0, 4.0), 256, 0, device="cpu")
+        pt.build_smc_run(linear_gaussian_ssm, 256)(0, obs)
     with open(tmp_path / "trace.json") as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
     assert "aten::randn" in names or "aten::normal_" in names, sorted(names)[:20]
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"smc.run", "smc.init", "smc.step", "resample.epoch"} <= spans, spans
     assert len(prof.key_averages()) > 0
