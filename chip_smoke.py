@@ -40,7 +40,11 @@ and the script exits non-zero without printing its last line:
 4. the continuous-state path (``lg_phases``): at 2^24 particles, the LG
    chunk kernel against its plain version (t0 odd, even and 9, n_valid 8
    and 7), the one-step launch (and eight of them against one eight-step
-   launch, bit for bit), the epoch's stats, pass-1 and pass-2 kernels
+   launch, bit for bit), the one-step launch with the step's resample
+   control (``check_lg_step_ctrl``: flag off and on, bit-equal to the
+   launch without it on the weights a reset leaves, the ESS of its last
+   CTA's combine, the next flag, its ticket over 16 launches and on a
+   second stream), the epoch's stats, pass-1 and pass-2 kernels
    (the stats kernel, one launch whose last CTA combines the records: its
    max bit-equal and wtot within 1e-12, 16 calls bit-equal, at 2^24 - 3,
    on a view at a one-float offset, with a block of -inf weights, and flag
@@ -184,7 +188,7 @@ and the script exits non-zero without printing its last line:
    version with the rank's own seed, the bytes an epoch sends), each with
    its own timeout;
 14. the drivers (``driver_phases``, slice 8, no kernel of its own; the
-   kernel_bench twin's paths run nine of the kernels above): ``cli.main``
+   kernel_bench twin's paths run ten of the kernels above): ``cli.main``
    on the card (``sis`` on the README Gaussian at 2^20 against 2.32353 /
    1.05882, twice, ``smc`` on the HMM at 2^20 over 4 seeds against the
    forward recursion, ``compile`` then ``csis`` (2^18) on the HMM with
@@ -529,6 +533,7 @@ def check_lg_kernels(n=LG_N, seed=CHECK_SEED):
                                  "from one eight-step launch")
     print(f"check lg_step n={n}: max|dlog_w|={errs['lg_step']:.3g}; eight "
           "one-step launches equal one eight-step launch (t0 1 and 2)")
+    errs["lg_step_ctrl"] = check_lg_step_ctrl(n, seed)
 
     # the epoch on the weights after the first chunk
     x1, w1, _ = lg_chunk(seed, x0, w0, ys[0], eight, t0=1)
@@ -562,6 +567,91 @@ def check_lg_kernels(n=LG_N, seed=CHECK_SEED):
     print("check epoch: flag off copies the population; one heavy particle "
           "fills every slot")
     return errs
+
+
+def check_lg_step_ctrl(n=LG_N, seed=CHECK_SEED, repeats=16):
+    """K6 with the step's resample control against the launch without it
+    and the plain version, at t = 1 on the model's own t = 0 population,
+    with the flag off and on: states, weights and records bit-equal to the
+    launch without control on the weights the caller's reset would leave
+    (within 1e-5 of the plain version); a set flag reads no old weight;
+    the ESS within 1e-12 (relative) of ``stats_from_partials`` on the
+    launch's own records; the next flag that of the ESS and equal to the
+    plain version's; ``repeats`` launches bit-equal to the first, and the
+    ticket 0 after them, also on a second stream.  Returns the largest
+    |dlog_w| against the plain version."""
+    from cpprob_tpu_torch.ops import fused_lg
+    from cpprob_tpu_torch.ops.fused_hmm import stats_from_partials
+    from cpprob_tpu_torch.ops.population import current_stream
+
+    obs = _lg_obs(torch.device("cuda"))
+    x0, w0 = _lg_population(n, seed, obs)
+    dev = x0.device           # with its index: the ticket's key
+    y = obs[1]
+    err = 0.0
+
+    def ctrl(w, flag, thresh):
+        return fused_lg._launch(seed, x0, w, y.reshape(1), None, 1,
+                                "lg_step_ctrl check", "step_ctrl",
+                                flag=flag, threshold=thresh)
+
+    def ticket():
+        return int(fused_lg._TICKETS[(dev, current_stream(dev).value)])
+
+    for f in (0, 1):
+        flag = torch.full((), f, dtype=torch.int32, device=dev)
+        # the threshold just above and below the launch's ESS sets both flags
+        xk, wk, ess, nxt, rec = ctrl(w0, flag, 0.5 * n)
+        xr, wr, rr = fused_lg.lg_chunk(seed, x0, torch.zeros_like(w0) if f else w0,
+                                      y.reshape(1), t0=1)
+        xp, wp, ess_p, nxt_p = fused_lg.lg_step_ctrl_plain(
+            seed, x0, w0, y, 1, flag, 0.5 * n)
+        _sync()
+        what = f"lg_step_ctrl n={n} flag={f}"
+        if not (torch.equal(xk, xr) and torch.equal(wk, wr) and torch.equal(rec, rr)):
+            raise AssertionError(f"{what}: differs from the launch without control")
+        torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-5, msg=f"{what}: states")
+        torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-5, msg=f"{what}: log_w")
+        err = max(err, float((wk - wp).abs().max()))
+        want = stats_from_partials(rec, n)[0]
+        torch.testing.assert_close(ess, want, rtol=1e-12, atol=0, msg=f"{what}: ess")
+        if int(nxt) != int(float(ess) < 0.5 * n) or int(nxt) != int(nxt_p):
+            raise AssertionError(f"{what}: next flag {int(nxt)}, ESS {float(ess)}, "
+                                 f"plain {int(nxt_p)}")
+        for thresh in (0.999 * float(ess), 1.001 * float(ess)):
+            _, _, e2, n2, _ = ctrl(w0, flag, thresh)
+            _sync()
+            if not torch.equal(e2, ess) or int(n2) != int(float(ess) < thresh):
+                raise AssertionError(f"{what}: threshold {thresh} gives {int(n2)}")
+        if f:
+            # the old weights are not read
+            _, w_far, _, _, _ = ctrl(w0 + 5.0, flag, 0.5 * n)
+            _sync()
+            if not torch.equal(w_far, wk):
+                raise AssertionError(f"{what}: a set flag read the old weights")
+        outs = [ctrl(w0, flag, 0.5 * n) for _ in range(repeats)]
+        _sync()
+        same = all(torch.equal(o[1], wk) and torch.equal(o[2], ess)
+                   and torch.equal(o[3], nxt) for o in outs)
+        if not same or ticket():
+            raise AssertionError(f"{what}: {repeats} launches differ or leave "
+                                 f"the ticket at {ticket()}")
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            outs = [ctrl(w0, flag, 0.5 * n) for _ in range(4)]
+            left = ticket()
+        _sync()
+        if left or not all(torch.equal(o[2], ess) and torch.equal(o[3], nxt)
+                           for o in outs):
+            raise AssertionError(f"{what}: a second stream differs or leaves "
+                                 "its ticket set")
+        print(f"check {what}: bit-equal to the launch without control, "
+              f"max|dlog_w| to plain {float((wk - wp).abs().max()):.3g}, ESS "
+              f"{float(ess):.10g} (plain records {float(ess_p):.10g}), next "
+              f"flag {int(nxt)}; {repeats} launches and a second stream alike, "
+              "tickets 0")
+    return err
 
 
 def _check_lse(lw, what, repeats=1, flag=None):
@@ -956,7 +1046,7 @@ def lg_phases(card, stages):
             run1, obs, LG_STEP_SWEEPS, counters, exact,
             f"LG per-step path n={LG_STEP_N} T={LG_T} chunk=1")
     n = LG_STEP_SWEEPS * (LG_T - 1)
-    _expect(step_launches, {"step": n, "lse_stats": n, "pass1": n, "pass2": n},
+    _expect(step_launches, {"step_ctrl": n, "lse_stats": n, "pass1": n, "pass2": n},
             "LG per-step path")
 
     sweep_s = statistics.median(times)
@@ -982,13 +1072,19 @@ def lg_phases(card, stages):
     stats = sr.logsumexp_stats(w1)
     u0 = torch.full((), 0.37, dtype=torch.float64, device=dev)
     st = sr.resample_pass1(u0, w1, stats)
+    on = torch.ones((), dtype=torch.int32, device=dev)
+    off = torch.zeros((), dtype=torch.int32, device=dev)
     timing = {
         "lg_chunk": (
             time_ms(lambda: fused_lg.lg_chunk(seed, x0, w0, ys[0], valid[0], t0=1), 10),
             time_ms(lambda: fused_lg.lg_chunk_plain(seed, x0, w0, ys[0], valid[0], t0=1), 2)),
-        "lg_step": (
-            time_ms(lambda: fused_lg.lg_step(seed, x0, w0, obs[1], 1), 10),
-            time_ms(lambda: fused_lg.lg_step_plain(seed, x0, w0, obs[1], 1), 2)),
+        # the one-step launch as the per-step path runs it: with the step's
+        # resample control, flag off (the weights read, the combine run)
+        "lg_step_ctrl": (
+            time_ms(lambda: fused_lg.lg_step_ctrl(seed, x0, w0, obs[1], 1, off,
+                                                  0.5 * LG_N), 10),
+            time_ms(lambda: fused_lg.lg_step_ctrl_plain(seed, x0, w0, obs[1], 1, off,
+                                                        0.5 * LG_N), 2)),
         "lse_stats": (
             time_ms(lambda: sr.logsumexp_stats(w1), 10),
             time_ms(lambda: sr.logsumexp_stats_plain(w1), 4)),
@@ -1007,8 +1103,6 @@ def lg_phases(card, stages):
         s = sr.logsumexp_stats(w1, flag)
         return sr.resample_pass2(sr.resample_pass1(u0, w1, s, flag), x1, flag)
 
-    on = torch.ones((), dtype=torch.int32, device=dev)
-    off = torch.zeros((), dtype=torch.int32, device=dev)
     print(f"[{card}] epoch at n={LG_N} (K14 + K15 + K16): flagged "
           f"{time_ms(lambda: epoch(on), 10):.4f} ms, unflagged "
           f"{time_ms(lambda: epoch(off), 10):.4f} ms")
@@ -1034,7 +1128,7 @@ def lg_phases(card, stages):
     n = LG_N
     bounds = {
         "lg_chunk": normal_chunk_bound(n, int(valid[0])),
-        "lg_step": normal_chunk_bound(n, 1),
+        "lg_step_ctrl": normal_chunk_bound(n, 1),
         # K14 reads the weights, with LSE_F64_OPS double-precision
         # instructions a weight (the float64 exp and the sum, counted from
         # its batch loop's SASS by check_sass); K15
@@ -1059,9 +1153,9 @@ def lg_phases(card, stages):
     return [
         line("lg_chunk_kernel", "lg_chunk", "cpprob_tpu/ops/pallas_hmm.py:808",
              "fused_lg.cu", launches["chunk"]),
-        line("lg_chunk_kernel (n_steps=1, lg_step)", "lg_step",
+        line("lg_chunk_kernel (n_steps=1, lg_step_ctrl)", "lg_step_ctrl",
              "cpprob_tpu/ops/pallas_hmm.py:669", "fused_lg.cu",
-             step_launches["step"]),
+             step_launches["step_ctrl"]),
         line("lse_stats_kernel", "lse_stats",
              "cpprob_tpu/ops/pallas_resample.py:727", "stream_resample.cu",
              launches["lse_stats"]),
@@ -1494,9 +1588,10 @@ def check_user_sass(kernels):
     (and its LDL/STL) is the slow-path argument reduction of the precise
     ``sincosf`` (for |x| > 105615, never a Box-Muller angle), which every
     Box-Muller kernel carries, and which ``elem.sin``/``cos`` share."""
+    from cpprob_tpu_torch.ops.fused_lg import K7_SYMBOL
     from cpprob_tpu_torch.util.sass import kernel_report
 
-    (f7, r7), = kernel_report("fused_lg", "lg_chunk_kernel").items()
+    (f7, r7), = kernel_report("fused_lg", K7_SYMBOL).items()
     local7 = r7["opcodes"].get("LDL", 0) + r7["opcodes"].get("STL", 0)
     print(f"SASS K7 {f7}: {r7['registers']} registers, stack frame {r7['stack']} B, "
           f"spills {r7['spills']}, {local7} LDL/STL")
@@ -2088,9 +2183,10 @@ def check_scalar_sass(kernel):
     Box-Muller draws (for |x| > 105615, never a Box-Muller angle), which
     ptxas keeps in some instances and not in others (as ``check_user_sass``
     allows K10).  Returns (registers, spills, stack frame bytes)."""
+    from cpprob_tpu_torch.ops.fused_lg import K7_SYMBOL
     from cpprob_tpu_torch.util.sass import kernel_report
 
-    (_, r7), = kernel_report("fused_lg", "lg_chunk_kernel").items()
+    (_, r7), = kernel_report("fused_lg", K7_SYMBOL).items()
     rep = kernel_report(kernel.library, "guided_scalar_kernel")
     if len(rep) != 1:
         raise AssertionError(f"{kernel.library}: {len(rep)} guided_scalar_kernel functions")
@@ -4478,13 +4574,14 @@ def driver_phases(card, stages):
         rows["external"] = {**call, "ess_ratio": rec["ess_ratio_guided_over_prior"],
                             "throughput": rec["throughput_particles_per_s"]}
 
-    # the kernel_bench twin: its five paths' kernels, counted on their sweeps
+    # the kernel_bench twin: its six paths' kernels, counted on their sweeps
     with stages.stage("driver_kernel_bench", sync=True):
         rec = kernel_bench.main(["--n", str(DRV_KB_N), "--device", "cuda"])
         epoch = ("stream_resample.lse_stats", "stream_resample.pass1",
                  "stream_resample.pass2")
         want = {"discrete_5state_spec_kernel": ("fused_hmm.init", "fused_hmm.chunk"),
                 "linear_gaussian_live_resampling": ("user_chunk.scalar",) + epoch,
+                "linear_gaussian_per_step": ("fused_lg.step_ctrl",) + epoch,
                 "linear_gaussian_guided_fused": ("guided_tc.guided_tc",) + epoch,
                 "discrete_5state_guided_fused": ("fused_hmm.init", "fused_hmm.guided_chunk",
                                                  "fused_hmm.guided_tables")}

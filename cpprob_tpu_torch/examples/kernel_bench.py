@@ -9,6 +9,10 @@
    physics as a user ``step_elem`` through ``attach_fused_scalar_kernels``
    (K10, CUDA rendered from the function) and the streaming epoch at the
    chunk boundaries (K14, K15, K16 scatter);
+2a. the same model per step through ``make_fused_lg_ssm`` +
+   ``build_smc_run(chunk=1)``: one launch of its kernel a step, carrying
+   the resample flag (K6 with the step's resample control), and the
+   streaming epoch every step, flagged or not;
 2b. the guided linear-Gaussian model through
    ``attach_fused_guided_scalar_kernels`` (K12's tensor-core twin);
 2c. the guided 5-state chain through
@@ -87,6 +91,7 @@ def main(argv=None):
     from cpprob_tpu_torch.inference.smc_csis import train_ssm_proposal
     from cpprob_tpu_torch.models.linear_gaussian import kalman_filter_1d, linear_gaussian_ssm
     from cpprob_tpu_torch.ops import stream_resample
+    from cpprob_tpu_torch.ops.fused_lg import make_fused_lg_ssm
     from cpprob_tpu_torch.ops.fused_ssm import (
         attach_fused_guided_discrete_kernels,
         attach_fused_guided_scalar_kernels,
@@ -166,6 +171,20 @@ def main(argv=None):
                            "(ops/stream_resample.py)",
     }
     print(f"LG live-resample: {N * T / dtlg / 1e9:.2f} G steps/s ({np.mean(ep)} epochs), "
+          f"logZ {np.mean(lzs):.3f} vs kalman {kalman:.3f}, launches {launches}",
+          file=sys.stderr)
+
+    # --- 2a. linear-Gaussian per step: the flag carried by the one-step launch
+    dts, lzs, ep, launches = timed_sweeps(build_smc_run(make_fused_lg_ssm(), N, chunk=1),
+                                          ys, "lg_step", 200)
+    out["linear_gaussian_per_step"] = {
+        "particle_steps_per_s": N * T / dts, "sweep_s": dts,
+        "resample_epochs_mean": float(np.mean(ep)),
+        "log_evidence_mean": float(np.mean(lzs)), "log_evidence_std": float(np.std(lzs)),
+        "sweeps": len(lzs), "kalman_log_evidence": kalman, "launches": launches,
+        "builder": "make_fused_lg_ssm (ops/fused_lg.py), chunk=1",
+    }
+    print(f"LG per step: {N * T / dts / 1e9:.2f} G steps/s ({np.mean(ep)} epochs), "
           f"logZ {np.mean(lzs):.3f} vs kalman {kalman:.3f}, launches {launches}",
           file=sys.stderr)
 

@@ -13,7 +13,9 @@ Ported: the chunked exchange path (fused init and chunk kernels) and the
 per-step fused exchange path for discrete states; the chunked path (a
 fused chunk kernel, the streaming or the sorted-key vector resample epoch
 at chunk boundaries) and the per-step path for scalar and vector
-continuous states; the fused per-step kernel with statistics; the unfused
+continuous states (where a scalar model offers ``fused_step_ctrl_batch``,
+its one-step launch carries the resample flag); the fused per-step
+kernel with statistics; the unfused
 paths with and without history that :func:`smc` and :func:`build_smc_run`
 take otherwise; and guided SMC, both through a model's fused guided
 kernels (``fused_hooks_guided``: the chunked and per-step paths above) and
@@ -49,7 +51,7 @@ from .resampling import (
 )
 
 __all__ = ["StateSpaceModel", "SMCResult", "smc", "make_smc_step",
-           "make_smc_step_exchange_fused",
+           "make_smc_step_exchange_fused", "make_smc_step_ctrl_fused",
            "make_smc_step_exchange_fused_chunked", "make_smc_step_chunked",
            "build_smc_run"]
 
@@ -79,6 +81,11 @@ class StateSpaceModel:
     fused_step_batch: Optional[Callable] = None
     # same -> (s', w', ess')
     fused_step_ess_batch: Optional[Callable] = None
+    # (key, states, log_w, y, t, flag, threshold) -> (s', w', flag'): the
+    # one-step launch with the step's resample control, int32 flags on the
+    # device; where ``flag`` is set the weights start from 0, and ``flag'``
+    # is ESS(w') < threshold (a float64 ``ess_threshold * n``)
+    fused_step_ctrl_batch: Optional[Callable] = None
     # (key, states, log_w, y, t, flag, ticks) -> (s', w', ess', cat_w', lme')
     fused_step_exchange_batch: Optional[Callable] = None
     # (key, states, log_w, ys, n_valid, flag, ticks) ->
@@ -295,6 +302,37 @@ def make_smc_step_exchange_fused(
     return step
 
 
+def make_smc_step_ctrl_fused(
+    model: StateSpaceModel,
+    n_particles: int,
+    ess_threshold: float,
+):
+    """Loop body of the per-step fused path for scalar continuous states:
+    the flagged streaming epoch, the evidence increment, then one launch of
+    the model's ``fused_step_ctrl_batch``, which resets the weights where
+    the flag is set and leaves the next step's flag.
+
+    Carry: ``(key, states, log_w, log_z, flag)``, ``flag`` the int32
+    resample flag of the incoming weights, from the previous launch, with
+    ``key = (seed, generator)``; xs: ``(y_t, t)``.  No operation of the
+    step runs over the population outside the epoch and the launch."""
+    threshold = ess_threshold * n_particles
+
+    def step(carry, y_t_and_t):
+        with span("smc.step"):
+            y_t, t = y_t_and_t
+            key, states, log_w, log_z, flag = carry
+            seed, gen = key
+            states_r, lme = continuous_resample_values_lme(
+                gen, log_w, states, flag=flag)
+            log_z_r = log_z + torch.where(flag.bool(), lme, 0.0)
+            new_states, new_log_w, new_flag = model.fused_step_ctrl_batch(
+                seed, states_r, log_w, y_t, t, flag, threshold)
+            return (key, new_states, new_log_w, log_z_r, new_flag), (flag,)
+
+    return step
+
+
 def make_smc_step_exchange_fused_chunked(
     model: StateSpaceModel,
     n_particles: int,
@@ -408,7 +446,9 @@ def build_smc_run(
     states, the sorted-key epoch for vector states).  ``chunk`` = 1 with a
     discrete model's ``fused_step_exchange_batch`` (no history, systematic
     resampling) launches it once per step, its population started from
-    ``init_sample_batch`` as the reference does.
+    ``init_sample_batch`` as the reference does; with a scalar model's
+    ``fused_step_ctrl_batch`` (the same conditions) the one-step launch
+    carries the resample flag (:func:`make_smc_step_ctrl_fused`).
 
     While a profiler records, a call lies in the span ``smc.run``, its
     start in ``smc.init`` and each loop body in ``smc.chunk`` or
@@ -444,6 +484,7 @@ def build_smc_run(
             "chunk > 1 needs a fused_chunk_* kernel on the model and "
             "store_history=False with systematic resampling")
     fused_exchange = exchange_ok and model.fused_step_exchange_batch is not None
+    step_ctrl = chunk == 1 and sorted_ok and model.fused_step_ctrl_batch is not None
     if chunk_exchange:
         step = make_smc_step_exchange_fused_chunked(
             model, n_particles, ess_threshold)
@@ -451,6 +492,8 @@ def build_smc_run(
         step = make_smc_step_chunked(model, n_particles, ess_threshold)
     elif fused_exchange:
         step = make_smc_step_exchange_fused(model, n_particles, ess_threshold)
+    elif step_ctrl:
+        step = make_smc_step_ctrl_fused(model, n_particles, ess_threshold)
     else:
         step = make_smc_step(
             model, n_particles, ess_threshold, resampler, store_history,
@@ -506,6 +549,9 @@ def build_smc_run(
                              log_z + lme_f, states_f, log_w_f)
 
         carry = ((seed, gen), states0, log_w0, log_z, _ess(log_w0))
+        if step_ctrl:
+            carry = carry[:4] + (
+                (carry[4] < ess_threshold * n_particles).to(torch.int32),)
         if fused_exchange:
             carry += (category_weights(log_w0, states0, model.state_categories),
                       _log_mean_exp(log_w0))
@@ -517,6 +563,8 @@ def build_smc_run(
         log_z = log_z + _log_mean_exp(log_w_f)
         resampled = torch.cat(
             [no_resample] + [h[-1].reshape(1) for h in hist])
+        if step_ctrl:
+            resampled = resampled != 0    # the int32 flags
         if store_history:
             ident = torch.arange(n, dtype=torch.int32, device=device)
             states = torch.stack([states0] + [h[0] for h in hist])

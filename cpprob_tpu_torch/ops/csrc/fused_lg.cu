@@ -25,6 +25,17 @@
 // Records: one per CTA, 3 floats: (max w, sum e, sum e^2), e = exp(w - max w)
 // — the layout of ops/fused_hmm.py stats_from_partials with no category
 // columns.
+//
+// The one-step launch with the step's resample control (lg_chunk_kernel<true>,
+// a StepCtrl whose flag is set): where the int32 flag is set every particle
+// starts from weight 0 (0 + the increment, the arithmetic of a reset by
+// the caller, bit for bit; the old weights are not read), and after the
+// records the last CTA to finish (an atomic ticket, as lse_stats_kernel's
+// in stream_resample.cu) combines every record in float64 as
+// stats_from_partials does, by CTA index, into the ESS and the next step's
+// flag, ess < thresh.  The per-step loop then waits on no pass over the
+// population for its decision.  With a null flag the launch is
+// lg_chunk_kernel<false>, the kernel as it was.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,27 +51,41 @@ constexpr int kPerThread = 16;
 constexpr int kBlock = kThreads * kPerThread;  // particles per CTA
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
 
+// The step's resample control: flag (int32, in), ticket (one int, zero
+// before the launch and left zero by the last CTA), ess (float64, out) and
+// next (int32, out: ess < thresh).
+struct StepCtrl {
+  const int* flag;
+  int* ticket;
+  double* ess;
+  int* next;
+  double thresh;
+};
+
 // ctrl: int32 [n_valid], or null for all n_steps valid.  Steps at and after
-// n_valid leave the particle unchanged.
+// n_valid leave the particle unchanged.  sc: read only by kStepCtrl.
+template <bool kStepCtrl>
 __global__ void __launch_bounds__(kThreads)
 lg_chunk_kernel(const float* __restrict__ ys, int n_steps,
                 const int* __restrict__ ctrl, uint32_t k0, uint32_t k1,
                 uint32_t t0, const float* __restrict__ x_in,
                 const float* __restrict__ w_in, float* __restrict__ x_out,
                 float* __restrict__ w_out, float* __restrict__ rec,
-                long long n) {
+                long long n, StepCtrl sc) {
   __shared__ float red[kThreads / 32 * 2];
   __shared__ float bcast[2];
   const int n_valid = ctrl ? min(*ctrl, n_steps) : n_steps;
   const uint2 key = make_uint2(k0, k1);
   const long long base = (long long)blockIdx.x * kBlock;
+  bool reset = false;
+  if constexpr (kStepCtrl) reset = *sc.flag != 0;
 
   float x[kPerThread], w[kPerThread], sn[kPerThread];
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
     const long long g = base + i * kThreads + threadIdx.x;
     x[i] = g < n ? x_in[g] : 0.f;
-    w[i] = g < n ? w_in[g] : -INFINITY;
+    w[i] = g < n ? (reset ? 0.f : w_in[g]) : -INFINITY;
     sn[i] = 0.f;
   }
   for (int t = 0; t < n_valid; ++t) {
@@ -113,6 +138,38 @@ lg_chunk_kernel(const float* __restrict__ ys, int n_steps,
     out[1] = v[0];
     out[2] = v[1];
   }
+  if constexpr (kStepCtrl) {
+    __shared__ double redd[kThreads / 32 * 2];
+    __shared__ double bcastd[2];
+    __shared__ int last_s;
+    if (threadIdx.x == 0) {
+      __threadfence();
+      last_s = atomicAdd(sc.ticket, 1) == (int)gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last_s) return;
+    __threadfence();
+    // the last CTA: stats_from_partials on the records, by CTA index, read
+    // past L1: the largest max, then sum e and sum e^2 rescaled to it
+    const int n_rec = (int)gridDim.x;
+    float mr = -INFINITY;
+    for (int b = threadIdx.x; b < n_rec; b += kThreads)
+      mr = fmaxf(mr, __ldcg(rec + 3LL * b));
+    mr = block_max<kThreads>(mr, red, bcast);
+    double s[2] = {0.0, 0.0};
+    for (int b = threadIdx.x; b < n_rec; b += kThreads) {
+      const double scale = exp((double)__ldcg(rec + 3LL * b) - (double)mr);
+      s[0] += (double)__ldcg(rec + 3LL * b + 1) * scale;
+      s[1] += (double)__ldcg(rec + 3LL * b + 2) * scale * scale;
+    }
+    block_sum<kThreads, 2>(s, redd, bcastd);
+    if (threadIdx.x == 0) {
+      const double ess = s[0] * s[0] / fmax(s[1], 1e-300);
+      *sc.ess = ess;
+      *sc.next = ess < sc.thresh;
+      *sc.ticket = 0;
+    }
+  }
 }
 
 }  // namespace
@@ -121,14 +178,22 @@ extern "C" {
 
 int lg_block() { return kBlock; }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched).  flag null:
+// no step control (ticket, ess, next and thresh unused); else the step's
+// resample control (StepCtrl), ticket the caller's per-stream scratch.
 int lg_chunk_launch(const float* ys, int n_steps, const int* ctrl, uint32_t k0,
                     uint32_t k1, uint32_t t0, const float* x_in,
                     const float* w_in, float* x_out, float* w_out, float* rec,
-                    long long n, void* stream) {
+                    long long n, void* stream, const int* flag, int* ticket,
+                    double* ess, int* next, double thresh) {
   const int grid = (int)((n + kBlock - 1) / kBlock);
-  lg_chunk_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      ys, n_steps, ctrl, k0, k1, t0, x_in, w_in, x_out, w_out, rec, n);
+  const StepCtrl sc = {flag, ticket, ess, next, thresh};
+  if (flag)
+    lg_chunk_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        ys, n_steps, ctrl, k0, k1, t0, x_in, w_in, x_out, w_out, rec, n, sc);
+  else
+    lg_chunk_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        ys, n_steps, ctrl, k0, k1, t0, x_in, w_in, x_out, w_out, rec, n, sc);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """Fused SMC kernel for the linear-Gaussian model — counterpart of the
 linear-Gaussian part of ``cpprob_tpu/ops/pallas_hmm.py`` (``:669-942``).
 
-One kernel, CUDA C++ in ``csrc/fused_lg.cu``, behind two wrappers:
+One kernel, CUDA C++ in ``csrc/fused_lg.cu``, behind three wrappers:
 
 - :func:`lg_chunk` (K7, <- ``pallas_lg_fused_chunk``): ``n_steps``
   random-walk moves x' = x + N(0, 1) and reweights log_w += N(y; x', 1),
@@ -9,14 +9,18 @@ One kernel, CUDA C++ in ``csrc/fused_lg.cu``, behind two wrappers:
   (max, sum e, sum e^2) record per CTA.
 - :func:`lg_step` (K6, <- ``pallas_lg_fused_step``): the same kernel
   launched for one step.
+- :func:`lg_step_ctrl` (K6 with the step's resample control): the one-step
+  launch that takes the step's resample flag (set: every particle starts
+  from weight 0) and leaves the ESS and the next step's flag, combined
+  from the records by the launch's last CTA, on the device.
 
 Draws are Philox on counter (particle, t // 2, 0): the Box-Muller pair of
 absolute step t feeds its cos half to the even step and its sin half to
 the odd step, so a sweep's draws do not depend on its chunking.  Each
-wrapper has a plain PyTorch version (``lg_chunk_plain``, ``lg_step_plain``)
-on the same stream, or on pinned ε (``draws=``) for parity tests; the
-wrappers take it for CPU tensors only and on CUDA tensors launch the
-kernel or raise.
+wrapper has a plain PyTorch version (``lg_chunk_plain``, ``lg_step_plain``,
+``lg_step_ctrl_plain``) on the same stream, or on pinned ε (``draws=``) for
+parity tests; the wrappers take it for CPU tensors only and on CUDA
+tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -33,15 +37,20 @@ from .philox import philox4x32, split_seed, uniform_from_bits
 from .population import check_tensor, current_stream, launch_population
 
 __all__ = ["LAUNCHES", "LG_BLOCK", "lg_chunk", "lg_chunk_plain", "lg_step",
-           "lg_step_plain", "make_fused_lg_ssm", "normal_steps"]
+           "lg_step_ctrl", "lg_step_ctrl_plain", "lg_step_plain",
+           "make_fused_lg_ssm", "normal_steps"]
 
 LG_BLOCK = 4096          # 256 threads x 16 particles: one CTA, one record
+# the part of a mangled name that picks K7's instance of the kernel (no step
+# control), for the SASS reports of util/sass.py
+K7_SYMBOL = "lg_chunk_kernelILb0E"
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _TWO_PI = 2.0 * math.pi
 
-# kernel launches by wrapper: "chunk" (K7) and "step" (K6, the one-step
-# launch), counted where the kernel is launched
-LAUNCHES = counter_group("fused_lg", ("chunk", "step"))
+# kernel launches by wrapper: "chunk" (K7), "step" (K6, the one-step
+# launch) and "step_ctrl" (K6 with the step's resample control), counted
+# where the kernel is launched
+LAUNCHES = counter_group("fused_lg", ("chunk", "step", "step_ctrl"))
 
 
 # --------------------------------------------------------------------------
@@ -122,6 +131,19 @@ def lg_step_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     return x, w
 
 
+def lg_step_ctrl_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
+                       y: torch.Tensor, t: int, flag: torch.Tensor,
+                       threshold: float):
+    """Plain version of the one-step launch with the step's resample
+    control: where ``flag`` (int32 scalar) is set the weights start from
+    0; the ESS from ``stats_from_partials`` on the records.  Returns
+    (states, log_w, ess (float64), next flag (int32): ess < threshold)."""
+    w = torch.where(flag.reshape(()) != 0, torch.zeros_like(log_w), log_w)
+    x, w, rec = lg_chunk_plain(seed, states, w, y.reshape(1), t0=t)
+    ess = stats_from_partials(rec, states.shape[0])[0]
+    return x, w, ess, (ess < threshold).to(torch.int32)
+
+
 # --------------------------------------------------------------------------
 # kernel
 
@@ -135,14 +157,19 @@ def _lib():
         lib.lg_block.argtypes = []
         lib.lg_block.restype = i
         lib.lg_chunk_launch.argtypes = [
-            p, i, p, u32, u32, u32, p, p, p, p, p, ctypes.c_longlong, p]
+            p, i, p, u32, u32, u32, p, p, p, p, p, ctypes.c_longlong, p,
+            p, p, p, p, ctypes.c_double]
         lib.lg_chunk_launch.restype = i
         if lib.lg_block() != LG_BLOCK:
             raise RuntimeError(f"csrc/fused_lg.cu block differs from LG_BLOCK={LG_BLOCK}")
     return lib
 
 
-def _launch(seed, states, log_w, ys, n_valid, t0, what, count_key):
+def _launch(seed, states, log_w, ys, n_valid, t0, what, count_key,
+            flag=None, threshold=0.0):
+    """The kernel; with ``flag`` (int32 device scalar) the step's resample
+    control, whose ESS (float64) and next flag (int32) follow the
+    records among the outputs."""
     dev = states.device
     if n_valid is not None:
         if dev.type == "cuda":
@@ -155,20 +182,46 @@ def _launch(seed, states, log_w, ys, n_valid, t0, what, count_key):
     if not 0 < n < 2 ** 31 or t0 < 0 or t0 + n_steps >= 2 ** 32:
         raise ValueError("need 0 < n < 2^31 and t0 + n_steps < 2^32")
     k0, k1 = split_seed(seed)
+    inputs = [(states, "states", torch.float32), (log_w, "log_w", torch.float32),
+              (ys, "ys", torch.float32)]
+    outputs = [(n, torch.float32), (n, torch.float32)]
+    if flag is not None:
+        if flag.numel() != 1:
+            raise ValueError("flag must be one int32 element")
+        inputs.append((flag, "flag", torch.int32))
+        outputs += [((), torch.float64), ((), torch.int32)]
 
-    def launch(x_out, w_out, rec):
+    def launch(x_out, w_out, *rest):
+        *ctrl_out, rec = rest
+        stream = current_stream(dev)
+        if flag is None:
+            ctrl = (None, None, None, None, 0.0)
+        else:
+            ess, nxt = ctrl_out
+            ctrl = (flag.data_ptr(), _ticket(dev, stream.value).data_ptr(),
+                    ess.data_ptr(), nxt.data_ptr(), threshold)
         return _lib().lg_chunk_launch(
             ys.data_ptr(), n_steps,
             None if n_valid is None else n_valid.data_ptr(), k0, k1, t0,
             states.data_ptr(), log_w.data_ptr(), x_out.data_ptr(),
-            w_out.data_ptr(), rec.data_ptr(), n, current_stream(dev))
+            w_out.data_ptr(), rec.data_ptr(), n, stream, *ctrl)
 
     return launch_population(
         what, launch, span_name="launch.lg_chunk_kernel", device=dev,
-        inputs=[(states, "states", torch.float32), (log_w, "log_w", torch.float32),
-                (ys, "ys", torch.float32)],
-        outputs=[(n, torch.float32), (n, torch.float32)],
-        records=(-(-n // LG_BLOCK), 3), counts=LAUNCHES, count_key=count_key)
+        inputs=inputs, outputs=outputs, records=(-(-n // LG_BLOCK), 3),
+        counts=LAUNCHES, count_key=count_key)
+
+
+# the step control's ticket by (device, stream): one int, zeroed once here
+# and zero again after every launch (the kernel's last CTA clears it)
+_TICKETS: dict = {}
+
+
+def _ticket(dev, stream: int) -> torch.Tensor:
+    key = (dev, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
 
 
 def lg_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
@@ -194,15 +247,40 @@ def lg_step(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     return x, w
 
 
+def lg_step_ctrl(seed: int, states: torch.Tensor, log_w: torch.Tensor,
+                 y: torch.Tensor, t: int, flag: torch.Tensor,
+                 threshold: float):
+    """One fused step at absolute time ``t`` with the step's resample
+    control: where ``flag`` (int32 scalar on the population's device) is
+    set, every particle starts from weight 0; ``threshold`` is the ESS
+    below which the next step resamples (float64, ``ess_threshold * n``).
+    The kernel on CUDA tensors (its last CTA combines the records in
+    float64), the plain version on CPU tensors.  Returns (states, log_w,
+    ess (float64 scalar), next flag (int32 scalar))."""
+    if states.device.type == "cpu":
+        return lg_step_ctrl_plain(seed, states, log_w, y, t, flag, threshold)
+    x, w, ess, nxt, _ = _launch(
+        seed, states, log_w, y.reshape(1), None, t,
+        "lg_chunk_kernel (one step, step control)", "step_ctrl",
+        flag=flag, threshold=float(threshold))
+    return x, w, ess, nxt
+
+
 def make_fused_lg_ssm():
     """``linear_gaussian_ssm`` with the fused kernel installed as
-    ``fused_step_batch`` (K6) and as the time-aware chunk hook
-    ``fused_chunk_t_batch`` (K7: the Philox counters run on absolute time).
-    ``key`` in both hooks is the sweep's integer seed."""
+    ``fused_step_batch`` (K6), as ``fused_step_ctrl_batch`` (K6 with the
+    step's resample control, the per-step path of ``build_smc_run``) and
+    as the time-aware chunk hook ``fused_chunk_t_batch`` (K7: the Philox
+    counters run on absolute time).  ``key`` in the hooks is the sweep's
+    integer seed."""
     from ..models.linear_gaussian import linear_gaussian_ssm
 
     def fused_step(key, states, log_w, y, t):
         return lg_step(key, states, log_w, y, t)
+
+    def fused_step_ctrl(key, states, log_w, y, t, flag, threshold):
+        x, w, _, nxt = lg_step_ctrl(key, states, log_w, y, t, flag, threshold)
+        return x, w, nxt
 
     def fused_chunk(key, states, log_w, ys, n_valid, t0):
         x, w, rec = lg_chunk(key, states, log_w, ys, n_valid.to(torch.int32),
@@ -213,5 +291,6 @@ def make_fused_lg_ssm():
     return dataclasses.replace(
         linear_gaussian_ssm,
         fused_step_batch=fused_step,
+        fused_step_ctrl_batch=fused_step_ctrl,
         fused_chunk_t_batch=fused_chunk,
     )

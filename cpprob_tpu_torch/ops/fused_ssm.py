@@ -173,7 +173,8 @@ def attach_fused_scalar_kernels(base_model, step_elem):
         return x, w
 
     return dataclasses.replace(base_model, fused_chunk_t_batch=fused_chunk,
-                               fused_step_batch=fused_step)
+                               fused_step_batch=fused_step,
+                               fused_step_ctrl_batch=None)
 
 
 def attach_fused_vector_kernels(base_model, step_elem, state_dim: int):
@@ -252,6 +253,7 @@ def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
         fused_chunk_t_batch=fused_chunk,
         fused_chunk_batch=None,
         fused_step_batch=None,
+        fused_step_ctrl_batch=None,
         fused_hooks_guided=True,
     )
 

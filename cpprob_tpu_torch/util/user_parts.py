@@ -183,7 +183,7 @@ def main(argv=None):
         (f, r), = kernel_report(k.library, "user_chunk_kernel",
                                 dump / f"{name.replace(' ', '_')}.sass").items()
         sass[name] = _summary(r)
-    (f, r), = kernel_report("fused_lg", "lg_chunk_kernel", dump / "K7.sass").items()
+    (f, r), = kernel_report("fused_lg", fused_lg.K7_SYMBOL, dump / "K7.sass").items()
     sass["K7"] = _summary(r)
     if triton is not None:
         for case, (fn, D, x0, ys) in cases.items():

@@ -37,6 +37,8 @@ from cpprob_tpu_torch.ops.fused_lg import (
     lg_chunk,
     lg_chunk_plain,
     lg_step,
+    lg_step_ctrl,
+    lg_step_ctrl_plain,
     lg_step_plain,
     make_fused_lg_ssm,
 )
@@ -175,6 +177,107 @@ def test_wrappers_dispatch_cpu_to_plain():
     assert fused_lg.LAUNCHES == before
 
 
+def test_step_ctrl_plain_resets_and_decides():
+    """The one-step launch with the step's resample control, plain: a set
+    flag starts every particle from weight 0 (the old weights unread), an
+    unset one moves the weights on; the ESS is ``stats_from_partials`` on
+    the records and the next flag ``ess < threshold``.  The wrapper takes
+    the plain version on CPU tensors and counts no launch."""
+    x, w, ys = (torch.as_tensor(a) for a in _population(6, 3 * LG_BLOCK + 5))
+    n = x.shape[0]
+    on, off = torch.tensor(1, dtype=torch.int32), torch.tensor(0, dtype=torch.int32)
+    before = dict(fused_lg.LAUNCHES)
+    for flag, w_in in ((off, w), (on, torch.zeros(n))):
+        xs, ws, ess, nxt = lg_step_ctrl(4, x, w, ys[0], 3, flag, 0.5 * n)
+        xr, wr, rec = lg_chunk_plain(4, x, w_in, ys[:1], t0=3)
+        assert torch.equal(xs, xr) and torch.equal(ws, wr)
+        assert torch.equal(ess, stats_from_partials(rec, n)[0])
+        assert ess.dtype == torch.float64 and nxt.dtype == torch.int32
+        assert int(nxt) == int(float(ess) < 0.5 * n)
+        for a, b in zip((xs, ws, ess, nxt),
+                        lg_step_ctrl_plain(4, x, w, ys[0], 3, flag, 0.5 * n)):
+            assert torch.equal(a, b)
+        for thresh in (0.99 * float(ess), 1.01 * float(ess)):
+            assert int(lg_step_ctrl(4, x, w, ys[0], 3, flag, thresh)[3]) == (
+                float(ess) < thresh)
+    far = lg_step_ctrl(4, x, w + 7.0, ys[0], 3, on, 0.5 * n)
+    assert torch.equal(far[1], lg_step_ctrl(4, x, w, ys[0], 3, on, 0.5 * n)[1])
+    assert fused_lg.LAUNCHES == before
+
+
+def _chunked_one_step_a_chunk(seed, obs, n):
+    """``make_smc_step_chunked`` on the fused LG model driven one step a
+    chunk, started as ``build_smc_run``'s sweep starts: (states, log_w,
+    resampled flags, log Z)."""
+    model = make_fused_lg_ssm()
+    gen = torch.Generator().manual_seed(seed)
+    states = model.init_sample_batch(gen, n)
+    log_w = 0.0 + port_smc._obs_logpdf(model, states, obs[0], 0)
+    carry = ((seed, gen), states, log_w, torch.zeros((), dtype=torch.float64),
+             rs.ess(log_w))
+    step = port_smc.make_smc_step_chunked(model, n, 0.5)
+    flags = [torch.zeros(1, dtype=torch.bool)]
+    one = torch.tensor(1, dtype=torch.int32)
+    for t in range(1, obs.shape[0]):
+        carry, (flag,) = step(carry, (obs[t:t + 1], one, t))
+        flags.append(flag.reshape(1))
+    states, log_w, log_z = carry[1:4]
+    return states, log_w, torch.cat(flags), log_z + port_smc._log_mean_exp(log_w)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_step_ctrl_body_matches_chunked_one_step_a_chunk(seed, monkeypatch):
+    """``build_smc_run(make_fused_lg_ssm(), n, chunk=1)`` takes the body
+    whose one-step launch carries the resample flag, and gives the
+    chunked body's run one step a chunk bit for bit: states, weights, the
+    resample flags and log Z (both decide from ``stats_from_partials`` on
+    the same records)."""
+    n = 1 << 12
+    obs = torch.as_tensor(OBS)
+    built = []
+    ctrl_body = port_smc.make_smc_step_ctrl_fused
+    monkeypatch.setattr(port_smc, "make_smc_step_ctrl_fused",
+                        lambda *a, **k: built.append(1) or ctrl_body(*a, **k))
+    res = build_smc_run(make_fused_lg_ssm(), n, chunk=1)(seed, obs)
+    assert built == [1]
+    states, log_w, flags, log_z = _chunked_one_step_a_chunk(seed, obs, n)
+    assert res.resampled.dtype == torch.bool and res.resampled.shape == (16,)
+    assert 2 <= int(flags.sum()) <= 14          # the series resamples, not always
+    assert torch.equal(res.resampled, flags)
+    assert torch.equal(res.final_states, states)
+    assert torch.equal(res.final_log_weights, log_w)
+    assert torch.equal(res.log_evidence, log_z)
+
+
+@pytest.mark.parametrize("which", ["unfused", "attach_scalar", "history", "step_ctrl"])
+def test_per_step_dispatch(which, monkeypatch):
+    """Only a scalar model with ``fused_step_ctrl_batch`` (no history,
+    systematic resampling) takes the flag-carrying body at chunk 1: the
+    unfused model, a user-physics model (K10) and ``smc()`` with history
+    keep ``make_smc_step``."""
+    from cpprob_tpu_torch.examples.kernel_bench import lg_step_elem
+    from cpprob_tpu_torch.ops.fused_ssm import attach_fused_scalar_kernels
+
+    taken = []
+    for name in ("make_smc_step", "make_smc_step_ctrl_fused"):
+        body = getattr(port_smc, name)
+        monkeypatch.setattr(port_smc, name, lambda *a, _b=body, _n=name, **k: (
+            taken.append(_n) or _b(*a, **k)))
+    obs = torch.as_tensor(OBS)
+    if which == "history":
+        res = smc(make_fused_lg_ssm(), obs, 1024, 3)
+        assert res.states.shape == (16, 1024)
+    else:
+        model = {"unfused": linear_gaussian_ssm,
+                 "attach_scalar": attach_fused_scalar_kernels(
+                     make_fused_lg_ssm(), lg_step_elem),
+                 "step_ctrl": make_fused_lg_ssm()}[which]
+        res = build_smc_run(model, 1024, chunk=1)(3, obs)
+    assert taken == ["make_smc_step_ctrl_fused" if which == "step_ctrl"
+                     else "make_smc_step"]
+    assert res.resampled.dtype == torch.bool and np.isfinite(float(res.log_evidence))
+
+
 def test_kalman_matches_reference():
     for seed in range(3):
         obs = np.random.RandomState(seed).normal(0, 1.5, 20).astype(np.float32)
@@ -289,6 +392,50 @@ def test_stratified_takes_the_ancestor_path(which, monkeypatch):
     assert np.isfinite(float(res.log_evidence))
     with pytest.raises(ValueError, match="systematic"):
         build_smc_run(model, 4096, resampling="stratified", chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, (1 << 16) + 3, 1 << 20])
+def test_step_ctrl_launch_matches_plain_on_card(n):
+    """K6 with the step's resample control, flag off and on: bit-equal to
+    the launch without control on the weights a reset leaves, a set flag
+    reading no old weight, the ESS within 1e-12 of the combine of its own
+    records, the next flag equal to the plain version's, the ticket left
+    clean over repeated launches and on a second stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    import chip_smoke
+
+    assert chip_smoke.check_lg_step_ctrl(n) < 1e-3
+
+
+@pytest.mark.cuda
+def test_step_ctrl_counts_and_null_control_on_card():
+    """A 16-step per-step sweep makes 15 launches with the step's control
+    and none without it; a launch without control (``lg_step``) gives
+    what it gave before: a one-step ``lg_chunk`` bit for bit, the plain
+    version within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from cpprob_tpu_torch.util.profiling import counters
+
+    dev = torch.device("cuda")
+    obs = torch.as_tensor(OBS, device=dev)
+    run = build_smc_run(make_fused_lg_ssm(), 1 << 16, chunk=1)
+    run(0, obs)
+    before = counters()
+    res = run(1, obs)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in counters().items() if v != before[k]}
+    assert moved["fused_lg.step_ctrl"] == 15 and "fused_lg.step" not in moved
+    assert res.resampled.dtype == torch.bool and bool(res.resampled.any())
+    x, w, _ = (torch.as_tensor(a, device=dev) for a in _population(9, 1 << 16))
+    xs, ws = lg_step(5, x, w, obs[3], 3)
+    xc, wc, _ = lg_chunk(5, x, w, obs[3:4], t0=3)
+    xp, wp = lg_step_plain(5, x, w, obs[3], 3)
+    assert torch.equal(xs, xc) and torch.equal(ws, wc)
+    torch.testing.assert_close(ws, wp, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(xs, xp, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
