@@ -92,10 +92,11 @@ and the script exits non-zero without printing its last line:
    show no spill and no local memory beyond the precise ``sincosf``'s
    slow-path frame, ``check_scalar_sass``), its
    tensor-core twin (CUDA ``guided_tc_kernel``: one step on path 7's net
-   and four random nets, ``TC_NETS``, within ``TC_STEP_TOL``, where its
-   1xTF32 variant must fail; its chunks against its own one-step launches,
-   bit for bit; each build's SASS must show TF32 ``HMMA`` and no local
-   memory, ``check_tc_sass``) and K13
+   and four random nets, ``TC_NETS``, and in its wide layout on
+   ``TC_WIDE_NETS`` ([3,48,48,2], [3,64,64,2]), within ``TC_STEP_TOL``,
+   where its 1xTF32 variant must fail; its chunks against its own
+   one-step launches, bit for bit; each build's SASS must show TF32
+   ``HMMA`` and no local memory, ``check_tc_sass``) and K13
    (CUDA: the tables kernel, one CTA a step, row by row against
    ``guided_tables_plain``, then the chunk kernel on the guided 5-state
    chain: flag 0 and 1, n_valid 8 and 7, island off, and a 16-slot chunk
@@ -106,7 +107,13 @@ and the script exits non-zero without printing its last line:
    against their plain versions at 2^24; path 7,
    ``build_smc_run(attach_fused_guided_scalar_kernels(...), 2^24,
    chunk=8)`` against Kalman, with ``mxu=True`` (the twin, the default)
-   and with ``mxu=False`` (K12 on the FMA pipe); path 8, ``build_smc_run(
+   and with ``mxu=False`` (K12 on the FMA pipe); path 7w, the same under
+   the benchmark's committed ``[3,64,64,2]`` net with each kernel (the
+   twin's launches counted under ``guided_tc.wide``, none under
+   ``guided_tc.guided_tc``); one query of the benchmark cell
+   ``guided-lg-2e24-chunk8`` whose launches are held per particle to the
+   cell's plain reference (``check_guided_lg_cell``: the 1xTF32 twin and
+   the reference with TF32 operands must fail); path 8, ``build_smc_run(
    attach_fused_guided_discrete_kernels(...), 2^24, chunk=8)`` (K9 then
    K13); path 9a, the same model per step at 2^20 (K13 one-step launches,
    T = 12); path 9b, ``island_every=8`` at ``chunk=16`` (the interior
@@ -243,6 +250,8 @@ import time
 
 import torch
 
+from cpprob_tpu_torch.models.linear_gaussian import obs_logpdf_elem as guided_obs_lp
+from cpprob_tpu_torch.models.linear_gaussian import trans_logpdf_elem as guided_trans_lp
 from cpprob_tpu_torch.ops import elem
 from cpprob_tpu_torch.util.roofline import time_ms
 
@@ -1976,21 +1985,12 @@ GUIDED_EXTRA_N = 1 << 20
 TC_STEP_TOL = 2e-5
 # the nets the twin is held on besides path 7's trained [3,16,16,2]: the
 # sizes of tests/test_torch_guided_tc.py's packing test (padding, two
-# hidden->hidden products) and the widest it takes (guided_tc_max_width);
+# hidden->hidden products) and the widest of its narrow layout (32);
 # random, seeded, at the trainer's initial scale
 TC_NETS = ([3, 8, 8, 2], [3, 24, 24, 2], [3, 16, 16, 16, 2], [3, 32, 32, 2])
-
-
-def guided_trans_lp(x, nx, t):
-    """log N(nx; x, 1), the transition of examples/kernel_bench.py:203-205."""
-    d = nx - x
-    return -0.5 * d * d - HALF_LOG_2PI
-
-
-def guided_obs_lp(nx, y, t):
-    """log N(y; nx, 1), the emission of examples/kernel_bench.py:207-209."""
-    d = y - nx
-    return -0.5 * d * d - HALF_LOG_2PI
+# the wide layout's (hidden layers past 32, up to guided_tc_max_width: 64,
+# the trainer's default width), at a ragged GUIDED_EXTRA_N
+TC_WIDE_NETS = ([3, 48, 48, 2], [3, 64, 64, 2])
 
 
 def guided_trans_lp_pow(x, nx, t):
@@ -2099,11 +2099,14 @@ def _rel_err(got, want):
 def check_twin(lg_params, x0, w0, ys, n, seed):
     """K12's tensor-core twin on the card.  One step (n_valid 1, t0 1 and
     2: each half of a Box-Muller pair) against the plain version on path
-    7's net and the ``TC_NETS``, within ``TC_STEP_TOL``; on the same
+    7's net and the ``TC_NETS``, and its wide layout on the
+    ``TC_WIDE_NETS`` at a ragged ``GUIDED_EXTRA_N``, within
+    ``TC_STEP_TOL``; on the same
     inputs its 1xTF32 variant (``util/guided_tc_parts.py`` ``one_tf32``)
     must fall outside it, so the check tells float32-level products from
     TF32-level ones.  Then its chunks (t0 1 and 9, n_valid 8 and 7, a
-    ragged n, two nets) against the same steps taken one launch at a time,
+    ragged n, two nets, and the widest net) against the same steps taken
+    one launch at a time,
     bit for bit: the chunk's draws, masking and carried state add nothing
     to a step.  Each build's SASS by ``check_tc_sass``.  Returns the
     largest |dlog_w| against the plain version."""
@@ -2117,21 +2120,24 @@ def check_twin(lg_params, x0, w0, ys, n, seed):
           "(3xTF32 products and another order of summation in the net); its "
           "1xTF32 variant must fall outside; slots beyond 1e-5 counted")
     nets = [lg_params] + [_tc_net(sizes, i) for i, sizes in enumerate(TC_NETS)]
+    nets += [_tc_net(sizes, 20 + i) for i, sizes in enumerate(TC_WIDE_NETS)]
+    sizes_n = [n] * (1 + len(TC_NETS)) + [GUIDED_EXTRA_N - 77] * len(TC_WIDE_NETS)
     twins = [GuidedTensorCoreKernel(p, guided_trans_lp, guided_obs_lp, LG_T) for p in nets]
     controls = [variant_kernel("one_tf32", p, guided_trans_lp, guided_obs_lp, LG_T)
                 for p in nets]
     build_twins(twins + controls)
     one = torch.ones((), dtype=torch.int32, device=dev)
     worst = 0.0
-    for twin, control in zip(twins, controls):
+    for twin, control, m in zip(twins, controls, sizes_n):
+        xs, ws = x0[:m], w0[:m]
         for t0 in (1, 2):
             ys_c = ys[0][t0 - 1:]
-            out_k = twin.chunk(seed, x0, w0, ys_c, one, t0=t0)
-            out_c = control.chunk(seed, x0, w0, ys_c, one, t0=t0)
+            out_k = twin.chunk(seed, xs, ws, ys_c, one, t0=t0)
+            out_c = control.chunk(seed, xs, ws, ys_c, one, t0=t0)
             out_p = guided_scalar_chunk_plain(twin.params, guided_trans_lp, guided_obs_lp,
-                                              LG_T, seed, x0, w0, ys_c, one, t0=t0)
+                                              LG_T, seed, xs, ws, ys_c, one, t0=t0)
             _sync()
-            what = f"K12 mxu {twin.layer_sizes()} n={n} t0={t0} n_valid=1"
+            what = f"K12 mxu {twin.layer_sizes()} n={m} t0={t0} n_valid=1"
             e_k = max(_rel_err(a, b) for a, b in zip(out_k[:2], out_p[:2]))
             e_c = max(_rel_err(a, b) for a, b in zip(out_c[:2], out_p[:2]))
             dx = float((out_k[0] - out_p[0]).abs().max())
@@ -2146,7 +2152,7 @@ def check_twin(lg_params, x0, w0, ys, n, seed):
             if not e_c > TC_STEP_TOL:
                 raise AssertionError(f"{what}: the 1xTF32 variant ({e_c}) passes the "
                                      "check too, so it does not hold the products")
-            _close_stats(out_k[2], out_p[2], n, what)
+            _close_stats(out_k[2], out_p[2], m, what)
             worst = max(worst, dw)
             del out_k, out_c, out_p
 
@@ -2154,7 +2160,8 @@ def check_twin(lg_params, x0, w0, ys, n, seed):
           "states, log_w and records bit-equal")
     cases = [(twins[0], t0, ys_c, nv, n) for t0, ys_c in ((1, ys[0]), (9, ys[1]))
              for nv in (LG_CHUNK, LG_CHUNK - 1)]
-    cases += [(twins[0], 1, ys[0], LG_CHUNK, n - 77), (twins[3], 9, ys[1], LG_CHUNK, n)]
+    cases += [(twins[0], 1, ys[0], LG_CHUNK, n - 77), (twins[3], 9, ys[1], LG_CHUNK, n),
+              (twins[-1], 1, ys[0], LG_CHUNK, sizes_n[-1])]
     for twin, t0, ys_c, nv, m in cases:
         xs, ws = x0[:m], w0[:m]
         out_k = twin.chunk(seed, xs, ws, ys_c, torch.full((), nv, dtype=torch.int32,
@@ -2174,6 +2181,138 @@ def check_twin(lg_params, x0, w0, ys, n, seed):
     for twin in twins + controls:
         check_tc_sass(twin)
     return worst
+
+
+# the benchmark cell guided-lg-2e24-chunk8 (benchmarks/): the launches of
+# one of its queries against the cell's plain reference, per particle,
+# states and log-weights within CELL_TOL of 1 + |reference| after a chunk
+# of up to 8 moves (each step's float32 rounding carried through the later
+# ones): the twin read up to 9.0e-6 over a query's 2^24 particles, its
+# 1xTF32 variant and the reference with TF32 operands 7.7e-3 (an H100
+# 80GB HBM3 at 700 W), so the tolerance sits 5.6x above the one and 150x
+# below the other
+CELL_TOL = 5e-5
+
+
+def _bench_file(*parts):
+    return os.path.join(REPO, "benchmarks", *parts)
+
+
+def guided_lg_params(device):
+    """The benchmark's committed ``[3,64,64,2]`` net
+    (``benchmarks/configs/guided_lg_net.json``) on ``device``."""
+    import numpy as np
+
+    from cpprob_tpu_torch.interop import mlp_params_from_numpy
+
+    with open(_bench_file("configs", "guided_lg_net.json")) as f:
+        net = json.load(f)
+    return mlp_params_from_numpy(
+        [{"w": np.asarray(layer["w"], np.float32), "b": np.asarray(layer["b"], np.float32)}
+         for layer in net["layers"]], device=device), net
+
+
+def check_guided_lg_cell(seed=CHECK_SEED):
+    """One query of the cell ``guided-lg-2e24-chunk8``: ``build_smc_run(
+    model, 2^24, chunk=8)`` on a series of the model, ``model`` built as the
+    cell's configuration builds it (the committed net, the default ``mxu``:
+    the twin's wide layout); each ``fused_chunk_t_batch`` launch captured by
+    a wrapper of the hook and recomputed per particle in float64 by the
+    cell's plain reference (``benchmarks/reference/guided_lg.py``: its own
+    net, Philox and Box-Muller), states and log-weights within
+    ``CELL_TOL``.  The same launches' inputs through the twin's 1xTF32
+    variant, and through the reference with the hidden->hidden operands
+    rounded to TF32 (``guided_tc._tf32_round_t``), must fall outside it:
+    the query's evidence stays exact whatever the net's rounding, so this
+    is what holds its precision.  ``guided_tc.wide`` must count the query's
+    two launches and ``guided_tc.guided_tc`` none.  Returns (the largest
+    |dlog_w|, the query's host ms)."""
+    import dataclasses
+    import importlib.util
+
+    import numpy as np
+
+    from cpprob_tpu_torch import build_smc_run
+    from cpprob_tpu_torch.models.linear_gaussian import kalman_filter_1d, linear_gaussian_ssm
+    from cpprob_tpu_torch.ops import guided_tc
+    from cpprob_tpu_torch.ops.fused_ssm import attach_fused_guided_scalar_kernels
+    from cpprob_tpu_torch.util.guided_tc_parts import variant_kernel
+
+    spec = importlib.util.spec_from_file_location(
+        "guided_lg_reference", _bench_file("reference", "guided_lg.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    with open(_bench_file("configs", "guided_lg.json")) as f:
+        cfg = json.load(f)
+    with open(_bench_file("traffic", "closed-n2e24-chunk8.json")) as f:
+        traffic = json.load(f)
+    dev = torch.device("cuda")
+    params, net = guided_lg_params(dev)
+    T_cfg = int(cfg["series_length"])
+    model = attach_fused_guided_scalar_kernels(
+        linear_gaussian_ssm, params, T_cfg, trans_logpdf_elem=guided_trans_lp,
+        obs_logpdf_elem=guided_obs_lp)
+    hook = model.fused_chunk_t_batch
+    launches = []
+
+    def capture(key, states, log_w, ys, n_valid, t0):
+        out = hook(key, states, log_w, ys, n_valid, t0)
+        launches.append((key, states.clone(), log_w.clone(), ys.clone(), n_valid.clone(),
+                         t0, out[0].clone(), out[1].clone()))
+        return out
+
+    capture.kernel = hook.kernel
+    run = build_smc_run(dataclasses.replace(model, fused_chunk_t_batch=capture),
+                        int(traffic["particles"]), ess_threshold=float(traffic["ess_threshold"]),
+                        chunk=int(traffic["chunk"]))
+    ys_np = ref.simulate(np.random.default_rng(int(traffic["pool_seed"])), 1, cfg)[0]
+    obs = torch.as_tensor(ys_np, device=dev)
+    run(seed + 1, obs)
+    _sync()
+    launches.clear()
+    before = dict(guided_tc.LAUNCHES)
+    t_start = time.perf_counter()
+    res = run(seed, obs)
+    log_z = float(res.log_evidence)
+    query_ms = (time.perf_counter() - t_start) * 1e3
+    counted = {k: v - before[k] for k, v in guided_tc.LAUNCHES.items()}
+    print(f"cell guided-lg-2e24-chunk8: one query {query_ms:.3f} ms (host clock, synced), "
+          f"logZ {log_z:.6f}, Kalman {kalman_filter_1d(ys_np)[2]:.6f}, "
+          f"{len(launches)} chunk launches, guided_tc counters {counted}, "
+          f"{type(hook.kernel).__name__} wide={hook.kernel.wide}")
+    if counted != {"guided_tc": 0, "wide": 2} or len(launches) != 2:
+        raise AssertionError(f"guided-lg cell: launches {counted}, expected 2 wide")
+    control = variant_kernel("one_tf32", params, guided_trans_lp, guided_obs_lp, T_cfg)
+    layers = ref.net_layers(net, dev)
+    tf32 = lambda a: guided_tc._tf32_round_t(a.float()).double()
+    worst = {"twin": 0.0, "1xTF32 twin": 0.0, "reference, 1xTF32 operands": 0.0}
+    dw_max = 0.0
+    for key, x_in, w_in, ys_c, n_valid, t0, x_out, w_out in launches:
+        nv = int(n_valid)
+        ys_l = ys_c[:nv].tolist()
+        rx, rw = ref.guided_chunk(layers, cfg, key, x_in, w_in, ys_l, t0, nv)
+        cx, cw, _ = control.chunk(key, x_in, w_in, ys_c, n_valid.to(torch.int32), t0=t0)
+        ex, ew = ref.guided_chunk(layers, cfg, key, x_in, w_in, ys_l, t0, nv,
+                                  round_operands=tf32)
+        for name, (gx, gw) in (("twin", (x_out, w_out)), ("1xTF32 twin", (cx, cw)),
+                               ("reference, 1xTF32 operands", (ex, ew))):
+            e = max(float(((g.double() - r).abs() / (1 + r.abs())).max())
+                    for g, r in ((gx, rx), (gw, rw)))
+            worst[name] = max(worst[name], e)
+        d = (x_out.double() - rx).abs() / (1 + rx.abs())
+        print(f"  launch t0={t0} n_valid={nv}: twin max|d|/(1+|ref|) x "
+              f"{float(d.max()):.3g} ({int((d > 1e-6).sum())} particles beyond 1e-6), "
+              f"log_w {float(((w_out.double() - rw).abs() / (1 + rw.abs())).max()):.3g}")
+        dw_max = max(dw_max, float((w_out.double() - rw).abs().max()))
+        del rx, rw, cx, cw, ex, ew
+    print(f"check guided-lg cell per particle (n={traffic['particles']}, tolerance "
+          f"{CELL_TOL} of 1 + |reference|): {worst}")
+    if not worst["twin"] <= CELL_TOL:
+        raise AssertionError(f"guided-lg cell: the twin {worst['twin']} outside {CELL_TOL}")
+    for name in ("1xTF32 twin", "reference, 1xTF32 operands"):
+        if not worst[name] > CELL_TOL:
+            raise AssertionError(f"guided-lg cell: {name} ({worst[name]}) passes too")
+    return dw_max, query_ms
 
 
 def check_scalar_sass(kernel):
@@ -2288,8 +2427,8 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
     from cpprob_tpu_torch.ops.guided_scalar import GuidedScalarKernel
 
     dev = torch.device("cuda")
-    errs = {"guided_scalar": 0.0, "guided_chunk": 0.0, "guided_step": 0.0,
-            "guided_tables": 0.0}
+    errs = {"guided_scalar": 0.0, "guided_scalar_wide": 0.0, "guided_chunk": 0.0,
+            "guided_step": 0.0, "guided_tables": 0.0}
     print(f"K12 against its plain version: states and log_w within {GUIDED_TOL} "
           "(the plain version emulates each fused multiply-add in float64)")
     k12s = [GuidedScalarKernel(lg_params, guided_trans_lp, guided_obs_lp, LG_T)]
@@ -2311,8 +2450,9 @@ def check_guided_kernels(lg_params, chain_params, n=GUIDED_N,
     full = torch.full((), LG_CHUNK, dtype=torch.int32, device=dev)
     for k in k12s[1:]:
         density = "trans with **" if k.trans is guided_trans_lp_pow else "LG densities"
+        key = "guided_scalar_wide" if k.layer_sizes() == [3, 64, 64, 2] else "guided_scalar"
         for t0, ys_c in ((1, ys[0]), (9, ys[1])):
-            errs["guided_scalar"] = max(errs["guided_scalar"], _check_k12(
+            errs[key] = max(errs[key], _check_k12(
                 k, x0[:m], w0[:m], ys_c, full, t0, seed,
                 f"K12 {k.layer_sizes()} ({density}) n={m} t0={t0} "
                 f"n_valid={LG_CHUNK}/{LG_CHUNK}"))
@@ -2501,6 +2641,28 @@ def guided_phases(card, stages):
           f"{se7[False]:.3g} (mxu=False)")
     run7 = runs7[True]
 
+    # path 7w: the same model under the benchmark's [3,64,64,2] net (the
+    # trainer's default width) with each kernel: the twin's wide layout,
+    # counted under "wide" (the narrow key stays still), and K12
+    wide_params, _ = guided_lg_params(dev)
+    kernels7w, got7w = {}, {}
+    for mxu, key in ((True, "wide"), (False, "guided")):
+        lg = attach_fused_guided_scalar_kernels(
+            linear_gaussian_ssm, wide_params, LG_T, trans_logpdf_elem=guided_trans_lp,
+            obs_logpdf_elem=guided_obs_lp, mxu=mxu)
+        kernels7w[mxu] = lg.fused_chunk_t_batch.kernel
+        with stages.stage(f"guided_path7w_mxu_{mxu}", sync=True):
+            got7w[mxu], _, _ = run_path(
+                build_smc_run(lg, GUIDED_N, chunk=GUIDED_CHUNK), obs, SWEEPS, counters,
+                exact_lg, f"path 7w (mxu={mxu}: {type(kernels7w[mxu]).__name__}, "
+                f"[3,64,64,2]): guided LG n={GUIDED_N} T={LG_T} chunk={GUIDED_CHUNK}",
+                epochs_each=False)
+        _expect(got7w[mxu], {key: SWEEPS * n_ch, "lse_stats": SWEEPS * n_ch,
+                             "pass1": SWEEPS * n_ch, "pass2": SWEEPS * n_ch},
+                f"path 7w mxu={mxu}")
+    with stages.stage("guided_lg_cell", sync=True):
+        errs["guided_tc_wide"], _ = check_guided_lg_cell()
+
     # path 8: the guided 5-state chain, K9 then K13 at 8 and 7 steps
     ys5 = _chain_obs(5, T, 0)
     exact5 = discrete_hmm_log_evidence(*_chain(5), ys5)
@@ -2579,11 +2741,18 @@ def guided_phases(card, stages):
     plain7 = time_ms(lambda: guided_scalar.guided_scalar_chunk_plain(
         lg_params, guided_trans_lp, guided_obs_lp, LG_T, seed, x0, w0, ys[0],
         valid[0], t0=1), 2)
+    plain7w = time_ms(lambda: guided_scalar.guided_scalar_chunk_plain(
+        wide_params, guided_trans_lp, guided_obs_lp, LG_T, seed, x0, w0, ys[0],
+        valid[0], t0=1), 1)
     timing = {
         "guided_tc": (time_ms(lambda: twin7.chunk(seed, x0, w0, ys[0], valid[0], t0=1),
                               10), plain7),
         "guided_scalar": (time_ms(lambda: k12.chunk(seed, x0, w0, ys[0], valid[0], t0=1),
                                   10), plain7),
+        "guided_tc_wide": (time_ms(lambda: kernels7w[True].chunk(
+            seed, x0, w0, ys[0], valid[0], t0=1), 10), plain7w),
+        "guided_scalar_wide": (time_ms(lambda: kernels7w[False].chunk(
+            seed, x0, w0, ys[0], valid[0], t0=1), 10), plain7w),
         "guided_chunk": (
             time_ms(lambda: fused_hmm.guided_chunk(seed, s0, wc0, ys8[0], c8,
                                                     spec5, gt), 10),
@@ -2621,8 +2790,19 @@ def guided_phases(card, stages):
           f"{int(valid[0])} steps, in turns): "
           + ", ".join(f"{k} " + "/".join(f"{v:.4f}" for v in t) for k, t in turns.items())
           + " ms")
+    # and at the benchmark's [3,64,64,2] net: the twin's wide layout beside K12
+    turns = {"K12": [], "K12 mxu": []}
+    pair = {"K12": lambda: kernels7w[False].chunk(seed, x0, w0, ys[0], valid[0], t0=1),
+            "K12 mxu": lambda: kernels7w[True].chunk(seed, x0, w0, ys[0], valid[0], t0=1)}
+    for name in ("K12", "K12 mxu", "K12 mxu", "K12"):
+        turns[name].append(time_ms(pair[name], 10))
+    print(f"[{card}] K12 beside its tensor-core twin's wide layout ([3,64,64,2], "
+          f"n={GUIDED_N}, {int(valid[0])} steps, in turns): "
+          + ", ".join(f"{k} " + "/".join(f"{v:.4f}" for v in t) for k, t in turns.items())
+          + " ms")
     print(f"K12 (registers, spills) {check_scalar_sass(k12)}; K12 mxu "
-          f"{check_tc_sass(twin7)}")
+          f"{check_tc_sass(twin7)}; at [3,64,64,2] K12 {check_scalar_sass(kernels7w[False])}, "
+          f"K12 mxu {check_tc_sass(kernels7w[True])}")
     for name, run, o, times in (("7 (mxu=True)", runs7[True], obs, times7[True]),
                                 ("7 (mxu=False)", runs7[False], obs, times7[False]),
                                 ("8", run8, obs5, times8),
@@ -2661,12 +2841,20 @@ def guided_phases(card, stages):
 
     ps12 = GUIDED_N * int(valid[0])
     tc_ops = guided_tc_ops(sizes12)
+    wide_sizes = kernels7w[True].layer_sizes()
+    wide_ops = guided_tc_ops(wide_sizes)
     bounds = {
         "guided_tc": bound(16 * GUIDED_N, ps12 * tc_ops["f32_ops"],
                            tf32_macs=ps12 * tc_ops["tf32_macs"], philox_calls=ps12 / 2,
                            normal_pairs=ps12 / 2, exp_log_pairs=ps12),
         "guided_scalar": bound(16 * GUIDED_N, ps12 * k12_f32, philox_calls=ps12 / 2,
                                normal_pairs=ps12 / 2, exp_log_pairs=ps12),
+        "guided_tc_wide": bound(16 * GUIDED_N, ps12 * wide_ops["f32_ops"],
+                                tf32_macs=ps12 * wide_ops["tf32_macs"], philox_calls=ps12 / 2,
+                                normal_pairs=ps12 / 2, exp_log_pairs=ps12),
+        "guided_scalar_wide": bound(16 * GUIDED_N, ps12 * (guided_net_ops(wide_sizes) + 14),
+                                    philox_calls=ps12 / 2, normal_pairs=ps12 / 2,
+                                    exp_log_pairs=ps12),
         "guided_chunk": k13_bound(GUIDED_N, int(v8[0])),
         "guided_step": k13_bound(GUIDED_STEP_N, 1),
         "guided_tables": tables_bound(int(v8[0])),
@@ -2694,6 +2882,14 @@ def guided_phases(card, stages):
              f"{guided_tc.GROUPS} particles a thread)", "guided_tc", "cuda",
              "cpprob_tpu_torch/ops/csrc/guided_tc.cuh",
              "cpprob_tpu/ops/pallas_ssm.py:948", got7[True]["guided_tc"]),
+        line(f"guided_scalar_kernel (K12, [3,64,64,2] net on the FMA pipe, "
+             f"{kernels7w[False].block() // 256} particle a thread)", "guided_scalar_wide",
+             "cuda", "cpprob_tpu_torch/ops/csrc/guided_scalar.cuh",
+             "cpprob_tpu/ops/pallas_ssm.py:887", got7w[False]["guided"]),
+        line(f"guided_tc_kernel wide (K12 mxu, [3,64,64,2] net, 3xTF32 mma.sync, "
+             f"{kernels7w[True].block() // 256} particles a thread)", "guided_tc_wide", "cuda",
+             "cpprob_tpu_torch/ops/csrc/guided_tc.cuh",
+             "cpprob_tpu/ops/pallas_ssm.py:948", got7w[True]["wide"]),
         line("guided_chunk_kernel<K> after guided_tables_kernel<K> (K13, K = 5, "
              "[7,16,16,5] net)", "guided_chunk", "cuda", cu,
              "cpprob_tpu/ops/pallas_ssm.py:1351",
@@ -4819,7 +5015,7 @@ def main():
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "calibrated_bound_ms", "calibrated_by")
     missing = [(k["name"], key) for k in kernels for key in keys if key not in k]
-    if missing or len(kernels) != 26:
+    if missing or len(kernels) != 28:
         raise AssertionError(f"kernels line: {len(kernels)} entries, missing {missing}")
     print(json.dumps({"kernels": kernels}))
     print(card)

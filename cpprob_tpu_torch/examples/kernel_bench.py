@@ -14,7 +14,11 @@
    the resample flag (K6 with the step's resample control), and the
    streaming epoch every step, flagged or not;
 2b. the guided linear-Gaussian model through
-   ``attach_fused_guided_scalar_kernels`` (K12's tensor-core twin);
+   ``attach_fused_guided_scalar_kernels`` (K12's tensor-core twin, its
+   narrow layout, at ``[3,16,16,2]``), and under a ``[3,64,64,2]`` net
+   (``train_ssm_proposal``'s default width) with each kernel: the twin's
+   wide layout (``mxu=True``, counted under ``guided_tc.wide``) and K12 on
+   the FMA pipe (``mxu=False``);
 2c. the guided 5-state chain through
    ``attach_fused_guided_discrete_kernels`` (K9, then K13 and its tables
    kernel);
@@ -50,6 +54,9 @@ SWEEPS = 8          # sweeps a timed iteration
 ITERS = 5           # timed iterations a path
 TRAIN_FRACTION = 1.0  # of the reference's proposal training steps (600 LG, 300 chain)
 LG_NET_SEED, CHAIN_NET_SEED = 10, 6
+# the [3,64,64,2] net: train_ssm_proposal's defaults from this seed, whose
+# initial net the benchmark's guided_lg net also starts from
+LG_WIDE_NET_SEED = 1
 
 
 def lg_step_elem(x, y, eps):
@@ -57,16 +64,6 @@ def lg_step_elem(x, y, eps):
     nx = x + eps
     d = y - nx
     return nx, -0.5 * d * d - HALF_LOG_2PI
-
-
-def trans_lp(x, nx, t):
-    d = nx - x
-    return -0.5 * d * d - HALF_LOG_2PI
-
-
-def obs_lp(nx, y, t):
-    d = y - nx
-    return -0.5 * d * d - HALF_LOG_2PI
 
 
 def build_parser():
@@ -89,7 +86,12 @@ def main(argv=None):
     from cpprob_tpu_torch import build_smc_run
     from cpprob_tpu_torch.inference.resampling import sorted_systematic_resample_values
     from cpprob_tpu_torch.inference.smc_csis import train_ssm_proposal
-    from cpprob_tpu_torch.models.linear_gaussian import kalman_filter_1d, linear_gaussian_ssm
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        kalman_filter_1d,
+        linear_gaussian_ssm,
+        obs_logpdf_elem,
+        trans_logpdf_elem,
+    )
     from cpprob_tpu_torch.ops import stream_resample
     from cpprob_tpu_torch.ops.fused_lg import make_fused_lg_ssm
     from cpprob_tpu_torch.ops.fused_ssm import (
@@ -193,10 +195,15 @@ def main(argv=None):
         gparams, _ = train_ssm_proposal(linear_gaussian_ssm, LG_NET_SEED, T, kind="normal",
                                         steps=max(int(600 * train), 1), batch_size=256,
                                         hidden=16, device=dev)
-    lg_guided = attach_fused_guided_scalar_kernels(
-        linear_gaussian_ssm, gparams, T, trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp)
+    dens = dict(trans_logpdf_elem=trans_logpdf_elem, obs_logpdf_elem=obs_logpdf_elem)
+    lg_guided = attach_fused_guided_scalar_kernels(linear_gaussian_ssm, gparams, T, **dens)
     dtg, lzs, ep, launches = timed_sweeps(build_smc_run(lg_guided, N, chunk=8), ys,
                                           "lg_guided", 400)
+    # launches are counted on the card (the plain versions count none)
+    n_launch = iters * SWEEPS * -(-(T - 1) // 8) if dev.type == "cuda" else None
+    if launches.get("guided_tc.guided_tc") != n_launch or "guided_tc.wide" in launches:
+        raise AssertionError(f"the [3,16,16,2] twin's launches {launches}: expected "
+                             f"{n_launch} under guided_tc.guided_tc, none wide")
     out["linear_gaussian_guided_fused"] = {
         "particle_steps_per_s": N * T / dtg, "sweep_s": dtg,
         "resample_epochs_mean": float(np.mean(ep)),
@@ -207,6 +214,34 @@ def main(argv=None):
     }
     print(f"LG guided fused: {N * T / dtg / 1e9:.2f} G steps/s, logZ {np.mean(lzs):.3f} "
           f"vs kalman {kalman:.3f}, launches {launches}", file=sys.stderr)
+
+    # the same model under a [3,64,64,2] net, the trainer's default width,
+    # with each kernel: the twin's wide layout and K12 on the FMA pipe
+    with st.stage("train_lg_wide", sync=True):
+        wparams, _ = train_ssm_proposal(linear_gaussian_ssm, LG_WIDE_NET_SEED, T,
+                                        kind="normal", steps=max(int(300 * train), 1),
+                                        device=dev)
+    for mxu, key, name in ((True, "guided_tc.wide", "linear_gaussian_guided_wide_tc"),
+                           (False, "guided_scalar.guided", "linear_gaussian_guided_wide_fma")):
+        model = attach_fused_guided_scalar_kernels(linear_gaussian_ssm, wparams, T,
+                                                   mxu=mxu, **dens)
+        dtw, lzs, ep, launches = timed_sweeps(build_smc_run(model, N, chunk=8), ys,
+                                              name, 600 + 100 * mxu)
+        if launches.get(key) != n_launch or "guided_tc.guided_tc" in launches:
+            raise AssertionError(f"{name}: launches {launches}, expected {n_launch} "
+                                 f"under {key} and none under guided_tc.guided_tc")
+        kernel = type(model.fused_chunk_t_batch.kernel).__name__
+        out[name] = {
+            "particle_steps_per_s": N * T / dtw, "sweep_s": dtw,
+            "resample_epochs_mean": float(np.mean(ep)),
+            "log_evidence_mean": float(np.mean(lzs)), "log_evidence_std": float(np.std(lzs)),
+            "sweeps": len(lzs), "kalman_log_evidence": kalman, "launches": launches,
+            "proposal": f"in-kernel MLP [3,64,64,2] (smc_csis 'normal' head), {kernel}",
+            "builder": f"attach_fused_guided_scalar_kernels(mxu={mxu}) (ops/fused_ssm.py)",
+        }
+        print(f"LG guided [3,64,64,2] mxu={mxu} ({kernel}): {N * T / dtw / 1e9:.2f} G "
+              f"steps/s, logZ {np.mean(lzs):.3f} vs kalman {kalman:.3f}, launches "
+              f"{launches}", file=sys.stderr)
 
     # --- 2c. guided 5-state chain through the guided discrete kernels
     with st.stage("train_chain", sync=True):

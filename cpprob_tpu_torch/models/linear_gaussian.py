@@ -22,13 +22,28 @@ from ..distributions import Normal
 from ..inference.smc import StateSpaceModel
 
 __all__ = ["linear_gaussian_1d", "linear_gaussian_ssm", "kalman_filter_1d",
-           "simulate_observations"]
+           "obs_logpdf_elem", "simulate_observations", "trans_logpdf_elem"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def _normal_logpdf(x, mean):
     d = x - mean
+    return -0.5 * d * d - _HALF_LOG_2PI
+
+
+def trans_logpdf_elem(x, nx, t):
+    """log N(nx; x, 1), the transition, as an elementwise density under the
+    contract of ``ops/render.py`` (the guided chunk kernels' signature
+    ``(x, nx, t)``: ``attach_fused_guided_scalar_kernels``)."""
+    d = nx - x
+    return -0.5 * d * d - _HALF_LOG_2PI
+
+
+def obs_logpdf_elem(nx, y, t):
+    """log N(y; nx, 1), the emission, as an elementwise density (signature
+    ``(nx, y, t)``), the partner of :func:`trans_logpdf_elem`."""
+    d = y - nx
     return -0.5 * d * d - _HALF_LOG_2PI
 
 

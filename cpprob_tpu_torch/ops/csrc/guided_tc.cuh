@@ -42,6 +42,21 @@
 // tensor cores it took 1.12 times as long at [3,16,16,2], and a thread
 // taking one or four particles (kGroups) was slower than two (PERF.md §6).
 //
+// The wide layout (kWide: a hidden layer wider than 32, up to 64, the width
+// the trainer gives by default).  At width 64 one layer's activations and
+// the next one's accumulators are 128 floats a particle-tile pair: two
+// groups of them do not fit in a thread's registers.  So the first layer is
+// never held: forward_wide forms each block of 8 first-layer units in the
+// A fragment's positions just before the tensor cores take that block
+// (the same fused multiply-add, the same c) and splits it at once, so a
+// [3, H, H', 2] net holds only the accumulators of its one hidden->hidden
+// layer, and a thread keeps two particles (kWideGroups: 255 registers and
+// no local memory at [3,64,64,2]; one particle took 136 registers and
+// ran 1.08 times as long, PERF.md §6).  A deeper wide net holds a later
+// layer's activations and accumulators both and takes one particle a
+// thread.  The products, their order and the packed buffer are those of
+// the narrow layout, whose machine code this leaves as it was.
+//
 // Precision.  Each operand is split into hi = tf32(v) and lo = v - hi
 // (split() below; the weights on the host, once, lo rounded to TF32 too);
 // each product is a_lo b_hi + a_hi b_lo + a_hi b_hi accumulated in
@@ -81,9 +96,25 @@ namespace guided_tc {
 using namespace guided_tc_model;
 
 constexpr int kThreads = 256;
+
+// the widest hidden layer of the net
+__host__ __device__ constexpr int widest_hidden() {
+  int w = 0;
+  for (int l = 1; l < kLayers; ++l) w = kWidths[l] > w ? kWidths[l] : w;
+  return w;
+}
+// a net with a hidden layer wider than 32 takes the wide layout
+constexpr bool kWide = widest_hidden() > 32;
+// particles a thread in the wide layout: two where one hidden->hidden layer
+// takes the fused first layer (the accumulators alone are held: 255
+// registers at [3,64,64,2], no local memory), one for deeper nets, whose
+// later layers hold activations and accumulators both
+constexpr int kWideGroups = kLayers == 3 ? 2 : 1;
+// the wide layout forms the first layer inside the first hidden->hidden one
+constexpr bool kFusedFirst = kWide && kLayers > 2;
 // particles a thread (32 a warp each): at two no net up to [3,32,32,32,2]
 // touches local memory; at one some did (a 32-byte stack frame)
-constexpr int kGroups = 2;
+constexpr int kGroups = kWide ? kWideGroups : 2;
 constexpr int kBlock = kThreads * kGroups;  // particles per CTA
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
 
@@ -254,6 +285,95 @@ __device__ __forceinline__ void forward(
   }
 }
 
+// The wide layout's first two weight layers: the first layer's units of
+// block kb are formed on the FMA pipe in the A fragment's positions just
+// before the tensor cores take them (c of each unit as the narrow layout
+// forms it, once a step), so that no layer of first-layer activations is
+// ever held; the hidden->hidden products, their order and ReLU are those of
+// forward<1>.  xq: each group's quad of particles, [tile][row g, g + 8].
+// L = 1, the first hidden->hidden weight layer; a net without one (a
+// [3, H, 2] head) never gets here, and the guard keeps it from compiling
+// the body.
+template <int L>
+__device__ __forceinline__ void forward_wide(const float (&xq)[kGroups][2][2],
+                                             float y, float tf,
+                                             const float* __restrict__ wts,
+                                             int lane, float (&mr)[kGroups][2]) {
+  if constexpr (L < kLayers - 1) {
+    constexpr int KB = kWidths[L] / 8, NB = kWidths[L + 1] / 8;
+    constexpr int kOffset = offset(L), kCols = kWidths[L + 1];
+    const float* wl = wts + kOffset;
+    const float4* frag = reinterpret_cast<const float4*>(wl + kCols);
+    const int t = lane & 3;
+    float bias[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(wl + 8 * nb + 2 * t));
+      bias[nb][0] = b.x;
+      bias[nb][1] = b.y;
+      bias[nb][2] = b.x;
+      bias[nb][3] = b.y;
+    }
+    float acc[kGroups][2][NB][4];
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+      // units 8 kb + 2t + j of the first layer, rows g and g + 8, in C
+      // positions (row r, column j) -> 2r + j
+      float a[kGroups][2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float4 w1 = __ldg(reinterpret_cast<const float4*>(wts) + 8 * kb + 2 * t + j);
+        const float c = __fadd_rn(__fadd_rn(__fmul_rn(w1.y, y), __fmul_rn(w1.z, tf)), w1.w);
+#pragma unroll
+        for (int p = 0; p < kGroups; ++p)
+#pragma unroll
+          for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              a[p][tile][2 * r + j] = fmaxf(__fmaf_rn(xq[p][tile][r], w1.x, c), 0.f);
+      }
+      // C -> A: (row g, col 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1)
+      uint32_t hi[kGroups][2][4], lo[kGroups][2][4];
+#pragma unroll
+      for (int p = 0; p < kGroups; ++p)
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          split(a[p][s][0], hi[p][s][0], lo[p][s][0]);
+          split(a[p][s][2], hi[p][s][1], lo[p][s][1]);
+          split(a[p][s][1], hi[p][s][2], lo[p][s][2]);
+          split(a[p][s][3], hi[p][s][3], lo[p][s][3]);
+        }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const float4 b = __ldg(frag + (kb * NB + nb) * 32 + lane);
+        const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+        const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+#pragma unroll
+        for (int p = 0; p < kGroups; ++p)
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            if (kb == 0) {
+              mma_tf32(acc[p][s][nb], lo[p][s], bh0, bh1, bias[nb]);
+            } else {
+              mma_tf32(acc[p][s][nb], lo[p][s], bh0, bh1, acc[p][s][nb]);
+            }
+            mma_tf32(acc[p][s][nb], hi[p][s], bl0, bl1, acc[p][s][nb]);
+            mma_tf32(acc[p][s][nb], hi[p][s], bh0, bh1, acc[p][s][nb]);
+          }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kGroups; ++p)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[p][s][nb][i] = fmaxf(acc[p][s][nb][i], 0.f);
+    forward<L + 1>(acc, wts, lane, mr);
+  }
+}
+
 // nv: int32 [n_valid] (steps at and after it leave the particle as it is);
 // T: the model's horizon (the net's time feature is t / T).
 __global__ void __launch_bounds__(kThreads)
@@ -283,7 +403,8 @@ guided_tc_kernel(const float* __restrict__ ys, int n_steps,
     w[p] = i < n ? w_in[i] : -INFINITY;
     sn[p] = 0.f;
   }
-  // this lane's first-layer units 8 kb + 2t + j: (w_x, w_y, w_t, b)
+  // this lane's first-layer units 8 kb + 2t + j: (w_x, w_y, w_t, b); the
+  // fused first layer (kFusedFirst) reads them at each use instead
   float4 w1[KB1][2];
 #pragma unroll
   for (int kb = 0; kb < KB1; ++kb)
@@ -297,35 +418,45 @@ guided_tc_kernel(const float* __restrict__ ys, int n_steps,
     const float y = __ldg(ys + s);
     const float tt = (float)ta;
     const float tf = __fdiv_rn(tt, T);
-    float c[KB1][2];
-#pragma unroll
-    for (int kb = 0; kb < KB1; ++kb)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        c[kb][j] = __fadd_rn(__fadd_rn(__fmul_rn(w1[kb][j].y, y),
-                                       __fmul_rn(w1[kb][j].z, tf)),
-                             w1[kb][j].w);
-
-    float h[kGroups][2][KB1][4];
-#pragma unroll
-    for (int p = 0; p < kGroups; ++p) {
-      float xq[2][2];  // the quad's particles: [tile][row g, row g + 8]
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        xq[q >> 1][q & 1] = __shfl_sync(0xffffffffu, x[p], quad | q);
-#pragma unroll
-      for (int tile = 0; tile < 2; ++tile)
-#pragma unroll
-        for (int kb = 0; kb < KB1; ++kb)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              h[p][tile][kb][2 * r + j] =
-                  fmaxf(__fmaf_rn(xq[tile][r], w1[kb][j].x, c[kb][j]), 0.f);
-    }
     float mr[kGroups][2];
-    forward<1>(h, wts, lane, mr);
+    if constexpr (kFusedFirst) {
+      float xq[kGroups][2][2];  // the quads' particles: [tile][row g, g + 8]
+#pragma unroll
+      for (int p = 0; p < kGroups; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          xq[p][q >> 1][q & 1] = __shfl_sync(0xffffffffu, x[p], quad | q);
+      forward_wide<1>(xq, y, tf, wts, lane, mr);
+    } else {
+      float c[KB1][2];
+#pragma unroll
+      for (int kb = 0; kb < KB1; ++kb)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          c[kb][j] = __fadd_rn(__fadd_rn(__fmul_rn(w1[kb][j].y, y),
+                                         __fmul_rn(w1[kb][j].z, tf)),
+                               w1[kb][j].w);
+
+      float h[kGroups][2][KB1][4];
+#pragma unroll
+      for (int p = 0; p < kGroups; ++p) {
+        float xq[2][2];  // the quad's particles: [tile][row g, row g + 8]
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          xq[q >> 1][q & 1] = __shfl_sync(0xffffffffu, x[p], quad | q);
+#pragma unroll
+        for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+          for (int kb = 0; kb < KB1; ++kb)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                h[p][tile][kb][2 * r + j] =
+                    fmaxf(__fmaf_rn(xq[tile][r], w1[kb][j].x, c[kb][j]), 0.f);
+      }
+      forward<1>(h, wts, lane, mr);
+    }
 
 #pragma unroll
     for (int p = 0; p < kGroups; ++p) {

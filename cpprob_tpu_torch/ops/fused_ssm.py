@@ -213,7 +213,10 @@ def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
     ``mxu=True`` (the default, as the reference's) installs the tensor-core
     twin (:class:`.guided_tc.GuidedTensorCoreKernel`: the net's hidden
     layers on ``mma.sync`` in 3xTF32, CUDA built at the first launch) for a
-    net with at least one hidden layer; ``mxu=False``, or a linear ``[3,
+    net with at least one hidden layer, in its narrow layout for hidden
+    widths up to 32 and in its wide one up to
+    :func:`.guided_tc.guided_tc_max_width` (64, the width
+    ``train_ssm_proposal`` gives by default); ``mxu=False``, or a linear ``[3,
     2]`` head, installs K12 with the net on the FMA pipe
     (:class:`.guided_scalar.GuidedScalarKernel`: the weights baked into a
     CUDA source built at the first launch).  Both compute the plain
@@ -226,8 +229,8 @@ def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
     model's densities as elementwise functions under the contract of
     :mod:`.render`.  A net of another shape or a density outside the
     contract raises ``ValueError`` here, as does, with ``mxu=True``, a
-    hidden layer wider than :func:`.guided_tc.guided_tc_max_width` (the
-    message names ``mxu=False``, which takes it).  The same net serves the
+    hidden layer wider than :func:`.guided_tc.guided_tc_max_width` (64; the
+    message names ``mxu=False``, which takes any width).  The same net serves the
     engine's unfused guided step (``proposal_sample`` / ``proposal_logpdf``:
     chunk 1 and runs with history), so the guide is never dropped; the
     in-kernel weights carry the exact RN correction, so the evidence

@@ -34,9 +34,15 @@ operation rounds as torch's float32 one does).  Anything else raises
 
 Limits: at least one hidden layer (a linear ``[3, 2]`` head takes K12, as
 the reference's ``pallas_ssm.py:1135`` does); hidden widths up to
-:func:`guided_tc_max_width` (each padded to a multiple of 8 with zero
-weights, which is exact); any depth, unrolled at build time.  On CPU
-tensors the wrapper runs :func:`~.guided_scalar.guided_scalar_chunk_plain`.
+:func:`guided_tc_max_width`, 64, the trainer's default width (each padded
+to a multiple of 8 with zero weights, which is exact); any depth, unrolled
+at build time.  A net whose hidden layers are all at most
+:data:`NARROW_WIDTH` wide takes the narrow layout (:data:`GROUPS`
+particles a thread); a wider one the wide layout (the first layer formed
+block by block inside the first hidden->hidden product, :func:`groups`
+particles a thread), counted under ``guided_tc.wide``.  Both compute
+the same function from the same packed buffer.  On CPU tensors the wrapper
+runs :func:`~.guided_scalar.guided_scalar_chunk_plain`.
 """
 
 from __future__ import annotations
@@ -51,16 +57,18 @@ from .guided_scalar import check_scalar_net, guided_scalar_chunk_plain, render_d
 from .philox import split_seed
 from .population import launch_population
 
-__all__ = ["GROUPS", "LAUNCHES", "GuidedTensorCoreKernel",
-           "guided_tc_max_width", "pack_weights", "padded_sizes",
+__all__ = ["GROUPS", "LAUNCHES", "NARROW_WIDTH", "GuidedTensorCoreKernel",
+           "groups", "guided_tc_max_width", "is_wide", "pack_weights", "padded_sizes",
            "render_density", "render_source", "tc_net_plain", "tf32_round"]
 
 TC_THREADS = 256          # csrc/guided_tc.cuh kThreads
 GROUPS = 2                # csrc/guided_tc.cuh kGroups: particles a thread
-MAX_WIDTH = 32
+NARROW_WIDTH = 32         # the widest hidden layer of the narrow layout
+MAX_WIDTH = 64
 
-# kernel launches, counted where the kernel is launched
-LAUNCHES = counter_group("guided_tc", ("guided_tc",))
+# kernel launches, counted where the kernel is launched: the narrow layout
+# under "guided_tc", the wide one under "wide"
+LAUNCHES = counter_group("guided_tc", ("guided_tc", "wide"))
 
 _PERM = (0, 2, 4, 6, 1, 3, 5, 7)   # A fragment k position -> C column
 
@@ -69,10 +77,29 @@ def guided_tc_max_width() -> int:
     """The widest hidden layer the kernel takes: a thread holds, for each
     of its particles, one layer's activations and the next layer's
     accumulators in registers (C fragments of two 16-row tiles), so the
-    register file, not the depth, sets the limit; at width 32 a thread
-    takes up to 254 registers at two particles and no local memory
-    (``chip_smoke.py`` holds that on the card)."""
+    register file, not the depth, sets the limit.  Up to
+    :data:`NARROW_WIDTH` a thread takes two particles (up to 254 registers
+    at width 32); above it the first layer is never held whole (the wide
+    layout, :func:`groups` particles a thread), up to 64, the width
+    ``train_ssm_proposal`` gives by default (``chip_smoke.py`` holds both
+    layouts free of local memory on the card)."""
     return MAX_WIDTH
+
+
+def is_wide(sizes) -> bool:
+    """Whether a net of ``sizes`` takes the wide layout: a hidden layer
+    wider than :data:`NARROW_WIDTH` (after padding to a multiple of 8)."""
+    return max(padded_sizes(sizes)[1:-1], default=0) > NARROW_WIDTH
+
+
+def groups(sizes) -> int:
+    """Particles a thread for a net of ``sizes`` (``csrc/guided_tc.cuh``
+    ``kGroups``): :data:`GROUPS` in the narrow layout; in the wide one two
+    where a single hidden->hidden layer takes the fused first layer
+    (``[3, H, H', 2]``), one otherwise."""
+    if not is_wide(sizes):
+        return GROUPS
+    return 2 if len(sizes) == 4 else 1
 
 
 def _pad8(h: int) -> int:
@@ -174,17 +201,21 @@ def _layer_offsets(ps):
     return offs, off
 
 
-def tc_net_plain(packed: torch.Tensor, sizes, x: torch.Tensor, y, tf):
+def tc_net_plain(packed: torch.Tensor, sizes, x: torch.Tensor, y, tf, *,
+                 one_tf32: bool = False):
     """(mean, raw) of the net at states ``x`` (n,), replayed from the packed
-    buffer as the kernel computes them: the first layer as a fused
-    multiply-add ``x w_x + c``, each later layer's B operands rebuilt from
-    the lanes' fragments, the activations taken in the A fragments' k order
-    (C column ``_PERM[p]`` at k position p) and split into hi (rounded to
+    buffer as the kernel computes them in either layout (the wide one forms
+    the same first-layer values where the product takes them): the first
+    layer as a fused multiply-add ``x w_x + c``, each later layer's B
+    operands rebuilt from the lanes' fragments, the activations taken in
+    the A fragments' k order (C column ``_PERM[p]`` at k position p) and
+    split into hi (rounded to
     TF32) and lo (the rest, which the tensor cores truncate to TF32), each
     product as lo·hi + hi·lo + hi·hi added to the bias in that order, ReLU
     between layers, and the output layer a float32 product.  The tensor
     cores sum each product's eight terms in their own order, and the kernel
-    the output layer's; here torch does."""
+    the output layer's; here torch does.  ``one_tf32``: each product hi·hi
+    alone, 1xTF32 (``util/guided_tc_parts.py``'s ``one_tf32`` control)."""
     ps = padded_sizes(list(sizes))
     offs, total = _layer_offsets(ps)
     if packed.numel() != total:
@@ -225,8 +256,9 @@ def tc_net_plain(packed: torch.Tensor, sizes, x: torch.Tensor, y, tf):
         a_lo = _tf32_trunc_t(a - a_hi)
         acc = bias.expand(a.shape[0], N).clone()
         for kb in range(K // 8):
-            acc = acc + a_lo[:, kb] @ B[0, kb]
-            acc = acc + a_hi[:, kb] @ B[1, kb]
+            if not one_tf32:
+                acc = acc + a_lo[:, kb] @ B[0, kb]
+                acc = acc + a_hi[:, kb] @ B[1, kb]
             acc = acc + a_hi[:, kb] @ B[0, kb]
         act = torch.relu(acc)
 
@@ -270,7 +302,7 @@ class GuidedTensorCoreKernel:
     (module docstring).  Building it checks the net (at least one hidden
     layer, widths up to :func:`guided_tc_max_width`) and renders the
     densities (``ValueError`` otherwise); the CUDA source is built at the
-    first launch."""
+    first launch.  ``wide``: whether the net takes the wide layout."""
 
     def __init__(self, params, trans_logpdf_elem, obs_logpdf_elem, T: int):
         self.params, self.T = params, int(T)
@@ -285,6 +317,7 @@ class GuidedTensorCoreKernel:
                 f"hidden widths {self.sizes[1:-1]} exceed the tensor-core "
                 f"kernel's limit of {guided_tc_max_width()} "
                 "(guided_tc_max_width()); build the model with mxu=False")
+        self.wide = is_wide(self.sizes)
         self._packed = pack_weights(Ws, bs)
         self._trans_cpp = render_density(trans_logpdf_elem, "trans_logpdf_elem",
                                          "x, nx, t", "_kt_")
@@ -311,7 +344,7 @@ class GuidedTensorCoreKernel:
 
     def block(self) -> int:
         """Particles per CTA, one record each."""
-        return TC_THREADS * GROUPS
+        return TC_THREADS * groups(self.sizes)
 
     def _library(self):
         if self._lib is None:
@@ -381,4 +414,5 @@ class GuidedTensorCoreKernel:
                     (ys, "ys", torch.float32),
                     (n_valid, "n_valid", torch.int32)],
             outputs=[((n,), torch.float32), ((n,), torch.float32)],
-            records=(grid, 3), counts=LAUNCHES, count_key="guided_tc")
+            records=(grid, 3), counts=LAUNCHES,
+            count_key="wide" if self.wide else "guided_tc")

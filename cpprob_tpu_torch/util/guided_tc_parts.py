@@ -7,7 +7,8 @@
 
 Each tensor-core variant is the header with one substitution, pasted into
 the source that ``ops/guided_tc.py`` generates for a ``[3,16,16,2]`` net
-(random, seeded) and the linear-Gaussian densities, built at its first
+(random, seeded) and the linear-Gaussian densities
+(``models/linear_gaussian.py``), built at its first
 launch and run on the same population for 8 steps: ``full`` (the kernel
 as it is), ``cvt_split`` (hi and lo by ``cvt.rna.tf32.f32``),
 ``trunc_split`` (hi by masking the low 13 bits: one integer operation
@@ -44,7 +45,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import math
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -52,10 +52,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..models.linear_gaussian import obs_logpdf_elem, trans_logpdf_elem
+
 __all__ = ["K12_DESIGNS", "VARIANTS", "k12_design", "main", "variant_kernel",
            "variant_sources"]
-
-HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 _SPLIT = "  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
 _LO = "  lo = __float_as_uint(__fsub_rn(v, __uint_as_float(hi)));\n"
@@ -199,16 +199,6 @@ def k12_design(name: str, params, trans_logpdf_elem, obs_logpdf_elem, T: int):
     return k
 
 
-def trans_lp(x, nx, t):
-    d = nx - x
-    return -0.5 * d * d - HALF_LOG_2PI
-
-
-def obs_lp(nx, y, t):
-    d = y - nx
-    return -0.5 * d * d - HALF_LOG_2PI
-
-
 def _machine_code(k) -> dict:
     from .sass import kernel_report
 
@@ -237,13 +227,14 @@ def main(argv=None):
                "b": (0.1 * rng.standard_normal(b)).astype(np.float32)}
               for a, b in zip(sizes[:-1], sizes[1:])]
     params = mlp_params_from_numpy(layers, device=dev)
-    k12 = {name: k12_design(name, params, trans_lp, obs_lp, 16) for name in K12_DESIGNS}
+    dens = (trans_logpdf_elem, obs_logpdf_elem)
+    k12 = {name: k12_design(name, params, *dens, 16) for name in K12_DESIGNS}
     builds = {}
     for name in ("K12", "K12 weights as parameters", "K12 weights as parameters, 2 a thread"):
         start = time.perf_counter()
         k12[name]._library()
         builds[name] = time.perf_counter() - start
-    kernels = {name: variant_kernel(name, params, trans_lp, obs_lp, 16) for name in VARIANTS}
+    kernels = {name: variant_kernel(name, params, *dens, 16) for name in VARIANTS}
     rest = [k for name, k in k12.items() if name not in builds] + list(kernels.values())
     with ThreadPoolExecutor(len(rest)) as pool:
         list(pool.map(lambda k: k._library(), rest))

@@ -40,16 +40,6 @@ def lg_step_elem(x, y, eps):
     return nx, -0.5 * d * d - HALF_LOG_2PI
 
 
-def trans_lp(x, nx, t):
-    d = nx - x
-    return -0.5 * d * d - HALF_LOG_2PI
-
-
-def obs_lp(nx, y, t):
-    d = y - nx
-    return -0.5 * d * d - HALF_LOG_2PI
-
-
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("sweep_times times the card: no CUDA device")
@@ -60,7 +50,11 @@ def main():
     from cpprob_tpu_torch.ops import stream_resample as sr
     from cpprob_tpu_torch.ops.fused_hmm import hmm_init, make_fused_hmm_ssm
     from cpprob_tpu_torch.ops.fused_lg import make_fused_lg_ssm
-    from cpprob_tpu_torch.models.linear_gaussian import linear_gaussian_ssm
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        linear_gaussian_ssm,
+        obs_logpdf_elem,
+        trans_logpdf_elem,
+    )
     from cpprob_tpu_torch.models.linear_gaussian import (
         simulate_observations as lg_observations,
     )
@@ -88,8 +82,8 @@ def main():
     lg_obs = torch.as_tensor(lg_observations(16, 0), device=dev)
     net = mlp_init([3, 16, 16, 2], gen, device=dev)
     guided_lg = {mxu: attach_fused_guided_scalar_kernels(
-        linear_gaussian_ssm, net, 16, trans_logpdf_elem=trans_lp,
-        obs_logpdf_elem=obs_lp, mxu=mxu) for mxu in (True, False)}
+        linear_gaussian_ssm, net, 16, trans_logpdf_elem=trans_logpdf_elem,
+        obs_logpdf_elem=obs_logpdf_elem, mxu=mxu) for mxu in (True, False)}
     spec3 = spec_from_numpy(HMM_TRANS, HMM_MEANS, np.ones(3), np.full(3, 1 / 3))
     spec5 = spec_from_numpy(*chain5)
     gen_d = torch.Generator(device=dev)

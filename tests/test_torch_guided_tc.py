@@ -415,16 +415,31 @@ def test_mxu_selects_the_twin_and_both_run_the_plain_version_on_cpu():
 
 
 def test_width_limit_and_validation():
-    wide = mlp_params_from_numpy(_net([3, 40, 2], 6), device="cpu")
+    """The limit is the trainer's default width, 64: one unit past it
+    raises and names ``mxu=False``, which takes it; a 64-wide net builds
+    the twin by default, in the wide layout (two particles a thread with
+    one hidden->hidden layer, one with more), and nets up to 32 wide keep
+    the narrow one (two a thread)."""
+    over = mlp_params_from_numpy(_net([3, 65, 2], 6), device="cpu")
     kw = dict(trans_logpdf_elem=trans_lp, obs_logpdf_elem=obs_lp)
-    with pytest.raises(ValueError, match=r"limit of 32 \(guided_tc_max_width\(\)\).*mxu=False"):
-        attach_fused_guided_scalar_kernels(linear_gaussian_ssm, wide, 8, **kw)
-    model = attach_fused_guided_scalar_kernels(linear_gaussian_ssm, wide, 8, mxu=False, **kw)
+    with pytest.raises(ValueError, match=r"limit of 64 \(guided_tc_max_width\(\)\).*mxu=False"):
+        attach_fused_guided_scalar_kernels(linear_gaussian_ssm, over, 8, **kw)
+    model = attach_fused_guided_scalar_kernels(linear_gaussian_ssm, over, 8, mxu=False, **kw)
     assert isinstance(model.fused_chunk_t_batch.kernel, GuidedScalarKernel)
-    assert guided_tc.guided_tc_max_width() == 32
+    assert guided_tc.guided_tc_max_width() == 64
+    wide = attach_fused_guided_scalar_kernels(
+        linear_gaussian_ssm, mlp_params_from_numpy(_net([3, 64, 64, 2], 6), device="cpu"),
+        8, **kw).fused_chunk_t_batch.kernel
+    assert isinstance(wide, GuidedTensorCoreKernel) and wide.wide
+    assert guided_tc.groups([3, 64, 64, 2]) == 2 and wide.block() == 512
+    assert guided_tc.groups([3, 64, 64, 64, 2]) == 1 == guided_tc.groups([3, 40, 2])
+    assert "constexpr int kWidths[kLayers + 1] = {3, 64, 64, 2};" in wide.source()
+    for sizes, is_wide in (([3, 33, 2], True), ([3, 40, 2], True), ([3, 16, 48, 2], True),
+                           ([3, 32, 32, 32, 2], False)):
+        assert guided_tc.is_wide(sizes) is is_wide
     k = GuidedTensorCoreKernel(mlp_params_from_numpy(_net([3, 32, 32, 2], 7), device="cpu"),
                                trans_lp, obs_lp, 8)
-    assert guided_tc.GROUPS == 2 and k.block() == 512
+    assert guided_tc.GROUPS == 2 and k.block() == 512 and not k.wide
     k = GuidedTensorCoreKernel(mlp_params_from_numpy(_net([3, 16, 16, 2], 7), device="cpu"),
                                trans_lp, obs_lp, 8)
     assert k.block() == 512 and k.layer_sizes() == [3, 16, 16, 2]
