@@ -44,7 +44,11 @@ and the script exits non-zero without printing its last line:
    control (``check_lg_step_ctrl``: flag off and on, bit-equal to the
    launch without it on the weights a reset leaves, the ESS of its last
    CTA's combine, the next flag, its ticket over 16 launches and on a
-   second stream), the epoch's stats, pass-1 and pass-2 kernels
+   second stream), the sweep's start (``check_lg_init``: at 1,000, 2^16 +
+   3 and 2^24 particles, bit-equal to the one-step launch at t = 0 on zero
+   states and to the plain version, the ESS of its last CTA's combine, the
+   first flag, its ticket, also on a second stream), the epoch's stats,
+   pass-1 and pass-2 kernels
    (the stats kernel, one launch whose last CTA combines the records: its
    max bit-equal and wtot within 1e-12, 16 calls bit-equal, at 2^24 - 3,
    on a view at a one-float offset, with a block of -inf weights, and flag
@@ -578,6 +582,73 @@ def check_lg_kernels(n=LG_N, seed=CHECK_SEED):
     return errs
 
 
+def check_lg_init(n=LG_N, seed=CHECK_SEED, repeats=16):
+    """The sweep's start (``lg_init_kernel``) on the series' y_0 at ``n``
+    particles: states, weights and records bit-equal to K7's one-step
+    launch at absolute time 0 on zero states and weights, and the states
+    and weights bit-equal to ``lg_init_plain``; the ESS within 1e-12
+    (relative) of ``stats_from_partials`` on the launch's own records; the
+    first flag that of the ESS at the sweep's threshold and on either side
+    of the ESS; ``repeats`` launches bit-equal to the first, and the ticket
+    0 after them, also on a second stream.  Returns the largest |dlog_w|
+    against the plain version (0.0)."""
+    from cpprob_tpu_torch.ops import fused_lg
+    from cpprob_tpu_torch.ops.fused_hmm import stats_from_partials
+    from cpprob_tpu_torch.ops.population import current_stream
+
+    obs = _lg_obs(torch.device("cuda"))
+    dev, y0 = obs.device, obs[0]
+    what = f"lg_init n={n}"
+
+    def init(thresh):
+        return fused_lg._init_launch(seed, n, y0, thresh)
+
+    def ticket():
+        return int(fused_lg._TICKETS[(dev, current_stream(dev).value)])
+
+    x, w, ess, nxt, rec = init(0.5 * n)
+    zeros = torch.zeros(n, device=dev)
+    xr, wr, rr = fused_lg.lg_chunk(seed, zeros, zeros, y0.reshape(1), t0=0)
+    xp, wp, ess_p, nxt_p = fused_lg.lg_init_plain(seed, n, y0, 0.5 * n)
+    _sync()
+    if not (torch.equal(x, xr) and torch.equal(w, wr) and torch.equal(rec, rr)):
+        raise AssertionError(f"{what}: differs from the one-step launch at t = 0")
+    err = float((w - wp).abs().max())
+    if not (torch.equal(x, xp) and torch.equal(w, wp)):
+        raise AssertionError(f"{what}: {int((x != xp).sum())} states and "
+                             f"{int((w != wp).sum())} weights differ from the plain "
+                             f"version (max|dlog_w| {err:.3g})")
+    torch.testing.assert_close(ess, stats_from_partials(rec, n)[0], rtol=1e-12,
+                               atol=0, msg=f"{what}: ess")
+    if int(nxt) != int(float(ess) < 0.5 * n) or int(nxt) != int(nxt_p):
+        raise AssertionError(f"{what}: first flag {int(nxt)}, ESS {float(ess)}, "
+                             f"plain {int(nxt_p)}")
+    for thresh in (0.999 * float(ess), 1.001 * float(ess)):
+        _, _, e2, n2, _ = init(thresh)
+        _sync()
+        if not torch.equal(e2, ess) or int(n2) != int(float(ess) < thresh):
+            raise AssertionError(f"{what}: threshold {thresh} gives {int(n2)}")
+    outs = [init(0.5 * n) for _ in range(repeats)]
+    _sync()
+    if not all(torch.equal(o[1], w) and torch.equal(o[2], ess)
+               and torch.equal(o[3], nxt) for o in outs) or ticket():
+        raise AssertionError(f"{what}: {repeats} launches differ or leave the "
+                             f"ticket at {ticket()}")
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        outs = [init(0.5 * n) for _ in range(4)]
+        left = ticket()
+    _sync()
+    if left or not all(torch.equal(o[2], ess) and torch.equal(o[3], nxt) for o in outs):
+        raise AssertionError(f"{what}: a second stream differs or leaves its ticket set")
+    print(f"check {what}: bit-equal to the one-step launch at t = 0 and to the "
+          f"plain version, ESS {float(ess):.10g} (plain {float(ess_p):.10g}), "
+          f"first flag {int(nxt)}, tickets clean over {repeats} launches and on a "
+          "second stream")
+    return err
+
+
 def check_lg_step_ctrl(n=LG_N, seed=CHECK_SEED, repeats=16):
     """K6 with the step's resample control against the launch without it
     and the plain version, at t = 1 on the model's own t = 0 population,
@@ -1030,11 +1101,16 @@ def lg_phases(card, stages):
     )
     from cpprob_tpu_torch.ops import fused_lg
     from cpprob_tpu_torch.ops import stream_resample as sr
-    from cpprob_tpu_torch.util.roofline import bound, normal_chunk_bound
+    from cpprob_tpu_torch.util.roofline import (
+        bound,
+        normal_chunk_bound,
+        normal_init_bound,
+    )
 
     dev = torch.device("cuda")
     with stages.stage("lg_kernel_vs_plain", sync=True):
         errs = check_lg_kernels()
+        errs["lg_init"] = max(check_lg_init(m) for m in (1000, (1 << 16) + 3, LG_N))
     obs = _lg_obs(dev)
     model = fused_lg.make_fused_lg_ssm()
     counters = (fused_lg.LAUNCHES, sr.LAUNCHES)
@@ -1045,9 +1121,10 @@ def lg_phases(card, stages):
         launches, times, _ = run_path(
             run, obs, SWEEPS, counters, exact,
             f"LG main path n={LG_N} T={LG_T} chunk={LG_CHUNK}")
+    # an epoch a chunk; the start and the close (K14) once a sweep
     n = SWEEPS * -(-(LG_T - 1) // LG_CHUNK)
-    _expect(launches, {"chunk": n, "lse_stats": n, "pass1": n, "pass2": n},
-            "LG main path")
+    _expect(launches, {"chunk": n, "init": SWEEPS, "lse_stats": n + SWEEPS,
+                       "pass1": n, "pass2": n}, "LG main path")
     run1 = build_smc_run(model, LG_STEP_N, ess_threshold=0.5,
                          resampling="systematic", chunk=1)
     with stages.stage("lg_step_path", sync=True):
@@ -1055,7 +1132,8 @@ def lg_phases(card, stages):
             run1, obs, LG_STEP_SWEEPS, counters, exact,
             f"LG per-step path n={LG_STEP_N} T={LG_T} chunk=1")
     n = LG_STEP_SWEEPS * (LG_T - 1)
-    _expect(step_launches, {"step_ctrl": n, "lse_stats": n, "pass1": n, "pass2": n},
+    _expect(step_launches, {"step_ctrl": n, "init": LG_STEP_SWEEPS,
+                            "lse_stats": n + LG_STEP_SWEEPS, "pass1": n, "pass2": n},
             "LG per-step path")
 
     sweep_s = statistics.median(times)
@@ -1094,6 +1172,9 @@ def lg_phases(card, stages):
                                                   0.5 * LG_N), 10),
             time_ms(lambda: fused_lg.lg_step_ctrl_plain(seed, x0, w0, obs[1], 1, off,
                                                         0.5 * LG_N), 2)),
+        "lg_init": (
+            time_ms(lambda: fused_lg.lg_init(seed, LG_N, obs[0], 0.5 * LG_N), 10),
+            time_ms(lambda: fused_lg.lg_init_plain(seed, LG_N, obs[0], 0.5 * LG_N), 2)),
         "lse_stats": (
             time_ms(lambda: sr.logsumexp_stats(w1), 10),
             time_ms(lambda: sr.logsumexp_stats_plain(w1), 4)),
@@ -1138,6 +1219,7 @@ def lg_phases(card, stages):
     bounds = {
         "lg_chunk": normal_chunk_bound(n, int(valid[0])),
         "lg_step_ctrl": normal_chunk_bound(n, 1),
+        "lg_init": normal_init_bound(n),
         # K14 reads the weights, with LSE_F64_OPS double-precision
         # instructions a weight (the float64 exp and the sum, counted from
         # its batch loop's SASS by check_sass); K15
@@ -1165,6 +1247,8 @@ def lg_phases(card, stages):
         line("lg_chunk_kernel (n_steps=1, lg_step_ctrl)", "lg_step_ctrl",
              "cpprob_tpu/ops/pallas_hmm.py:669", "fused_lg.cu",
              step_launches["step_ctrl"]),
+        line("lg_init_kernel", "lg_init", "none (the JAX package's start is plain XLA)",
+             "fused_lg.cu", launches["init"]),
         line("lse_stats_kernel", "lse_stats",
              "cpprob_tpu/ops/pallas_resample.py:727", "stream_resample.cu",
              launches["lse_stats"]),
@@ -1880,7 +1964,8 @@ def user_phases(card, stages):
         got5, times5, _ = run_path(run5, obs, SWEEPS, (user_chunk.LAUNCHES, sr.LAUNCHES),
                                    exact, f"path 5: K10 (LG physics) n={USER_N} chunk={LG_CHUNK}")
     n_ch = -(-(LG_T - 1) // LG_CHUNK)
-    _expect(got5, {"scalar": SWEEPS * n_ch, "lse_stats": SWEEPS * n_ch,
+    # an epoch a chunk, and the close (K14) once a sweep
+    _expect(got5, {"scalar": SWEEPS * n_ch, "lse_stats": SWEEPS * (n_ch + 1),
                    "pass1": SWEEPS * n_ch, "pass2": SWEEPS * n_ch}, "path 5")
     vys = _lg2d_obs()
     vobs = torch.as_tensor(vys, device=dev)
@@ -2632,7 +2717,7 @@ def guided_phases(card, stages):
                 f"path 7 (mxu={mxu}: {type(lg.fused_chunk_t_batch.kernel).__name__}): "
                 f"guided LG n={GUIDED_N} T={LG_T} chunk={GUIDED_CHUNK}",
                 epochs_each=False)
-        _expect(got7[mxu], {key: SWEEPS * n_ch, "lse_stats": SWEEPS * n_ch,
+        _expect(got7[mxu], {key: SWEEPS * n_ch, "lse_stats": SWEEPS * (n_ch + 1),
                             "pass1": SWEEPS * n_ch, "pass2": SWEEPS * n_ch},
                 f"path 7 mxu={mxu}")
         zs = torch.stack([r.log_evidence for r in res]).double()
@@ -2657,7 +2742,7 @@ def guided_phases(card, stages):
                 exact_lg, f"path 7w (mxu={mxu}: {type(kernels7w[mxu]).__name__}, "
                 f"[3,64,64,2]): guided LG n={GUIDED_N} T={LG_T} chunk={GUIDED_CHUNK}",
                 epochs_each=False)
-        _expect(got7w[mxu], {key: SWEEPS * n_ch, "lse_stats": SWEEPS * n_ch,
+        _expect(got7w[mxu], {key: SWEEPS * n_ch, "lse_stats": SWEEPS * (n_ch + 1),
                              "pass1": SWEEPS * n_ch, "pass2": SWEEPS * n_ch},
                 f"path 7w mxu={mxu}")
     with stages.stage("guided_lg_cell", sync=True):
@@ -4777,7 +4862,8 @@ def driver_phases(card, stages):
                  "stream_resample.pass2")
         want = {"discrete_5state_spec_kernel": ("fused_hmm.init", "fused_hmm.chunk"),
                 "linear_gaussian_live_resampling": ("user_chunk.scalar",) + epoch,
-                "linear_gaussian_per_step": ("fused_lg.step_ctrl",) + epoch,
+                "linear_gaussian_per_step": ("fused_lg.init", "fused_lg.step_ctrl")
+                + epoch,
                 "linear_gaussian_guided_fused": ("guided_tc.guided_tc",) + epoch,
                 "discrete_5state_guided_fused": ("fused_hmm.init", "fused_hmm.guided_chunk",
                                                  "fused_hmm.guided_tables")}
@@ -5015,7 +5101,7 @@ def main():
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "calibrated_bound_ms", "calibrated_by")
     missing = [(k["name"], key) for k in kernels for key in keys if key not in k]
-    if missing or len(kernels) != 28:
+    if missing or len(kernels) != 29:
         raise AssertionError(f"kernels line: {len(kernels)} entries, missing {missing}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,9 +10,9 @@
    (K10, CUDA rendered from the function) and the streaming epoch at the
    chunk boundaries (K14, K15, K16 scatter);
 2a. the same model per step through ``make_fused_lg_ssm`` +
-   ``build_smc_run(chunk=1)``: one launch of its kernel a step, carrying
-   the resample flag (K6 with the step's resample control), and the
-   streaming epoch every step, flagged or not;
+   ``build_smc_run(chunk=1)``: the start (``lg_init_kernel``), one launch
+   of its kernel a step, carrying the resample flag (K6 with the step's
+   resample control), and the streaming epoch every step, flagged or not;
 2b. the guided linear-Gaussian model through
    ``attach_fused_guided_scalar_kernels`` (K12's tensor-core twin, its
    narrow layout, at ``[3,16,16,2]``), and under a ``[3,64,64,2]`` net
@@ -179,6 +179,15 @@ def main(argv=None):
     # --- 2a. linear-Gaussian per step: the flag carried by the one-step launch
     dts, lzs, ep, launches = timed_sweeps(build_smc_run(make_fused_lg_ssm(), N, chunk=1),
                                           ys, "lg_step", 200)
+    # a sweep: the start (lg_init_kernel), T - 1 one-step launches, an epoch
+    # a step and the close (K14); counted on the card (the plain versions
+    # count none)
+    if dev.type == "cuda":
+        sw = iters * SWEEPS
+        want = {"fused_lg.init": sw, "fused_lg.step_ctrl": sw * (T - 1),
+                "stream_resample.lse_stats": sw * T}
+        if {k: launches.get(k) for k in want} != want:
+            raise AssertionError(f"LG per step: launches {launches}, expected {want}")
     out["linear_gaussian_per_step"] = {
         "particle_steps_per_s": N * T / dts, "sweep_s": dts,
         "resample_epochs_mean": float(np.mean(ep)),

@@ -33,6 +33,8 @@ __all__ = [
     "morton_key",
     "continuous_resample_values",
     "continuous_resample_values_lme",
+    "log_mean_exp_of_stats",
+    "streams",
 ]
 
 
@@ -260,6 +262,19 @@ def continuous_resample_values(key: torch.Generator, log_weights: torch.Tensor,
                                           flag=flag)[0]
 
 
+def streams(states: torch.Tensor) -> bool:
+    """Whether ``states`` take the streaming epoch: float32 (n,) values of
+    a population size it takes."""
+    return (states.dim() == 1 and states.dtype == torch.float32
+            and sr.streaming_available(states.shape[0]))
+
+
+def log_mean_exp_of_stats(stats: torch.Tensor, n: int) -> torch.Tensor:
+    """The log-mean-exp of ``n`` weights from their
+    :func:`~cpprob_tpu_torch.ops.stream_resample.logsumexp_stats` (float64)."""
+    return stats[0] + torch.log(stats[1]) - math.log(n)
+
+
 def continuous_resample_values_lme(key: torch.Generator,
                                    log_weights: torch.Tensor,
                                    states: torch.Tensor, *, flag=None):
@@ -270,12 +285,11 @@ def continuous_resample_values_lme(key: torch.Generator,
     span ``resample.epoch`` of a recording profiler."""
     n = log_weights.shape[0]
     with span("resample.epoch"):
-        if states.dim() == 1 and states.dtype == torch.float32 \
-                and sr.streaming_available(n):
+        if streams(states):
             stats = sr.logsumexp_stats(log_weights, flag)
             new_states = sr.streaming_systematic_resample_values(
                 key, log_weights, states, stats=stats, flag=flag)
-            return new_states, stats[0] + torch.log(stats[1]) - math.log(n)
+            return new_states, log_mean_exp_of_stats(stats, n)
         lme = torch.logsumexp(log_weights.double(), 0) - math.log(n)
         if states.dim() == 2:
             new_states = sorted_systematic_resample_values_nd(key, log_weights, states)

@@ -38,6 +38,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops import stream_resample as sr
 from ..util.profiling import span
 from ..util.seeds import derive_seed
 from .resampling import _category_ticks
@@ -47,13 +48,15 @@ from .resampling import (
     category_weights,
     continuous_resample_values_lme,
     get_resampler,
+    log_mean_exp_of_stats,
     states_from_counts,
+    streams,
 )
 
 __all__ = ["StateSpaceModel", "SMCResult", "smc", "make_smc_step",
            "make_smc_step_exchange_fused", "make_smc_step_ctrl_fused",
            "make_smc_step_exchange_fused_chunked", "make_smc_step_chunked",
-           "build_smc_run"]
+           "build_smc_run", "final_log_mean_exp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +104,10 @@ class StateSpaceModel:
     fused_chunk_t_batch: Optional[Callable] = None
     # (key, n, y0) -> (states, log_w, ess, cat_w(K,), lme)
     fused_init_batch: Optional[Callable] = None
+    # (key, n, y0, threshold) -> (states, log_w, ess, flag): the start of a
+    # scalar sweep with its ESS (float64) and first resample flag (int32,
+    # ess < threshold, a float64 ``ess_threshold * n``) on the device
+    fused_init_ctrl_batch: Optional[Callable] = None
     obs_sample: Optional[Callable] = None
     state_categories: Optional[int] = None
     scalar_state: bool = False
@@ -132,6 +139,18 @@ class SMCResult(NamedTuple):
 
 def _log_mean_exp(lw: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(lw, 0) - math.log(lw.shape[0])
+
+
+def final_log_mean_exp(log_w: torch.Tensor, states: torch.Tensor,
+                       streaming: bool) -> torch.Tensor:
+    """The evidence's last term, the log-mean-exp of the final weights:
+    where the sweep is on the streaming path (``streaming``, float32 (n,)
+    states that the streaming epoch takes) one
+    :func:`~cpprob_tpu_torch.ops.stream_resample.logsumexp_stats` sweep in
+    float64, else :func:`_log_mean_exp`."""
+    if streaming and streams(states):
+        return log_mean_exp_of_stats(sr.logsumexp_stats(log_w), log_w.shape[0])
+    return _log_mean_exp(log_w)
 
 
 def _per_particle(fn, gen: torch.Generator, states: torch.Tensor):
@@ -448,7 +467,10 @@ def build_smc_run(
     resampling) launches it once per step, its population started from
     ``init_sample_batch`` as the reference does; with a scalar model's
     ``fused_step_ctrl_batch`` (the same conditions) the one-step launch
-    carries the resample flag (:func:`make_smc_step_ctrl_fused`).
+    carries the resample flag (:func:`make_smc_step_ctrl_fused`).  On
+    those two scalar paths a model's ``fused_init_ctrl_batch`` starts the
+    population with its ESS and first flag; on the streaming path the
+    evidence closes with :func:`final_log_mean_exp`.
 
     While a profiler records, a call lies in the span ``smc.run``, its
     start in ``smc.init`` and each loop body in ``smc.chunk`` or
@@ -485,6 +507,8 @@ def build_smc_run(
             "store_history=False with systematic resampling")
     fused_exchange = exchange_ok and model.fused_step_exchange_batch is not None
     step_ctrl = chunk == 1 and sorted_ok and model.fused_step_ctrl_batch is not None
+    init_ctrl = (chunk_sorted or step_ctrl) and model.fused_init_ctrl_batch is not None
+    threshold = ess_threshold * n_particles
     if chunk_exchange:
         step = make_smc_step_exchange_fused_chunked(
             model, n_particles, ess_threshold)
@@ -507,7 +531,10 @@ def build_smc_run(
         gen.manual_seed(seed)
         n = n_particles
         with span("smc.init"):
-            if chunk_exchange and model.fused_init_batch is not None:
+            if init_ctrl:
+                states0, log_w0, ess0, flag0 = model.fused_init_ctrl_batch(
+                    seed, n, observations[0], threshold)
+            elif chunk_exchange and model.fused_init_batch is not None:
                 states0, log_w0, ess0, cat_w0, lme0 = model.fused_init_batch(
                     seed, n, observations[0])
             else:
@@ -528,7 +555,9 @@ def build_smc_run(
 
         if chunk_exchange or chunk_sorted:
             if chunk_sorted:
-                carry = ((seed, gen), states0, log_w0, log_z, _ess(log_w0))
+                if not init_ctrl:
+                    ess0 = _ess(log_w0)
+                carry = ((seed, gen), states0, log_w0, log_z, ess0)
             else:
                 if model.fused_init_batch is None:
                     ess0 = _ess(log_w0)
@@ -544,14 +573,17 @@ def build_smc_run(
                 flags.append(flag.reshape(1))
             states_f, log_w_f, log_z = carry[1:4]
             # the exchange kernels carry the final log-mean-exp in their stats
-            lme_f = carry[6] if chunk_exchange else _log_mean_exp(log_w_f)
+            lme_f = (carry[6] if chunk_exchange
+                     else final_log_mean_exp(log_w_f, states_f, sorted_ok))
             return SMCResult(None, None, None, torch.cat(flags),
                              log_z + lme_f, states_f, log_w_f)
 
-        carry = ((seed, gen), states0, log_w0, log_z, _ess(log_w0))
         if step_ctrl:
-            carry = carry[:4] + (
-                (carry[4] < ess_threshold * n_particles).to(torch.int32),)
+            if not init_ctrl:
+                flag0 = (_ess(log_w0) < threshold).to(torch.int32)
+            carry = ((seed, gen), states0, log_w0, log_z, flag0)
+        else:
+            carry = ((seed, gen), states0, log_w0, log_z, _ess(log_w0))
         if fused_exchange:
             carry += (category_weights(log_w0, states0, model.state_categories),
                       _log_mean_exp(log_w0))
@@ -560,7 +592,7 @@ def build_smc_run(
             carry, ys = step(carry, (observations[t], t))
             hist.append(ys)
         states_f, log_w_f, log_z = carry[1:4]
-        log_z = log_z + _log_mean_exp(log_w_f)
+        log_z = log_z + final_log_mean_exp(log_w_f, states_f, sorted_ok)
         resampled = torch.cat(
             [no_resample] + [h[-1].reshape(1) for h in hist])
         if step_ctrl:

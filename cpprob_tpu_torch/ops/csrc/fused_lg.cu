@@ -36,6 +36,17 @@
 // flag, ess < thresh.  The per-step loop then waits on no pass over the
 // population for its decision.  With a null flag the launch is
 // lg_chunk_kernel<false>, the kernel as it was.
+//
+// lg_init_kernel is the sweep's start, x_0 ~ N(0, 1) weighted by N(y_0;
+// x_0, 1); it replaces no TPU kernel (the JAX package starts the
+// population with plain XLA operations).  Each particle takes the draw of
+// absolute step 0, the cos half of Philox pair (particle, 0, 0), whose sin
+// half step 1 takes, and computes 0 + eps and 0 + the increment in the
+// order of the chunk kernel, so the launch equals a one-step chunk launch
+// at t0 = 0 on zero states and weights.  Its records and their combine by
+// the last CTA are the step control's: the launch leaves the population,
+// its ESS and the first step's flag on the device.  Bound on an H100: one
+// Philox call and one log, sqrt and sincos a particle, and 8 B written.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,6 +72,69 @@ struct StepCtrl {
   int* next;
   double thresh;
 };
+
+// The CTA's record (max w, sum e, sum e^2), e = exp(w - max w), over its
+// particles below n; m is the thread's own max.  Every thread calls it.
+__device__ __forceinline__ void cta_record(const float (&w)[kPerThread],
+                                           float m, long long base,
+                                           long long n, float* rec,
+                                           float* red, float* bcast) {
+  m = block_max<kThreads>(m, red, bcast);
+  float v[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const long long g = base + i * kThreads + threadIdx.x;
+    if (g < n) {
+      const float e = expf(w[i] - m);
+      v[0] += e;
+      v[1] += e * e;
+    }
+  }
+  block_sum<kThreads, 2>(v, red, bcast);
+  if (threadIdx.x == 0) {
+    float* out = rec + (long long)blockIdx.x * 3;
+    out[0] = m;
+    out[1] = v[0];
+    out[2] = v[1];
+  }
+}
+
+// After cta_record: the last CTA to finish (sc.ticket) combines every
+// record in float64 into the ESS and the flag ess < thresh, and clears the
+// ticket.  Every thread calls it; redd, bcastd and last_s are shared.
+__device__ __forceinline__ void last_cta_combine(const float* rec,
+                                                 const StepCtrl& sc,
+                                                 float* red, float* bcast,
+                                                 double* redd, double* bcastd,
+                                                 int* last_s) {
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *last_s = atomicAdd(sc.ticket, 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!*last_s) return;
+  __threadfence();
+  // stats_from_partials on the records, by CTA index, read past L1: the
+  // largest max, then sum e and sum e^2 rescaled to it
+  const int n_rec = (int)gridDim.x;
+  float mr = -INFINITY;
+  for (int b = threadIdx.x; b < n_rec; b += kThreads)
+    mr = fmaxf(mr, __ldcg(rec + 3LL * b));
+  mr = block_max<kThreads>(mr, red, bcast);
+  double s[2] = {0.0, 0.0};
+  for (int b = threadIdx.x; b < n_rec; b += kThreads) {
+    const double scale = exp((double)__ldcg(rec + 3LL * b) - (double)mr);
+    s[0] += (double)__ldcg(rec + 3LL * b + 1) * scale;
+    s[1] += (double)__ldcg(rec + 3LL * b + 2) * scale * scale;
+  }
+  block_sum<kThreads, 2>(s, redd, bcastd);
+  if (threadIdx.x == 0) {
+    const double ess = s[0] * s[0] / fmax(s[1], 1e-300);
+    *sc.ess = ess;
+    *sc.next = ess < sc.thresh;
+    *sc.ticket = 0;
+  }
+}
 
 // ctrl: int32 [n_valid], or null for all n_steps valid.  Steps at and after
 // n_valid leave the particle unchanged.  sc: read only by kStepCtrl.
@@ -120,56 +194,48 @@ lg_chunk_kernel(const float* __restrict__ ys, int n_steps,
       m = fmaxf(m, w[i]);
     }
   }
-  m = block_max<kThreads>(m, red, bcast);
-  float v[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const long long g = base + i * kThreads + threadIdx.x;
-    if (g < n) {
-      const float e = expf(w[i] - m);
-      v[0] += e;
-      v[1] += e * e;
-    }
-  }
-  block_sum<kThreads, 2>(v, red, bcast);
-  if (threadIdx.x == 0) {
-    float* out = rec + (long long)blockIdx.x * 3;
-    out[0] = m;
-    out[1] = v[0];
-    out[2] = v[1];
-  }
+  cta_record(w, m, base, n, rec, red, bcast);
   if constexpr (kStepCtrl) {
     __shared__ double redd[kThreads / 32 * 2];
     __shared__ double bcastd[2];
     __shared__ int last_s;
-    if (threadIdx.x == 0) {
-      __threadfence();
-      last_s = atomicAdd(sc.ticket, 1) == (int)gridDim.x - 1;
-    }
-    __syncthreads();
-    if (!last_s) return;
-    __threadfence();
-    // the last CTA: stats_from_partials on the records, by CTA index, read
-    // past L1: the largest max, then sum e and sum e^2 rescaled to it
-    const int n_rec = (int)gridDim.x;
-    float mr = -INFINITY;
-    for (int b = threadIdx.x; b < n_rec; b += kThreads)
-      mr = fmaxf(mr, __ldcg(rec + 3LL * b));
-    mr = block_max<kThreads>(mr, red, bcast);
-    double s[2] = {0.0, 0.0};
-    for (int b = threadIdx.x; b < n_rec; b += kThreads) {
-      const double scale = exp((double)__ldcg(rec + 3LL * b) - (double)mr);
-      s[0] += (double)__ldcg(rec + 3LL * b + 1) * scale;
-      s[1] += (double)__ldcg(rec + 3LL * b + 2) * scale * scale;
-    }
-    block_sum<kThreads, 2>(s, redd, bcastd);
-    if (threadIdx.x == 0) {
-      const double ess = s[0] * s[0] / fmax(s[1], 1e-300);
-      *sc.ess = ess;
-      *sc.next = ess < sc.thresh;
-      *sc.ticket = 0;
+    last_cta_combine(rec, sc, red, bcast, redd, bcastd, &last_s);
+  }
+}
+
+// The sweep's start (the head of this file); sc.flag is not read.
+__global__ void __launch_bounds__(kThreads)
+lg_init_kernel(const float* __restrict__ y0, uint32_t k0, uint32_t k1,
+               float* __restrict__ x_out, float* __restrict__ w_out,
+               float* __restrict__ rec, long long n, StepCtrl sc) {
+  __shared__ float red[kThreads / 32 * 2];
+  __shared__ float bcast[2];
+  __shared__ double redd[kThreads / 32 * 2];
+  __shared__ double bcastd[2];
+  __shared__ int last_s;
+  const uint2 key = make_uint2(k0, k1);
+  const long long base = (long long)blockIdx.x * kBlock;
+  const float y = __ldg(y0);
+
+  float w[kPerThread];
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const long long g = base + i * kThreads + threadIdx.x;
+    w[i] = -INFINITY;
+    if (g < n) {
+      const float x =
+          __fadd_rn(0.f, philox_normal_pair((uint32_t)g, 0u, 0u, key).x);
+      const float d = __fsub_rn(y, x);
+      w[i] = __fadd_rn(
+          0.f, __fsub_rn(__fmul_rn(__fmul_rn(-0.5f, d), d), kHalfLog2Pi));
+      x_out[g] = x;
+      w_out[g] = w[i];
+      m = fmaxf(m, w[i]);
     }
   }
+  cta_record(w, m, base, n, rec, red, bcast);
+  last_cta_combine(rec, sc, red, bcast, redd, bcastd, &last_s);
 }
 
 }  // namespace
@@ -194,6 +260,18 @@ int lg_chunk_launch(const float* ys, int n_steps, const int* ctrl, uint32_t k0,
   else
     lg_chunk_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         ys, n_steps, ctrl, k0, k1, t0, x_in, w_in, x_out, w_out, rec, n, sc);
+  return (int)cudaGetLastError();
+}
+
+// The sweep's start: x_out, w_out, the records, the ESS and the first
+// flag (ess < thresh), ticket the caller's per-stream scratch.
+int lg_init_launch(const float* y0, uint32_t k0, uint32_t k1, float* x_out,
+                   float* w_out, float* rec, long long n, void* stream,
+                   int* ticket, double* ess, int* next, double thresh) {
+  const int grid = (int)((n + kBlock - 1) / kBlock);
+  const StepCtrl sc = {nullptr, ticket, ess, next, thresh};
+  lg_init_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      y0, k0, k1, x_out, w_out, rec, n, sc);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """Fused SMC kernel for the linear-Gaussian model — counterpart of the
 linear-Gaussian part of ``cpprob_tpu/ops/pallas_hmm.py`` (``:669-942``).
 
-One kernel, CUDA C++ in ``csrc/fused_lg.cu``, behind three wrappers:
+Two kernels, CUDA C++ in ``csrc/fused_lg.cu``, behind four wrappers:
 
 - :func:`lg_chunk` (K7, <- ``pallas_lg_fused_chunk``): ``n_steps``
   random-walk moves x' = x + N(0, 1) and reweights log_w += N(y; x', 1),
@@ -13,14 +13,18 @@ One kernel, CUDA C++ in ``csrc/fused_lg.cu``, behind three wrappers:
   launch that takes the step's resample flag (set: every particle starts
   from weight 0) and leaves the ESS and the next step's flag, combined
   from the records by the launch's last CTA, on the device.
+- :func:`lg_init` (``lg_init_kernel``, the sweep's start; the JAX package
+  starts with plain XLA operations): x_0 ~ N(0, 1) from the draw of
+  absolute step 0, weighted by N(y_0; x_0, 1), with the population's ESS
+  and the first step's resample flag combined as ``lg_step_ctrl``'s.
 
 Draws are Philox on counter (particle, t // 2, 0): the Box-Muller pair of
 absolute step t feeds its cos half to the even step and its sin half to
 the odd step, so a sweep's draws do not depend on its chunking.  Each
 wrapper has a plain PyTorch version (``lg_chunk_plain``, ``lg_step_plain``,
-``lg_step_ctrl_plain``) on the same stream, or on pinned ε (``draws=``) for
-parity tests; the wrappers take it for CPU tensors only and on CUDA
-tensors launch the kernel or raise.
+``lg_step_ctrl_plain``, ``lg_init_plain``) on the same stream, or on pinned
+ε (``draws=``) for parity tests; the wrappers take it for CPU tensors only
+and on CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -36,9 +40,9 @@ from .fused_hmm import stats_from_partials
 from .philox import philox4x32, split_seed, uniform_from_bits
 from .population import check_tensor, current_stream, launch_population
 
-__all__ = ["LAUNCHES", "LG_BLOCK", "lg_chunk", "lg_chunk_plain", "lg_step",
-           "lg_step_ctrl", "lg_step_ctrl_plain", "lg_step_plain",
-           "make_fused_lg_ssm", "normal_steps"]
+__all__ = ["LAUNCHES", "LG_BLOCK", "lg_chunk", "lg_chunk_plain", "lg_init",
+           "lg_init_plain", "lg_step", "lg_step_ctrl", "lg_step_ctrl_plain",
+           "lg_step_plain", "make_fused_lg_ssm", "normal_steps"]
 
 LG_BLOCK = 4096          # 256 threads x 16 particles: one CTA, one record
 # the part of a mangled name that picks K7's instance of the kernel (no step
@@ -48,9 +52,9 @@ _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _TWO_PI = 2.0 * math.pi
 
 # kernel launches by wrapper: "chunk" (K7), "step" (K6, the one-step
-# launch) and "step_ctrl" (K6 with the step's resample control), counted
-# where the kernel is launched
-LAUNCHES = counter_group("fused_lg", ("chunk", "step", "step_ctrl"))
+# launch), "step_ctrl" (K6 with the step's resample control) and "init"
+# (lg_init_kernel), counted where the kernel is launched
+LAUNCHES = counter_group("fused_lg", ("chunk", "step", "step_ctrl", "init"))
 
 
 # --------------------------------------------------------------------------
@@ -144,8 +148,19 @@ def lg_step_ctrl_plain(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     return x, w, ess, (ess < threshold).to(torch.int32)
 
 
+def lg_init_plain(seed: int, n: int, y0: torch.Tensor, threshold: float):
+    """Plain version of the sweep's start on ``y0``'s device: the one-step
+    chunk at absolute time 0 on zero states and weights, the ESS from
+    ``stats_from_partials`` on its records.  Returns (states, log_w, ess
+    (float64), first flag (int32): ess < threshold)."""
+    zeros = torch.zeros(n, device=y0.device)
+    x, w, rec = lg_chunk_plain(seed, zeros, zeros, y0.reshape(1), t0=0)
+    ess = stats_from_partials(rec, n)[0]
+    return x, w, ess, (ess < threshold).to(torch.int32)
+
+
 # --------------------------------------------------------------------------
-# kernel
+# kernels
 
 
 def _lib():
@@ -160,6 +175,9 @@ def _lib():
             p, i, p, u32, u32, u32, p, p, p, p, p, ctypes.c_longlong, p,
             p, p, p, p, ctypes.c_double]
         lib.lg_chunk_launch.restype = i
+        lib.lg_init_launch.argtypes = [
+            p, u32, u32, p, p, p, ctypes.c_longlong, p, p, p, p, ctypes.c_double]
+        lib.lg_init_launch.restype = i
         if lib.lg_block() != LG_BLOCK:
             raise RuntimeError(f"csrc/fused_lg.cu block differs from LG_BLOCK={LG_BLOCK}")
     return lib
@@ -266,13 +284,51 @@ def lg_step_ctrl(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     return x, w, ess, nxt
 
 
+def _init_launch(seed: int, n: int, y0: torch.Tensor, threshold: float):
+    """``lg_init_kernel``: (states, log_w, ess, first flag, records)."""
+    dev = y0.device
+    if y0.numel() != 1:
+        raise ValueError("y0 must be one float32 element")
+    if not 0 < n < 2 ** 31:
+        raise ValueError("need 0 < n < 2^31")
+    k0, k1 = split_seed(seed)
+
+    def launch(x_out, w_out, ess, nxt, rec):
+        stream = current_stream(dev)
+        return _lib().lg_init_launch(
+            y0.data_ptr(), k0, k1, x_out.data_ptr(), w_out.data_ptr(),
+            rec.data_ptr(), n, stream, _ticket(dev, stream.value).data_ptr(),
+            ess.data_ptr(), nxt.data_ptr(), float(threshold))
+
+    return launch_population(
+        "lg_init_kernel", launch, span_name="launch.lg_init_kernel", device=dev,
+        inputs=[(y0, "y0", torch.float32)],
+        outputs=[(n, torch.float32), (n, torch.float32), ((), torch.float64),
+                 ((), torch.int32)],
+        records=(-(-n // LG_BLOCK), 3), counts=LAUNCHES, count_key="init")
+
+
+def lg_init(seed: int, n: int, y0: torch.Tensor, threshold: float):
+    """The sweep's start on ``y0``'s device (``y0`` a float32 scalar
+    tensor): ``n`` particles x_0 ~ N(0, 1) from the draw of absolute step
+    0, weighted by N(y_0; x_0, 1); ``threshold`` is the ESS below which the
+    first step resamples (float64, ``ess_threshold * n``).  The kernel on a
+    CUDA tensor (its last CTA combines the records in float64), the plain
+    version on a CPU tensor.  Returns (states, log_w, ess (float64 scalar),
+    first flag (int32 scalar))."""
+    if y0.device.type == "cpu":
+        return lg_init_plain(seed, n, y0, threshold)
+    return _init_launch(seed, n, y0, threshold)[:4]
+
+
 def make_fused_lg_ssm():
     """``linear_gaussian_ssm`` with the fused kernel installed as
     ``fused_step_batch`` (K6), as ``fused_step_ctrl_batch`` (K6 with the
     step's resample control, the per-step path of ``build_smc_run``) and
     as the time-aware chunk hook ``fused_chunk_t_batch`` (K7: the Philox
-    counters run on absolute time).  ``key`` in the hooks is the sweep's
-    integer seed."""
+    counters run on absolute time), and ``lg_init_kernel`` as
+    ``fused_init_ctrl_batch`` (the sweep's start, with its ESS and first
+    flag).  ``key`` in the hooks is the sweep's integer seed."""
     from ..models.linear_gaussian import linear_gaussian_ssm
 
     def fused_step(key, states, log_w, y, t):
@@ -293,4 +349,5 @@ def make_fused_lg_ssm():
         fused_step_batch=fused_step,
         fused_step_ctrl_batch=fused_step_ctrl,
         fused_chunk_t_batch=fused_chunk,
+        fused_init_ctrl_batch=lg_init,
     )

@@ -174,7 +174,8 @@ def attach_fused_scalar_kernels(base_model, step_elem):
 
     return dataclasses.replace(base_model, fused_chunk_t_batch=fused_chunk,
                                fused_step_batch=fused_step,
-                               fused_step_ctrl_batch=None)
+                               fused_step_ctrl_batch=None,
+                               fused_init_ctrl_batch=None)
 
 
 def attach_fused_vector_kernels(base_model, step_elem, state_dim: int):
@@ -194,7 +195,7 @@ def attach_fused_vector_kernels(base_model, step_elem, state_dim: int):
         return x, w, stats_from_partials(rec, states.shape[0])[0]
 
     return dataclasses.replace(base_model, fused_chunk_t_batch=fused_chunk,
-                               vector_state_dim=D)
+                               fused_init_ctrl_batch=None, vector_state_dim=D)
 
 
 def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
@@ -257,6 +258,7 @@ def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
         fused_chunk_batch=None,
         fused_step_batch=None,
         fused_step_ctrl_batch=None,
+        fused_init_ctrl_batch=None,
         fused_hooks_guided=True,
     )
 

@@ -41,7 +41,7 @@ __all__ = [
     "bound", "calibrate_peaks", "calibrated_rates", "calibration_work",
     "chain_chunk_bound", "chain_init_bound", "guided_net_ops",
     "guided_table_ops", "guided_tc_ops", "main",
-    "normal_chunk_bound", "peaks_from_runs", "time_ms", "uncalibrated_setters",
+    "normal_chunk_bound", "normal_init_bound", "peaks_from_runs", "time_ms", "uncalibrated_setters",
 ]
 
 # H100 SXM datasheet peaks (dense): HBM, float32 outside the tensor cores,
@@ -119,6 +119,13 @@ def normal_chunk_bound(n, steps, D=1, physics_ops=6):
     pairs = n * steps * D / 2
     return bound(8 * (D + 1) * n, n * steps * physics_ops,
                  philox_calls=pairs, normal_pairs=pairs)
+
+
+def normal_init_bound(n, physics_ops=6):
+    """The Box-Muller start (``lg_init_kernel``): 8 B written per particle;
+    half a Box-Muller pair (and its Philox call) and the physics, counted as
+    :func:`normal_chunk_bound` counts a step."""
+    return bound(8 * n, n * physics_ops, philox_calls=n / 2, normal_pairs=n / 2)
 
 
 def guided_net_ops(sizes):

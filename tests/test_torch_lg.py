@@ -31,11 +31,14 @@ from cpprob_tpu_torch.models.linear_gaussian import (
     simulate_observations,
 )
 from cpprob_tpu_torch.ops import fused_lg
+from cpprob_tpu_torch.ops import stream_resample as sr
 from cpprob_tpu_torch.ops.fused_hmm import stats_from_partials
 from cpprob_tpu_torch.ops.fused_lg import (
     LG_BLOCK,
     lg_chunk,
     lg_chunk_plain,
+    lg_init,
+    lg_init_plain,
     lg_step,
     lg_step_ctrl,
     lg_step_ctrl_plain,
@@ -205,16 +208,127 @@ def test_step_ctrl_plain_resets_and_decides():
     assert fused_lg.LAUNCHES == before
 
 
+@pytest.mark.parametrize("n", [1000, 3 * LG_BLOCK + 5])
+def test_init_plain_is_the_step_0_chunk(n):
+    """The sweep's start, plain: the one-step chunk at absolute time 0 on
+    zero states and weights, bit for bit; the ESS is ``stats_from_partials``
+    on those records and the first flag ``ess < threshold``, on either
+    side of the ESS.  The wrapper takes the plain version on a CPU tensor
+    and counts no launch."""
+    y0 = torch.tensor(0.7)
+    zeros = torch.zeros(n)
+    before = dict(fused_lg.LAUNCHES)
+    x, w, ess, flag = lg_init(9, n, y0, 0.5 * n)
+    xr, wr, rec = lg_chunk_plain(9, zeros, zeros, y0[None], t0=0)
+    assert torch.equal(x, xr) and torch.equal(w, wr)
+    assert torch.equal(ess, stats_from_partials(rec, n)[0])
+    assert ess.dtype == torch.float64 and flag.dtype == torch.int32
+    assert int(flag) == int(float(ess) < 0.5 * n)
+    for a, b in zip((x, w, ess, flag), lg_init_plain(9, n, y0, 0.5 * n)):
+        assert torch.equal(a, b)
+    for thresh in (0.99 * float(ess), 1.01 * float(ess)):
+        assert int(lg_init(9, n, y0, thresh)[3]) == (float(ess) < thresh)
+    assert fused_lg.LAUNCHES == before
+
+
+def test_init_draws_are_standard_normal():
+    """x_0 of 2^16 particles: mean and variance within 4 standard errors of
+    N(0, 1), the weights log N(y_0; x_0, 1), and the draw independent of
+    step 1's (the sin half of the same Philox pair)."""
+    n = 1 << 16
+    x, w, _, _ = lg_init_plain(21, n, torch.tensor(-0.4), 0.5 * n)
+    xs = x.numpy().astype(np.float64)
+    assert abs(xs.mean()) < 4 / math.sqrt(n)
+    assert abs(xs.var() - 1.0) < 4 * math.sqrt(2 / n)
+    np.testing.assert_allclose(w.numpy(), -0.5 * (-0.4 - xs) ** 2
+                               - 0.5 * np.log(2 * np.pi), atol=1e-5)
+    x1, _, _ = lg_chunk_plain(21, x, w, torch.tensor([0.0]), t0=1)
+    eps1 = x1.numpy().astype(np.float64) - xs
+    assert abs(np.corrcoef(xs, eps1)[0, 1]) < 4 / math.sqrt(n)
+
+
+@pytest.mark.parametrize("spread", [0.5, 8.0])
+def test_final_log_mean_exp_takes_k14_on_the_streaming_path(spread):
+    """The sweep's close: on the streaming path the log-mean-exp of
+    ``logsumexp_stats`` (float64), bit for bit, within 1e-5 (1 + |lme|) of
+    the float32 ``_log_mean_exp``; off it, or for (n, D) states,
+    ``_log_mean_exp`` itself."""
+    n = 3 * LG_BLOCK + 7
+    lw = torch.as_tensor((spread * np.random.RandomState(2).normal(size=n))
+                         .astype(np.float32))
+    states = torch.zeros(n)
+    stats = sr.logsumexp_stats_plain(lw)
+    want = stats[0] + torch.log(stats[1]) - math.log(n)
+    got = port_smc.final_log_mean_exp(lw, states, True)
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+    lme32 = port_smc._log_mean_exp(lw)
+    assert abs(float(got) - float(lme32)) < 1e-5 * (1 + abs(float(got)))
+    for st, streaming in ((states, False), (torch.zeros(n, 2), True),
+                          (states.double(), True)):
+        assert torch.equal(port_smc.final_log_mean_exp(lw, st, streaming), lme32)
+
+
+def _lg_params():
+    """An untrained [3, 8, 2] proposal net for the guided LG model."""
+    g = torch.Generator().manual_seed(0)
+    return [{"w": 0.1 * torch.randn(3, 8, generator=g), "b": torch.zeros(8)},
+            {"w": 0.1 * torch.randn(8, 2, generator=g), "b": torch.zeros(2)}]
+
+
+@pytest.mark.parametrize("which", ["chunk8", "chunk1", "unfused", "attach_scalar",
+                                   "history", "guided"])
+def test_init_dispatch(which):
+    """``build_smc_run(make_fused_lg_ssm(), n)`` at chunk 8 and 1 starts
+    with the model's ``fused_init_ctrl_batch``, once a sweep, and never
+    draws from ``init_sample_batch``; the unfused model, a user-physics
+    model (K10), ``smc()`` with history and the guided model keep the
+    start from ``init_sample_batch`` (the attach builders clear the
+    hook)."""
+    from cpprob_tpu_torch.examples.kernel_bench import lg_step_elem
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        obs_logpdf_elem,
+        trans_logpdf_elem,
+    )
+    from cpprob_tpu_torch.ops.fused_ssm import (
+        attach_fused_guided_scalar_kernels,
+        attach_fused_scalar_kernels,
+    )
+
+    calls = []
+
+    def spy(name, hook):
+        return None if hook is None else (
+            lambda *a, **k: calls.append(name) or hook(*a, **k))
+
+    fused = make_fused_lg_ssm()
+    model = {"chunk8": fused, "chunk1": fused, "history": fused,
+             "unfused": linear_gaussian_ssm,
+             "attach_scalar": attach_fused_scalar_kernels(fused, lg_step_elem),
+             "guided": attach_fused_guided_scalar_kernels(
+                 fused, _lg_params(), 16, trans_logpdf_elem=trans_logpdf_elem,
+                 obs_logpdf_elem=obs_logpdf_elem)}[which]
+    model = dataclasses.replace(
+        model, init_sample_batch=spy("sample", model.init_sample_batch),
+        fused_init_ctrl_batch=spy("init", model.fused_init_ctrl_batch))
+    obs = torch.as_tensor(OBS)
+    if which == "history":
+        res = smc(model, obs, 1024, 3)
+    else:
+        chunk = 8 if which in ("chunk8", "attach_scalar", "guided") else 1
+        res = build_smc_run(model, 1024, chunk=chunk)(3, obs)
+    assert calls == (["init"] if which in ("chunk8", "chunk1") else ["sample"])
+    assert np.isfinite(float(res.log_evidence))
+
+
 def _chunked_one_step_a_chunk(seed, obs, n):
     """``make_smc_step_chunked`` on the fused LG model driven one step a
-    chunk, started as ``build_smc_run``'s sweep starts: (states, log_w,
-    resampled flags, log Z)."""
+    chunk, started and closed as ``build_smc_run``'s sweep: the model's
+    ``fused_init_ctrl_batch``, and ``final_log_mean_exp`` on the streaming
+    path: (states, log_w, resampled flags, log Z)."""
     model = make_fused_lg_ssm()
     gen = torch.Generator().manual_seed(seed)
-    states = model.init_sample_batch(gen, n)
-    log_w = 0.0 + port_smc._obs_logpdf(model, states, obs[0], 0)
-    carry = ((seed, gen), states, log_w, torch.zeros((), dtype=torch.float64),
-             rs.ess(log_w))
+    states, log_w, ess, _ = model.fused_init_ctrl_batch(seed, n, obs[0], 0.5 * n)
+    carry = ((seed, gen), states, log_w, torch.zeros((), dtype=torch.float64), ess)
     step = port_smc.make_smc_step_chunked(model, n, 0.5)
     flags = [torch.zeros(1, dtype=torch.bool)]
     one = torch.tensor(1, dtype=torch.int32)
@@ -222,7 +336,8 @@ def _chunked_one_step_a_chunk(seed, obs, n):
         carry, (flag,) = step(carry, (obs[t:t + 1], one, t))
         flags.append(flag.reshape(1))
     states, log_w, log_z = carry[1:4]
-    return states, log_w, torch.cat(flags), log_z + port_smc._log_mean_exp(log_w)
+    return states, log_w, torch.cat(flags), log_z + port_smc.final_log_mean_exp(
+        log_w, states, True)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -428,6 +543,7 @@ def test_step_ctrl_counts_and_null_control_on_card():
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in counters().items() if v != before[k]}
     assert moved["fused_lg.step_ctrl"] == 15 and "fused_lg.step" not in moved
+    assert moved["fused_lg.init"] == 1 and moved["stream_resample.lse_stats"] == 16
     assert res.resampled.dtype == torch.bool and bool(res.resampled.any())
     x, w, _ = (torch.as_tensor(a, device=dev) for a in _population(9, 1 << 16))
     xs, ws = lg_step(5, x, w, obs[3], 3)
@@ -436,6 +552,20 @@ def test_step_ctrl_counts_and_null_control_on_card():
     assert torch.equal(xs, xc) and torch.equal(ws, wc)
     torch.testing.assert_close(ws, wp, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(xs, xp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, (1 << 16) + 3, 1 << 24])
+def test_init_launch_matches_plain_on_card(n):
+    """The sweep's start: states and weights bit-equal to the plain
+    version, the ESS within 1e-12 of the combine of its own records, the
+    first flag right on either side of it, the ticket left clean, also on
+    a second stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    import chip_smoke
+
+    assert chip_smoke.check_lg_init(n) == 0.0
 
 
 @pytest.mark.cuda
