@@ -9,31 +9,27 @@ tensors.  ``key`` arguments of the model's sampling hooks are
 ``torch.Generator`` objects on the population's device; the fused kernel
 hooks take the sweep's integer seed instead.
 
-Ported: the chunked exchange path (fused init and chunk kernels) and the
-per-step fused exchange path for discrete states; the chunked path (a
-fused chunk kernel, the streaming or the sorted-key vector resample epoch
-at chunk boundaries) and the per-step path for scalar and vector
-continuous states (where a scalar model offers ``fused_step_ctrl_batch``,
-its one-step launch carries the resample flag); the fused per-step
-kernel with statistics; the unfused
-paths with and without history that :func:`smc` and :func:`build_smc_run`
-take otherwise; and guided SMC, both through a model's fused guided
-kernels (``fused_hooks_guided``: the chunked and per-step paths above) and
-through its proposal hooks (the guided step of :func:`make_smc_step`, and
-an initial proposal).  The port's proposal hooks are population-batched:
-``proposal_sample(key, states, t, y)``, ``proposal_logpdf(new, states, t,
-y)``, ``init_proposal_sample(key, y0, n)``, ``init_proposal_logpdf(states,
-y0)``.  A model without the batched hooks runs its per-particle hooks
-``init_sample(key)``, ``step_sample(key, s, t)`` and ``obs_logpdf(s, y,
-t)`` under ``torch.func.vmap(..., randomness="different")`` over the
-population, every particle drawing from the sweep's one generator (the
-reference's ``jax.vmap`` over split keys).
+:func:`build_smc_run` takes one of five paths, chosen once per model and
+options (``_sweep_path``): a fused chunk kernel with exchange or with
+value resampling, a fused one-step launch with exchange or with the
+resample flag, or the generic step (unfused, with history, or guided
+through the model's proposal hooks and an initial proposal); a guided
+model takes the fused paths through its guided kernels only.  The port's
+proposal hooks are population-batched: ``proposal_sample(key, states, t,
+y)``, ``proposal_logpdf(new, states, t, y)``, ``init_proposal_sample(key,
+y0, n)``, ``init_proposal_logpdf(states, y0)``.  A model without the
+batched hooks runs its per-particle hooks ``init_sample(key)``,
+``step_sample(key, s, t)`` and ``obs_logpdf(s, y, t)`` under
+``torch.func.vmap(..., randomness="different")`` over the population,
+every particle drawing from the sweep's one generator (the reference's
+``jax.vmap`` over split keys).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import operator
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -113,6 +109,18 @@ class StateSpaceModel:
     scalar_state: bool = False
     vector_state_dim: Optional[int] = None
     fused_hooks_guided: bool = False
+
+
+# the hooks a kernel builder installs (``ops/``), each named here once
+_KERNEL_HOOKS = ("fused_step_batch", "fused_step_ess_batch", "fused_step_ctrl_batch",
+                 "fused_step_exchange_batch", "fused_chunk_exchange_batch",
+                 "fused_chunk_exchange_t_batch", "fused_chunk_batch",
+                 "fused_chunk_t_batch", "fused_init_batch", "fused_init_ctrl_batch")
+
+
+def _with_kernels(model: StateSpaceModel, **fields) -> StateSpaceModel:
+    """``model`` with ``fields`` set and every other kernel hook cleared."""
+    return dataclasses.replace(model, **{**dict.fromkeys(_KERNEL_HOOKS), **fields})
 
 
 class SMCResult(NamedTuple):
@@ -233,19 +241,18 @@ def make_smc_step(
             key, states, log_w, log_z, ess = carry
             seed, gen = key
             do_resample = ess < ess_threshold * n_particles
-            ident = torch.arange(n_particles, dtype=torch.int32, device=states.device)
 
+            res_anc = None      # the value resamplers keep no ancestors
             if sorted_fill:
                 res_states, lme = continuous_resample_values_lme(
                     gen, log_w, states, flag=do_resample.to(torch.int32))
-                res_anc = ident
             elif exchange:
                 u0 = torch.rand((), generator=gen, device=states.device,
                                 dtype=torch.float64)
                 cat_w = category_weights(log_w, states, model.state_categories)
                 counts = category_counts_systematic(u0, cat_w, n_particles)
                 res_states = states_from_counts(counts, n_particles, dtype=states.dtype)
-                res_anc, lme = ident, _log_mean_exp(log_w)
+                lme = _log_mean_exp(log_w)
             else:
                 res_anc = resampler(gen, log_w)
                 res_states = states[res_anc.long()]
@@ -253,7 +260,6 @@ def make_smc_step(
             states_r = torch.where(do_resample, res_states, states)
             log_w_r = torch.where(do_resample, torch.zeros_like(log_w), log_w)
             log_z_r = torch.where(do_resample, log_z + lme, log_z)
-            anc = torch.where(do_resample, res_anc, ident)
 
             if fused and model.fused_step_ess_batch is not None:
                 new_states, new_log_w, new_ess = model.fused_step_ess_batch(
@@ -275,11 +281,35 @@ def make_smc_step(
                             lambda g, s: model.step_sample(g, s, t), gen, states_r)
                     new_log_w = log_w_r + _obs_logpdf(model, new_states, y_t, t)
                 new_ess = _ess(new_log_w)
+            ys = (do_resample,)
             if store_history:
+                ident = torch.arange(n_particles, dtype=torch.int32, device=states.device)
+                anc = (ident if res_anc is None
+                       else torch.where(do_resample, res_anc, ident))
                 ys = (new_states, new_log_w, anc, do_resample)
-            else:
-                ys = (do_resample,)
             return (key, new_states, new_log_w, log_z_r, new_ess), ys
+
+    return step
+
+
+def _exchange_body(launch: Callable, n_particles: int, ess_threshold: float,
+                   span_name: str):
+    """The exchange paths' loop body around ``launch(seed, states, log_w,
+    xs, flag, ticks) -> (s', w', ess', cat_w', lme')``."""
+
+    def step(carry, xs, u0=None):
+        with span(span_name):
+            key, states, log_w, log_z, ess, cat_w, lme = carry
+            seed, gen = key
+            do_resample = ess < ess_threshold * n_particles
+            if u0 is None:
+                u0 = torch.rand((), generator=gen, device=states.device,
+                                dtype=torch.float64)
+            ticks = _category_ticks(u0, cat_w, n_particles)[:-1].to(torch.int32)
+            log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
+            new_states, new_log_w, *stats = launch(
+                seed, states, log_w, xs, do_resample.to(torch.int32), ticks)
+            return (key, new_states, new_log_w, log_z_r, *stats), (do_resample,)
 
     return step
 
@@ -299,26 +329,10 @@ def make_smc_step_exchange_fused(
     (float64 slot arithmetic) stay on the device.  ``u0`` pins the offset
     (tests); by default it is drawn from the carry's generator."""
 
-    def step(carry, y_t_and_t, u0=None):
-        with span("smc.step"):
-            y_t, t = y_t_and_t
-            key, states, log_w, log_z, ess, cat_w, lme = carry
-            seed, gen = key
-            do_resample = ess < ess_threshold * n_particles
-            if u0 is None:
-                u0 = torch.rand((), generator=gen, device=states.device,
-                                dtype=torch.float64)
-            ticks = _category_ticks(u0, cat_w, n_particles)[:-1].to(torch.int32)
-            log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
-            out = model.fused_step_exchange_batch(
-                seed, states, log_w, y_t, t, do_resample.to(torch.int32), ticks)
-            new_states, new_log_w, new_ess, new_cat_w, new_lme = out
-            return (
-                (key, new_states, new_log_w, log_z_r, new_ess, new_cat_w, new_lme),
-                (do_resample,),
-            )
+    def launch(seed, states, log_w, xs, flag, ticks):       # xs: (y_t, t)
+        return model.fused_step_exchange_batch(seed, states, log_w, *xs, flag, ticks)
 
-    return step
+    return _exchange_body(launch, n_particles, ess_threshold, "smc.step")
 
 
 def make_smc_step_ctrl_fused(
@@ -372,26 +386,10 @@ def make_smc_step_exchange_fused_chunked(
     (:func:`chunk_hook`)."""
     kernel = chunk_hook(model, exchange=True)
 
-    def step(carry, xs, u0=None):
-        with span("smc.chunk"):
-            ys, n_valid, t0 = xs
-            key, states, log_w, log_z, ess, cat_w, lme = carry
-            seed, gen = key
-            do_resample = ess < ess_threshold * n_particles
-            if u0 is None:
-                u0 = torch.rand((), generator=gen, device=states.device,
-                                dtype=torch.float64)
-            ticks = _category_ticks(u0, cat_w, n_particles)[:-1].to(torch.int32)
-            log_z_r = log_z + torch.where(do_resample, lme, torch.zeros_like(lme))
-            flag = do_resample.to(torch.int32)
-            out = kernel(seed, states, log_w, ys, n_valid, flag, ticks, t0)
-            new_states, new_log_w, new_ess, new_cat_w, new_lme = out
-            return (
-                (key, new_states, new_log_w, log_z_r, new_ess, new_cat_w, new_lme),
-                (do_resample,),
-            )
+    def launch(seed, states, log_w, xs, flag, ticks):       # xs: (ys, n_valid, t0)
+        return kernel(seed, states, log_w, *xs[:2], flag, ticks, xs[2])
 
-    return step
+    return _exchange_body(launch, n_particles, ess_threshold, "smc.chunk")
 
 
 def make_smc_step_chunked(
@@ -442,6 +440,145 @@ def _chunk_observations(observations: torch.Tensor, chunk: int):
     return ys.reshape(n_chunks, chunk), valid
 
 
+class _Path(NamedTuple):
+    """One way through :func:`build_smc_run`'s sweep (:func:`_sweep_path`)."""
+
+    name: str
+    start: Callable    # (seed, gen, y0) -> (states, log_w, *the carry's statistics)
+    inputs: Callable   # observations -> the body's inputs, a list
+    body: Callable     # a ``make_smc_step*`` loop body
+    close: Callable    # (carry, the body's outputs, states0, log_w0) -> SMCResult
+
+
+def _prior_draw(model: StateSpaceModel, n: int) -> Callable:
+    """The draw of a start without a fused one, ``(gen, y0) -> (states,
+    log-density ratio)``: the initial proposal, the batched prior or the
+    per-particle prior."""
+    if model.init_proposal_sample is not None:
+        def draw(gen, y0):
+            states = model.init_proposal_sample(gen, y0, n)
+            return states, (model.init_logpdf(states)
+                            - model.init_proposal_logpdf(states, y0))
+    elif model.init_sample_batch is not None:
+        def draw(gen, y0):
+            return model.init_sample_batch(gen, n), 0.0
+    else:
+        def draw(gen, y0):
+            dummy = torch.empty(n, device=y0.device)
+            return _per_particle(lambda g, _: model.init_sample(g), gen, dummy), 0.0
+    return draw
+
+
+def _close(last: Callable, as_bool: Callable = lambda flags: flags,
+           history: bool = False) -> Callable:
+    """A path's close: the evidence's last term ``last(carry)``, the
+    resample flags (none at t = 0) as ``as_bool`` gives them and, with
+    ``history``, the population, weights and ancestors of every step."""
+    def close(carry, outs, states0, log_w0):
+        states, log_w, log_z = carry[1:4]
+        flags = torch.cat([torch.zeros(1, dtype=torch.bool, device=log_w.device)]
+                          + [ys[-1].reshape(1) for ys in outs])
+        hist = (None, None, None)
+        if history:
+            ident = torch.arange(log_w.shape[0], dtype=torch.int32, device=log_w.device)
+            hist = [torch.stack([first] + [ys[i] for ys in outs])
+                    for i, first in enumerate((states0, log_w0, ident))]
+        return SMCResult(*hist, as_bool(flags), log_z + last(carry), states, log_w)
+
+    return close
+
+
+def _sweep_path(model: StateSpaceModel, n_particles: int, ess_threshold: float,
+                resampling: str, store_history: bool, chunk: int) -> _Path:
+    """The path of :func:`build_smc_run`'s sweeps, the only code that reads
+    which hooks ``model`` carries and the options to choose one:
+
+    - ``chunk_exchange``: ``chunk`` > 1, discrete states, a chunk kernel
+      with exchange resampling; started by ``fused_init_batch`` where the
+      model has it; closed by the last launch's log-mean-exp.
+    - ``chunk_value``: ``chunk`` > 1, scalar or vector continuous states, a
+      chunk kernel; started by ``fused_init_ctrl_batch`` where the model has
+      it; closed by :func:`final_log_mean_exp` on the streaming path.
+    - ``step_exchange``: ``fused_step_exchange_batch`` once a step, started
+      from the prior (``init_sample_batch``, as the reference).
+    - ``step_ctrl``: ``chunk`` = 1, continuous states,
+      ``fused_step_ctrl_batch`` once a step, the int32 resample flag in the
+      carry; started by ``fused_init_ctrl_batch`` where the model has it.
+    - ``step``: otherwise, :func:`make_smc_step`, with history if asked.
+
+    All but ``step`` need systematic resampling, no history and, for a
+    guided model, its guided kernels (``fused_hooks_guided``).  Raises
+    ``ValueError`` for an unknown ``resampling``, and for ``chunk`` > 1
+    without a chunk kernel on those terms."""
+    resampler = get_resampler(resampling)
+    n, threshold = n_particles, ess_threshold * n_particles
+    fast = ((model.proposal_sample is None or model.fused_hooks_guided)
+            and not store_history and resampling == "systematic")
+    exchange = fast and model.state_categories is not None
+    by_value = (fast and model.state_categories is None
+                and (model.scalar_state or model.vector_state_dim is not None))
+    draw = _prior_draw(model, n)
+
+    def prior_then(stats):             # the start from the draw, then its statistics
+        def start(seed, gen, y0):
+            states, rn = draw(gen, y0)
+            log_w = rn + _obs_logpdf(model, states, y0, 0)
+            return (states, log_w, *stats(states, log_w))
+        return start
+
+    def init_ctrl(*keep):              # of (states, log_w, ess, flag)
+        pick = operator.itemgetter(*keep)
+        return lambda seed, gen, y0: pick(
+            model.fused_init_ctrl_batch(seed, n, y0, threshold))
+
+    def lme(streaming):
+        return lambda carry: final_log_mean_exp(carry[2], carry[1], streaming)
+
+    with_ess = prior_then(lambda states, log_w: (_ess(log_w),))
+    with_exchange = prior_then(lambda states, log_w: (
+        _ess(log_w), category_weights(log_w, states, model.state_categories),
+        _log_mean_exp(log_w)))
+    ctrl_start = model.fused_init_ctrl_batch is not None
+
+    def steps(observations):
+        return [(observations[t], t) for t in range(1, observations.shape[0])]
+
+    if chunk > 1:
+        def chunks(observations):
+            ys, valid = _chunk_observations(observations, chunk)
+            return [(ys[c], valid[c], 1 + chunk * c) for c in range(ys.shape[0])]
+
+        if exchange and (model.fused_chunk_exchange_batch is not None
+                         or model.fused_chunk_exchange_t_batch is not None):
+            start = (with_exchange if model.fused_init_batch is None
+                     else lambda seed, gen, y0: model.fused_init_batch(seed, n, y0))
+            return _Path("chunk_exchange", start, chunks,
+                         make_smc_step_exchange_fused_chunked(model, n, ess_threshold),
+                         _close(lambda carry: carry[6]))
+        if by_value and (model.fused_chunk_batch is not None
+                         or model.fused_chunk_t_batch is not None):
+            return _Path("chunk_value", init_ctrl(0, 1, 2) if ctrl_start else with_ess,
+                         chunks, make_smc_step_chunked(model, n, ess_threshold),
+                         _close(lme(True)))
+        raise ValueError(
+            "chunk > 1 needs a fused_chunk_* kernel on the model and "
+            "store_history=False with systematic resampling")
+    if exchange and model.fused_step_exchange_batch is not None:
+        return _Path("step_exchange", with_exchange, steps,
+                     make_smc_step_exchange_fused(model, n, ess_threshold),
+                     _close(lme(False)))
+    if chunk == 1 and by_value and model.fused_step_ctrl_batch is not None:
+        with_flag = prior_then(lambda states, log_w: (
+            (_ess(log_w) < threshold).to(torch.int32),))
+        return _Path("step_ctrl", init_ctrl(0, 1, 3) if ctrl_start else with_flag,
+                     steps, make_smc_step_ctrl_fused(model, n, ess_threshold),
+                     _close(lme(True), lambda flags: flags != 0))
+    return _Path("step", with_ess, steps,
+                 make_smc_step(model, n, ess_threshold, resampler, store_history,
+                               exchange=exchange, sorted_fill=by_value),
+                 _close(lme(by_value), history=store_history))
+
+
 def build_smc_run(
     model: StateSpaceModel,
     n_particles: int,
@@ -475,140 +612,22 @@ def build_smc_run(
     While a profiler records, a call lies in the span ``smc.run``, its
     start in ``smc.init`` and each loop body in ``smc.chunk`` or
     ``smc.step`` (:func:`~cpprob_tpu_torch.util.profiling.span`)."""
-    resampler = get_resampler(resampling)
-    # a guided model takes the fused paths only through its guided kernels
-    guided = model.proposal_sample is not None
-    fused_ok = not guided or model.fused_hooks_guided
-    # the exchange and value-resampling fast paths are systematic schemes
-    exchange_ok = (fused_ok and model.state_categories is not None
-                   and not store_history and resampling == "systematic")
-    sorted_ok = (
-        fused_ok
-        and (model.scalar_state or model.vector_state_dim is not None)
-        and model.state_categories is None
-        and not store_history
-        and resampling == "systematic"
-    )
-    chunk_exchange = (
-        chunk > 1
-        and exchange_ok
-        and (model.fused_chunk_exchange_batch is not None
-             or model.fused_chunk_exchange_t_batch is not None)
-    )
-    chunk_sorted = (
-        chunk > 1
-        and sorted_ok
-        and (model.fused_chunk_batch is not None
-             or model.fused_chunk_t_batch is not None)
-    )
-    if chunk > 1 and not (chunk_exchange or chunk_sorted):
-        raise ValueError(
-            "chunk > 1 needs a fused_chunk_* kernel on the model and "
-            "store_history=False with systematic resampling")
-    fused_exchange = exchange_ok and model.fused_step_exchange_batch is not None
-    step_ctrl = chunk == 1 and sorted_ok and model.fused_step_ctrl_batch is not None
-    init_ctrl = (chunk_sorted or step_ctrl) and model.fused_init_ctrl_batch is not None
-    threshold = ess_threshold * n_particles
-    if chunk_exchange:
-        step = make_smc_step_exchange_fused_chunked(
-            model, n_particles, ess_threshold)
-    elif chunk_sorted:
-        step = make_smc_step_chunked(model, n_particles, ess_threshold)
-    elif fused_exchange:
-        step = make_smc_step_exchange_fused(model, n_particles, ess_threshold)
-    elif step_ctrl:
-        step = make_smc_step_ctrl_fused(model, n_particles, ess_threshold)
-    else:
-        step = make_smc_step(
-            model, n_particles, ess_threshold, resampler, store_history,
-            exchange=exchange_ok, sorted_fill=sorted_ok,
-        )
-
-    def sweep(key: int, observations: torch.Tensor) -> SMCResult:
-        seed = int(key)
-        device = observations.device
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        n = n_particles
-        with span("smc.init"):
-            if init_ctrl:
-                states0, log_w0, ess0, flag0 = model.fused_init_ctrl_batch(
-                    seed, n, observations[0], threshold)
-            elif chunk_exchange and model.fused_init_batch is not None:
-                states0, log_w0, ess0, cat_w0, lme0 = model.fused_init_batch(
-                    seed, n, observations[0])
-            else:
-                if model.init_proposal_sample is not None:
-                    states0 = model.init_proposal_sample(gen, observations[0], n)
-                    rn0 = (model.init_logpdf(states0)
-                           - model.init_proposal_logpdf(states0, observations[0]))
-                elif model.init_sample_batch is not None:
-                    states0, rn0 = model.init_sample_batch(gen, n), 0.0
-                else:
-                    dummy = torch.empty(n, device=device)
-                    states0 = _per_particle(lambda g, _: model.init_sample(g), gen,
-                                            dummy)
-                    rn0 = 0.0
-                log_w0 = rn0 + _obs_logpdf(model, states0, observations[0], 0)
-        log_z = torch.zeros((), dtype=torch.float64, device=device)
-        no_resample = torch.zeros(1, dtype=torch.bool, device=device)
-
-        if chunk_exchange or chunk_sorted:
-            if chunk_sorted:
-                if not init_ctrl:
-                    ess0 = _ess(log_w0)
-                carry = ((seed, gen), states0, log_w0, log_z, ess0)
-            else:
-                if model.fused_init_batch is None:
-                    ess0 = _ess(log_w0)
-                    cat_w0 = category_weights(log_w0, states0,
-                                              model.state_categories)
-                    lme0 = _log_mean_exp(log_w0)
-                carry = ((seed, gen), states0, log_w0, log_z, ess0, cat_w0, lme0)
-            ys_chunks, valid = _chunk_observations(observations, chunk)
-            flags = [no_resample]
-            for c in range(ys_chunks.shape[0]):
-                carry, (flag,) = step(
-                    carry, (ys_chunks[c], valid[c], 1 + chunk * c))
-                flags.append(flag.reshape(1))
-            states_f, log_w_f, log_z = carry[1:4]
-            # the exchange kernels carry the final log-mean-exp in their stats
-            lme_f = (carry[6] if chunk_exchange
-                     else final_log_mean_exp(log_w_f, states_f, sorted_ok))
-            return SMCResult(None, None, None, torch.cat(flags),
-                             log_z + lme_f, states_f, log_w_f)
-
-        if step_ctrl:
-            if not init_ctrl:
-                flag0 = (_ess(log_w0) < threshold).to(torch.int32)
-            carry = ((seed, gen), states0, log_w0, log_z, flag0)
-        else:
-            carry = ((seed, gen), states0, log_w0, log_z, _ess(log_w0))
-        if fused_exchange:
-            carry += (category_weights(log_w0, states0, model.state_categories),
-                      _log_mean_exp(log_w0))
-        hist = []
-        for t in range(1, observations.shape[0]):
-            carry, ys = step(carry, (observations[t], t))
-            hist.append(ys)
-        states_f, log_w_f, log_z = carry[1:4]
-        log_z = log_z + final_log_mean_exp(log_w_f, states_f, sorted_ok)
-        resampled = torch.cat(
-            [no_resample] + [h[-1].reshape(1) for h in hist])
-        if step_ctrl:
-            resampled = resampled != 0    # the int32 flags
-        if store_history:
-            ident = torch.arange(n, dtype=torch.int32, device=device)
-            states = torch.stack([states0] + [h[0] for h in hist])
-            log_ws = torch.stack([log_w0] + [h[1] for h in hist])
-            anc = torch.stack([ident] + [h[2] for h in hist])
-            return SMCResult(states, log_ws, anc, resampled, log_z,
-                             states_f, log_w_f)
-        return SMCResult(None, None, None, resampled, log_z, states_f, log_w_f)
+    path = _sweep_path(model, n_particles, ess_threshold, resampling,
+                       store_history, chunk)
 
     def run(key: int, observations: torch.Tensor) -> SMCResult:
         with span("smc.run"):
-            return sweep(key, observations)
+            seed = int(key)
+            gen = torch.Generator(device=observations.device).manual_seed(seed)
+            with span("smc.init"):
+                states0, log_w0, *stats = path.start(seed, gen, observations[0])
+            log_z = torch.zeros((), dtype=torch.float64, device=observations.device)
+            carry = ((seed, gen), states0, log_w0, log_z, *stats)
+            outs = []
+            for xs in path.inputs(observations):
+                carry, ys = path.body(carry, xs)
+                outs.append(ys)
+            return path.close(carry, outs, states0, log_w0)
 
     return run
 

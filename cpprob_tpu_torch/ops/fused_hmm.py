@@ -36,8 +36,9 @@ take pinned draws (``draws=``) for parity tests.
 
 Records are ``(n_records, K + 4)`` float32: (max w, sum e, sum e^2, sum e
 per state, interior resamples), e = exp(w - max w);
-:func:`stats_from_partials` combines them into (ess, cat_w, lme), and
-takes the linear-Gaussian kernel's 3-column records too (one combiner).
+:func:`~.population.stats_from_partials` (imported here too) combines
+them into (ess, cat_w, lme), and takes the linear-Gaussian kernel's
+3-column records too (one combiner).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ import torch
 from ..util.profiling import counter_group, span
 from .philox import philox_uniform, philox_uniforms4, split_seed
 from .population import (check_tensor, current_stream, launch_population,
-                         mlp_layers, raise_on)
+                         mlp_layers, raise_on, stats_from_partials)
 
 __all__ = [
     "HMMSpec", "ISLAND_SIZE", "LAUNCHES", "hmm_init", "hmm_init_plain",
@@ -614,24 +615,6 @@ def guided_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
                 (ys, "ys", torch.float32), (ctrl, "ctrl", torch.int32)],
         outputs=[(n, torch.int32), (n, torch.float32)],
         records=(n // ISLAND_SIZE, K + 4), counts=LAUNCHES, count_key=count_key)
-
-
-def stats_from_partials(records: torch.Tensor, n: int):
-    """Combine records into (ess, normalized category weights (K,),
-    log-mean-exp of the weights), in float64.  Records of width 3 (max,
-    sum e, sum e^2), as the linear-Gaussian kernel writes, carry no
-    category columns and give an empty ``cat_w``."""
-    r = records.double()
-    n_cat = max(r.shape[1] - 4, 0)
-    m_b, s1_b, s2_b, c_bk = r[:, 0], r[:, 1], r[:, 2], r[:, 3:3 + n_cat]
-    m = m_b.max()
-    scale = torch.exp(m_b - m)
-    s1 = torch.sum(s1_b * scale)
-    s2 = torch.sum(s2_b * scale * scale)
-    ess = s1 * s1 / torch.clamp(s2, min=1e-300)
-    cat_w = torch.sum(c_bk * scale[:, None], 0) / torch.clamp(s1, min=1e-300)
-    lme = m + torch.log(torch.clamp(s1, min=1e-300)) - math.log(n)
-    return ess, cat_w, lme
 
 
 def fused_hmm_hooks(spec: HMMSpec, island_every: int = 0,

@@ -36,9 +36,9 @@ import math
 import torch
 
 from ..util.profiling import counter_group
-from .fused_hmm import stats_from_partials
 from .philox import philox4x32, split_seed, uniform_from_bits
-from .population import check_tensor, current_stream, launch_population
+from .population import (_ess_chunk_hook, check_tensor, current_stream,
+                         launch_population, stats_from_partials)
 
 __all__ = ["LAUNCHES", "LG_BLOCK", "lg_chunk", "lg_chunk_plain", "lg_init",
            "lg_init_plain", "lg_step", "lg_step_ctrl", "lg_step_ctrl_plain",
@@ -331,23 +331,14 @@ def make_fused_lg_ssm():
     flag).  ``key`` in the hooks is the sweep's integer seed."""
     from ..models.linear_gaussian import linear_gaussian_ssm
 
-    def fused_step(key, states, log_w, y, t):
-        return lg_step(key, states, log_w, y, t)
-
     def fused_step_ctrl(key, states, log_w, y, t, flag, threshold):
         x, w, _, nxt = lg_step_ctrl(key, states, log_w, y, t, flag, threshold)
         return x, w, nxt
 
-    def fused_chunk(key, states, log_w, ys, n_valid, t0):
-        x, w, rec = lg_chunk(key, states, log_w, ys, n_valid.to(torch.int32),
-                             t0=t0)
-        ess, _, _ = stats_from_partials(rec, states.shape[0])
-        return x, w, ess
-
     return dataclasses.replace(
         linear_gaussian_ssm,
-        fused_step_batch=fused_step,
+        fused_step_batch=lg_step,
         fused_step_ctrl_batch=fused_step_ctrl,
-        fused_chunk_t_batch=fused_chunk,
+        fused_chunk_t_batch=_ess_chunk_hook(lg_chunk),
         fused_init_ctrl_batch=lg_init,
     )

@@ -44,11 +44,12 @@ import math
 import numpy as np
 import torch
 
-from ..inference.smc import StateSpaceModel
+from ..inference.smc import StateSpaceModel, _with_kernels
 from ..inference.smc_csis import proposal_hooks
-from .fused_hmm import GUIDED_MAX_K, fused_hmm_hooks, guided_hooks, stats_from_partials
+from .fused_hmm import GUIDED_MAX_K, fused_hmm_hooks, guided_hooks
 from .guided_scalar import GuidedScalarKernel, check_scalar_net
 from .guided_tc import GuidedTensorCoreKernel
+from .population import _ess_chunk_hook
 from .user_chunk import UserKernel
 
 __all__ = [
@@ -162,20 +163,13 @@ def attach_fused_scalar_kernels(base_model, step_elem):
     """
     kernel = UserKernel(step_elem, 1)
 
-    def fused_chunk(key, states, log_w, ys, n_valid, t0):
-        x, w, rec = kernel.chunk(key, states, log_w, ys,
-                                 n_valid.to(torch.int32), t0=t0)
-        return x, w, stats_from_partials(rec, states.shape[0])[0]
-
     def fused_step(key, states, log_w, y, t):
         x, w, _ = kernel.chunk(key, states, log_w, y.reshape(1), t0=int(t),
                                step=True)
         return x, w
 
-    return dataclasses.replace(base_model, fused_chunk_t_batch=fused_chunk,
-                               fused_step_batch=fused_step,
-                               fused_step_ctrl_batch=None,
-                               fused_init_ctrl_batch=None)
+    return _with_kernels(base_model, fused_chunk_t_batch=_ess_chunk_hook(kernel.chunk),
+                         fused_step_batch=fused_step)
 
 
 def attach_fused_vector_kernels(base_model, step_elem, state_dim: int):
@@ -188,14 +182,8 @@ def attach_fused_vector_kernels(base_model, step_elem, state_dim: int):
     (:func:`~cpprob_tpu_torch.inference.resampling.sorted_systematic_resample_values_nd`)."""
     D = int(state_dim)
     kernel = UserKernel(step_elem, D)
-
-    def fused_chunk(key, states, log_w, ys, n_valid, t0):
-        x, w, rec = kernel.chunk(key, states, log_w, ys,
-                                 n_valid.to(torch.int32), t0=t0)
-        return x, w, stats_from_partials(rec, states.shape[0])[0]
-
-    return dataclasses.replace(base_model, fused_chunk_t_batch=fused_chunk,
-                               fused_init_ctrl_batch=None, vector_state_dim=D)
+    return _with_kernels(base_model, fused_chunk_t_batch=_ess_chunk_hook(kernel.chunk),
+                         vector_state_dim=D)
 
 
 def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
@@ -242,25 +230,12 @@ def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
     else:
         kernel = GuidedScalarKernel(params, trans_logpdf_elem, obs_logpdf_elem, T)
 
-    def fused_chunk(key, states, log_w, ys, n_valid, t0):
-        x, w, rec = kernel.chunk(key, states, log_w, ys,
-                                 n_valid.to(torch.int32), t0=t0)
-        return x, w, stats_from_partials(rec, states.shape[0])[0]
-
+    fused_chunk = _ess_chunk_hook(kernel.chunk)
     fused_chunk.kernel = kernel
 
     sample, logpdf = proposal_hooks(params, T, kind="normal")
-    return dataclasses.replace(
-        base_model,
-        proposal_sample=sample,
-        proposal_logpdf=logpdf,
-        fused_chunk_t_batch=fused_chunk,
-        fused_chunk_batch=None,
-        fused_step_batch=None,
-        fused_step_ctrl_batch=None,
-        fused_init_ctrl_batch=None,
-        fused_hooks_guided=True,
-    )
+    return _with_kernels(base_model, proposal_sample=sample, proposal_logpdf=logpdf,
+                         fused_chunk_t_batch=fused_chunk, fused_hooks_guided=True)
 
 
 def attach_fused_guided_discrete_kernels(trans, means, stds=None,

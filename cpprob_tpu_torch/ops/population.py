@@ -8,7 +8,7 @@ one statistics record per CTA).  :func:`launch_population` is the one
 place that checks the inputs, allocates the outputs and the records,
 launches, raises on a refused launch and counts it, inside the span
 ``launch.<kernel>`` of a recording profiler; the kernels' outputs do not
-depend on it.
+depend on it; :func:`stats_from_partials` combines the records.
 
 The helpers below it (:func:`check_tensor`, :func:`raise_on`,
 :func:`current_stream`, :func:`mlp_layers`) serve the other kernel
@@ -18,6 +18,7 @@ wrappers too.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, Sequence
 
 import numpy as np
@@ -25,8 +26,8 @@ import torch
 
 from ..util.profiling import span
 
-__all__ = ["launch_population", "check_tensor", "raise_on", "current_stream",
-           "mlp_layers"]
+__all__ = ["launch_population", "stats_from_partials", "check_tensor",
+           "raise_on", "current_stream", "mlp_layers"]
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, device):
@@ -101,3 +102,32 @@ def launch_population(what: str, launch: Callable, *, span_name: str, device,
         raise_on(launch(*outs, rec), what)
     counts[count_key] += 1
     return (*outs, rec)
+
+
+def stats_from_partials(records: torch.Tensor, n: int):
+    """Combine records into (ess, normalized category weights (K,),
+    log-mean-exp of the weights), in float64.  Records of width 3 (max,
+    sum e, sum e^2), as the linear-Gaussian kernel writes, carry no
+    category columns and give an empty ``cat_w``."""
+    r = records.double()
+    n_cat = max(r.shape[1] - 4, 0)
+    m_b, s1_b, s2_b, c_bk = r[:, 0], r[:, 1], r[:, 2], r[:, 3:3 + n_cat]
+    m = m_b.max()
+    scale = torch.exp(m_b - m)
+    s1 = torch.sum(s1_b * scale)
+    s2 = torch.sum(s2_b * scale * scale)
+    ess = s1 * s1 / torch.clamp(s2, min=1e-300)
+    cat_w = torch.sum(c_bk * scale[:, None], 0) / torch.clamp(s1, min=1e-300)
+    lme = m + torch.log(torch.clamp(s1, min=1e-300)) - math.log(n)
+    return ess, cat_w, lme
+
+
+def _ess_chunk_hook(chunk: Callable) -> Callable:
+    """``chunk(seed, states, log_w, ys, n_valid, t0=)``, a chunk launch that
+    returns (states', log_w', records), as a model's time-aware chunk hook
+    ``(seed, states, log_w, ys, n_valid, t0) -> (states', log_w', ess')``."""
+    def hook(key, states, log_w, ys, n_valid, t0):
+        x, w, rec = chunk(key, states, log_w, ys, n_valid.to(torch.int32), t0=t0)
+        return x, w, stats_from_partials(rec, states.shape[0])[0]
+
+    return hook

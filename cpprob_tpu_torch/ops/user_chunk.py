@@ -5,7 +5,7 @@ counterparts of ``_make_scalar_chunk_kernel`` and
 
 Per particle the kernel runs ``n_steps`` of the user's physics with
 ``n_valid`` masking and writes one (max, sum e, sum e^2) record per CTA
-(e = exp(w - max w), the layout :func:`~.fused_hmm.stats_from_partials`
+(e = exp(w - max w), the layout :func:`~.population.stats_from_partials`
 combines).  The physics is a ``step_elem``
 
     step_elem(x_0, ..., x_{D-1}, y, eps_0, ..., eps_{D-1})

@@ -1,22 +1,21 @@
-"""Whole sweeps of the chain and guided paths, and the init kernels,
-timed back to back on the card, for comparing two checkouts of the port in
-one call.
+"""Whole sweeps of the paths the benchmark has no cell for, and the init
+kernels, timed back to back on the card, for comparing two checkouts of
+the port in one call.
 
     PYTHONPATH=CHECKOUT python3 cpprob_tpu_torch/util/sweep_times.py
 
 The package is imported by absolute name, so ``PYTHONPATH`` picks the
 checkout whose code runs (this file may come from another).  Sweeps, each
 by CUDA events over back-to-back sweeps after a warm-up (``time_ms``): the
-HMM main path (2^26 particles, T = 16, chunk 16, island_every 8: K1, K2),
-the HMM per step at 2^20 (chunk 1: K4; ``smc()`` with history: K5), a
-5-state chain at 2^24 (chunk 8: K9, K8) and the same chain guided by a
-random ``[7,16,16,5]`` net at 2^24 (chunk 8: K13) and per step at 2^20
-(K13 one-step), the linear-Gaussian model at 2^24 (chunk 8: K7 and the
-streaming epoch) and per step at 2^20 (K6 and an epoch a step), the
-linear-Gaussian physics as a user ``step_elem`` at
-2^24 (chunk 8: K10 and the streaming epoch), and the guided
-linear-Gaussian model with a random ``[3,16,16,2]`` net at 2^24 (chunk 8,
-``mxu=True``: K12's tensor-core twin; ``mxu=False``: K12 on the FMA pipe).
+HMM per step at 2^20 (chunk 1: K4; ``smc()`` with history: K5), a 5-state
+chain at 2^24 (chunk 8: K9, K8) and the same chain guided by a random
+``[7,16,16,5]`` net at 2^24 (chunk 8: K13) and per step at 2^20 (K13
+one-step), the linear-Gaussian physics as a user ``step_elem`` at 2^24
+(chunk 8: K10 and the streaming epoch), and the guided linear-Gaussian
+model with a random ``[3,16,16,2]`` net at 2^24 (chunk 8, ``mxu=True``:
+K12's tensor-core twin; ``mxu=False``: K12 on the FMA pipe).  The HMM
+main path and the linear-Gaussian model at chunk 8 and per step are the
+benchmark's cells (``python3 benchmarks/run.py``).
 The chain is the K-state recipe of tests/test_tpu_hw.py at K = 5 with
 standard normal observations from ``default_rng(0)``.  Launches of the
 init kernel alone: the HMM's (K1, 2^26) and the chain's (K9, K = 5, 2^24);
@@ -49,7 +48,6 @@ def main():
     from cpprob_tpu_torch.models import HMM_MEANS, HMM_TRANS, simulate_observations
     from cpprob_tpu_torch.ops import stream_resample as sr
     from cpprob_tpu_torch.ops.fused_hmm import hmm_init, make_fused_hmm_ssm
-    from cpprob_tpu_torch.ops.fused_lg import make_fused_lg_ssm
     from cpprob_tpu_torch.models.linear_gaussian import (
         linear_gaussian_ssm,
         obs_logpdf_elem,
@@ -91,18 +89,12 @@ def main():
     lw = 2 * torch.randn(1 << 24, generator=gen_d, device=dev)
     vals = torch.randn(1 << 24, generator=gen_d, device=dev)
     runs = {
-        "hmm_2^26_chunk16_island8": (build_smc_run(
-            make_fused_hmm_ssm(island_every=8), 1 << 26, chunk=16), obs, 16),
         "hmm_2^20_chunk1": (build_smc_run(hmm, 1 << 20), obs, 8),
         "hmm_2^20_smc": (lambda seed, o: smc(hmm, o, 1 << 20, seed), obs, 8),
         "chain5_2^24_chunk8": (build_smc_run(
             make_fused_discrete_ssm(*chain5), 1 << 24, chunk=8), obs5, 16),
         "guided5_2^24_chunk8": (build_smc_run(guided5, 1 << 24, chunk=8), obs5, 16),
         "guided5_2^20_chunk1": (build_smc_run(guided5, 1 << 20), obs5, 8),
-        "lg_2^24_chunk8": (build_smc_run(make_fused_lg_ssm(), 1 << 24, chunk=8),
-                           lg_obs, 16),
-        "lg_2^20_chunk1": (build_smc_run(make_fused_lg_ssm(), 1 << 20, chunk=1),
-                           lg_obs, 8),
         "user_lg_2^24_chunk8": (build_smc_run(attach_fused_scalar_kernels(
             linear_gaussian_ssm, lg_step_elem), 1 << 24, chunk=8), lg_obs, 16),
         **{f"guided_lg_2^24_chunk8_mxu_{mxu}": (build_smc_run(model, 1 << 24, chunk=8),

@@ -278,12 +278,12 @@ def _lg_params():
 @pytest.mark.parametrize("which", ["chunk8", "chunk1", "unfused", "attach_scalar",
                                    "history", "guided"])
 def test_init_dispatch(which):
-    """``build_smc_run(make_fused_lg_ssm(), n)`` at chunk 8 and 1 starts
-    with the model's ``fused_init_ctrl_batch``, once a sweep, and never
-    draws from ``init_sample_batch``; the unfused model, a user-physics
-    model (K10), ``smc()`` with history and the guided model keep the
-    start from ``init_sample_batch`` (the attach builders clear the
-    hook)."""
+    """``build_smc_run(make_fused_lg_ssm(), n)`` at chunk 8 and 1 takes
+    the path that starts with the model's ``fused_init_ctrl_batch``, once a
+    sweep, and never draws from ``init_sample_batch``; the unfused model, a
+    user-physics model (K10), ``smc()`` with history and the guided model
+    keep the start from ``init_sample_batch`` (the attach builders clear
+    the hook)."""
     from cpprob_tpu_torch.examples.kernel_bench import lg_step_elem
     from cpprob_tpu_torch.models.linear_gaussian import (
         obs_logpdf_elem,
@@ -311,10 +311,15 @@ def test_init_dispatch(which):
         model, init_sample_batch=spy("sample", model.init_sample_batch),
         fused_init_ctrl_batch=spy("init", model.fused_init_ctrl_batch))
     obs = torch.as_tensor(OBS)
+    chunk = 8 if which in ("chunk8", "attach_scalar", "guided") else 1
+    path = port_smc._sweep_path(model, 1024, 0.5, "systematic", which == "history",
+                                chunk)
+    assert path.name == {"chunk8": "chunk_value", "chunk1": "step_ctrl",
+                         "attach_scalar": "chunk_value",
+                         "guided": "chunk_value"}.get(which, "step")
     if which == "history":
         res = smc(model, obs, 1024, 3)
     else:
-        chunk = 8 if which in ("chunk8", "attach_scalar", "guided") else 1
         res = build_smc_run(model, 1024, chunk=chunk)(3, obs)
     assert calls == (["init"] if which in ("chunk8", "chunk1") else ["sample"])
     assert np.isfinite(float(res.log_evidence))
@@ -341,20 +346,17 @@ def _chunked_one_step_a_chunk(seed, obs, n):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_step_ctrl_body_matches_chunked_one_step_a_chunk(seed, monkeypatch):
-    """``build_smc_run(make_fused_lg_ssm(), n, chunk=1)`` takes the body
+def test_step_ctrl_body_matches_chunked_one_step_a_chunk(seed):
+    """``build_smc_run(make_fused_lg_ssm(), n, chunk=1)`` takes the path
     whose one-step launch carries the resample flag, and gives the
     chunked body's run one step a chunk bit for bit: states, weights, the
     resample flags and log Z (both decide from ``stats_from_partials`` on
     the same records)."""
     n = 1 << 12
     obs = torch.as_tensor(OBS)
-    built = []
-    ctrl_body = port_smc.make_smc_step_ctrl_fused
-    monkeypatch.setattr(port_smc, "make_smc_step_ctrl_fused",
-                        lambda *a, **k: built.append(1) or ctrl_body(*a, **k))
+    path = port_smc._sweep_path(make_fused_lg_ssm(), n, 0.5, "systematic", False, 1)
+    assert path.name == "step_ctrl"
     res = build_smc_run(make_fused_lg_ssm(), n, chunk=1)(seed, obs)
-    assert built == [1]
     states, log_w, flags, log_z = _chunked_one_step_a_chunk(seed, obs, n)
     assert res.resampled.dtype == torch.bool and res.resampled.shape == (16,)
     assert 2 <= int(flags.sum()) <= 14          # the series resamples, not always
@@ -365,31 +367,25 @@ def test_step_ctrl_body_matches_chunked_one_step_a_chunk(seed, monkeypatch):
 
 
 @pytest.mark.parametrize("which", ["unfused", "attach_scalar", "history", "step_ctrl"])
-def test_per_step_dispatch(which, monkeypatch):
+def test_per_step_dispatch(which):
     """Only a scalar model with ``fused_step_ctrl_batch`` (no history,
-    systematic resampling) takes the flag-carrying body at chunk 1: the
+    systematic resampling) takes the flag-carrying path at chunk 1: the
     unfused model, a user-physics model (K10) and ``smc()`` with history
-    keep ``make_smc_step``."""
+    take the generic step (``make_smc_step``)."""
     from cpprob_tpu_torch.examples.kernel_bench import lg_step_elem
     from cpprob_tpu_torch.ops.fused_ssm import attach_fused_scalar_kernels
 
-    taken = []
-    for name in ("make_smc_step", "make_smc_step_ctrl_fused"):
-        body = getattr(port_smc, name)
-        monkeypatch.setattr(port_smc, name, lambda *a, _b=body, _n=name, **k: (
-            taken.append(_n) or _b(*a, **k)))
     obs = torch.as_tensor(OBS)
+    model = {"unfused": linear_gaussian_ssm,
+             "attach_scalar": attach_fused_scalar_kernels(
+                 make_fused_lg_ssm(), lg_step_elem)}.get(which, make_fused_lg_ssm())
+    path = port_smc._sweep_path(model, 1024, 0.5, "systematic", which == "history", 1)
+    assert path.name == ("step_ctrl" if which == "step_ctrl" else "step")
     if which == "history":
-        res = smc(make_fused_lg_ssm(), obs, 1024, 3)
+        res = smc(model, obs, 1024, 3)
         assert res.states.shape == (16, 1024)
     else:
-        model = {"unfused": linear_gaussian_ssm,
-                 "attach_scalar": attach_fused_scalar_kernels(
-                     make_fused_lg_ssm(), lg_step_elem),
-                 "step_ctrl": make_fused_lg_ssm()}[which]
         res = build_smc_run(model, 1024, chunk=1)(3, obs)
-    assert taken == ["make_smc_step_ctrl_fused" if which == "step_ctrl"
-                     else "make_smc_step"]
     assert res.resampled.dtype == torch.bool and np.isfinite(float(res.log_evidence))
 
 
