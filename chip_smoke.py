@@ -134,7 +134,11 @@ and the script exits non-zero without printing its last line:
    start slot past 0; 0 slots may differ);
    ``streaming_systematic_resample_values(impl=...)`` for 8 epochs of each
    variant, counted; timings of the three layouts beside
-   ``torch.repeat_interleave``;
+   ``torch.repeat_interleave``; then the four benchmark cells' queries as
+   their main path runs them, a captured CUDA graph replayed
+   (``replay_phases``): each replay under sync-debug "error" equal bit for
+   bit to the eager query of its seed, its launches counted as the eager
+   query's, one capture a cell, and the graph's memory pool printed;
 9. the distribution layer (``distribution_phases``, slice 4a, plain
    PyTorch): 2^24 draws of each scalar class, the mixtures, both
    truncations and the spline flow, and 2^20 of each multivariate normal
@@ -862,8 +866,9 @@ def check_sass():
     ``HMMA`` (mma.sync); ``pass1_scan_kernel``'s double-precision
     instructions a particle, held to ``PASS1_F64_OPS`` (its bound's count)
     within 20 %, and those of ``lse_stats_kernel``'s batch loop a weight,
-    held to ``LSE_F64_OPS`` likewise.  Prints each one's registers and
-    spills."""
+    held to ``LSE_F64_OPS`` likewise; K7's spills and frame held to what
+    the key in two registers gives it (:func:`_sincos_frame`).  Prints
+    each one's registers and spills."""
     from cpprob_tpu_torch.ops import stream_resample as sr
     from cpprob_tpu_torch.util.sass import kernel_report
 
@@ -902,6 +907,7 @@ def check_sass():
           f"weight (the bound counts {LSE_F64_OPS})")
     if abs(f64 - LSE_F64_OPS) > 0.2 * LSE_F64_OPS:
         raise AssertionError("lse_stats_kernel: LSE_F64_OPS is stale")
+    _sincos_frame()
     check_chain_sass()
 
 
@@ -1674,20 +1680,41 @@ def check_user_kernels(n=USER_N, n_vec=VEC_N, seed=CHECK_SEED):
     return errs, (lg_k, growth_k, vec_k)
 
 
-def check_user_sass(kernels):
-    """The generated user libraries' machine code: each user_chunk_kernel's
-    registers, spills and local memory.  None may spill, and none may keep
-    a stack frame larger than K7's (``lg_chunk_kernel``), whose one frame
-    (and its LDL/STL) is the slow-path argument reduction of the precise
-    ``sincosf`` (for |x| > 105615, never a Box-Muller angle), which every
-    Box-Muller kernel carries, and which ``elem.sin``/``cos`` share."""
+def _sincos_frame():
+    """The stack frame of ``lg_init_kernel``, whose one frame (and its
+    LDL/STL) is the slow-path argument reduction of the precise ``sincosf``
+    (for |x| > 105615, never a Box-Muller angle), which every Box-Muller
+    kernel carries; with K7's report, which must keep no more than the 44 B
+    of spill stores and loads and the 80 B frame that ptxas gives it with
+    the key in two registers (the spills sit around that slow path, and
+    keep K7 at 80 registers, three CTAs an SM: K7 times as with the key by
+    value).  Returns the frame's bytes."""
     from cpprob_tpu_torch.ops.fused_lg import K7_SYMBOL
     from cpprob_tpu_torch.util.sass import kernel_report
 
+    (fi, ri), = kernel_report("fused_lg", "lg_init_kernel").items()
     (f7, r7), = kernel_report("fused_lg", K7_SYMBOL).items()
-    local7 = r7["opcodes"].get("LDL", 0) + r7["opcodes"].get("STL", 0)
-    print(f"SASS K7 {f7}: {r7['registers']} registers, stack frame {r7['stack']} B, "
-          f"spills {r7['spills']}, {local7} LDL/STL")
+    for f, r in ((fi, ri), (f7, r7)):
+        local = r["opcodes"].get("LDL", 0) + r["opcodes"].get("STL", 0)
+        print(f"SASS {f}: {r['registers']} registers, stack frame {r['stack']} B, "
+              f"spills {r['spills']}, {local} LDL/STL")
+    if ri["spills"] != (0, 0) or ri["stack"] is None:
+        raise AssertionError(f"{fi}: spills {ri['spills']}, stack {ri['stack']}")
+    if (r7["spills"] is None or r7["spills"][0] > 44 or r7["spills"][1] > 44
+            or r7["stack"] > 80):
+        raise AssertionError(f"{f7}: spills {r7['spills']} and stack {r7['stack']} B "
+                             "beyond 44/44 B and 80 B")
+    return ri["stack"]
+
+
+def check_user_sass(kernels):
+    """The generated user libraries' machine code: each user_chunk_kernel's
+    registers, spills and local memory.  None may spill, and none may keep
+    a stack frame larger than the precise ``sincosf``'s
+    (:func:`_sincos_frame`), which ``elem.sin``/``cos`` share."""
+    from cpprob_tpu_torch.util.sass import kernel_report
+
+    frame = _sincos_frame()
     for k in kernels:
         rep = kernel_report(k.library, "user_chunk_kernel")
         if len(rep) != 1:
@@ -1701,8 +1728,8 @@ def check_user_sass(kernels):
                   f"loops {r['loops'][:2]}")
             if r["registers"] is None or r["stack"] is None:
                 raise AssertionError(f"{f}: no ptxas report")
-            if r["spills"] != (0, 0) or r["stack"] > r7["stack"]:
-                raise AssertionError(f"{f} uses local memory beyond K7's")
+            if r["spills"] != (0, 0) or r["stack"] > frame:
+                raise AssertionError(f"{f} uses local memory beyond the sincosf frame")
 
 
 def _chunk_obs(obs, chunk):
@@ -2402,15 +2429,14 @@ def check_guided_lg_cell(seed=CHECK_SEED):
 
 def check_scalar_sass(kernel):
     """K12's machine code: its registers, no spill, and no local memory
-    beyond a stack frame no larger than K7's (``lg_chunk_kernel``), the
-    slow-path argument reduction of the precise ``sincosf`` of the
-    Box-Muller draws (for |x| > 105615, never a Box-Muller angle), which
-    ptxas keeps in some instances and not in others (as ``check_user_sass``
-    allows K10).  Returns (registers, spills, stack frame bytes)."""
-    from cpprob_tpu_torch.ops.fused_lg import K7_SYMBOL
+    beyond a stack frame no larger than the slow-path argument reduction of
+    the precise ``sincosf`` of the Box-Muller draws (:func:`_sincos_frame`),
+    which ptxas keeps in some instances and not in others (as
+    ``check_user_sass`` allows K10).  Returns (registers, spills, stack
+    frame bytes)."""
     from cpprob_tpu_torch.util.sass import kernel_report
 
-    (_, r7), = kernel_report("fused_lg", K7_SYMBOL).items()
+    frame = _sincos_frame()
     rep = kernel_report(kernel.library, "guided_scalar_kernel")
     if len(rep) != 1:
         raise AssertionError(f"{kernel.library}: {len(rep)} guided_scalar_kernel functions")
@@ -2423,9 +2449,9 @@ def check_scalar_sass(kernel):
           f"FFMA {ops.get('FFMA', 0)}, MUFU {ops.get('MUFU', 0)}, loops {r['loops'][:2]}")
     if r["registers"] is None or r["stack"] is None:
         raise AssertionError(f"{f}: no ptxas report")
-    if r["spills"] != (0, 0) or r["stack"] > r7["stack"] or (local and not r["stack"]):
-        raise AssertionError(f"{f} uses local memory beyond K7's sincosf frame "
-                             f"({r7['stack']} B)")
+    if r["spills"] != (0, 0) or r["stack"] > frame or (local and not r["stack"]):
+        raise AssertionError(f"{f} uses local memory beyond the sincosf frame "
+                             f"({frame} B)")
     return r["registers"], r["spills"], r["stack"]
 
 
@@ -2999,6 +3025,103 @@ def _tile_t(x):
     """The merge layout of a row-major expansion: slot og*128 + s of tile t
     at t*16384 + s*128 + og."""
     return x.view(-1, 128, 128).transpose(1, 2).reshape(-1)
+
+
+def check_replayed_cells(seeds=(CHECK_SEED + 7, 2 ** 63 + 9)):
+    """The four benchmark cells' queries on their main path, the captured
+    graph: ``build_smc_run`` at the cells' shapes (the HMM at 2^26, chunk
+    16 with island checks; the LG model at 2^24, chunk 8 and per step; the
+    guided LG model with the committed net at 2^24, chunk 8), called twice
+    outside sync-debug (the first call eager, the second captures), then
+    each of ``seeds`` replayed under sync-debug "error", the counters read
+    just before and after.  Each replay must equal, bit for bit, the eager
+    query of a fresh run of the same seed (``final_states``,
+    ``final_log_weights``, ``log_evidence``, ``resampled``): the replay's
+    kernels read the graph's device key, the eager query's the key its
+    integer seed wrote, so this holds the one to the other at the cells'
+    shapes, and the kernel checks above hold them to their plain versions.
+    A replay must count each kernel as the eager query does, and
+    ``sweep_graph`` one capture and a replay a query.  Returns {cell:
+    (launches a replayed query, the graph's pool in bytes)}."""
+    from cpprob_tpu_torch import build_smc_run
+    from cpprob_tpu_torch.models.linear_gaussian import linear_gaussian_ssm
+    from cpprob_tpu_torch.ops import fused_hmm, fused_lg
+    from cpprob_tpu_torch.ops.fused_ssm import attach_fused_guided_scalar_kernels
+    from cpprob_tpu_torch.util.profiling import counters
+
+    dev = torch.device("cuda")
+    params, _ = guided_lg_params(dev)
+    cells = {
+        "hmm3-2e26-chunk16-island8": (lambda: fused_hmm.make_fused_hmm_ssm(
+            island_every=ISLAND_EVERY, spec=_spec()), MAIN_N, CHUNK, _observations(dev)),
+        "lg1d-2e24-chunk8": (fused_lg.make_fused_lg_ssm, LG_N, LG_CHUNK, _lg_obs(dev)),
+        "lg1d-2e24-perstep": (fused_lg.make_fused_lg_ssm, LG_N, 1, _lg_obs(dev)),
+        "guided-lg-2e24-chunk8": (lambda: attach_fused_guided_scalar_kernels(
+            linear_gaussian_ssm, params, LG_T, trans_logpdf_elem=guided_trans_lp,
+            obs_logpdf_elem=guided_obs_lp), GUIDED_N, GUIDED_CHUNK, _lg_obs(dev)),
+    }
+
+    def moved(before):
+        return {k: v - before.get(k, 0) for k, v in counters().items()
+                if v != before.get(k, 0)}
+
+    def kept(res):
+        return [t.clone() for t in (res.final_states, res.final_log_weights,
+                                    res.log_evidence, res.resampled)]
+
+    out = {}
+    for cell, (build, n, chunk, obs) in cells.items():
+        model = build()
+        run = build_smc_run(model, n, chunk=chunk)
+        before = counters()
+        run(CHECK_SEED, obs)
+        _sync()
+        torch.cuda.empty_cache()     # what the capture reserves is its pool's
+        reserved = torch.cuda.memory_reserved()
+        run(CHECK_SEED + 1, obs)
+        _sync()
+        pool = torch.cuda.memory_reserved() - reserved
+        graph = moved(before)
+        if (graph.get("sweep_graph.eager"), graph.get("sweep_graph.capture"),
+                graph.get("sweep_graph.replay")) != (1, 1, 1):
+            raise AssertionError(f"{cell}: the second call did not capture: {graph}")
+        for seed in seeds:
+            before = counters()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = kept(run(seed, obs))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            _sync()
+            replayed = moved(before)
+            before = counters()
+            eager = kept(build_smc_run(model, n, chunk=chunk)(seed, obs))
+            _sync()
+            eager_moved = moved(before)
+            for name, a, b in zip(("final_states", "final_log_weights", "log_evidence",
+                                   "resampled"), got, eager):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{cell} seed {seed}: the replay's {name} "
+                                         "differs from the eager query's")
+            kernels = {k: v for k, v in eager_moved.items() if not k.startswith("sweep_graph")}
+            want = {**kernels, "sweep_graph.replay": 1}
+            if replayed != want or eager_moved.get("sweep_graph.eager") != 1:
+                raise AssertionError(f"{cell}: a replay counted {replayed}, the eager "
+                                     f"query {eager_moved}")
+        out[cell] = (kernels, pool)
+        print(f"replayed cell {cell}: n={n} chunk={chunk}, {len(seeds)} replays under "
+              f"sync-debug equal the eager queries bit for bit; launches a query "
+              f"{kernels}; the graph's pool {pool / 2 ** 20:.1f} MiB")
+        del run, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def replay_phases(card, stages):
+    """The benchmark cells' main path, the replayed graph
+    (:func:`check_replayed_cells`)."""
+    with stages.stage("replayed_cells", sync=True):
+        check_replayed_cells()
 
 
 def r1_phases(card, stages):
@@ -5087,6 +5210,7 @@ def main():
     kernels = (hmm_phases(card, stages) + lg_phases(card, stages)
                + spec_phases(card, stages) + user_phases(card, stages)
                + guided_phases(card, stages) + r1_phases(card, stages))
+    replay_phases(card, stages)
     distribution_phases(card, stages)
     sis_phases(card, stages)
     csis_phases(card, stages)

@@ -7,7 +7,8 @@ without ever waiting on the host.  Models enter through the same
 :class:`StateSpaceModel` protocol, with population-batched hooks on
 tensors.  ``key`` arguments of the model's sampling hooks are
 ``torch.Generator`` objects on the population's device; the fused kernel
-hooks take the sweep's integer seed instead.
+hooks take the sweep's integer seed instead, or, a hook that declares it
+(``device_key``), the seed as a device key (``ops.philox.device_key``).
 
 :func:`build_smc_run` takes one of five paths, chosen once per model and
 options (``_sweep_path``): a fused chunk kernel with exchange or with
@@ -23,6 +24,10 @@ batched hooks runs its per-particle hooks ``init_sample(key)``,
 ``torch.func.vmap(..., randomness="different")`` over the population,
 every particle drawing from the sweep's one generator (the reference's
 ``jax.vmap`` over split keys).
+
+On a card, the query of a fast path whose seeded hooks all take a device
+key is captured once as a CUDA graph and replayed (:func:`build_smc_run`):
+the same kernels in the same order, with no host between them.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..ops import stream_resample as sr
-from ..util.profiling import span
+from ..ops.philox import write_key
+from ..ops.population import owned_scratch
+from ..util.profiling import add_counts, counter_group, recorded_counts, span
 from ..util.seeds import derive_seed
 from .resampling import _category_ticks
 from .resampling import ess as _ess
@@ -448,6 +455,26 @@ class _Path(NamedTuple):
     inputs: Callable   # observations -> the body's inputs, a list
     body: Callable     # a ``make_smc_step*`` loop body
     close: Callable    # (carry, the body's outputs, states0, log_w0) -> SMCResult
+    keyed: bool = False   # a fast path whose hooks all take a device key
+
+
+def _takes_device_key(*hooks) -> bool:
+    """Whether each of ``hooks`` that is set declares, by the attribute
+    ``device_key`` (``ops.population.takes_device_key``), that it draws
+    only from the seed as a device key or from the sweep's generator, and
+    does nothing on the host that a replay would have to repeat."""
+    return all(getattr(h, "device_key", False) for h in hooks if h is not None)
+
+
+def _prior_hooks(model: StateSpaceModel) -> tuple:
+    """The hooks that a start from the prior (:func:`_prior_draw`, then the
+    first weight) calls."""
+    if model.init_proposal_sample is not None:
+        draw = (model.init_proposal_sample, model.init_logpdf,
+                model.init_proposal_logpdf)
+    else:
+        draw = (model.init_sample_batch or model.init_sample,)
+    return (*draw, model.obs_logpdf_batch or model.obs_logpdf)
 
 
 def _prior_draw(model: StateSpaceModel, n: int) -> Callable:
@@ -507,9 +534,13 @@ def _sweep_path(model: StateSpaceModel, n_particles: int, ess_threshold: float,
     - ``step``: otherwise, :func:`make_smc_step`, with history if asked.
 
     All but ``step`` need systematic resampling, no history and, for a
-    guided model, its guided kernels (``fused_hooks_guided``).  Raises
-    ``ValueError`` for an unknown ``resampling``, and for ``chunk`` > 1
-    without a chunk kernel on those terms."""
+    guided model, its guided kernels (``fused_hooks_guided``).  All but
+    ``step`` are ``keyed`` where every hook they call takes a device key
+    (:func:`_takes_device_key`): the start (the fused one, or the prior's
+    hooks, :func:`_prior_hooks`) and the kernel of the loop body; a chunk
+    hook without absolute time, called with :func:`chunk_seed`, does not.
+    Raises ``ValueError`` for an unknown ``resampling``, and for ``chunk``
+    > 1 without a chunk kernel on those terms."""
     resampler = get_resampler(resampling)
     n, threshold = n_particles, ess_threshold * n_particles
     fast = ((model.proposal_sample is None or model.fused_hooks_guided)
@@ -518,6 +549,10 @@ def _sweep_path(model: StateSpaceModel, n_particles: int, ess_threshold: float,
     by_value = (fast and model.state_categories is None
                 and (model.scalar_state or model.vector_state_dim is not None))
     draw = _prior_draw(model, n)
+
+    def keyed(start_hook, *body_hooks):  # start_hook None: the prior's start
+        start_hooks = _prior_hooks(model) if start_hook is None else (start_hook,)
+        return _takes_device_key(*start_hooks, *body_hooks)
 
     def prior_then(stats):             # the start from the draw, then its statistics
         def start(seed, gen, y0):
@@ -554,29 +589,75 @@ def _sweep_path(model: StateSpaceModel, n_particles: int, ess_threshold: float,
                      else lambda seed, gen, y0: model.fused_init_batch(seed, n, y0))
             return _Path("chunk_exchange", start, chunks,
                          make_smc_step_exchange_fused_chunked(model, n, ess_threshold),
-                         _close(lambda carry: carry[6]))
+                         _close(lambda carry: carry[6]),
+                         keyed(model.fused_init_batch, chunk_hook(model, exchange=True)))
         if by_value and (model.fused_chunk_batch is not None
                          or model.fused_chunk_t_batch is not None):
             return _Path("chunk_value", init_ctrl(0, 1, 2) if ctrl_start else with_ess,
                          chunks, make_smc_step_chunked(model, n, ess_threshold),
-                         _close(lme(True)))
+                         _close(lme(True)),
+                         keyed(model.fused_init_ctrl_batch,
+                               chunk_hook(model, exchange=False)))
         raise ValueError(
             "chunk > 1 needs a fused_chunk_* kernel on the model and "
             "store_history=False with systematic resampling")
     if exchange and model.fused_step_exchange_batch is not None:
         return _Path("step_exchange", with_exchange, steps,
                      make_smc_step_exchange_fused(model, n, ess_threshold),
-                     _close(lme(False)))
+                     _close(lme(False)),
+                     keyed(None, model.fused_step_exchange_batch))
     if chunk == 1 and by_value and model.fused_step_ctrl_batch is not None:
         with_flag = prior_then(lambda states, log_w: (
             (_ess(log_w) < threshold).to(torch.int32),))
         return _Path("step_ctrl", init_ctrl(0, 1, 3) if ctrl_start else with_flag,
                      steps, make_smc_step_ctrl_fused(model, n, ess_threshold),
-                     _close(lme(True), lambda flags: flags != 0))
+                     _close(lme(True), lambda flags: flags != 0),
+                     keyed(model.fused_init_ctrl_batch, model.fused_step_ctrl_batch))
     return _Path("step", with_ess, steps,
                  make_smc_step(model, n, ess_threshold, resampler, store_history,
                                exchange=exchange, sorted_fill=by_value),
                  _close(lme(by_value), history=store_history))
+
+
+# queries of a ``keyed`` path on a card (:func:`build_smc_run`): "capture"
+# the graphs captured, "replay" the queries a graph ran (the capturing one
+# included), "eager" those that ran without one
+SWEEP_GRAPH = counter_group("sweep_graph", ("capture", "replay", "eager"))
+
+
+class _SweepGraph:
+    """One query of a sweep captured as a CUDA graph, with the static
+    buffers it reads (the observations, the device key), the outputs it
+    writes, the per-stream scratch its kernels captured (its own, shared
+    with no eager run and no other graph) and the counts its capture
+    added, which each replay adds again; ``shape`` is what it was captured
+    for, the observations' (shape, dtype, device)."""
+
+    def __init__(self, sweep: Callable, gen: torch.Generator,
+                 observations: torch.Tensor, shape: tuple):
+        dev = observations.device
+        self.shape = shape
+        self.obs = torch.empty_like(observations)
+        self.key = torch.zeros(2, dtype=torch.int32, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(gen)
+        with recorded_counts() as self.counts, owned_scratch() as self.scratch:
+            with torch.cuda.graph(self.graph):
+                self.out = sweep(self.key, gen, self.obs)
+        SWEEP_GRAPH["capture"] += 1
+
+    def __call__(self, seed: int, gen: torch.Generator,
+                 observations: torch.Tensor) -> SMCResult:
+        with span("launch.sweep_graph"):
+            self.obs.copy_(observations)
+            write_key(self.key, seed)
+            gen.manual_seed(seed)    # the replay reads its seed and offset 0
+            self.graph.replay()
+        SWEEP_GRAPH["replay"] += 1
+        add_counts(self.counts)
+        out = self.out
+        return out._replace(resampled=out.resampled.clone(),
+                            log_evidence=out.log_evidence.clone())
 
 
 def build_smc_run(
@@ -609,25 +690,75 @@ def build_smc_run(
     population with its ESS and first flag; on the streaming path the
     evidence closes with :func:`final_log_mean_exp`.
 
+    ``run`` draws from one generator a device, seeded with ``key`` at each
+    call, so a call draws what a fresh generator would.
+
+    A captured query.  On a CUDA device, where the path is ``keyed`` (one of
+    the four fast paths, every hook it calls declaring that it takes the
+    seed as a device key or draws from the sweep's generator,
+    :func:`_sweep_path`), a query is captured as a CUDA graph.  A ``run``
+    holds one graph, for one length, dtype and device of the observations.
+    A call of another shape runs eagerly; the second of two calls in a row
+    of one shape captures the query, replacing the graph held before, and
+    replays it; every later call of that shape writes the observations and
+    the key into the graph's buffers, seeds the generator and replays.  So
+    the first call of a shape, which builds and loads the kernels, never
+    captures, and a run whose length changes at every call never captures.
+    No call captures while ``torch.cuda.set_sync_debug_mode`` checks syncs
+    (the capture syncs the device) or while the stream is being captured:
+    those run eagerly.  A replay draws what the eager query draws, bit for
+    bit.  Of its result, ``log_evidence`` and ``resampled`` are fresh
+    tensors, while ``final_states`` and ``final_log_weights`` are the
+    graph's own buffers, valid until the next call of the same ``run``:
+    read or copy them before it.  The graph's private memory pool holds
+    every buffer of the captured query, about as much memory as the eager
+    query's peak, for as long as the run holds the graph.
+    ``SWEEP_GRAPH`` counts the captures, the replayed queries and the eager
+    ones of a keyed path on a card; each replay adds to the launch counters
+    what its query launched.
+
     While a profiler records, a call lies in the span ``smc.run``, its
     start in ``smc.init`` and each loop body in ``smc.chunk`` or
-    ``smc.step`` (:func:`~cpprob_tpu_torch.util.profiling.span`)."""
+    ``smc.step`` (:func:`~cpprob_tpu_torch.util.profiling.span`); a
+    replayed call shows ``smc.run`` and ``launch.sweep_graph`` alone, the
+    spans of the captured code having run once, at its capture."""
     path = _sweep_path(model, n_particles, ess_threshold, resampling,
                        store_history, chunk)
+    gens: dict = {}
+    graph: Optional[_SweepGraph] = None   # the run's one graph
+    last = None                           # the shape of the call before
+
+    def sweep(seed, gen: torch.Generator, observations: torch.Tensor) -> SMCResult:
+        with span("smc.init"):
+            states0, log_w0, *stats = path.start(seed, gen, observations[0])
+        log_z = torch.zeros((), dtype=torch.float64, device=observations.device)
+        carry = ((seed, gen), states0, log_w0, log_z, *stats)
+        outs = []
+        for xs in path.inputs(observations):
+            carry, ys = path.body(carry, xs)
+            outs.append(ys)
+        return path.close(carry, outs, states0, log_w0)
 
     def run(key: int, observations: torch.Tensor) -> SMCResult:
+        nonlocal graph, last
         with span("smc.run"):
             seed = int(key)
-            gen = torch.Generator(device=observations.device).manual_seed(seed)
-            with span("smc.init"):
-                states0, log_w0, *stats = path.start(seed, gen, observations[0])
-            log_z = torch.zeros((), dtype=torch.float64, device=observations.device)
-            carry = ((seed, gen), states0, log_w0, log_z, *stats)
-            outs = []
-            for xs in path.inputs(observations):
-                carry, ys = path.body(carry, xs)
-                outs.append(ys)
-            return path.close(carry, outs, states0, log_w0)
+            dev = observations.device
+            if dev not in gens:
+                gens[dev] = torch.Generator(device=dev)
+            gen = gens[dev].manual_seed(seed)
+            if not (path.keyed and dev.type == "cuda"):
+                return sweep(seed, gen, observations)
+            shape = (observations.shape, observations.dtype, dev)
+            before, last = last, shape
+            if graph is None or graph.shape != shape:
+                if (shape != before or torch.cuda.get_sync_debug_mode()
+                        or torch.cuda.is_current_stream_capturing()):
+                    SWEEP_GRAPH["eager"] += 1
+                    return sweep(seed, gen, observations)
+                graph = None          # its pool freed before the next capture
+                graph = _SweepGraph(sweep, gen, observations, shape)
+            return graph(seed, gen, observations)
 
     return run
 

@@ -26,6 +26,7 @@ from ..core.scanner import scan_sites
 from ..distributions import Categorical, Normal, UniformInt
 from ..distributions.base import to_device
 from ..inference.smc import StateSpaceModel
+from ..ops.population import takes_device_key
 
 __all__ = [
     "HMM_MEANS", "HMM_TRANS", "hmm", "hmm_scan", "hmm_ssm", "hmm_exact_posterior",
@@ -124,6 +125,10 @@ def _hmm_obs_logpdf(state, y, t):
     return _hmm_obs_batch(state, y, t)
 
 
+# the start from the prior draws from the sweep's generator alone, so a
+# card may capture it (inference.smc.build_smc_run); the tables are made at
+# the first, eager, call
+@takes_device_key
 def _hmm_init_batch(key, n):
     return torch.randint(0, 3, (n,), generator=key, device=key.device,
                          dtype=torch.int32)
@@ -136,6 +141,7 @@ def _hmm_step_batch(key, states, t):
     return (u[..., None] >= cdf[states.long()]).sum(-1).to(states.dtype)
 
 
+@takes_device_key
 def _hmm_obs_batch(states, y, t):
     d = y - _tables(states.device)[0][states.long()]
     return -0.5 * d * d - _HALF_LOG_2PI   # N(mean, 1) logpdf

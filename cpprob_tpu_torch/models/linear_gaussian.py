@@ -20,6 +20,7 @@ import torch
 from ..core import as_tensor, observe, predict, sample
 from ..distributions import Normal
 from ..inference.smc import StateSpaceModel
+from ..ops.population import takes_device_key
 
 __all__ = ["linear_gaussian_1d", "linear_gaussian_ssm", "kalman_filter_1d",
            "obs_logpdf_elem", "simulate_observations", "trans_logpdf_elem"]
@@ -68,9 +69,11 @@ linear_gaussian_ssm = StateSpaceModel(
     step_sample=lambda key, s, t: s + _randn(key, s.shape),
     step_logpdf=lambda ns, s, t: _normal_logpdf(ns, s),
     obs_logpdf=lambda s, y, t: _normal_logpdf(y, s),
-    init_sample_batch=lambda key, n: _randn(key, (n,)),
+    # the start from the prior draws from the sweep's generator alone, so a
+    # card may capture it (inference.smc.build_smc_run)
+    init_sample_batch=takes_device_key(lambda key, n: _randn(key, (n,))),
     step_sample_batch=lambda key, s, t: s + _randn(key, s.shape),
-    obs_logpdf_batch=lambda s, y, t: _normal_logpdf(y, s),
+    obs_logpdf_batch=takes_device_key(lambda s, y, t: _normal_logpdf(y, s)),
     obs_sample=lambda key, s, t: s + _randn(key, s.shape),
     # scalar continuous state: the streaming (or sorted-fill) value
     # resampler, no per-particle gather, when no history is stored

@@ -42,6 +42,10 @@
 // makes the call for its own first group, and a group cut by an island
 // check makes it again after the check: the draws do not depend on how a
 // sweep is chunked, and a chunk equals its steps launched one at a time.
+// Each init and chunk kernel reads the key from two device words
+// (philox.cuh LaunchKey: what a replayed CUDA graph of a sweep reads), once
+// into two registers, or, where those would spill, from shared memory at
+// each tile.
 //
 // What bounds them on an H100: the chunk kernel reads and writes 16 B per
 // particle per chunk (state + weight, in and out) and spends, per
@@ -262,7 +266,7 @@ __device__ __forceinline__ void init_record(const int* hist, const float* emis,
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 hmm_init_kernel(const float* __restrict__ tab, const float* __restrict__ y0,
-                uint32_t k0, uint32_t k1, int* __restrict__ s_out,
+                const uint32_t* __restrict__ key_dev, int* __restrict__ s_out,
                 float* __restrict__ w_out, float* __restrict__ rec,
                 long long n) {
   static_assert(K >= 2, "K >= 2");
@@ -278,7 +282,7 @@ hmm_init_kernel(const float* __restrict__ tab, const float* __restrict__ y0,
   int c[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) c[k] = 0;
-  const uint2 key = make_uint2(k0, k1);
+  const uint2 key = load_key(key_dev);
   const long long nq = (n + 3) >> 2;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long q = (long long)blockIdx.x * kThreads + threadIdx.x; q < nq;
@@ -328,11 +332,11 @@ hmm_init_kernel(const float* __restrict__ tab, const float* __restrict__ y0,
 template <int K>
 __global__ void __launch_bounds__(kThreads, min_blocks(K <= 3))
 hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
-                 int n_steps, const int* __restrict__ ctrl, uint32_t k0,
-                 uint32_t k1, uint32_t t0, int island_every, float thresh,
-                 const int* __restrict__ s_in, const float* __restrict__ w_in,
-                 int* __restrict__ s_out, float* __restrict__ w_out,
-                 float* __restrict__ rec) {
+                 int n_steps, const int* __restrict__ ctrl,
+                 const uint32_t* __restrict__ key_dev, uint32_t t0,
+                 int island_every, float thresh, const int* __restrict__ s_in,
+                 const float* __restrict__ w_in, int* __restrict__ s_out,
+                 float* __restrict__ w_out, float* __restrict__ rec) {
   static_assert(K >= 2, "K >= 2");
   __shared__ float cdf[K * (K - 1)];
   __shared__ float erow[2][kTile * K];
@@ -346,7 +350,12 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
 #pragma unroll
   for (int k = 0; k < K - 1; ++k) tick[k] = ctrl[1 + k];
   const int n_valid = ctrl[K];
-  const uint2 key = make_uint2(k0, k1);
+  // the key: read once into two registers (+1.1 % at K = 3, +1.5 % at
+  // K = 5 against a key by value; read at each tile, +4.4 and +5 %), but
+  // at K = 4 and 8, where ptxas spills 12 B to hold them across an island
+  // check, from shared memory at each tile
+  __shared__ uint2 key_s;
+  const LaunchKey<K == 4 || K == 8> key(&key_s, key_dev);
   const uint32_t base = blockIdx.x * (uint32_t)kIsland;
 
   // chunk start: the flagged exchange resample rebuilds the sorted
@@ -380,6 +389,7 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
     emission_rows(tab, K, ys + t, len, erow[buf]);
     __syncthreads();   // the tile's rows (and, at the first, the CDF)
     const uint32_t ta = t0 + (uint32_t)t;
+    const uint2 kt = key();
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       int si = s[i];
@@ -392,7 +402,7 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
         si = ns;
         wi = __fadd_rn(wi, e[j * K + ns]);
       };
-      tile_steps(base + i * kThreads + threadIdx.x, ta, len, key, step);
+      tile_steps(base + i * kThreads + threadIdx.x, ta, len, kt, step);
       s[i] = si;
       w[i] = wi;
     }
@@ -422,7 +432,7 @@ hmm_chunk_kernel(const float* __restrict__ tab, const float* __restrict__ ys,
       __syncthreads();
       if (collapse_s) {
         const float u0 = philox_u01(philox4x32_10(
-            make_uint4(blockIdx.x, t0 + (uint32_t)(t - 1), 1u, 0u), key).x);
+            make_uint4(blockIdx.x, t0 + (uint32_t)(t - 1), 1u, 0u), key()).x);
         int tk[K - 1];
         float cum = 0.f;
 #pragma unroll
@@ -542,7 +552,8 @@ __device__ __forceinline__ void block_cat_sums(const int (&s)[kPerThread],
 // counted in a shared histogram (integer atomics: exact and order-free).
 __global__ void __launch_bounds__(kThreads)
 hmm_init_kernel_k(int K, const float* __restrict__ tab,
-                  const float* __restrict__ y0, uint32_t k0, uint32_t k1,
+                  const float* __restrict__ y0,
+                  const uint32_t* __restrict__ key_dev,
                   int* __restrict__ s_out, float* __restrict__ w_out,
                   float* __restrict__ rec, long long n) {
   __shared__ float icdf[kMaxK];
@@ -558,7 +569,7 @@ hmm_init_kernel_k(int K, const float* __restrict__ tab,
     if (tid < km1) icdf[tid] = t[3 * K + tid];
   }
   __syncthreads();
-  const uint2 key = make_uint2(k0, k1);
+  const uint2 key = load_key(key_dev);
   const long long nq = (n + 3) >> 2;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long q = (long long)blockIdx.x * kThreads + tid; q < nq;
@@ -587,8 +598,9 @@ hmm_init_kernel_k(int K, const float* __restrict__ tab,
 __global__ void __launch_bounds__(kThreads, min_blocks(true))
 hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
                    const float* __restrict__ ys, int n_steps,
-                   const int* __restrict__ ctrl, uint32_t k0, uint32_t k1,
-                   uint32_t t0, int island_every, float thresh,
+                   const int* __restrict__ ctrl,
+                   const uint32_t* __restrict__ key_dev, uint32_t t0,
+                   int island_every, float thresh,
                    const int* __restrict__ s_in, const float* __restrict__ w_in,
                    int* __restrict__ s_out, float* __restrict__ w_out,
                    float* __restrict__ rec) {
@@ -612,7 +624,7 @@ hmm_chunk_kernel_k(int K, const float* __restrict__ tab,
   if (tid < km1) tick[tid] = ctrl[1 + tid];
   const int flag = ctrl[0];
   const int n_valid = ctrl[K];
-  const uint2 key = make_uint2(k0, k1);
+  const uint2 key = load_key(key_dev);
   const uint32_t base = blockIdx.x * (uint32_t)kIsland;
   __syncthreads();   // tables, ticks
 
@@ -1145,29 +1157,30 @@ int guided_chunk_launch(int K, const float* tabs, int n_steps, const int* ctrl,
 
 #define HMM_SMALL_K(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
 
-// Returns cudaGetLastError() after the launch (0 = launched).
-int hmm_init_launch(int K, const float* tab, const float* y0, uint32_t k0,
-                    uint32_t k1, int* s_out, float* w_out, float* rec,
+// Returns cudaGetLastError() after the launch (0 = launched).  key: the
+// Philox key's two words on the device (philox.cuh LaunchKey).
+int hmm_init_launch(int K, const float* tab, const float* y0,
+                    const uint32_t* key, int* s_out, float* w_out, float* rec,
                     long long n, int grid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (K) {
-#define HMM_INIT_CASE(KK)                                                  \
-  case KK:                                                                 \
-    hmm_init_kernel<KK><<<grid, kThreads, 0, st>>>(tab, y0, k0, k1, s_out, \
-                                                   w_out, rec, n);         \
+#define HMM_INIT_CASE(KK)                                                   \
+  case KK:                                                                  \
+    hmm_init_kernel<KK><<<grid, kThreads, 0, st>>>(tab, y0, key, s_out,     \
+                                                   w_out, rec, n);          \
     break;
     HMM_SMALL_K(HMM_INIT_CASE)
 #undef HMM_INIT_CASE
     default:
       if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
-      hmm_init_kernel_k<<<grid, kThreads, 0, st>>>(K, tab, y0, k0, k1, s_out,
+      hmm_init_kernel_k<<<grid, kThreads, 0, st>>>(K, tab, y0, key, s_out,
                                                    w_out, rec, n);
   }
   return (int)cudaGetLastError();
 }
 
 int hmm_chunk_launch(int K, const float* tab, const float* ys, int n_steps,
-                     const int* ctrl, uint32_t k0, uint32_t k1, uint32_t t0,
+                     const int* ctrl, const uint32_t* key, uint32_t t0,
                      int island_every, float thresh, const int* s_in,
                      const float* w_in, int* s_out, float* w_out, float* rec,
                      long long n, void* stream) {
@@ -1178,15 +1191,15 @@ int hmm_chunk_launch(int K, const float* tab, const float* ys, int n_steps,
 #define HMM_CHUNK_CASE(KK)                                                 \
   case KK:                                                                 \
     hmm_chunk_kernel<KK><<<grid, kThreads, 0, st>>>(                       \
-        tab, ys, n_steps, ctrl, k0, k1, t0, island_every, thresh, s_in,    \
-        w_in, s_out, w_out, rec);                                          \
+        tab, ys, n_steps, ctrl, key, t0, island_every, thresh, s_in, w_in, \
+        s_out, w_out, rec);                                                \
     break;
     HMM_SMALL_K(HMM_CHUNK_CASE)
 #undef HMM_CHUNK_CASE
     default:
       if (K < 1 || K > kMaxK) return (int)cudaErrorInvalidValue;
       hmm_chunk_kernel_k<<<grid, kThreads, 0, st>>>(
-          K, tab, ys, n_steps, ctrl, k0, k1, t0, island_every, thresh, s_in,
+          K, tab, ys, n_steps, ctrl, key, t0, island_every, thresh, s_in,
           w_in, s_out, w_out, rec);
   }
   return (int)cudaGetLastError();

@@ -47,6 +47,9 @@
 // the last CTA are the step control's: the launch leaves the population,
 // its ESS and the first step's flag on the device.  Bound on an H100: one
 // Philox call and one log, sqrt and sincos a particle, and 8 B written.
+//
+// Both kernels read the key from two device words (philox.cuh LaunchKey),
+// what a replayed CUDA graph of a sweep reads.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -141,7 +144,7 @@ __device__ __forceinline__ void last_cta_combine(const float* rec,
 template <bool kStepCtrl>
 __global__ void __launch_bounds__(kThreads)
 lg_chunk_kernel(const float* __restrict__ ys, int n_steps,
-                const int* __restrict__ ctrl, uint32_t k0, uint32_t k1,
+                const int* __restrict__ ctrl, const uint32_t* __restrict__ key_dev,
                 uint32_t t0, const float* __restrict__ x_in,
                 const float* __restrict__ w_in, float* __restrict__ x_out,
                 float* __restrict__ w_out, float* __restrict__ rec,
@@ -149,7 +152,7 @@ lg_chunk_kernel(const float* __restrict__ ys, int n_steps,
   __shared__ float red[kThreads / 32 * 2];
   __shared__ float bcast[2];
   const int n_valid = ctrl ? min(*ctrl, n_steps) : n_steps;
-  const uint2 key = make_uint2(k0, k1);
+  const uint2 key = load_key(key_dev);
   const long long base = (long long)blockIdx.x * kBlock;
   bool reset = false;
   if constexpr (kStepCtrl) reset = *sc.flag != 0;
@@ -205,15 +208,16 @@ lg_chunk_kernel(const float* __restrict__ ys, int n_steps,
 
 // The sweep's start (the head of this file); sc.flag is not read.
 __global__ void __launch_bounds__(kThreads)
-lg_init_kernel(const float* __restrict__ y0, uint32_t k0, uint32_t k1,
-               float* __restrict__ x_out, float* __restrict__ w_out,
-               float* __restrict__ rec, long long n, StepCtrl sc) {
+lg_init_kernel(const float* __restrict__ y0,
+               const uint32_t* __restrict__ key_dev, float* __restrict__ x_out,
+               float* __restrict__ w_out, float* __restrict__ rec, long long n,
+               StepCtrl sc) {
   __shared__ float red[kThreads / 32 * 2];
   __shared__ float bcast[2];
   __shared__ double redd[kThreads / 32 * 2];
   __shared__ double bcastd[2];
   __shared__ int last_s;
-  const uint2 key = make_uint2(k0, k1);
+  const uint2 key = load_key(key_dev);
   const long long base = (long long)blockIdx.x * kBlock;
   const float y = __ldg(y0);
 
@@ -244,11 +248,12 @@ extern "C" {
 
 int lg_block() { return kBlock; }
 
-// Returns cudaGetLastError() after the launch (0 = launched).  flag null:
+// Returns cudaGetLastError() after the launch (0 = launched).  key: the
+// Philox key's two words on the device (philox.cuh LaunchKey).  flag null:
 // no step control (ticket, ess, next and thresh unused); else the step's
 // resample control (StepCtrl), ticket the caller's per-stream scratch.
-int lg_chunk_launch(const float* ys, int n_steps, const int* ctrl, uint32_t k0,
-                    uint32_t k1, uint32_t t0, const float* x_in,
+int lg_chunk_launch(const float* ys, int n_steps, const int* ctrl,
+                    const uint32_t* key, uint32_t t0, const float* x_in,
                     const float* w_in, float* x_out, float* w_out, float* rec,
                     long long n, void* stream, const int* flag, int* ticket,
                     double* ess, int* next, double thresh) {
@@ -256,22 +261,23 @@ int lg_chunk_launch(const float* ys, int n_steps, const int* ctrl, uint32_t k0,
   const StepCtrl sc = {flag, ticket, ess, next, thresh};
   if (flag)
     lg_chunk_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        ys, n_steps, ctrl, k0, k1, t0, x_in, w_in, x_out, w_out, rec, n, sc);
+        ys, n_steps, ctrl, key, t0, x_in, w_in, x_out, w_out, rec, n, sc);
   else
     lg_chunk_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        ys, n_steps, ctrl, k0, k1, t0, x_in, w_in, x_out, w_out, rec, n, sc);
+        ys, n_steps, ctrl, key, t0, x_in, w_in, x_out, w_out, rec, n, sc);
   return (int)cudaGetLastError();
 }
 
 // The sweep's start: x_out, w_out, the records, the ESS and the first
-// flag (ess < thresh), ticket the caller's per-stream scratch.
-int lg_init_launch(const float* y0, uint32_t k0, uint32_t k1, float* x_out,
+// flag (ess < thresh), ticket the caller's per-stream scratch; key as
+// lg_chunk_launch's.
+int lg_init_launch(const float* y0, const uint32_t* key, float* x_out,
                    float* w_out, float* rec, long long n, void* stream,
                    int* ticket, double* ess, int* next, double thresh) {
   const int grid = (int)((n + kBlock - 1) / kBlock);
   const StepCtrl sc = {nullptr, ticket, ess, next, thresh};
   lg_init_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      y0, k0, k1, x_out, w_out, rec, n, sc);
+      y0, key, x_out, w_out, rec, n, sc);
   return (int)cudaGetLastError();
 }
 

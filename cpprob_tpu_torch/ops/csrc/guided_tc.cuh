@@ -20,7 +20,8 @@
 // K7 and K12), the net's (mean, raw), the move nx = mean + std
 // eps with std = softplus(raw) + 1e-6, and the weight log_w +=
 // trans(x, nx, t) + obs(nx, y, t) - log q(nx).  Records: one (max, sum e,
-// sum e^2) per CTA.
+// sum e^2) per CTA.  The key: two device words (philox.cuh LaunchKey, what
+// a replayed CUDA graph of a sweep reads).
 //
 // Layout.  A warp takes 32 particles a group as two m16 row tiles; lane
 // (g = lane / 4, t = lane % 4) holds rows g and g + 8 of each tile in its
@@ -378,11 +379,12 @@ __device__ __forceinline__ void forward_wide(const float (&xq)[kGroups][2][2],
 // T: the model's horizon (the net's time feature is t / T).
 __global__ void __launch_bounds__(kThreads)
 guided_tc_kernel(const float* __restrict__ ys, int n_steps,
-                 const int* __restrict__ nv, uint32_t k0, uint32_t k1,
-                 uint32_t t0, float T, const float* __restrict__ wts,
-                 const float* __restrict__ x_in, const float* __restrict__ w_in,
-                 float* __restrict__ x_out, float* __restrict__ w_out,
-                 float* __restrict__ rec, long long n) {
+                 const int* __restrict__ nv,
+                 const uint32_t* __restrict__ key_dev, uint32_t t0, float T,
+                 const float* __restrict__ wts, const float* __restrict__ x_in,
+                 const float* __restrict__ w_in, float* __restrict__ x_out,
+                 float* __restrict__ w_out, float* __restrict__ rec,
+                 long long n) {
   constexpr int KB1 = kWidths[1] / 8;
   __shared__ float red[kThreads / 32 * 2];
   __shared__ float bcast[2];
@@ -393,7 +395,10 @@ guided_tc_kernel(const float* __restrict__ ys, int n_steps,
                          (long long)warp * 32 * kGroups + 16 * (t >> 1) +
                          (lane >> 2) + 8 * (t & 1);
   const int n_valid = min(*nv, n_steps);
-  const uint2 key = make_uint2(k0, k1);
+  // the Philox key, read at each draw: at 255 registers the wide layout
+  // has none to hold it across the net (held, it spills 16 B)
+  __shared__ uint2 key_s;
+  const LaunchKey<true> key(&key_s, key_dev);
 
   float x[kGroups], w[kGroups], sn[kGroups];
 #pragma unroll
@@ -462,7 +467,7 @@ guided_tc_kernel(const float* __restrict__ ys, int n_steps,
     for (int p = 0; p < kGroups; ++p) {
       float eps;
       if (even || s == 0) {
-        const float2 pr = philox_normal_pair((uint32_t)(base + 32 * p), ta >> 1, 0u, key);
+        const float2 pr = philox_normal_pair((uint32_t)(base + 32 * p), ta >> 1, 0u, key());
         sn[p] = pr.y;
         eps = even ? pr.x : pr.y;
       } else {
@@ -518,15 +523,17 @@ extern "C" {
 int guided_tc_block() { return guided_tc::kBlock; }
 int guided_tc_weights() { return guided_tc::offset(guided_tc_model::kLayers); }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
-int guided_tc_launch(const float* ys, int n_steps, const int* nv, uint32_t k0,
-                     uint32_t k1, uint32_t t0, float T, const float* wts,
-                     const float* x_in, const float* w_in, float* x_out,
-                     float* w_out, float* rec, long long n, void* stream) {
+// Returns cudaGetLastError() after the launch (0 = launched).  key: the
+// Philox key's two words on the device (philox.cuh LaunchKey).
+int guided_tc_launch(const float* ys, int n_steps, const int* nv,
+                     const uint32_t* key, uint32_t t0, float T,
+                     const float* wts, const float* x_in, const float* w_in,
+                     float* x_out, float* w_out, float* rec, long long n,
+                     void* stream) {
   const int grid = (int)((n + guided_tc::kBlock - 1) / guided_tc::kBlock);
   guided_tc::guided_tc_kernel<<<grid, guided_tc::kThreads, 0,
                                 (cudaStream_t)stream>>>(
-      ys, n_steps, nv, k0, k1, t0, T, wts, x_in, w_in, x_out, w_out, rec, n);
+      ys, n_steps, nv, key, t0, T, wts, x_in, w_in, x_out, w_out, rec, n);
   return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,40 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
+// A launch's Philox key: two words on the device, which the caller writes
+// before the launch (ops/philox.py launch_key), so that a replayed CUDA
+// graph of the launch draws from the key of its query.  load_key reads
+// them once, into two registers.
+__device__ __forceinline__ uint2 load_key(const uint32_t* key) {
+  return make_uint2(__ldg(key), __ldg(key + 1));
+}
+
+// The key as a kernel holds it between its draws: LaunchKey<false> in two
+// registers (load_key); LaunchKey<true>, for a kernel with no two
+// registers to spare, in shared memory (key_s), copied there by the CTA's
+// first thread before a barrier that every thread reaches and read at each
+// use (a volatile read, which the compiler may not hoist).
+template <bool kShared>
+struct LaunchKey {
+  uint2 k;
+  __device__ __forceinline__ LaunchKey(uint2*, const uint32_t* key)
+      : k(load_key(key)) {}
+  __device__ __forceinline__ uint2 operator()() const { return k; }
+};
+
+template <>
+struct LaunchKey<true> {
+  const volatile uint2* s;
+  __device__ __forceinline__ LaunchKey(uint2* key_s, const uint32_t* key)
+      : s(key_s) {
+    if (threadIdx.x == 0) *key_s = load_key(key);
+    __syncthreads();
+  }
+  __device__ __forceinline__ uint2 operator()() const {
+    return make_uint2(s->x, s->y);
+  }
+};
+
 // Top 24 bits of a word -> float in [0, 1), exactly.
 __device__ __forceinline__ float philox_u01(uint32_t x) {
   return (float)(x >> 8) * (1.0f / 16777216.0f);

@@ -39,6 +39,15 @@ per state, interior resamples), e = exp(w - max w);
 :func:`~.population.stats_from_partials` (imported here too) combines
 them into (ess, cat_w, lme), and takes the linear-Gaussian kernel's
 3-column records too (one combiner).
+
+``seed``, in every plain version and in :func:`hmm_init` and
+:func:`hmm_chunk`, is an integer or a device key (:func:`.philox.device_key`,
+two int32 words on the population's device).  The kernels read the key's
+words on the card (``csrc/philox.cuh`` ``LaunchKey``; an integer is written
+there first, :func:`.philox.launch_key`), so that a captured CUDA graph of
+a launch given a device key draws from the key written before each replay;
+a plain version reads them on the host.  K13 (:func:`guided_chunk`) takes
+an integer, by value.
 """
 
 from __future__ import annotations
@@ -51,9 +60,10 @@ import numpy as np
 import torch
 
 from ..util.profiling import counter_group, span
-from .philox import philox_uniform, philox_uniforms4, split_seed
+from .philox import launch_key, philox_uniform, philox_uniforms4, split_seed
 from .population import (check_tensor, current_stream, launch_population,
-                         mlp_layers, raise_on, stats_from_partials)
+                         mlp_layers, raise_on, stats_from_partials,
+                         takes_device_key)
 
 __all__ = [
     "HMMSpec", "ISLAND_SIZE", "LAUNCHES", "hmm_init", "hmm_init_plain",
@@ -398,10 +408,10 @@ def _lib():
         lib.hmm_max_k.argtypes = []
         lib.hmm_max_k.restype = i
         lib.hmm_init_launch.argtypes = [
-            i, p, p, u32, u32, p, p, p, ctypes.c_longlong, i, p]
+            i, p, p, p, p, p, p, ctypes.c_longlong, i, p]
         lib.hmm_init_launch.restype = i
         lib.hmm_chunk_launch.argtypes = [
-            i, p, p, i, p, u32, u32, u32, i, f, p, p, p, p, p,
+            i, p, p, i, p, p, u32, i, f, p, p, p, p, p,
             ctypes.c_longlong, p]
         lib.hmm_chunk_launch.restype = i
         lib.guided_max_layers.argtypes = []
@@ -459,12 +469,12 @@ def hmm_init(seed: int, y0: torch.Tensor, n: int, spec: HMMSpec):
         raise ValueError(f"n must be in (0, 2^32), got {n}")
     tab = spec.tables(dev)["packed"]
     grid = _init_grid(dev, n)
-    k0, k1 = split_seed(seed)
 
     def launch(states, log_w, rec):
         return _lib().hmm_init_launch(
-            spec.K, tab.data_ptr(), y0.data_ptr(), k0, k1, states.data_ptr(),
-            log_w.data_ptr(), rec.data_ptr(), n, grid, current_stream(dev))
+            spec.K, tab.data_ptr(), y0.data_ptr(), launch_key(seed, dev),
+            states.data_ptr(), log_w.data_ptr(), rec.data_ptr(), n, grid,
+            current_stream(dev))
 
     return launch_population(
         "hmm_init_kernel", launch, span_name="launch.hmm_init_kernel", device=dev,
@@ -501,14 +511,12 @@ def hmm_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
     if n >= 2 ** 31 or t0 < 0 or t0 + ys.shape[0] >= 2 ** 32:
         raise ValueError("n must be < 2^31 and t0 + n_steps < 2^32")
     tab = spec.tables(dev)["packed"]
-    k0, k1 = split_seed(seed)
-
     def launch(out_s, out_w, rec):
         return _lib().hmm_chunk_launch(
             K, tab.data_ptr(), ys.data_ptr(), ys.shape[0], ctrl.data_ptr(),
-            k0, k1, t0, island_every, island_thresh, states.data_ptr(),
-            log_w.data_ptr(), out_s.data_ptr(), out_w.data_ptr(),
-            rec.data_ptr(), n, current_stream(dev))
+            launch_key(seed, dev), t0, island_every, island_thresh,
+            states.data_ptr(), log_w.data_ptr(), out_s.data_ptr(),
+            out_w.data_ptr(), rec.data_ptr(), n, current_stream(dev))
 
     return launch_population(
         "hmm_chunk_kernel", launch, span_name="launch.hmm_chunk_kernel", device=dev,
@@ -622,7 +630,10 @@ def fused_hmm_hooks(spec: HMMSpec, island_every: int = 0,
                     island_counts: list | None = None) -> dict:
     """The fused hooks of a model whose tables are ``spec``, all launches
     of :func:`hmm_init` and :func:`hmm_chunk`; ``key`` in each hook is the
-    sweep's integer seed.
+    sweep's integer seed or its device key (``ops.philox.device_key``):
+    but for ``fused_step_batch`` the hooks are marked
+    ``takes_device_key``, unless ``island_counts`` is given (each launch
+    appends to it on the host, which a replay would not).
 
     - ``fused_init_batch`` (K1/K9) and the time-aware chunk hook
       ``fused_chunk_exchange_t_batch`` (K2/K3/K8): the Philox counters run
@@ -647,17 +658,18 @@ def fused_hmm_hooks(spec: HMMSpec, island_every: int = 0,
     def chunk(key, states, log_w, ys, ctrl, **kw):
         return hmm_chunk(key, states, log_w, ys, ctrl, spec, **kw)
 
+    keyed = island_counts is None
     hooks, ctrl_tail = _exchange_hooks(
         spec.K, chunk, ("chunk", "step_exchange", "step_ess"), island_every,
-        island_thresh, island_counts)
+        island_thresh, island_counts, device_key=keyed)
 
     def fused_step(key, states, log_w, y, t):
         s, w, _ = chunk(key, states, log_w, y.reshape(1).to(torch.float32),
                         ctrl_tail(states.device)[0], t0=int(t), count_key="step")
         return s, w
 
-    return dict(fused_init_batch=fused_init, fused_step_batch=fused_step,
-                **hooks)
+    return dict(fused_init_batch=takes_device_key(fused_init) if keyed else fused_init,
+                fused_step_batch=fused_step, **hooks)
 
 
 def guided_hooks(spec: HMMSpec, log_trans, params, T: int,
@@ -681,11 +693,13 @@ def guided_hooks(spec: HMMSpec, log_trans, params, T: int,
 
 
 def _exchange_hooks(K: int, chunk, keys, island_every: int,
-                    island_thresh: float, island_counts) -> tuple:
+                    island_thresh: float, island_counts,
+                    device_key: bool = False) -> tuple:
     """``(hooks, ctrl_tail)``: the chunk hook (with the island checks) and
     the two one-step exchange hooks (without) around ``chunk(key, states,
     log_w, ys, ctrl, t0=, count_key=, island_every=, island_thresh=)``,
-    counted under ``keys`` (chunk, step with exchange, step with ESS), and
+    counted under ``keys`` (chunk, step with exchange, step with ESS), each
+    marked ``takes_device_key`` where ``device_key``, and
     ``ctrl_tail(device)``, the constant control words (made once per device,
     by device fills, so no step waits on the host)."""
     consts: dict = {}
@@ -722,11 +736,14 @@ def _exchange_hooks(K: int, chunk, keys, island_every: int,
                          keys[2])
         return s, w, stats_from_partials(rec, states.shape[0])[0]
 
-    return dict(
+    hooks = dict(
         fused_chunk_exchange_t_batch=fused_chunk,
         fused_step_exchange_batch=fused_step_exchange,
         fused_step_ess_batch=fused_step_ess,
-    ), ctrl_tail
+    )
+    if device_key:
+        hooks = {name: takes_device_key(hook) for name, hook in hooks.items()}
+    return hooks, ctrl_tail
 
 
 def make_fused_hmm_ssm(island_every: int = 0, island_thresh: float = 0.5,

@@ -25,6 +25,13 @@ wrapper has a plain PyTorch version (``lg_chunk_plain``, ``lg_step_plain``,
 ``lg_step_ctrl_plain``, ``lg_init_plain``) on the same stream, or on pinned
 ε (``draws=``) for parity tests; the wrappers take it for CPU tensors only
 and on CUDA tensors launch the kernel or raise.
+
+``seed``, in every wrapper and plain version, is an integer or a device key
+(:func:`.philox.device_key`, two int32 words on the population's device).
+The kernels read the key's words on the card (``csrc/philox.cuh``
+``LaunchKey``; an integer is written there first, :func:`.philox.launch_key`),
+so that a captured CUDA graph of a launch given a device key draws from the
+key written before each replay; a plain version reads them on the host.
 """
 
 from __future__ import annotations
@@ -36,9 +43,10 @@ import math
 import torch
 
 from ..util.profiling import counter_group
-from .philox import philox4x32, split_seed, uniform_from_bits
+from .philox import launch_key, philox4x32, split_seed, uniform_from_bits
 from .population import (_ess_chunk_hook, check_tensor, current_stream,
-                         launch_population, stats_from_partials)
+                         launch_population, stats_from_partials, stream_scratch,
+                         takes_device_key)
 
 __all__ = ["LAUNCHES", "LG_BLOCK", "lg_chunk", "lg_chunk_plain", "lg_init",
            "lg_init_plain", "lg_step", "lg_step_ctrl", "lg_step_ctrl_plain",
@@ -172,11 +180,11 @@ def _lib():
         lib.lg_block.argtypes = []
         lib.lg_block.restype = i
         lib.lg_chunk_launch.argtypes = [
-            p, i, p, u32, u32, u32, p, p, p, p, p, ctypes.c_longlong, p,
+            p, i, p, p, u32, p, p, p, p, p, ctypes.c_longlong, p,
             p, p, p, p, ctypes.c_double]
         lib.lg_chunk_launch.restype = i
         lib.lg_init_launch.argtypes = [
-            p, u32, u32, p, p, p, ctypes.c_longlong, p, p, p, p, ctypes.c_double]
+            p, p, p, p, p, ctypes.c_longlong, p, p, p, p, ctypes.c_double]
         lib.lg_init_launch.restype = i
         if lib.lg_block() != LG_BLOCK:
             raise RuntimeError(f"csrc/fused_lg.cu block differs from LG_BLOCK={LG_BLOCK}")
@@ -199,7 +207,6 @@ def _launch(seed, states, log_w, ys, n_valid, t0, what, count_key,
         raise ValueError("states and log_w must be (n,) alike")
     if not 0 < n < 2 ** 31 or t0 < 0 or t0 + n_steps >= 2 ** 32:
         raise ValueError("need 0 < n < 2^31 and t0 + n_steps < 2^32")
-    k0, k1 = split_seed(seed)
     inputs = [(states, "states", torch.float32), (log_w, "log_w", torch.float32),
               (ys, "ys", torch.float32)]
     outputs = [(n, torch.float32), (n, torch.float32)]
@@ -220,9 +227,9 @@ def _launch(seed, states, log_w, ys, n_valid, t0, what, count_key,
                     ess.data_ptr(), nxt.data_ptr(), threshold)
         return _lib().lg_chunk_launch(
             ys.data_ptr(), n_steps,
-            None if n_valid is None else n_valid.data_ptr(), k0, k1, t0,
-            states.data_ptr(), log_w.data_ptr(), x_out.data_ptr(),
-            w_out.data_ptr(), rec.data_ptr(), n, stream, *ctrl)
+            None if n_valid is None else n_valid.data_ptr(),
+            launch_key(seed, dev), t0, states.data_ptr(), log_w.data_ptr(),
+            x_out.data_ptr(), w_out.data_ptr(), rec.data_ptr(), n, stream, *ctrl)
 
     return launch_population(
         what, launch, span_name="launch.lg_chunk_kernel", device=dev,
@@ -231,15 +238,16 @@ def _launch(seed, states, log_w, ys, n_valid, t0, what, count_key,
 
 
 # the step control's ticket by (device, stream): one int, zeroed once here
-# and zero again after every launch (the kernel's last CTA clears it)
+# and zero again after every launch (the kernel's last CTA clears it); a
+# captured graph keeps its own (population.stream_scratch)
 _TICKETS: dict = {}
 
 
 def _ticket(dev, stream: int) -> torch.Tensor:
-    key = (dev, stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return _TICKETS[key]
+    key, tickets = (dev, stream), stream_scratch(_TICKETS)
+    if key not in tickets:
+        tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return tickets[key]
 
 
 def lg_chunk(seed: int, states: torch.Tensor, log_w: torch.Tensor,
@@ -291,13 +299,11 @@ def _init_launch(seed: int, n: int, y0: torch.Tensor, threshold: float):
         raise ValueError("y0 must be one float32 element")
     if not 0 < n < 2 ** 31:
         raise ValueError("need 0 < n < 2^31")
-    k0, k1 = split_seed(seed)
-
     def launch(x_out, w_out, ess, nxt, rec):
         stream = current_stream(dev)
         return _lib().lg_init_launch(
-            y0.data_ptr(), k0, k1, x_out.data_ptr(), w_out.data_ptr(),
-            rec.data_ptr(), n, stream, _ticket(dev, stream.value).data_ptr(),
+            y0.data_ptr(), launch_key(seed, dev), x_out.data_ptr(),
+            w_out.data_ptr(), rec.data_ptr(), n, stream, _ticket(dev, stream.value).data_ptr(),
             ess.data_ptr(), nxt.data_ptr(), float(threshold))
 
     return launch_population(
@@ -328,7 +334,8 @@ def make_fused_lg_ssm():
     as the time-aware chunk hook ``fused_chunk_t_batch`` (K7: the Philox
     counters run on absolute time), and ``lg_init_kernel`` as
     ``fused_init_ctrl_batch`` (the sweep's start, with its ESS and first
-    flag).  ``key`` in the hooks is the sweep's integer seed."""
+    flag).  ``key`` in the hooks is the sweep's integer seed or its device
+    key: the four hooks are marked ``takes_device_key``."""
     from ..models.linear_gaussian import linear_gaussian_ssm
 
     def fused_step_ctrl(key, states, log_w, y, t, flag, threshold):
@@ -338,7 +345,7 @@ def make_fused_lg_ssm():
     return dataclasses.replace(
         linear_gaussian_ssm,
         fused_step_batch=lg_step,
-        fused_step_ctrl_batch=fused_step_ctrl,
-        fused_chunk_t_batch=_ess_chunk_hook(lg_chunk),
-        fused_init_ctrl_batch=lg_init,
+        fused_step_ctrl_batch=takes_device_key(fused_step_ctrl),
+        fused_chunk_t_batch=_ess_chunk_hook(lg_chunk, device_key=True),
+        fused_init_ctrl_batch=takes_device_key(lg_init),
     )

@@ -212,7 +212,9 @@ def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
     version's function, K12 to within a float64 double rounding of its
     multiply-adds, the twin to within float32-level rounding of the net;
     on CPU tensors both run it.  The hook carries its kernel object as
-    ``fused_chunk_t_batch.kernel``.
+    ``fused_chunk_t_batch.kernel``; with the twin it takes the sweep's seed
+    as a device key too (``takes_device_key``), with K12 as an integer
+    only.
 
     ``trans_logpdf_elem(x, nx, t)`` and ``obs_logpdf_elem(nx, y, t)`` are the
     model's densities as elementwise functions under the contract of
@@ -230,7 +232,8 @@ def attach_fused_guided_scalar_kernels(base_model, params, T: int, *,
     else:
         kernel = GuidedScalarKernel(params, trans_logpdf_elem, obs_logpdf_elem, T)
 
-    fused_chunk = _ess_chunk_hook(kernel.chunk)
+    fused_chunk = _ess_chunk_hook(kernel.chunk, device_key=isinstance(
+        kernel, GuidedTensorCoreKernel))
     fused_chunk.kernel = kernel
 
     sample, logpdf = proposal_hooks(params, T, kind="normal")

@@ -43,6 +43,13 @@ block by block inside the first hidden->hidden product, :func:`groups`
 particles a thread), counted under ``guided_tc.wide``.  Both compute
 the same function from the same packed buffer.  On CPU tensors the wrapper
 runs :func:`~.guided_scalar.guided_scalar_chunk_plain`.
+
+``seed``, in :meth:`GuidedTensorCoreKernel.chunk`, is an integer or a device
+key (:func:`.philox.device_key`, two int32 words on the population's
+device).  The kernel reads the key's words on the card (``csrc/philox.cuh``
+``LaunchKey``; an integer is written there first, :func:`.philox.launch_key`),
+so that a captured CUDA graph of a launch given a device key draws from the
+key written before each replay; the plain version reads them on the host.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ import torch
 
 from ..util.profiling import counter_group
 from .guided_scalar import check_scalar_net, guided_scalar_chunk_plain, render_density
-from .philox import split_seed
+from .philox import launch_key
 from .population import launch_population
 
 __all__ = ["GROUPS", "LAUNCHES", "NARROW_WIDTH", "GuidedTensorCoreKernel",
@@ -356,7 +363,7 @@ class GuidedTensorCoreKernel:
             lib.guided_tc_block.restype = i
             lib.guided_tc_weights.argtypes = []
             lib.guided_tc_weights.restype = i
-            lib.guided_tc_launch.argtypes = [p, i, p, u32, u32, u32, ctypes.c_float,
+            lib.guided_tc_launch.argtypes = [p, i, p, p, u32, ctypes.c_float,
                                              p, p, p, p, p, p, ctypes.c_longlong, p]
             lib.guided_tc_launch.restype = i
             if (lib.guided_tc_block(), lib.guided_tc_weights()) != (
@@ -397,15 +404,14 @@ class GuidedTensorCoreKernel:
             raise ValueError("n_valid must be one int32 element")
         lib = self._library()
         wts = self.packed(dev)
-        k0, k1 = split_seed(seed)
         grid = -(-n // self.block())
 
         def launch(x_out, w_out, rec):
             return lib.guided_tc_launch(
-                ys.data_ptr(), n_steps, n_valid.data_ptr(), k0, k1, t0,
-                float(self.T), wts.data_ptr(), states.data_ptr(), log_w.data_ptr(),
-                x_out.data_ptr(), w_out.data_ptr(), rec.data_ptr(), n,
-                current_stream(dev))
+                ys.data_ptr(), n_steps, n_valid.data_ptr(),
+                launch_key(seed, dev), t0, float(self.T), wts.data_ptr(),
+                states.data_ptr(), log_w.data_ptr(), x_out.data_ptr(),
+                w_out.data_ptr(), rec.data_ptr(), n, current_stream(dev))
 
         return launch_population(
             "guided_tc_kernel", launch, span_name="launch.guided_tc_kernel", device=dev,

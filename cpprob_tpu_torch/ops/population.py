@@ -11,12 +11,13 @@ launches, raises on a refused launch and counts it, inside the span
 depend on it; :func:`stats_from_partials` combines the records.
 
 The helpers below it (:func:`check_tensor`, :func:`raise_on`,
-:func:`current_stream`, :func:`mlp_layers`) serve the other kernel
-wrappers too.
+:func:`current_stream`, :func:`mlp_layers`, :func:`stream_scratch`,
+:func:`takes_device_key`) serve the other kernel wrappers too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Callable, Sequence
@@ -27,7 +28,8 @@ import torch
 from ..util.profiling import span
 
 __all__ = ["launch_population", "stats_from_partials", "check_tensor",
-           "raise_on", "current_stream", "mlp_layers"]
+           "raise_on", "current_stream", "mlp_layers", "stream_scratch",
+           "owned_scratch", "takes_device_key"]
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, device):
@@ -50,6 +52,46 @@ def raise_on(err, what: str):
 def current_stream(device) -> ctypes.c_void_p:
     """PyTorch's current stream on ``device``, for a ``ctypes`` launch."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# the scratch tables of the CUDA graphs being captured, innermost last
+_OWNERS: list = []
+
+
+def stream_scratch(table: dict) -> dict:
+    """The dict that holds a kernel's per-(device, stream) scratch:
+    ``table``, the module's own, or while a sweep's graph is captured
+    (:func:`owned_scratch`) that graph's copy of it, so that the scratch a
+    graph captured is its own, shared with no eager launch and no other
+    graph."""
+    if not _OWNERS:
+        return table
+    return _OWNERS[-1].setdefault(id(table), {})
+
+
+@contextlib.contextmanager
+def owned_scratch():
+    """While the block runs, :func:`stream_scratch` gives the tables of a
+    new owner; yields the owner (a dict of those tables), which keeps the
+    scratch alive as long as it is held."""
+    owner: dict = {}
+    _OWNERS.append(owner)
+    try:
+        yield owner
+    finally:
+        _OWNERS.pop()
+
+
+def takes_device_key(hook: Callable) -> Callable:
+    """Mark a model's hook as one whose draws come only from the sweep's
+    seed, which it takes as a device key (``ops.philox.device_key``) as
+    well as an integer, or from the sweep's generator (which a captured
+    graph registers), and that does nothing on the host that a replay of
+    its work would have to repeat;
+    :func:`~cpprob_tpu_torch.inference.smc.build_smc_run` captures a query
+    whose hooks are all so marked.  Returns ``hook``."""
+    hook.device_key = True
+    return hook
 
 
 def _host_f32(a) -> np.ndarray:
@@ -122,12 +164,13 @@ def stats_from_partials(records: torch.Tensor, n: int):
     return ess, cat_w, lme
 
 
-def _ess_chunk_hook(chunk: Callable) -> Callable:
+def _ess_chunk_hook(chunk: Callable, device_key: bool = False) -> Callable:
     """``chunk(seed, states, log_w, ys, n_valid, t0=)``, a chunk launch that
     returns (states', log_w', records), as a model's time-aware chunk hook
-    ``(seed, states, log_w, ys, n_valid, t0) -> (states', log_w', ess')``."""
+    ``(seed, states, log_w, ys, n_valid, t0) -> (states', log_w', ess')``,
+    marked :func:`takes_device_key` where ``chunk`` takes one."""
     def hook(key, states, log_w, ys, n_valid, t0):
         x, w, rec = chunk(key, states, log_w, ys, n_valid.to(torch.int32), t0=t0)
         return x, w, stats_from_partials(rec, states.shape[0])[0]
 
-    return hook
+    return takes_device_key(hook) if device_key else hook

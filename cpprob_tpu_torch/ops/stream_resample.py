@@ -46,6 +46,7 @@ from ..util.profiling import counter_group, span
 from .population import check_tensor as _check
 from .population import current_stream as _stream
 from .population import raise_on as _raise_on
+from .population import stream_scratch as _stream_scratch
 
 __all__ = [
     "IMPLS", "LAUNCHES", "LSE_PER_BATCH", "OUT_TILE", "PASS1_PER_THREAD", "logsumexp_stats", "logsumexp_stats_plain", "resample_pass1",
@@ -188,37 +189,38 @@ def logsumexp_stats(log_w: torch.Tensor, flag=None) -> torch.Tensor:
 # the stats kernel's scratch by (device, stream): (rec_m (cap,), rec_s
 # (cap,), ticket (1,)), cap the most CTAs of 256 threads the card holds at
 # once (2,048 threads an SM); all zeroed once here, and the ticket zero
-# again after every flagged launch (the kernel's last CTA clears it)
+# again after every flagged launch (the kernel's last CTA clears it); a
+# captured graph keeps its own (population.stream_scratch)
 _LSE_SCRATCH: dict = {}
 
 
 def _lse_scratch(dev, stream: int):
-    key = (dev, stream)
-    sc = _LSE_SCRATCH.get(key)
+    key, table = (dev, stream), _stream_scratch(_LSE_SCRATCH)
+    sc = table.get(key)
     if sc is None:
         cap = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
         sc = (torch.zeros(cap, dtype=torch.float32, device=dev),
               torch.zeros(cap, dtype=torch.float64, device=dev),
               torch.zeros(1, dtype=torch.int32, device=dev))
-        _LSE_SCRATCH[key] = sc
+        table[key] = sc
     return sc
 
 
 # pass 1's scratch by (device, stream): (ctr (2,), status (cap,), vals
 # (2 cap,)); ctr and status zeroed once here, and zero again after every
-# launch (the kernel's last CTA clears them)
+# launch (the kernel's last CTA clears them); a captured graph keeps its own
 _PASS1_SCRATCH: dict = {}
 
 
 def _pass1_scratch(dev, stream: int, n_tiles: int):
-    key = (dev, stream)
-    sc = _PASS1_SCRATCH.get(key)
+    key, table = (dev, stream), _stream_scratch(_PASS1_SCRATCH)
+    sc = table.get(key)
     if sc is None or sc[1].shape[0] < n_tiles:
         cap = max(n_tiles, 1024)
         sc = (torch.zeros(2, dtype=torch.int32, device=dev),
               torch.zeros(cap, dtype=torch.int32, device=dev),
               torch.empty(2 * cap, dtype=torch.float64, device=dev))
-        _PASS1_SCRATCH[key] = sc
+        table[key] = sc
     ctr, status, vals = sc
     # the kernel reads the inclusive prefixes at vals[n_tiles:]
     return ctr, status, vals[:2 * n_tiles]

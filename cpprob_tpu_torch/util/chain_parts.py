@@ -16,7 +16,8 @@ flight in the run-time-K kernel), ``pt8`` (8 particles a thread: CTAs of
 ``mb4`` (1, 3 or 4 CTAs an SM asked of every chunk kernel: at most 255, 80
 or 64 registers), and for each ``--other NAME=DIR`` the ``fused_hmm.cu``
 of that ``csrc`` directory (say the parent commit's, unpacked with ``git
-archive``: its times only, its draws may differ).  Each variant is built
+archive``: its times only, its draws may differ; its launches must take
+the key as this source's do, from two device words).  Each variant is built
 (one nvcc each, all started together) and launched through its own
 library on the same inputs at the paths' shapes: K2 (the HMM, 2^26
 particles, 16 slots with 15 valid, an island check after step 8), K3 (the
@@ -86,8 +87,8 @@ def _library(name: str, source: str):
 
     lib = _build.load_generated_library(name, source)
     p, i, u32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.hmm_chunk_launch.argtypes = [i, p, p, i, p, u32, u32, u32, i, f, p, p,
-                                     p, p, p, ctypes.c_longlong, p]
+    lib.hmm_chunk_launch.argtypes = [i, p, p, i, p, p, u32, i, f, p, p, p, p,
+                                     p, ctypes.c_longlong, p]
     lib.guided_chunk_launch.argtypes = [
         i, p, p, p, i, ctypes.POINTER(ctypes.c_int), f, p, i, p, u32, u32, u32,
         i, f, p, p, p, p, p, ctypes.c_longlong, p]
@@ -146,7 +147,7 @@ def main(argv=None):
     from ..inference.nn import mlp_init
     from ..interop import spec_from_numpy
     from ..ops import fused_hmm
-    from ..ops.philox import split_seed
+    from ..ops.philox import device_key, split_seed
     from ..ops.population import current_stream
     from .profiling import gpu_name_and_power
     from .roofline import time_ms
@@ -163,6 +164,7 @@ def main(argv=None):
     stream = current_stream(dev)
     seed = 20261017
     k0, k1 = split_seed(seed)
+    key = device_key(seed, dev)
     gen = torch.Generator()
     gen.manual_seed(5)
     gt = fused_hmm.GuidedTables.from_params(
@@ -194,7 +196,7 @@ def main(argv=None):
             else:
                 err = lib.hmm_chunk_launch(
                     K, tab.data_ptr(), ys.data_ptr(), ys.shape[0], ctrl.data_ptr(),
-                    k0, k1, t0, every, 0.5, *ptrs, n, stream)
+                    key.data_ptr(), t0, every, 0.5, *ptrs, n, stream)
             if err:
                 raise RuntimeError(f"{name}: launch failed, CUDA error {err}")
 

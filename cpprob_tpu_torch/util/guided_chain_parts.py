@@ -16,7 +16,8 @@ weights read through the cache), and for each ``--other NAME=DIR`` the
 ``fused_hmm.cu``
 of that ``csrc`` directory (say the parent commit's, unpacked with ``git
 archive``: there every CTA built each step's tables, one step after the
-other).  Each variant is built (one nvcc each, all started together) and
+other; its K8 launch must take the key as this source's does, from two
+device words).  Each variant is built (one nvcc each, all started together) and
 launched through its own library on the same inputs: K13 at K = 5 with a
 random ``[7,16,16,5]`` net (2^24 particles x 8 steps; 2^24 x 16 steps with
 an island check after step 8; one step at 2^20, the flag on), and K8
@@ -137,8 +138,8 @@ def _library(name: str, source: str):
 
     lib = _build.load_generated_library(name, source)
     p, i, u32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.hmm_chunk_launch.argtypes = [i, p, p, i, p, u32, u32, u32, i, f, p, p,
-                                     p, p, p, ctypes.c_longlong, p]
+    lib.hmm_chunk_launch.argtypes = [i, p, p, i, p, p, u32, i, f, p, p, p, p,
+                                     p, ctypes.c_longlong, p]
     if not name.endswith("in_cta") and hasattr(lib, "guided_tables_launch"):
         fused_hmm._guided_argtypes(lib)
     else:   # one kernel, the tables built in every CTA
@@ -158,7 +159,7 @@ def main(argv=None):
     from ..inference.nn import mlp_init
     from ..interop import spec_from_numpy
     from ..ops import fused_hmm
-    from ..ops.philox import split_seed
+    from ..ops.philox import device_key, split_seed
     from ..ops.population import current_stream
     from .chain_parts import _chain, _local_memory, variant_source
     from .profiling import gpu_name_and_power
@@ -178,6 +179,7 @@ def main(argv=None):
     stream = current_stream(dev)
     seed = 20261017
     k0, k1 = split_seed(seed)
+    key = device_key(seed, dev)
     K = 5
     gen = torch.Generator()
     gen.manual_seed(5)
@@ -221,8 +223,8 @@ def main(argv=None):
 
         def call_k8(v, n=n, ys=ys, ctrl=ctrl, t0=t0, every=every, pop=pop):
             err = libs[v].hmm_chunk_launch(K, tab.data_ptr(), ys.data_ptr(),
-                                           ys.shape[0], ctrl.data_ptr(), k0, k1, t0,
-                                           every, 0.5, *pop, n, stream)
+                                           ys.shape[0], ctrl.data_ptr(), key.data_ptr(),
+                                           t0, every, 0.5, *pop, n, stream)
             if err:
                 raise RuntimeError(f"K8: launch failed, CUDA error {err}")
 

@@ -36,8 +36,8 @@ from typing import Dict, Iterable
 import torch
 from torch._C._autograd import _profiler_enabled
 
-__all__ = ["profile_trace", "span", "counter_group", "counters",
-           "StageTimer", "env_versions", "gpu_name_and_power"]
+__all__ = ["profile_trace", "span", "counter_group", "counters", "recorded_counts",
+           "add_counts", "StageTimer", "env_versions", "gpu_name_and_power"]
 
 
 class _NoSpan:
@@ -76,6 +76,30 @@ def counter_group(name: str, keys: Iterable[str]) -> Dict[str, int]:
 def counters() -> Dict[str, int]:
     """A flat snapshot of every registered counter, ``"group.key": n``."""
     return {f"{g}.{k}": v for g, group in _COUNTERS.items() for k, v in group.items()}
+
+
+@contextlib.contextmanager
+def recorded_counts():
+    """Yields a dict that, when the block ends, holds what the block added
+    to each counter, ``{(group, key): n}``, and takes those additions back:
+    a captured CUDA graph's launches count when it replays
+    (:func:`add_counts`), not when it is captured."""
+    before = {(g, k): v for g, group in _COUNTERS.items() for k, v in group.items()}
+    added: Dict[tuple, int] = {}
+    try:
+        yield added
+    finally:
+        for g, group in _COUNTERS.items():
+            for k, v in group.items():
+                if v != before.get((g, k), 0):
+                    added[(g, k)] = v - before.get((g, k), 0)
+                    group[k] = before.get((g, k), 0)
+
+
+def add_counts(added: Dict[tuple, int]) -> None:
+    """Add ``{(group, key): n}`` (:func:`recorded_counts`) to the counters."""
+    for (g, k), n in added.items():
+        _COUNTERS[g][k] += n
 
 
 def gpu_name_and_power() -> str:
