@@ -138,7 +138,11 @@ and the script exits non-zero without printing its last line:
    their main path runs them, a captured CUDA graph replayed
    (``replay_phases``): each replay under sync-debug "error" equal bit for
    bit to the eager query of its seed, its launches counted as the eager
-   query's, one capture a cell, and the graph's memory pool printed;
+   query's, one capture a cell, and the graph's memory pool printed; and
+   the vector cell (``check_iapf_cell``: the iterated APF's d = 10 model,
+   K11's one-step launch and pass 2 over rows against their plain
+   versions, its query at 2^24 and T = 100 replayed, bit-equal to the
+   eager query, its replay share 1, log Z-hat against Kalman);
 9. the distribution layer (``distribution_phases``, slice 4a, plain
    PyTorch): 2^24 draws of each scalar class, the mixtures, both
    truncations and the spline flow, and 2^20 of each multivariate normal
@@ -1709,15 +1713,17 @@ def _sincos_frame():
 
 def check_user_sass(kernels):
     """The generated user libraries' machine code: each user_chunk_kernel's
-    registers, spills and local memory.  None may spill, and none may keep
-    a stack frame larger than the precise ``sincosf``'s
-    (:func:`_sincos_frame`), which ``elem.sin``/``cos`` share."""
+    registers, spills and local memory, in both its instances (the chunk
+    launch and the one-step launch with the resample control).  None may
+    spill, and none may keep a stack frame larger than the precise
+    ``sincosf``'s (:func:`_sincos_frame`), which ``elem.sin``/``cos``
+    share."""
     from cpprob_tpu_torch.util.sass import kernel_report
 
     frame = _sincos_frame()
     for k in kernels:
         rep = kernel_report(k.library, "user_chunk_kernel")
-        if len(rep) != 1:
+        if len(rep) != 2:
             raise AssertionError(f"{k.library}: {len(rep)} user_chunk_kernel functions")
         for f, r in sorted(rep.items()):
             ops = r["opcodes"]
@@ -3119,9 +3125,125 @@ def check_replayed_cells(seeds=(CHECK_SEED + 7, 2 ** 63 + 9)):
 
 def replay_phases(card, stages):
     """The benchmark cells' main path, the replayed graph
-    (:func:`check_replayed_cells`)."""
+    (:func:`check_replayed_cells`), and the vector cell
+    (:func:`check_iapf_cell`)."""
     with stages.stage("replayed_cells", sync=True):
         check_replayed_cells()
+    with stages.stage("iapf_cell", sync=True):
+        check_iapf_cell()
+
+
+IAPF_N = 1 << 24           # the cell iapf-lg10-2e24-perstep
+IAPF_T = 100
+IAPF_D = 10
+IAPF_SEEDS = 4             # log Z-hat against Kalman: 4 SE + IAPF_FLOOR
+IAPF_FLOOR = 0.05
+
+
+def check_iapf_cell(seed=CHECK_SEED):
+    """The vector cell on the card (the iterated APF's linear-Gaussian model
+    at d = 10, ``linear_gaussian_nd_ssm``): K11's one-step launch with the
+    resample control (10 state and 10 observation planes) against its
+    plain version at the cell's 2^24 (flag on and off, t even and odd:
+    states and weights within 1e-4 absolute, the precise transcendentals'
+    last bit through a 10 x 10 product; the ESS within 1e-6 relative, the
+    next flag equal); pass 2 over rows of 10 floats against its plain
+    version at 2^24, bit for bit (flag on, off and absent); then the cell's query,
+    ``build_smc_run(model, 2^24, chunk=1)`` at T = 100: the second call
+    captures, every later one replays (``sweep_graph``'s hit share
+    ``replay / (replay + eager)`` over them 1), a replay under sync-debug
+    "error" equals a fresh run's eager query bit for bit, and log Z-hat
+    over ``IAPF_SEEDS`` replays within 4 SE + ``IAPF_FLOOR`` of the Kalman
+    filter's; with the SASS of both kernel instances (no spill).  Returns
+    (the replayed query's ms, its counted launches)."""
+    import numpy as np
+
+    from cpprob_tpu_torch import build_smc_run
+    from cpprob_tpu_torch.models.linear_gaussian import (
+        iapf_transition, kalman_filter_nd, linear_gaussian_nd_ssm, nd_step_elem,
+        simulate_observations_nd)
+    from cpprob_tpu_torch.ops import stream_resample as sr
+    from cpprob_tpu_torch.ops import user_chunk
+    from cpprob_tpu_torch.util.profiling import counters
+
+    dev = torch.device("cuda")
+    A = iapf_transition(IAPF_D)
+    kernel = user_chunk.UserKernel(nd_step_elem(A), IAPF_D, IAPF_D)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = IAPF_N
+    x = torch.randn(n, IAPF_D, device=dev, generator=gen)
+    w = torch.randn(n, device=dev, generator=gen)
+    ys = torch.randn(3, IAPF_D, device=dev, generator=gen)
+    for flag_v, t in itertools.product((1, 0), (1, 2)):
+        flag = torch.full((), flag_v, dtype=torch.int32, device=dev)
+        got = kernel.step_ctrl(seed, x, w, ys[t], t, flag, 0.5 * n)
+        want = user_chunk.user_step_ctrl_plain(kernel.step_elem, IAPF_D, seed, x, w,
+                                               ys[t], t, flag, 0.5 * n)
+        _sync()
+        what = f"K11 one-step (d={IAPF_D}, resample control) n={n} flag={flag_v} t={t}"
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4, msg=f"{what}: states")
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-4, msg=f"{what}: log_w")
+        if (abs(float(got[2]) - float(want[2])) > 1e-6 * float(want[2])
+                or int(got[3]) != int(want[3])):
+            raise AssertionError(f"{what}: ESS {float(got[2])} / flag {int(got[3])} against "
+                                 f"{float(want[2])} / {int(want[3])}")
+        print(f"check {what}: max|dx| {float((got[0] - want[0]).abs().max()):.3g} "
+              f"max|dlog_w| {float((got[1] - want[1]).abs().max()):.3g}, ESS "
+              f"{float(got[2]):.6g}")
+    del x, w, got, want
+    lw = torch.randn(IAPF_N, device=dev, generator=gen)
+    rows = torch.randn(IAPF_N, IAPF_D, device=dev, generator=gen)
+    u0 = torch.rand((), dtype=torch.float64, device=dev, generator=gen)
+    st = sr.resample_pass1(u0, lw, sr.logsumexp_stats(lw))
+    for flag in (None, torch.ones((), dtype=torch.int32, device=dev),
+                 torch.zeros((), dtype=torch.int32, device=dev)):
+        if not torch.equal(sr.resample_pass2(st, rows, flag),
+                           sr.resample_pass2_plain(st, rows, flag)):
+            raise AssertionError(f"pass 2 over rows of {IAPF_D}, flag {flag}: differs "
+                                 "from its plain version")
+    pass2_ms = time_ms(lambda: sr.resample_pass2(st, rows), 20)
+    print(f"check pass 2 over rows n={IAPF_N} d={IAPF_D}: equal to the plain version "
+          f"(flag on, off, absent), {pass2_ms:.4f} ms")
+    del lw, rows, st
+
+    model = linear_gaussian_nd_ssm(A)
+    obs_np = simulate_observations_nd(A, IAPF_T, seed % 2 ** 32)
+    exact = kalman_filter_nd(obs_np, A)[2]
+    obs = torch.as_tensor(obs_np, device=dev)
+    run = build_smc_run(model, IAPF_N, chunk=1)
+    run(seed, obs)
+    run(seed + 1, obs)
+    _sync()
+    before = counters()
+    t0 = time.perf_counter()
+    vals = [float(run(seed + 2 + s, obs).log_evidence) for s in range(IAPF_SEEDS)]
+    ms = (time.perf_counter() - t0) * 1e3 / IAPF_SEEDS
+    moved = {k: v - before.get(k, 0) for k, v in counters().items() if v != before.get(k, 0)}
+    if moved.get("sweep_graph.replay") != IAPF_SEEDS or moved.get("sweep_graph.eager"):
+        raise AssertionError(f"iapf cell: replay share below 1: {moved}")
+    mean, sd = float(np.mean(vals)), float(np.std(vals, ddof=1))
+    if abs(mean - exact) > 4 * sd / math.sqrt(IAPF_SEEDS) + IAPF_FLOOR:
+        raise AssertionError(f"iapf cell: log Z-hat {vals} against Kalman {exact}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(seed + 99, obs)
+        got = [t.clone() for t in (got.final_states, got.final_log_weights,
+                                   got.log_evidence, got.resampled)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eager = build_smc_run(model, IAPF_N, chunk=1)(seed + 99, obs)
+    for name, a, b in zip(("final_states", "final_log_weights", "log_evidence", "resampled"),
+                          got, (eager.final_states, eager.final_log_weights,
+                                eager.log_evidence, eager.resampled)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"iapf cell: the replay's {name} differs from the eager query's")
+    check_user_sass([kernel])
+    launches = {k: v // IAPF_SEEDS for k, v in moved.items() if not k.startswith("sweep_graph")}
+    print(f"iapf cell: n={IAPF_N} T={IAPF_T} d={IAPF_D} per step, replay share 1, "
+          f"{ms:.2f} ms a replayed query ({IAPF_N * IAPF_T / ms * 1e3:.4g} steps/s), "
+          f"log Z-hat {mean:.4f} (sd {sd:.4f}) against Kalman {exact:.4f}, the replay "
+          f"equals the eager query bit for bit; launches a query {launches}")
+    return ms, launches
 
 
 def r1_phases(card, stages):

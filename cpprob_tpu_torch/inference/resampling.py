@@ -252,20 +252,24 @@ def morton_key(states: torch.Tensor, bits: int = 10) -> torch.Tensor:
 def continuous_resample_values(key: torch.Generator, log_weights: torch.Tensor,
                                states: torch.Tensor, *, flag=None):
     """Systematic resample of a scalar or vector continuous population,
-    returning the new values directly (no genealogy).  (n, D) states take
-    the sorted-key vector epoch; float32 (n,) states the streaming epoch
+    returning the new values directly (no genealogy).  Float32 (n,) values
+    and (n, D) rows take the streaming epoch
     (:mod:`cpprob_tpu_torch.ops.stream_resample`: its kernels on CUDA
-    tensors, their plain versions on CPU tensors); other scalar states the
-    sorted fill.  ``flag``: an int32 device scalar; where it is 0 the
-    population comes back unchanged."""
+    tensors, their plain versions on CPU tensors); other (n, D) states the
+    sorted-key vector epoch, other scalar states the sorted fill.
+    ``flag``: an int32 device scalar; where it is 0 the population comes
+    back unchanged."""
     return continuous_resample_values_lme(key, log_weights, states,
                                           flag=flag)[0]
 
 
 def streams(states: torch.Tensor) -> bool:
-    """Whether ``states`` take the streaming epoch: float32 (n,) values of
-    a population size it takes."""
-    return (states.dim() == 1 and states.dtype == torch.float32
+    """Whether ``states`` take the streaming epoch: float32 (n,) values, or
+    (n, d) rows of at most ``stream_resample.MAX_ROW``, of a population size
+    it takes."""
+    return (states.dtype == torch.float32
+            and (states.dim() == 1
+                 or (states.dim() == 2 and 1 <= states.shape[1] <= sr.MAX_ROW))
             and sr.streaming_available(states.shape[0]))
 
 

@@ -160,7 +160,7 @@ def final_log_mean_exp(log_w: torch.Tensor, states: torch.Tensor,
                        streaming: bool) -> torch.Tensor:
     """The evidence's last term, the log-mean-exp of the final weights:
     where the sweep is on the streaming path (``streaming``, float32 (n,)
-    states that the streaming epoch takes) one
+    or (n, D) states that the streaming epoch takes) one
     :func:`~cpprob_tpu_torch.ops.stream_resample.logsumexp_stats` sweep in
     float64, else :func:`_log_mean_exp`."""
     if streaming and streams(states):
@@ -230,8 +230,8 @@ def make_smc_step(
     ``exchange=True`` resamples a discrete population by category counts;
     ``sorted_fill=True`` a continuous one by value
     (:func:`.resampling.continuous_resample_values_lme`: the streaming
-    epoch for scalar states, which skips its work on the device when the
-    step does not resample; the sorted-key epoch for (n, D) states).
+    epoch for float32 (n,) or (n, D) states, which skips its work on the
+    device when the step does not resample).
     A model's ``fused_step_ess_batch`` kernel hook (preferred: it returns
     the ESS from the kernel's records) or ``fused_step_batch`` hook, which
     take the sweep's integer seed and the absolute time, replaces the move
@@ -347,10 +347,10 @@ def make_smc_step_ctrl_fused(
     n_particles: int,
     ess_threshold: float,
 ):
-    """Loop body of the per-step fused path for scalar continuous states:
-    the flagged streaming epoch, the evidence increment, then one launch of
-    the model's ``fused_step_ctrl_batch``, which resets the weights where
-    the flag is set and leaves the next step's flag.
+    """Loop body of the per-step fused path for continuous states, scalar
+    or (n, D): the flagged streaming epoch, the evidence increment, then
+    one launch of the model's ``fused_step_ctrl_batch``, which resets the
+    weights where the flag is set and leaves the next step's flag.
 
     Carry: ``(key, states, log_w, log_z, flag)``, ``flag`` the int32
     resample flag of the incoming weights, from the previous launch, with
@@ -436,15 +436,18 @@ def make_smc_step_chunked(
 
 
 def _chunk_observations(observations: torch.Tensor, chunk: int):
-    """Pad the (T-1,) tail observations into (n_chunks, chunk) + valid
-    counts (int32 device tensor), with no host copy."""
+    """Pad the tail observations, (T-1,) or (T-1, d_y), into (n_chunks,
+    chunk) or (n_chunks, chunk, d_y) + valid counts (int32 device tensor),
+    with no host copy."""
     ys = observations[1:]
     t_rest = ys.shape[0]
     n_chunks = -(-t_rest // chunk)
-    ys = torch.nn.functional.pad(ys, (0, n_chunks * chunk - t_rest))
+    # F.pad takes the last dimension first: pad only the time axis
+    ys = torch.nn.functional.pad(
+        ys, (0, 0) * (ys.dim() - 1) + (0, n_chunks * chunk - t_rest))
     starts = torch.arange(n_chunks, device=observations.device) * chunk
     valid = torch.clamp(t_rest - starts, 0, chunk).to(torch.int32)
-    return ys.reshape(n_chunks, chunk), valid
+    return ys.reshape(n_chunks, chunk, *ys.shape[1:]), valid
 
 
 class _Path(NamedTuple):
@@ -528,9 +531,11 @@ def _sweep_path(model: StateSpaceModel, n_particles: int, ess_threshold: float,
       it; closed by :func:`final_log_mean_exp` on the streaming path.
     - ``step_exchange``: ``fused_step_exchange_batch`` once a step, started
       from the prior (``init_sample_batch``, as the reference).
-    - ``step_ctrl``: ``chunk`` = 1, continuous states,
-      ``fused_step_ctrl_batch`` once a step, the int32 resample flag in the
-      carry; started by ``fused_init_ctrl_batch`` where the model has it.
+    - ``step_ctrl``: ``chunk`` = 1, continuous states (scalar, or vector:
+      ``attach_fused_vector_kernels``), ``fused_step_ctrl_batch`` once a
+      step, the int32 resample flag in the carry; started by
+      ``fused_init_ctrl_batch`` where the model has it, else from the
+      prior.
     - ``step``: otherwise, :func:`make_smc_step`, with history if asked.
 
     All but ``step`` need systematic resampling, no history and, for a
@@ -670,8 +675,9 @@ def build_smc_run(
     chunk: int = 1,
 ):
     """Build ``run(key, observations) -> SMCResult`` once and reuse it.
-    ``key`` is an integer seed; ``observations`` a (T,) float32 tensor on
-    the device the sweep runs on.
+    ``key`` is an integer seed; ``observations`` a (T,) float32 tensor, or
+    (T, d_y) for a model whose observation is a vector of d_y (each step's
+    row goes to its hooks), on the device the sweep runs on.
 
     ``chunk`` > 1 (a model with a fused chunk kernel, time-aware or not,
     :func:`chunk_hook`; no history, systematic resampling): that many
@@ -679,15 +685,15 @@ def build_smc_run(
     boundaries (blocked adaptive
     resampling, an unbiased evidence estimator).  A discrete-state model
     resamples by exchange (``fused_chunk_exchange_[t_]batch``), a continuous
-    one by value (``fused_chunk_[t_]batch``; the streaming epoch for scalar
-    states, the sorted-key epoch for vector states).  ``chunk`` = 1 with a
+    one by value (``fused_chunk_[t_]batch``; the streaming epoch, for
+    float32 scalar and (n, D) vector states alike).  ``chunk`` = 1 with a
     discrete model's ``fused_step_exchange_batch`` (no history, systematic
     resampling) launches it once per step, its population started from
-    ``init_sample_batch`` as the reference does; with a scalar model's
+    ``init_sample_batch`` as the reference does; with a continuous model's
     ``fused_step_ctrl_batch`` (the same conditions) the one-step launch
     carries the resample flag (:func:`make_smc_step_ctrl_fused`).  On
-    those two scalar paths a model's ``fused_init_ctrl_batch`` starts the
-    population with its ESS and first flag; on the streaming path the
+    those two continuous paths a model's ``fused_init_ctrl_batch`` starts
+    the population with its ESS and first flag; on the streaming path the
     evidence closes with :func:`final_log_mean_exp`.
 
     ``run`` draws from one generator a device, seeded with ``key`` at each
@@ -772,7 +778,8 @@ def smc(
     ess_threshold: float = 0.5,
     resampling: str = "systematic",
 ) -> SMCResult:
-    """Run SMC over ``observations`` of shape (T,), keeping the history.
+    """Run SMC over ``observations`` of shape (T,) or (T, d_y), keeping the
+    history.
 
     Evidence: log Z = sum over resampling epochs of log-mean-exp of the
     accumulated weights (the standard unbiased SMC estimator)."""

@@ -33,7 +33,8 @@
 // records the last CTA to finish (an atomic ticket, as lse_stats_kernel's
 // in stream_resample.cu) combines every record in float64 as
 // stats_from_partials does, by CTA index, into the ESS and the next step's
-// flag, ess < thresh.  The per-step loop then waits on no pass over the
+// flag, ess < thresh (csrc/step_ctrl.cuh, which the user-physics one-step
+// launch shares).  The per-step loop then waits on no pass over the
 // population for its decision.  With a null flag the launch is
 // lg_chunk_kernel<false>, the kernel as it was.
 //
@@ -57,6 +58,7 @@
 
 #include "block_reduce.cuh"
 #include "philox.cuh"
+#include "step_ctrl.cuh"
 
 namespace {
 
@@ -64,17 +66,6 @@ constexpr int kThreads = 256;
 constexpr int kPerThread = 16;
 constexpr int kBlock = kThreads * kPerThread;  // particles per CTA
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
-
-// The step's resample control: flag (int32, in), ticket (one int, zero
-// before the launch and left zero by the last CTA), ess (float64, out) and
-// next (int32, out: ess < thresh).
-struct StepCtrl {
-  const int* flag;
-  int* ticket;
-  double* ess;
-  int* next;
-  double thresh;
-};
 
 // The CTA's record (max w, sum e, sum e^2), e = exp(w - max w), over its
 // particles below n; m is the thread's own max.  Every thread calls it.
@@ -99,43 +90,6 @@ __device__ __forceinline__ void cta_record(const float (&w)[kPerThread],
     out[0] = m;
     out[1] = v[0];
     out[2] = v[1];
-  }
-}
-
-// After cta_record: the last CTA to finish (sc.ticket) combines every
-// record in float64 into the ESS and the flag ess < thresh, and clears the
-// ticket.  Every thread calls it; redd, bcastd and last_s are shared.
-__device__ __forceinline__ void last_cta_combine(const float* rec,
-                                                 const StepCtrl& sc,
-                                                 float* red, float* bcast,
-                                                 double* redd, double* bcastd,
-                                                 int* last_s) {
-  if (threadIdx.x == 0) {
-    __threadfence();
-    *last_s = atomicAdd(sc.ticket, 1) == (int)gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!*last_s) return;
-  __threadfence();
-  // stats_from_partials on the records, by CTA index, read past L1: the
-  // largest max, then sum e and sum e^2 rescaled to it
-  const int n_rec = (int)gridDim.x;
-  float mr = -INFINITY;
-  for (int b = threadIdx.x; b < n_rec; b += kThreads)
-    mr = fmaxf(mr, __ldcg(rec + 3LL * b));
-  mr = block_max<kThreads>(mr, red, bcast);
-  double s[2] = {0.0, 0.0};
-  for (int b = threadIdx.x; b < n_rec; b += kThreads) {
-    const double scale = exp((double)__ldcg(rec + 3LL * b) - (double)mr);
-    s[0] += (double)__ldcg(rec + 3LL * b + 1) * scale;
-    s[1] += (double)__ldcg(rec + 3LL * b + 2) * scale * scale;
-  }
-  block_sum<kThreads, 2>(s, redd, bcastd);
-  if (threadIdx.x == 0) {
-    const double ess = s[0] * s[0] / fmax(s[1], 1e-300);
-    *sc.ess = ess;
-    *sc.next = ess < sc.thresh;
-    *sc.ticket = 0;
   }
 }
 
@@ -202,7 +156,7 @@ lg_chunk_kernel(const float* __restrict__ ys, int n_steps,
     __shared__ double redd[kThreads / 32 * 2];
     __shared__ double bcastd[2];
     __shared__ int last_s;
-    last_cta_combine(rec, sc, red, bcast, redd, bcastd, &last_s);
+    last_cta_combine<kThreads>(rec, sc, red, bcast, redd, bcastd, &last_s);
   }
 }
 
@@ -239,7 +193,7 @@ lg_init_kernel(const float* __restrict__ y0,
     }
   }
   cta_record(w, m, base, n, rec, red, bcast);
-  last_cta_combine(rec, sc, red, bcast, redd, bcastd, &last_s);
+  last_cta_combine<kThreads>(rec, sc, red, bcast, redd, bcastd, &last_s);
 }
 
 }  // namespace

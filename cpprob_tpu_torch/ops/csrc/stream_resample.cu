@@ -20,12 +20,18 @@
 // position i) or column-major within the tile (merge: slot og*128 + s of
 // tile t at t*16384 + s*128 + og, the reference's layout).  It reads the
 // start slots of its tile's inputs once, with no per-slot search, and is
-// exact.
+// exact.  pass2_tile_kernel_rows is the same expansion for an (n, d)
+// population of vector states (the vector models of
+// attach_fused_vector_kernels), slot i taking the d floats of its owner's
+// row; it replaces the sorted-key epoch of the JAX package's vector path
+// (sorted_systematic_resample_values_nd, whose sort and gather no GPU
+// needs: systematic resampling needs no order of the inputs).
 //
 // What bounds them on an H100: memory.  The epoch reads the weights twice
 // (stats, pass 1), writes the start slots and reads them back with the
 // values in pass 2: ~20 B per particle, ~0.34 GB at 2^24, about 0.1 ms at
-// the card's 3.35 TB/s.  The TPU's sequential grid with a Kahan carry
+// the card's 3.35 TB/s; over rows of d floats pass 2 reads and writes 8 d
+// B a particle (80 B at d = 10).  The TPU's sequential grid with a Kahan carry
 // becomes one single-pass scan with a decoupled look-back; the MXU scatter
 // and telescoping value differences become a scatter of owner indices per
 // tile, so the output is the exact expansion of the start slots, with no
@@ -577,22 +583,15 @@ __device__ long long upper_bound(const int* st, long long n, long long v,
   return lo;
 }
 
-// Pass 2, row-major (col_major 0) or column-major per tile (col_major 1);
-// one CTA per tile, the last tile masked (merge takes whole tiles only).
-__global__ void __launch_bounds__(kTileThreads)
-pass2_tile_kernel(const int* __restrict__ st, const float* __restrict__ vals,
-                  long long n, const int* __restrict__ flag, int col_major,
-                  float* __restrict__ out) {
-  extern __shared__ int own[];  // kOutTile owners, padded
-  __shared__ long long range[3];
-  __shared__ int warp_max[kTileThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long base = (long long)blockIdx.x * kOutTile;
-  const int len = (int)min((long long)kOutTile, n - base);
-  if (flag_off(flag)) {
-    for (int l = tid; l < len; l += kTileThreads) out[base + l] = vals[base + l];
-    return;
-  }
+// The owner of every slot of the tile at base (len slots): own[pad(l)] =
+// the last input j with st_j <= base + l.  Every thread of the CTA calls
+// it with its index, lane and warp; own, range and warp_max are the
+// kernel's shared memory.  Both pass-2 kernels below call it.
+__device__ __forceinline__ void tile_owners(const int* __restrict__ st,
+                                            long long n, long long base,
+                                            int len, int tid, int lane,
+                                            int warp, int* own,
+                                            long long* range, int* warp_max) {
   // owner of the first slot (input 0 where st_0 > base); the inputs whose
   // st_j is in the tile
   if (tid < 3)
@@ -640,12 +639,67 @@ pass2_tile_kernel(const int* __restrict__ st, const float* __restrict__ vals,
   for (int k = 0; k < kTilePer; ++k)
     own[pad(tid * kTilePer + k)] = max(before, loc[k]);
   __syncthreads();
+}
+
+// Pass 2, row-major (col_major 0) or column-major per tile (col_major 1);
+// one CTA per tile, the last tile masked (merge takes whole tiles only).
+__global__ void __launch_bounds__(kTileThreads)
+pass2_tile_kernel(const int* __restrict__ st, const float* __restrict__ vals,
+                  long long n, const int* __restrict__ flag, int col_major,
+                  float* __restrict__ out) {
+  extern __shared__ int own[];  // kOutTile owners, padded
+  __shared__ long long range[3];
+  __shared__ int warp_max[kTileThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long base = (long long)blockIdx.x * kOutTile;
+  const int len = (int)min((long long)kOutTile, n - base);
+  if (flag_off(flag)) {
+    for (int l = tid; l < len; l += kTileThreads) out[base + l] = vals[base + l];
+    return;
+  }
+  tile_owners(st, n, base, len, tid, lane, warp, own, range, warp_max);
   if (col_major) {
     for (int p = tid; p < len; p += kTileThreads)
       out[base + p] = __ldg(vals + own[pad((p & 127) * 128 + (p >> 7))]);
   } else {
     for (int l = tid; l < len; l += kTileThreads)
       out[base + l] = __ldg(vals + own[pad(l)]);
+  }
+}
+
+// Pass 2 over rows of d floats (an (n, d) population, row-major): slot i
+// takes the row of its owner, slot i at row i.  The CTA's threads walk the
+// tile's len * d floats in order, so both the writes and the reads (the
+// owners ascend) are coalesced; each thread steps its (slot, column) pair
+// by kTileThreads floats without a division.
+__global__ void __launch_bounds__(kTileThreads)
+pass2_tile_kernel_rows(const int* __restrict__ st,
+                       const float* __restrict__ vals, long long n, int d,
+                       const int* __restrict__ flag, float* __restrict__ out) {
+  extern __shared__ int own[];  // kOutTile owners, padded
+  __shared__ long long range[3];
+  __shared__ int warp_max[kTileThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long base = (long long)blockIdx.x * kOutTile;
+  const int len = (int)min((long long)kOutTile, n - base);
+  const int total = len * d;
+  float* __restrict__ dst = out + base * d;
+  if (flag_off(flag)) {
+    const float* __restrict__ src = vals + base * d;
+    for (int l = tid; l < total; l += kTileThreads) dst[l] = src[l];
+    return;
+  }
+  tile_owners(st, n, base, len, tid, lane, warp, own, range, warp_max);
+  const int hop_s = kTileThreads / d, hop_c = kTileThreads % d;
+  int s = tid / d, c = tid % d;
+  for (int l = tid; l < total; l += kTileThreads) {
+    dst[l] = __ldg(vals + (long long)own[pad(s)] * d + c);
+    s += hop_s;
+    c += hop_c;
+    if (c >= d) {
+      c -= d;
+      ++s;
+    }
   }
 }
 
@@ -731,6 +785,19 @@ int pass2_tile_launch(const int* st, const float* vals, long long n,
   const int grid = (int)((n + kOutTile - 1) / kOutTile);
   pass2_tile_kernel<<<grid, kTileThreads, kTileSmem, (cudaStream_t)stream>>>(
       st, vals, n, flag, col_major, out);
+  return (int)cudaGetLastError();
+}
+
+// Pass 2 over rows of d floats (pass2_tile_kernel_rows), row-major.
+int pass2_rows_launch(const int* st, const float* vals, long long n, int d,
+                      const int* flag, float* out, void* stream) {
+  static const int attr = cudaFuncSetAttribute(
+      pass2_tile_kernel_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTileSmem);
+  if (attr) return attr;
+  const int grid = (int)((n + kOutTile - 1) / kOutTile);
+  pass2_tile_kernel_rows<<<grid, kTileThreads, kTileSmem,
+                           (cudaStream_t)stream>>>(st, vals, n, d, flag, out);
   return (int)cudaGetLastError();
 }
 

@@ -69,34 +69,36 @@ LAUNCHES = counter_group("fused_lg", ("chunk", "step", "step_ctrl", "init"))
 # plain versions
 
 
-def _normal_pair(seed: int, g: torch.Tensor, pair: int, plane: int = 0):
-    """(r cos, r sin) of the Box-Muller pair at Philox counter (g, pair,
-    plane)."""
-    k0, k1 = split_seed(seed)
-    b0, b1, _, _ = philox4x32(g, pair, plane, 0, k0, k1)
+def box_muller(b0: torch.Tensor, b1: torch.Tensor):
+    """(r cos, r sin) of the Box-Muller pair of two Philox words
+    (``csrc/philox.cuh`` ``box_muller``)."""
     u1 = torch.clamp(uniform_from_bits(b0), min=1e-12)
     ang = _TWO_PI * uniform_from_bits(b1)
     r = torch.sqrt(-2.0 * torch.log(u1))
     return r * torch.cos(ang), r * torch.sin(ang)
 
 
-def normal_steps(seed: int, g: torch.Tensor, t0: int, n_steps: int,
-                 planes: int = 1):
-    """The eps planes of each step of a launch whose first step is absolute
-    step ``t0``, as the kernels draw them: the pair of step t on counter
-    (g, t // 2, plane), its cos half at even t, its sin half at odd t (a
-    launch starting at odd t computes the pair).  Yields a list of
-    ``planes`` tensors per step."""
-    sin_half = [None] * planes
+def _normal_pair(seed: int, g: torch.Tensor, pair: int, plane: int = 0):
+    """(r cos, r sin) of the Box-Muller pair at Philox counter (g, pair,
+    plane)."""
+    k0, k1 = split_seed(seed)
+    b0, b1, _, _ = philox4x32(g, pair, plane, 0, k0, k1)
+    return box_muller(b0, b1)
+
+
+def normal_steps(seed: int, g: torch.Tensor, t0: int, n_steps: int):
+    """The eps of each step of a launch whose first step is absolute step
+    ``t0``, as the scalar kernels draw them: the pair of step t on counter
+    (g, t // 2, 0), its cos half at even t, its sin half at odd t (a launch
+    starting at odd t computes the pair).  Yields a one-tensor list per
+    step."""
+    sin_half = None
     for ta in range(t0, t0 + n_steps):
-        eps = []
-        for d in range(planes):
-            if ta % 2 == 0 or sin_half[d] is None:
-                cos_half, sin_half[d] = _normal_pair(seed, g, ta // 2, d)
-                eps.append(cos_half if ta % 2 == 0 else sin_half[d])
-            else:
-                eps.append(sin_half[d])
-        yield eps
+        if ta % 2 == 0 or sin_half is None:
+            cos_half, sin_half = _normal_pair(seed, g, ta // 2)
+            yield [cos_half if ta % 2 == 0 else sin_half]
+        else:
+            yield [sin_half]
 
 
 def _n_valid(n_valid, n_steps: int):

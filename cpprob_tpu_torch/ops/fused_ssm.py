@@ -49,7 +49,7 @@ from ..inference.smc_csis import proposal_hooks
 from .fused_hmm import GUIDED_MAX_K, fused_hmm_hooks, guided_hooks
 from .guided_scalar import GuidedScalarKernel, check_scalar_net
 from .guided_tc import GuidedTensorCoreKernel
-from .population import _ess_chunk_hook
+from .population import _ess_chunk_hook, takes_device_key
 from .user_chunk import UserKernel
 
 __all__ = [
@@ -172,17 +172,30 @@ def attach_fused_scalar_kernels(base_model, step_elem):
                          fused_step_batch=fused_step)
 
 
-def attach_fused_vector_kernels(base_model, step_elem, state_dim: int):
-    """``base_model`` with (n, D) states, ``D = state_dim``, with the
-    user-physics chunk kernel over D planes (K11) installed as
-    ``fused_chunk_t_batch`` and ``vector_state_dim`` set.
-    ``step_elem(x_0, .., x_{D-1}, y, eps_0, .., eps_{D-1}) -> (x'_0, ..,
-    x'_{D-1}, log_emission)`` keeps the contract of :mod:`.render`.
-    Chunk-boundary resampling takes the sorted-key vector epoch
-    (:func:`~cpprob_tpu_torch.inference.resampling.sorted_systematic_resample_values_nd`)."""
+def attach_fused_vector_kernels(base_model, step_elem, state_dim: int,
+                                obs_dim: int = 1):
+    """``base_model`` with (n, D) states, ``D = state_dim``, and
+    observations of ``obs_dim`` values a step (a (T,) series for 1, else
+    (T, obs_dim)), with the user-physics kernel over D planes (K11)
+    installed as the time-aware chunk hook ``fused_chunk_t_batch`` and,
+    launched for one step with the step's resample control, as
+    ``fused_step_ctrl_batch`` (the per-step path of ``build_smc_run``), and
+    ``vector_state_dim`` set.  ``step_elem(x_0, .., x_{D-1}, y_0, ..,
+    y_{obs_dim-1}, eps_0, .., eps_{D-1}) -> (x'_0, .., x'_{D-1},
+    log_emission)`` keeps the contract of :mod:`.render`.  Both hooks take
+    the sweep's seed as a device key (``takes_device_key``).  Resampling
+    takes the streaming epoch over rows of D values
+    (:func:`~cpprob_tpu_torch.ops.stream_resample.resample_pass2`)."""
     D = int(state_dim)
-    kernel = UserKernel(step_elem, D)
-    return _with_kernels(base_model, fused_chunk_t_batch=_ess_chunk_hook(kernel.chunk),
+    kernel = UserKernel(step_elem, D, obs_dim)
+
+    def fused_step_ctrl(key, states, log_w, y, t, flag, threshold):
+        x, w, _, nxt = kernel.step_ctrl(key, states, log_w, y, int(t), flag, threshold)
+        return x, w, nxt
+
+    return _with_kernels(base_model,
+                         fused_chunk_t_batch=_ess_chunk_hook(kernel.chunk, device_key=True),
+                         fused_step_ctrl_batch=takes_device_key(fused_step_ctrl),
                          vector_state_dim=D)
 
 

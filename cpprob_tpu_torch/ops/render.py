@@ -125,13 +125,14 @@ class _Rewrite(ast.NodeTransformer):
         return node
 
 
-def analyse_step_elem(step_elem, D: int):
-    """Check ``step_elem`` against the contract for D state planes.
-    Returns (the function's source rewritten, named ``step_elem``, and the
-    captured constants {name: number}).  Raises ``ValueError`` on anything
-    outside the contract."""
-    return analyse_elem(step_elem, 2 * D + 1, "step_elem",
-                        f"x_0..x_{D - 1}, y, eps_0..eps_{D - 1}")
+def analyse_step_elem(step_elem, D: int, Dy: int = 1):
+    """Check ``step_elem`` against the contract for D state planes and Dy
+    observation planes.  Returns (the function's source rewritten, named
+    ``step_elem``, and the captured constants {name: number}).  Raises
+    ``ValueError`` on anything outside the contract."""
+    ys = "y" if Dy == 1 else f"y_0..y_{Dy - 1}"
+    return analyse_elem(step_elem, 2 * D + Dy, "step_elem",
+                        f"x_0..x_{D - 1}, {ys}, eps_0..eps_{D - 1}")
 
 
 def analyse_elem(fn, n_args: int, name: str, args: str, prefix: str = "_k_"):

@@ -1,5 +1,5 @@
-"""The streaming systematic resample epoch for scalar float32 populations —
-counterpart of ``cpprob_tpu/ops/pallas_resample.py``.
+"""The streaming systematic resample epoch for float32 populations, scalar
+(n,) or vector (n, d) — counterpart of ``cpprob_tpu/ops/pallas_resample.py``.
 
 CUDA C++ in ``csrc/stream_resample.cu``; each wrapper has a plain PyTorch
 twin, which it runs on CPU tensors only (on CUDA tensors it launches the
@@ -26,7 +26,9 @@ kernel or raises):
   sets only the layout: ``"scatter"`` (the default) and ``"fast"`` put slot
   ``i`` at position ``i``; ``"merge"`` puts slot ``og * 128 + s`` of tile
   ``t`` (16,384 slots) at ``t * 16384 + s * 128 + og`` and takes whole
-  tiles only.
+  tiles only.  An (n, d) population takes ``pass2_tile_kernel_rows``:
+  slot ``i`` takes the row of its owner, at row ``i`` (``"scatter"`` and
+  ``"fast"``; ``"merge"`` is for scalar populations).
 
 Exp, the prefix and the slot arithmetic are float64 (the reference's
 float32 prefix is exact only to about 2^24 particles).  Inputs keep their
@@ -49,7 +51,7 @@ from .population import raise_on as _raise_on
 from .population import stream_scratch as _stream_scratch
 
 __all__ = [
-    "IMPLS", "LAUNCHES", "LSE_PER_BATCH", "OUT_TILE", "PASS1_PER_THREAD", "logsumexp_stats", "logsumexp_stats_plain", "resample_pass1",
+    "IMPLS", "LAUNCHES", "LSE_PER_BATCH", "MAX_ROW", "OUT_TILE", "PASS1_PER_THREAD", "logsumexp_stats", "logsumexp_stats_plain", "resample_pass1",
     "resample_pass1_plain", "resample_pass2", "resample_pass2_plain",
     "streaming_available", "streaming_systematic_resample_values",
 ]
@@ -64,7 +66,9 @@ IMPLS = ("scatter", "fast", "merge")
 # kernel launches by wrapper, counted where each wrapper launches its
 # kernels; pass 2 by variant
 LAUNCHES = counter_group("stream_resample", (
-    "lse_stats", "pass1", "pass2", "pass2_fast", "pass2_merge"))
+    "lse_stats", "pass1", "pass2", "pass2_fast", "pass2_merge", "pass2_rows"))
+# the widest rows pass 2 takes (its tile's floats are counted in an int)
+MAX_ROW = 4096
 
 
 # --------------------------------------------------------------------------
@@ -87,9 +91,18 @@ def resample_pass1_plain(u0, log_w: torch.Tensor,
     return torch.clamp(torch.ceil(x), 0, n).to(torch.int32)
 
 
-def _check_impl(impl: str, n: int):
+def _check_impl(impl: str, states: torch.Tensor):
+    """Raises on an ``impl`` that the population ``states`` does not take."""
+    n = states.shape[0]
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if states.dim() == 2:
+        if impl == "merge":
+            raise ValueError("impl='merge' takes scalar (n,) populations")
+        if not 1 <= states.shape[1] <= MAX_ROW:
+            raise ValueError(f"rows of 1 to {MAX_ROW} values, got {states.shape[1]}")
+    elif states.dim() != 1:
+        raise ValueError(f"states must be (n,) or (n, d), got {tuple(states.shape)}")
     if impl == "merge" and n % OUT_TILE:
         raise ValueError(f"impl='merge' takes n a multiple of {OUT_TILE}, got {n}")
 
@@ -97,9 +110,10 @@ def _check_impl(impl: str, n: int):
 def resample_pass2_plain(st: torch.Tensor, states: torch.Tensor,
                          flag=None, impl: str = "scatter") -> torch.Tensor:
     """The values of the expansion of the start slots ``st``, in the layout
-    of ``impl``; ``states`` themselves where ``flag`` is 0."""
+    of ``impl`` (rows of an (n, d) population whole); ``states`` themselves
+    where ``flag`` is 0."""
     n = states.shape[0]
-    _check_impl(impl, n)
+    _check_impl(impl, states)
     slots = torch.arange(n, dtype=st.dtype, device=st.device)
     owner = torch.searchsorted(st, slots, right=True) - 1
     out = states[torch.clamp(owner, min=0)]
@@ -128,6 +142,8 @@ def _lib():
         lib.pass1_launch.restype = i
         lib.pass2_tile_launch.argtypes = [p, p, ll, p, i, p, p]
         lib.pass2_tile_launch.restype = i
+        lib.pass2_rows_launch.argtypes = [p, p, ll, i, p, p, p]
+        lib.pass2_rows_launch.restype = i
         lib.pass2_out_tile.argtypes = []
         lib.pass2_out_tile.restype = i
         if (lib.lse_threads(), lib.lse_per_batch(), lib.pass1_threads(),
@@ -259,27 +275,34 @@ def resample_pass1(u0, log_w: torch.Tensor, stats: torch.Tensor,
 
 def resample_pass2(st: torch.Tensor, states: torch.Tensor,
                    flag=None, impl: str = "scatter") -> torch.Tensor:
-    """The resampled values (n,) float32 in the layout of ``impl`` (module
-    docstring): the kernel on CUDA tensors, the plain version on CPU
-    tensors.  Where ``flag`` is 0, a copy of ``states``."""
+    """The resampled values, (n,) float32 in the layout of ``impl`` (module
+    docstring), or (n, d) rows: the kernel on CUDA tensors, the plain
+    version on CPU tensors.  Where ``flag`` is 0, a copy of ``states``."""
     dev = states.device
-    _check_impl(impl, states.shape[0])
+    _check_impl(impl, states)
     if dev.type == "cpu":
         return resample_pass2_plain(st, states, flag, impl)
-    with span("launch.pass2_tile_kernel"):
+    rows = states.dim() == 2
+    with span("launch.pass2_tile_kernel_rows" if rows else "launch.pass2_tile_kernel"):
         _cuda_inputs("resample_pass2", (states, "states", torch.float32),
                      (st, "st", torch.int32))
         n = states.shape[0]
         _check_n(n)
-        if st.shape != states.shape:
-            raise ValueError("st must have the shape of states")
+        if st.shape != states.shape[:1]:
+            raise ValueError("st must have one slot a particle of states")
         lib = _lib()
         out = torch.empty_like(states)
-        err = lib.pass2_tile_launch(st.data_ptr(), states.data_ptr(), n,
-                                    _flag_ptr(flag, dev), int(impl == "merge"),
-                                    out.data_ptr(), _stream(dev))
-        _raise_on(err, "pass2_tile_kernel")
-    LAUNCHES["pass2" if impl == "scatter" else f"pass2_{impl}"] += 1
+        if rows:
+            err = lib.pass2_rows_launch(st.data_ptr(), states.data_ptr(), n,
+                                        states.shape[1], _flag_ptr(flag, dev),
+                                        out.data_ptr(), _stream(dev))
+        else:
+            err = lib.pass2_tile_launch(st.data_ptr(), states.data_ptr(), n,
+                                        _flag_ptr(flag, dev), int(impl == "merge"),
+                                        out.data_ptr(), _stream(dev))
+        _raise_on(err, "pass2_tile_kernel_rows" if rows else "pass2_tile_kernel")
+    LAUNCHES["pass2_rows" if rows else "pass2" if impl == "scatter"
+             else f"pass2_{impl}"] += 1
     return out
 
 
@@ -294,11 +317,12 @@ def streaming_systematic_resample_values(key: torch.Generator,
                                          states: torch.Tensor, *,
                                          stats=None, flag=None,
                                          impl: str = "scatter"):
-    """Systematic resampling of a scalar float32 population; returns the
-    new values in the layout of ``impl`` (:func:`resample_pass2`).  ``key``
-    draws the comb offset (float64, on the device); ``stats``: precomputed
-    :func:`logsumexp_stats`; ``flag``: see the module docstring."""
-    _check_impl(impl, states.shape[0])
+    """Systematic resampling of a float32 population, (n,) or (n, d) rows;
+    returns the new values in the layout of ``impl``
+    (:func:`resample_pass2`).  ``key`` draws the comb offset (float64, on
+    the device); ``stats``: precomputed :func:`logsumexp_stats`; ``flag``:
+    see the module docstring."""
+    _check_impl(impl, states)
     u0 = torch.rand((), generator=key, device=states.device, dtype=torch.float64)
     if stats is None:
         stats = logsumexp_stats(log_weights, flag)

@@ -67,7 +67,7 @@ def _load_triton(path: Path):
     return mod
 
 
-_PER = "constexpr int kUserPerThread = 4;"
+_PER = "constexpr int kUserPerThread = kD <= 2 ? 4 : 2;"
 
 
 def variant_kernel(fn, D: int, per: int):

@@ -251,7 +251,8 @@ def test_init_draws_are_standard_normal():
 def test_final_log_mean_exp_takes_k14_on_the_streaming_path(spread):
     """The sweep's close: on the streaming path the log-mean-exp of
     ``logsumexp_stats`` (float64), bit for bit, within 1e-5 (1 + |lme|) of
-    the float32 ``_log_mean_exp``; off it, or for (n, D) states,
+    the float32 ``_log_mean_exp``, for float32 (n,) and (n, D) states
+    alike; off it, or for states the epoch does not take,
     ``_log_mean_exp`` itself."""
     n = 3 * LG_BLOCK + 7
     lw = torch.as_tensor((spread * np.random.RandomState(2).normal(size=n))
@@ -259,11 +260,12 @@ def test_final_log_mean_exp_takes_k14_on_the_streaming_path(spread):
     states = torch.zeros(n)
     stats = sr.logsumexp_stats_plain(lw)
     want = stats[0] + torch.log(stats[1]) - math.log(n)
-    got = port_smc.final_log_mean_exp(lw, states, True)
-    assert got.dtype == torch.float64 and torch.equal(got, want)
+    for st in (states, torch.zeros(n, 2)):
+        got = port_smc.final_log_mean_exp(lw, st, True)
+        assert got.dtype == torch.float64 and torch.equal(got, want)
     lme32 = port_smc._log_mean_exp(lw)
     assert abs(float(got) - float(lme32)) < 1e-5 * (1 + abs(float(got)))
-    for st, streaming in ((states, False), (torch.zeros(n, 2), True),
+    for st, streaming in ((states, False), (torch.zeros(n, 2).double(), True),
                           (states.double(), True)):
         assert torch.equal(port_smc.final_log_mean_exp(lw, st, streaming), lme32)
 

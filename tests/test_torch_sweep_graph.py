@@ -25,9 +25,13 @@ from cpprob_tpu_torch.models import hmm_ssm
 from cpprob_tpu_torch.models import simulate_observations as hmm_observations
 from cpprob_tpu_torch.models.hmm import HMM_MEANS, HMM_TRANS
 from cpprob_tpu_torch.models.linear_gaussian import (
+    iapf_transition,
+    linear_gaussian_nd_ssm,
     linear_gaussian_ssm,
+    nd_step_elem,
     obs_logpdf_elem,
     simulate_observations,
+    simulate_observations_nd,
     trans_logpdf_elem,
 )
 from cpprob_tpu_torch.ops import fused_hmm, fused_lg
@@ -38,6 +42,7 @@ from cpprob_tpu_torch.ops.fused_ssm import (
     attach_fused_scalar_kernels,
 )
 from cpprob_tpu_torch.ops.philox import device_key, launch_key, split_seed
+from cpprob_tpu_torch.ops.user_chunk import UserKernel
 from cpprob_tpu_torch.ops.population import (owned_scratch, stream_scratch,
                                              takes_device_key)
 from cpprob_tpu_torch.util.profiling import (add_counts, counter_group, counters,
@@ -95,6 +100,10 @@ CASES = {
     "lg per step": (make_fused_lg_ssm, 1, "step_ctrl", True),
     "K10 chunk8": (lambda: attach_fused_scalar_kernels(make_fused_lg_ssm(), lg_step_elem),
                    8, "chunk_value", False),
+    "K11 d=10 per step": (lambda: linear_gaussian_nd_ssm(iapf_transition(10)), 1,
+                          "step_ctrl", True),
+    "K11 d=10 chunk4": (lambda: linear_gaussian_nd_ssm(iapf_transition(10)), 4,
+                        "chunk_value", True),
     "K12 twin chunk8": (_guided_lg, 8, "chunk_value", True),
     "K12 FMA chunk8": (lambda: _guided_lg(mxu=False), 8, "chunk_value", False),
     "K13 chunk8": (lambda: dataclasses.replace(
@@ -143,9 +152,9 @@ def _guided_hmm():
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_capture_decision(case):
     """A path is captured (``keyed``) only where it is a fast path and every
-    hook it calls declares a device key: the three keyed kernel families
-    (the HMM chain, the LG kernel, K12's tensor-core twin) do, K10, K12 on
-    the FMA pipe and K13 do not, nor a model whose hooks append to a host
+    hook it calls declares a device key: the four keyed kernel families
+    (the HMM chain, the LG kernel, K12's tensor-core twin, K11 with its
+    one-step launch) do, K10, K12 on the FMA pipe and K13 do not, nor a model whose hooks append to a host
     list, nor a chunk hook without time (its seed a chunk is made on the
     host); a start from the prior is keyed where its hooks are (the
     built-in models' are), and not where a user's hook draws or scores
@@ -203,6 +212,10 @@ def _wrapper_calls(device="cpu"):
     ctrl = torch.tensor([1, 3000, 6000, 9], dtype=torch.int32, device=device)
     twin = _guided_lg(device=device).fused_chunk_t_batch.kernel
     nv = torch.tensor(5, dtype=torch.int32, device=device)
+    A = iapf_transition(4)
+    k11 = UserKernel(nd_step_elem(A), 4, 4)
+    xv = torch.randn(n, 4, generator=torch.Generator().manual_seed(4)).to(device)
+    yv = torch.as_tensor(simulate_observations_nd(A, 9, 3), device=device)
     return {
         "lg_chunk": lambda k: fused_lg.lg_chunk(k, x, w, ys[1:9], nv, t0=3),
         "lg_step_ctrl": lambda k: fused_lg.lg_step_ctrl(k, x, w, ys[4], 4, flag, n / 2),
@@ -211,12 +224,15 @@ def _wrapper_calls(device="cpu"):
         "hmm_chunk": lambda k: fused_hmm.hmm_chunk(k, s, sw, ys[1:10], ctrl, hspec, t0=2,
                                                    island_every=4),
         "guided_tc": lambda k: twin.chunk(k, x, w, ys[1:9], nv, t0=1),
+        "user_chunk": lambda k: k11.chunk(k, xv, w, yv[1:9], nv, t0=3),
+        "user_step_ctrl": lambda k: k11.step_ctrl(k, xv, w, yv[4], 4, flag, n / 2),
     }
 
 
 @pytest.mark.parametrize("seed", SEEDS[1:4])
 @pytest.mark.parametrize("wrapper", ["lg_chunk", "lg_step_ctrl", "lg_init", "hmm_init",
-                                     "hmm_chunk", "guided_tc"])
+                                     "hmm_chunk", "guided_tc", "user_chunk",
+                                     "user_step_ctrl"])
 def test_plain_versions_take_a_device_key(wrapper, seed):
     """Each keyed wrapper's plain version given the key as a 2-word int32
     tensor draws exactly what it draws given the integer seed."""
@@ -397,7 +413,8 @@ def test_no_capture_under_sync_debug_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("wrapper", ["lg_chunk", "lg_step_ctrl", "lg_init", "hmm_init",
-                                     "hmm_chunk", "guided_tc"])
+                                     "hmm_chunk", "guided_tc", "user_chunk",
+                                     "user_step_ctrl"])
 def test_wrappers_take_a_device_key_on_card(wrapper):
     """Each keyed wrapper's kernel draws the same given the seed as an
     integer (written into the stream's own key) and as a device key, bit

@@ -44,16 +44,18 @@ port_smc = importlib.import_module("cpprob_tpu_torch.inference.smc")
 N = 64
 T = 16
 K = 3
+PLANES = 10
 BODY_SPANS = ("smc.chunk", "smc.step")
 
 
 class _Fixed:
     """Tensors the stubs return, made before anything is counted."""
 
-    def __init__(self, discrete: bool):
+    def __init__(self, discrete: bool, planes: int = 0):
         g = torch.Generator().manual_seed(0)
         self.states = (torch.randint(0, K, (N,), generator=g, dtype=torch.int32)
-                       if discrete else torch.randn(N, generator=g))
+                       if discrete else torch.randn(N, *(planes,) * bool(planes),
+                                                    generator=g))
         self.log_w = torch.randn(N, generator=g)
         self.ess = torch.tensor(N / 4, dtype=torch.float64)
         self.flag = torch.tensor(1, dtype=torch.int32)
@@ -61,7 +63,7 @@ class _Fixed:
         self.lme = torch.tensor(-1.5, dtype=torch.float64)
         self.anc = torch.arange(N, dtype=torch.int32).flip(0)
         self.stats = torch.tensor([0.5, 3.0], dtype=torch.float64)
-        self.obs = torch.randn(T, generator=g)
+        self.obs = torch.randn(T, *(planes,) * bool(planes), generator=g)
 
 
 def _stub_model(case: str, f: _Fixed, calls: list):
@@ -88,6 +90,9 @@ def _stub_model(case: str, f: _Fixed, calls: list):
             fused_init_ctrl_batch=lambda seed, n, y0, thr: (s, w, f.ess, f.flag),
             fused_step_ctrl_batch=lambda *a: (s, w, f.flag))),
         "step_ctrl/prior": (linear_gaussian_ssm, dict(
+            fused_step_ctrl_batch=lambda *a: (s, w, f.flag), **prior)),
+        "step_ctrl/vector": (dataclasses.replace(
+            linear_gaussian_ssm, scalar_state=False, vector_state_dim=PLANES), dict(
             fused_step_ctrl_batch=lambda *a: (s, w, f.flag), **prior)),
         "step": (linear_gaussian_ssm, dict(
             fused_step_batch=lambda *a: (s, w), **prior)),
@@ -117,7 +122,11 @@ class _CountOps(TorchDispatchMode):
 # (ops in a sweep, of which in the loop bodies' spans) at N = 64, T = 16:
 # what the driver issued while ``build_smc_run`` still chose each path
 # itself, but for ``step``, whose body without history no longer builds
-# the ancestors nothing reads (2 ops a step, 272 and 225 before)
+# the ancestors nothing reads (2 ops a step, 272 and 225 before);
+# ``step_ctrl/vector`` (added with the vector one-step launch: (n, 10)
+# states, (T, 10) observations, started from the prior) issues what the
+# scalar path from the prior issues: the observations' rows are one view
+# each, as a scalar series' elements are, and the close takes K14's stats
 GLUE_OPS = {
     "chunk_exchange": (61, 42),
     "chunk_exchange/prior": (80, 43),
@@ -126,6 +135,7 @@ GLUE_OPS = {
     "step_exchange": (371, 316),
     "step_ctrl": (101, 60),
     "step_ctrl/prior": (110, 60),
+    "step_ctrl/vector": (110, 60),
     "step": (242, 195),
     "step/history": (318, 270),
 }
@@ -138,7 +148,8 @@ def test_glue_ops_a_sweep(case, monkeypatch):
     the path was first written, no more, and as many of them inside the
     loop bodies: a change to the driver's glue shows here before it shows
     on the card's host clock."""
-    f = _Fixed(discrete=case.startswith(("chunk_exchange", "step_exchange")))
+    f = _Fixed(discrete=case.startswith(("chunk_exchange", "step_exchange")),
+               planes=PLANES if case.endswith("vector") else 0)
     spans = []
 
     @contextlib.contextmanager
@@ -229,7 +240,8 @@ MODELS = {
     ("k10", 8, False, "systematic", "chunk_value"),
     ("k10", 1, False, "systematic", "step"),
     ("k11", 8, False, "systematic", "chunk_value"),
-    ("k11", 1, False, "systematic", "step"),
+    ("k11", 1, False, "systematic", "step_ctrl"),
+    ("k11", 1, True, "systematic", "step"),
     ("guided_lg", 8, False, "systematic", "chunk_value"),
     ("guided_lg", 1, False, "systematic", "step"),
     ("proposal_lg", 8, False, "systematic", ValueError),
